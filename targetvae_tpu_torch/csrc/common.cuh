@@ -1,0 +1,25 @@
+// Shared device helpers for the hand-written Hopper kernels.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+// activation codes: 0 = leaky ReLU (slope 0.01), 1 = tanh
+static __device__ __forceinline__ float act_fn(float x, int act) {
+  return act == 1 ? tanhf(x) : (x >= 0.f ? x : 0.01f * x);
+}
+
+// round a float to the nearest bf16 value (ties to even), returned as float
+static __device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16(x));
+}
+
+// Sets the dynamic shared memory a kernel may use and launches nothing;
+// returns the CUDA error code.
+template <typename Kernel>
+static int allow_smem(Kernel kernel, size_t bytes) {
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}

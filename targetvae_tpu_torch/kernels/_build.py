@@ -1,0 +1,114 @@
+"""Build and load the hand-written Hopper kernels.
+
+All CUDA sources under targetvae_tpu_torch/csrc/ compile with nvcc into one
+shared library with a plain C interface (no PyTorch headers, so a build takes
+seconds), which is loaded with ctypes. The build happens at the first kernel
+launch, never at import, into targetvae_tpu_torch/build/ (listed in
+.gitignore); the file name carries a hash of the sources, so an edited source
+always rebuilds.
+
+Every C entry point takes device pointers and the CUDA stream as void*, ints
+as int, launches on that stream without synchronising, and returns
+cudaGetLastError() after its launch.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "build"
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C signatures: name -> argtypes (all return int, a cudaError_t)
+SIGNATURES = {
+    # pre1, bc, w2, b2, wh, bh, out, N, R, K, D, act, stream
+    "tvae_mix_heads_fwd": [_P] * 7 + [_I] * 5 + [_P],
+    # attn, th_mu, th_ls, z_mu, z_ls, p_tr, gx, gy, offs, out,
+    # B, R, M, zd, sig_r, deterministic, seed, stream
+    "tvae_posterior_fwd": [_P] * 10 + [_I] * 4 + [_F, _I, _I, _P],
+    # u, v, p, q, hz, w1, b1, wh, bh, w3, b3, y, B, n, F, H, L, n_out, act, stream
+    "tvae_pose_decoder_fwd": [_P] * 12 + [_I] * 7 + [_P],
+}
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels build only where the "
+                       "CUDA toolkit is installed")
+
+
+def library_path() -> Path:
+    h = hashlib.sha256()
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    h.update(" ".join(ARCH_FLAGS).encode())
+    return BUILD_DIR / f"libtvae_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile csrc/*.cu into the shared library unless it is already built.
+    Returns its path; nvcc's -Xptxas -v report is kept beside it (.log)."""
+    lib = library_path()
+    if lib.exists():
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    cmd = ([_nvcc()] + ARCH_FLAGS
+           + ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v", "-o", str(tmp)]
+           + [str(s) for s in _sources() if s.suffix == ".cu"])
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    tmp.replace(lib)
+    return lib
+
+
+@functools.lru_cache(maxsize=1)
+def library() -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def launch(name: str, *args) -> None:
+    """Call one C entry point; raise if its launch reported a CUDA error."""
+    err = getattr(library(), name)(*args)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
+def check_cuda(*tensors, dtypes) -> None:
+    """Every tensor on one CUDA device, contiguous, of the matching dtype."""
+    dev = tensors[0].device
+    for i, (t, dt) in enumerate(zip(tensors, dtypes)):
+        if t.device != dev or t.device.type != "cuda":
+            raise ValueError(f"argument {i}: expected a tensor on {dev}, "
+                             f"got {t.device}")
+        if t.dtype != dt:
+            raise ValueError(f"argument {i}: expected {dt}, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"argument {i}: expected a contiguous tensor")

@@ -1,0 +1,142 @@
+"""The TARGET-VAE ELBO for mode C (mirror of targetvae_tpu/losses/elbo.py).
+
+Joint posterior over the R x H' x W' grid (reference train_mnist.py:187-294).
+The bf16 tier runs the posterior kernel and the pose-decoder kernel (the JAX
+kernel branch, elbo.py:312-338); the float32 tier is the plain model code of
+elbo.py:340-381. The posterior math is float32 in both.
+
+Sampling: with a torch.Generator the posterior sample is Gumbel-perturbed and
+theta and z are reparameterised with normal noise, all drawn from it. With
+generator=None there is no noise: the sample is the posterior itself and the
+reparameterisation noise is zero (deterministic evaluation).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..kernels import kernel_tier
+from ..kernels.decoder_pose import fused_pose_decoder, pose_decoder_supported
+from ..kernels.posterior import fused_posterior
+from ..models.encoders import attn_dim_for, encoder_apply
+from ..models.generator import generator_apply
+from ..ops.coords import attention_grid, transform_coords
+from ..ops.kl import guarded_moments, normal_kl
+from ..utils.config import ModelConfig
+from .likelihoods import reconstruction_log_prob
+
+_EPS = 1e-6
+
+
+def _translation_log_prior(grid: np.ndarray) -> np.ndarray:
+    """log p(t) over attention cells: log-softmaxed N(0, 0.1) density
+    (reference train_mnist.py:168-171). grid: (M, 2) -> (M,)."""
+    std = 0.1
+    lp = (-0.5 * np.log(2 * np.pi) - np.log(std)
+          - 0.5 * (grid / std) ** 2).sum(axis=1)
+    lp = lp - (np.max(lp) + np.log(np.sum(np.exp(lp - np.max(lp)))))
+    return lp.astype(np.float32)
+
+
+def _normal_noise(generator: Optional[torch.Generator], shape, device):
+    if generator is None:
+        return torch.zeros(shape, device=device)
+    return torch.randn(shape, generator=generator,
+                       device=generator.device).to(device)
+
+
+def reconstruct_log_prob(params: dict, cfg: ModelConfig, x_coord: torch.Tensor,
+                         y: torch.Tensor, theta: torch.Tensor, dx: torch.Tensor,
+                         z: torch.Tensor,
+                         compute_dtype: Optional[torch.dtype] = None
+                         ) -> torch.Tensor:
+    """Decode (theta, dx, z) and score y. On the kernel tier the pose decoder
+    derives the coordinates from (theta, dx) and the standard image grid, so
+    x_coord must be that grid (it is for every caller of the model)."""
+    gcfg, ecfg = cfg.generator, cfg.encoder
+    if kernel_tier(compute_dtype) and pose_decoder_supported(gcfg):
+        y_hat = fused_pose_decoder(theta, dx, z, params["generator"], gcfg,
+                                   ecfg.image_dim)
+    else:
+        x_t = transform_coords(x_coord, dx, theta)
+        y_hat = generator_apply(params["generator"], gcfg, x_t,
+                                z if gcfg.z_dim > 0 else None,
+                                compute_dtype=compute_dtype)
+    return reconstruction_log_prob(y_hat, y, cfg.likelihood.kind)
+
+
+def compute_elbo(params: dict, cfg: ModelConfig, x_coord: torch.Tensor,
+                 y: torch.Tensor, generator: Optional[torch.Generator] = None,
+                 compute_dtype: Optional[torch.dtype] = None,
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Returns scalar (elbo, log_p_x_g_z, kl_div), batch means.
+    x_coord: (N, 2) base pixel coordinates; y: (B, H, W, C) images."""
+    ecfg = cfg.encoder
+    b = y.shape[0]
+    zd = ecfg.z_dim
+    R = ecfg.groupconv
+    ad = attn_dim_for(ecfg)
+    M = ad * ad
+    dev = y.device
+    grid_np = attention_grid(ad, ecfg.image_dim)
+    grid = torch.as_tensor(grid_np, device=dev)
+    p_t = torch.as_tensor(_translation_log_prior(grid_np), device=dev)
+    sig_r = np.pi / R
+
+    if kernel_tier(compute_dtype):
+        enc = encoder_apply(params["encoder"], ecfg, y, None, compute_dtype)
+        p_tr = torch.log_softmax((p_t[:, None] + enc["p_r"]).reshape(-1), dim=0)
+        p_tr = p_tr.reshape(M, R).T.contiguous()                 # (R, M)
+        to_rm = lambda v: v.permute(0, 3, 1, 2).reshape(b, R, M)
+        z_rm = lambda v: v.permute(0, 4, 3, 1, 2).reshape(b, zd, R, M)
+        seed = (0 if generator is None else int(torch.randint(
+            0, 2 ** 31 - 1, (1,), generator=generator, device=generator.device)))
+        post = fused_posterior(
+            seed, to_rm(enc["attn"]), to_rm(enc["theta_mu"]),
+            to_rm(enc["theta_logstd"]), z_rm(enc["z_mu"]),
+            z_rm(enc["z_logstd"]), p_tr, grid, enc["offsets"], sig_r,
+            deterministic=generator is None)
+        z_mu_e, z_std_e = post["z_mu_e"], post["z_std_e"]
+        th_mu_e, th_std_e = post["theta_mu_e"], post["theta_std_e"]
+        dx = post["dx"]
+        kl_div = post["kl"].mean()
+    else:
+        enc = encoder_apply(params["encoder"], ecfg, y, generator,
+                            compute_dtype)
+        q = enc["q"]                                              # (B,H',W',R)
+        a_s4 = (enc["a_sampled"] if generator is not None
+                else torch.softmax(enc["attn"].reshape(b, -1), dim=1)
+                .reshape(enc["attn"].shape))
+        a_s = a_s4.reshape(b, -1)                                 # H'W'R cells
+        a_locs = a_s4.sum(dim=3).reshape(b, -1)                   # (B, M)
+        z_mu = enc["z_mu"].reshape(b, -1, zd)
+        z_std = torch.exp(enc["z_logstd"]).reshape(b, -1, zd) + _EPS
+        z_mu_e = torch.einsum("bmz,bm->bz", z_mu, a_s)
+        z_std_e = torch.einsum("bmz,bm->bz", z_std, a_s)
+        dx = a_locs @ grid
+        th_mu = enc["theta_mu"].reshape(b, -1)
+        th_std = torch.exp(enc["theta_logstd"]).reshape(b, -1) + _EPS
+        th_mu_e = (th_mu * a_s).sum(dim=1)
+        th_std_e = (th_std * a_s).sum(dim=1)
+
+        # joint prior p(t, r) = log_softmax(p_t + p_r) over (H', W', R) cells
+        p_tr_flat = torch.log_softmax((p_t[:, None] + enc["p_r"]).reshape(-1),
+                                      dim=0)
+        qf = q.reshape(b, -1)
+        val1 = (torch.exp(qf) * (qf - p_tr_flat)).sum(dim=1)
+        zq_mu, zq_std = guarded_moments(qf[..., None], z_mu, z_std)
+        tq_mu, tq_std = guarded_moments(qf, th_mu, th_std)
+        kl_z = normal_kl(zq_mu, zq_std, 0.0, 1.0).sum(dim=-1)
+        offs_cells = enc["offsets"].repeat(M)                     # r-minor
+        kl_th = normal_kl(tq_mu, tq_std, offs_cells, sig_r)
+        val2 = (torch.exp(qf) * (kl_th + kl_z)).sum(dim=1)
+        kl_div = (val1 + val2).mean()
+
+    z = z_std_e * _normal_noise(generator, (b, zd), dev) + z_mu_e
+    theta = th_std_e * _normal_noise(generator, (b,), dev) + th_mu_e
+    log_p = reconstruct_log_prob(params, cfg, x_coord, y, theta, dx, z,
+                                 compute_dtype=compute_dtype)
+    return log_p - kl_div, log_p, kl_div

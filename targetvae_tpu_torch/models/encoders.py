@@ -1,0 +1,188 @@
+"""The mode-C TARGET-VAE encoder (mirror of targetvae_tpu/models/encoders.py).
+
+Reference src/models.py:333-403: a lifting group conv puts the image on the
+rotation group, a 1x1x1 mixing conv and three heads (attention logit,
+theta mean/logstd, z mean/logstd) run per (position, rotation), and a joint
+posterior is formed over the R x H' x W' grid. Heads are channels-last,
+(B, H', W', R) and (B, H', W', R, zd), as in the JAX package.
+
+Two tiers, chosen by kernels.kernel_tier(compute_dtype):
+  - bf16: the lift conv runs as one bf16 F.conv2d (cuDNN on the card) and the
+    lift activation, mixing and heads run in the fused mix_heads kernel;
+  - float32 (compute_dtype=None): plain PyTorch model code.
+Modes A and B are not ported yet (ROADMAP.md, queue 1, slice 5).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..kernels import kernel_tier
+from ..kernels.decoder_pose import _act
+from ..kernels.mix_heads import fused_lift_act_mix_heads
+from ..ops.groupconv import lifted_conv2d, lifted_weight
+from ..ops.gumbel import gumbel_softmax
+from ..utils.config import EncoderConfig
+from ..utils.initializers import groupconv_init, linear_init
+
+
+def _require_mode_c(cfg: EncoderConfig) -> None:
+    if cfg.mode != "C":
+        raise NotImplementedError(
+            f"encoder mode {cfg.mode} is not ported yet (ROADMAP.md, queue 1, "
+            "slice 5); this package implements mode C")
+    if cfg.groupconv not in (4, 8, 16):
+        raise ValueError("attention rotation inference requires groupconv in "
+                         f"(4, 8, 16), got {cfg.groupconv}")
+
+
+def group_offsets(R: int) -> np.ndarray:
+    """Group rotation offsets for P4/P8/P16, wrapped to (-pi, pi] with +pi kept
+    (reference src/models.py:362-366)."""
+    ang = 2.0 * np.pi * np.arange(R) / R
+    ang = np.where(ang > np.pi + 1e-9, ang - 2.0 * np.pi, ang)
+    return ang.astype(np.float32)
+
+
+def rotation_log_prior(cfg: EncoderConfig, R: int) -> np.ndarray:
+    """log p(r), shape (R,) (reference src/models.py:368-379)."""
+    if cfg.rot_refinement:
+        offs = group_offsets(R)
+        if cfg.normal_prior_over_r:
+            sig = cfg.theta_prior
+            return (-0.5 * np.log(2 * np.pi) - np.log(sig)
+                    - 0.5 * (offs / sig) ** 2).astype(np.float32)
+        return np.full(R, -np.log(4 * np.pi), dtype=np.float32)  # U(-2pi, 2pi)
+    return np.full(R, -np.log(R), dtype=np.float32)
+
+
+def attn_dim_for(cfg: EncoderConfig) -> int:
+    """Spatial size of the attention map."""
+    n = cfg.image_dim
+    if cfg.mode == "C":
+        return n + 2 * cfg.padding - cfg.kernels_size + 1
+    return n + 2 * (n // 2) - n + 1     # mode B: kernel n, padding n//2
+
+
+def encoder_init(generator: torch.Generator, cfg: EncoderConfig,
+                 device=None) -> dict:
+    _require_mode_c(cfg)
+    kn, zd = cfg.kernels_num, cfg.z_dim
+    return {
+        "conv1": groupconv_init(generator, cfg.in_channels, kn,
+                                cfg.kernels_size, device=device),
+        "conv2": linear_init(generator, kn, kn, device=device),
+        "conv_a": linear_init(generator, kn, 1, device=device),
+        "conv_r": linear_init(generator, kn, 2, device=device),
+        "conv_z": linear_init(generator, kn, 2 * zd, device=device),
+    }
+
+
+def head_weights(params: dict):
+    """The three 1x1 heads as one (K, 3 + 2*zd) matmul."""
+    wh = torch.cat([params["conv_a"]["w"], params["conv_r"]["w"],
+                    params["conv_z"]["w"]], dim=1)
+    bh = torch.cat([params["conv_a"]["b"], params["conv_r"]["b"],
+                    params["conv_z"]["b"]])
+    return wh, bh
+
+
+def _split_heads(out: torch.Tensor, zd: int):
+    """(..., D) -> attn, theta_mu, theta_logstd (...,), z_mu, z_logstd (..., zd)."""
+    return (out[..., 0], out[..., 1], out[..., 2], out[..., 3:3 + zd],
+            out[..., 3 + zd:])
+
+
+def lift_rows(params: dict, cfg: EncoderConfig, y: torch.Tensor):
+    """The raw bf16 lift conv (no bias, no activation) as (B*H'*W', R*K) rows
+    with r-major channels, the mix_heads kernel's input; returns (rows, H').
+
+    The conv runs with channels_last operands, so its (B, R*K, H', W') output
+    is stored as (B, H', W', R*K) and the rows are a view of it (the final
+    contiguous() copies only if the conv returned another layout)."""
+    R, K = cfg.groupconv, cfg.kernels_num
+    w = lifted_weight(params["conv1"]["w"], R).to(torch.bfloat16)
+    x = y.permute(0, 3, 1, 2).to(torch.bfloat16)
+    pre1 = F.conv2d(x.contiguous(memory_format=torch.channels_last),
+                    w.contiguous(memory_format=torch.channels_last),
+                    padding=cfg.padding)
+    b, _, hp, wp = pre1.shape
+    return pre1.permute(0, 2, 3, 1).reshape(b * hp * wp, R * K).contiguous(), hp
+
+
+def _mode_c_kernel_tier(params: dict, cfg: EncoderConfig, y: torch.Tensor):
+    """bf16 lift conv, then the fused lift-act + mixing + heads kernel."""
+    R, K = cfg.groupconv, cfg.kernels_num
+    rows, hp = lift_rows(params, cfg, y)
+    b, wp = y.shape[0], hp
+    wh, bh = head_weights(params)
+    out = fused_lift_act_mix_heads(
+        rows, params["conv1"]["b"].repeat(R), params["conv2"]["w"],
+        params["conv2"]["b"], wh, bh, R=R, K=K, act_kind=cfg.activation)
+    return _split_heads(out.reshape(b, hp, wp, R, -1), cfg.z_dim)
+
+
+def _mode_c_f32(params: dict, cfg: EncoderConfig, y: torch.Tensor):
+    kind = cfg.activation
+    lift = _act(lifted_conv2d(y, params["conv1"]["w"], params["conv1"]["b"],
+                              R=cfg.groupconv, padding=cfg.padding), kind)
+    h = _act(lift @ params["conv2"]["w"] + params["conv2"]["b"], kind)
+    wh, bh = head_weights(params)
+    return _split_heads(h @ wh + bh, cfg.z_dim)
+
+
+def encoder_apply(params: dict, cfg: EncoderConfig, y: torch.Tensor,
+                  generator: Optional[torch.Generator] = None,
+                  compute_dtype: Optional[torch.dtype] = None) -> dict:
+    """y: (B, H, W, C) channels-last images. generator: draws the Gumbel
+    sample `a_sampled`; None skips sampling (embedding, the kernel-tier ELBO).
+
+    Returns attn (logits incl. log p(r)), q (joint log posterior), p_r,
+    offsets, theta_mu (incl. offsets), theta_logstd, z_mu, z_logstd."""
+    _require_mode_c(cfg)
+    R = cfg.groupconv
+    if kernel_tier(compute_dtype):
+        heads = _mode_c_kernel_tier(params, cfg, y)
+    elif compute_dtype is None:
+        heads = _mode_c_f32(params, cfg, y)
+    else:
+        raise ValueError(f"unsupported compute_dtype {compute_dtype}")
+    attn, theta_mu, theta_logstd, z_mu, z_logstd = heads
+    b = y.shape[0]
+    dev = y.device
+    p_r = torch.as_tensor(rotation_log_prior(cfg, R), device=dev)
+    attn = attn.float() + p_r
+    flat = attn.reshape(b, -1)
+    q = torch.log_softmax(flat, dim=-1).reshape(attn.shape)
+    if cfg.rot_refinement:
+        offsets = torch.as_tensor(group_offsets(R), device=dev)
+        theta_mu = theta_mu + offsets
+    else:
+        offsets = torch.zeros((R,), dtype=torch.float32, device=dev)
+    out = {"attn": attn, "q": q, "p_r": p_r, "offsets": offsets,
+           "theta_mu": theta_mu, "theta_logstd": theta_logstd,
+           "z_mu": z_mu, "z_logstd": z_logstd}
+    if generator is not None:
+        out["a_sampled"] = gumbel_softmax(flat, generator).reshape(attn.shape)
+    return out
+
+
+class Encoder(nn.Module):
+    """The mode-C encoder's parameters in encoder_init's layout (conv1 w
+    (K, C, 1, k, k) and b; conv2, conv_a, conv_r, conv_z with w (K, out) and
+    b); encoder_apply computes with them."""
+
+    def __init__(self, cfg: EncoderConfig, params: dict):
+        super().__init__()
+        self.cfg = cfg
+        for name, sub in params.items():
+            self.add_module(name, nn.ParameterDict(
+                {k: nn.Parameter(v) for k, v in sub.items()}))
+
+    def params(self) -> dict:
+        return {name: dict(sub.items()) for name, sub in self.named_children()}

@@ -1,0 +1,97 @@
+"""SpatialGenerator: coordinate-conditioned MLP decoder
+(mirror of targetvae_tpu/models/generator.py).
+
+Reference src/models.py:65-123. Per-pixel output logits from (coords, z):
+h = W_c embed(x) + W_z z broadcast over pixels, then `num_layers` - 1 hidden
+layers and a final linear to n_out. This is the float32 tier; the bf16 tier
+of arbitrary coordinates is the decoder_mlp kernel, which is not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn as nn
+
+from ..kernels import kernel_tier
+from ..kernels.decoder_pose import _act
+from ..ops.fourier import fourier_apply, fourier_init
+from ..utils.config import GeneratorConfig
+from ..utils.initializers import linear_init
+
+
+def generator_init(generator: torch.Generator, cfg: GeneratorConfig,
+                   device=None) -> dict:
+    params: dict = {}
+    in_dim = 2
+    if cfg.fourier_expansion:
+        params["fourier"] = fourier_init(generator, 2, cfg.embedding_dim,
+                                         device=device)
+        in_dim = cfg.embedding_dim
+    params["coord_linear"] = linear_init(generator, in_dim, cfg.hidden_dim,
+                                         device=device)
+    if cfg.z_dim > 0:
+        params["latent_linear"] = linear_init(generator, cfg.z_dim,
+                                              cfg.hidden_dim, bias=False,
+                                              device=device)
+    params["hidden"] = [linear_init(generator, cfg.hidden_dim, cfg.hidden_dim,
+                                    device=device)
+                        for _ in range(1, cfg.num_layers)]
+    params["out"] = linear_init(generator, cfg.hidden_dim, cfg.n_out,
+                                device=device)
+    return params
+
+
+def generator_apply(params: dict, cfg: GeneratorConfig, x: torch.Tensor,
+                    z: Optional[torch.Tensor],
+                    compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """x: (B, N, 2) transformed coordinates; z: (B, z_dim) or None.
+    Returns (B, N, n_out) float32."""
+    if kernel_tier(compute_dtype):
+        raise NotImplementedError(
+            "bf16 generator_apply runs the decoder_mlp kernel "
+            "(targetvae_tpu/kernels/decoder_mlp.py::fused_decoder_mlp), which "
+            "is not ported yet (ROADMAP.md, queue 2, item 5); use "
+            "compute_dtype=None, or the pose decoder through the ELBO")
+    if compute_dtype is not None:
+        raise ValueError(f"unsupported compute_dtype {compute_dtype}")
+    kind = cfg.activation
+    if cfg.fourier_expansion:
+        x = fourier_apply(params["fourier"], x, cfg.fourier_sigma)
+    h = x @ params["coord_linear"]["w"] + params["coord_linear"]["b"]
+    if cfg.z_dim > 0 and z is not None:
+        h = h + (z @ params["latent_linear"]["w"])[:, None, :]
+    h = _act(h, kind)
+    for layer in params["hidden"]:
+        pre = h @ layer["w"] + layer["b"]
+        h = _act(pre + h if cfg.resid else pre, kind)
+    return h @ params["out"]["w"] + params["out"]["b"]
+
+
+class SpatialGenerator(nn.Module):
+    """The decoder's parameters in generator_init's layout, the Fourier w and
+    b as buffers (never trained); generator_apply computes with them."""
+
+    def __init__(self, cfg: GeneratorConfig, params: dict):
+        super().__init__()
+        self.cfg = cfg
+        self.fourier = nn.Module()
+        for k, v in params.get("fourier", {}).items():
+            self.fourier.register_buffer(k, v)
+        pd = lambda sub: nn.ParameterDict(
+            {k: nn.Parameter(v) for k, v in sub.items()})
+        self.coord_linear = pd(params["coord_linear"])
+        self.latent_linear = pd(params.get("latent_linear", {}))
+        self.hidden = nn.ModuleList([pd(h) for h in params["hidden"]])
+        self.out = pd(params["out"])
+
+    def params(self) -> dict:
+        p = {"coord_linear": dict(self.coord_linear.items()),
+             "hidden": [dict(h.items()) for h in self.hidden],
+             "out": dict(self.out.items())}
+        if self.cfg.fourier_expansion:
+            p["fourier"] = dict(self.fourier.named_buffers())
+        if self.cfg.z_dim > 0:
+            p["latent_linear"] = dict(self.latent_linear.items())
+        return p

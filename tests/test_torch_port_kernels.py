@@ -1,0 +1,192 @@
+"""Plain versions of the port's kernels against the JAX Pallas kernels, run in
+interpret mode as tests/test_kernels.py runs them, at that file's shapes and
+tolerances; plus kernel-against-plain cases that need a CUDA device (they
+skip on a machine without one).
+
+The CUDA cases need no JAX, so on a GPU machine without it they run as
+    python -m pytest --noconftest tests/test_torch_port_kernels.py -k cuda
+(--noconftest: tests/conftest.py configures JAX); the JAX comparisons then
+skip.
+"""
+
+import types
+
+import numpy as np
+import pytest
+import torch
+
+import targetvae_tpu_torch.kernels as kernels
+from targetvae_tpu_torch.kernels.decoder_pose import (
+    fused_pose_decoder, fused_pose_decoder_tables, pose_decoder_plain,
+    pose_tables)
+from targetvae_tpu_torch.kernels.mix_heads import (
+    fused_lift_act_mix_heads, lift_act_mix_heads_plain)
+from targetvae_tpu_torch.kernels.posterior import (
+    fused_posterior, posterior_plain)
+from targetvae_tpu_torch.models.generator import generator_init
+from targetvae_tpu_torch.utils.config import GeneratorConfig
+from targetvae_tpu_torch.utils.jax_params import params_from_jax
+
+
+@pytest.fixture
+def jx():
+    """The JAX reference: jax, jnp and the Pallas kernels' entry points."""
+    jax = pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from targetvae_tpu.kernels.decoder_pose import fused_pose_decoder
+    from targetvae_tpu.kernels.mix_heads import fused_lift_act_mix_heads
+    from targetvae_tpu.kernels.posterior import fused_posterior
+    from targetvae_tpu.models.generator import generator_init
+    from targetvae_tpu.utils.config import GeneratorConfig as JaxGenConfig
+    return types.SimpleNamespace(
+        jax=jax, jnp=jnp, pose=fused_pose_decoder, mix=fused_lift_act_mix_heads,
+        post=fused_posterior, gen_init=generator_init, GenConfig=JaxGenConfig)
+
+
+@pytest.fixture
+def cuda():
+    """The CUDA device; decided inside the test, so every worker collects
+    the same tests."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel runs only on the card")
+    return torch.device("cuda", 0)
+
+
+def _mix_inputs(R=4, K=128, D=7, N=700):
+    rng = np.random.default_rng(0)
+    f = lambda *s: rng.normal(size=s).astype(np.float32)
+    return (f(N, R * K) * 0.5, f(R * K) * 0.1, f(K, K) * 0.05, f(K) * 0.1,
+            f(K, D) * 0.1, f(D) * 0.1)
+
+
+def _posterior_inputs(B=3, R=4, M=25, zd=2):
+    rng = np.random.default_rng(1)
+    f = lambda *s: rng.normal(size=s).astype(np.float32)
+    p = f(R * M)
+    p_tr = (p - np.log(np.exp(p - p.max()).sum()) - p.max()).reshape(R, M)
+    return (f(B, R, M) * 2, f(B, R, M), f(B, R, M) * 0.3, f(B, zd, R, M),
+            f(B, zd, R, M) * 0.3, p_tr.astype(np.float32), f(M, 2),
+            np.asarray([0, np.pi / 2, np.pi, -np.pi / 2], np.float32),
+            float(np.pi / 4))
+
+
+def _pose_config(num_layers, n=18, zd=2):
+    return GeneratorConfig(z_dim=zd, hidden_dim=64, num_layers=num_layers,
+                           n_out=1, fourier_expansion=True,
+                           fourier_sigma=2 / (n - 1))
+
+
+def _pose_inputs(B=3, zd=2):
+    rng = np.random.default_rng(2)
+    theta = rng.normal(size=(B,)).astype(np.float32)
+    dx = (rng.normal(size=(B, 2)) * 0.2).astype(np.float32)
+    z = rng.normal(size=(B, zd)).astype(np.float32)
+    return theta, dx, z
+
+
+def test_mix_heads_plain_matches_jax_kernel(jx):
+    R, K = 4, 128
+    args = _mix_inputs(R=R, K=K)
+    jargs = [jx.jnp.asarray(a) for a in args]
+    jargs[0] = jargs[0].astype(jx.jnp.bfloat16)
+    ref = np.asarray(jx.mix(*jargs, R=R, K=K, act_kind="leakyrelu",
+                            interpret=True))
+    targs = [torch.from_numpy(a) for a in args]
+    targs[0] = targs[0].to(torch.bfloat16)
+    got = lift_act_mix_heads_plain(*targs, R=R, K=K)
+    assert got.shape == ref.shape == (700, R * 7)
+    assert float(np.abs(got.numpy() - ref).max()) < 5e-3
+    # the wrapper on a CPU tensor is the plain version, and counts nothing
+    kernels.reset_launch_counts()
+    np.testing.assert_array_equal(
+        fused_lift_act_mix_heads(*targs, R=R, K=K).numpy(), got.numpy())
+    assert kernels.launch_counts()["mix_heads_fwd"] == 0
+
+
+def test_posterior_plain_matches_jax_kernel_deterministic(jx):
+    args = _posterior_inputs()
+    ref = jx.post(jx.jax.random.key(9), *[jx.jnp.asarray(a) for a in args[:8]],
+                  args[8], deterministic=True, interpret=True)
+    targs = [torch.from_numpy(a) for a in args[:8]] + [args[8]]
+    for got in (posterior_plain(*targs),
+                fused_posterior(9, *targs, deterministic=True)):
+        for name in ref:
+            assert float(np.abs(got[name].numpy()
+                                - np.asarray(ref[name])).max()) < 1e-4, name
+
+
+def test_posterior_sampled_cpu_is_split_invariant():
+    args = _posterior_inputs(B=4)
+    targs = [torch.from_numpy(a) for a in args[:8]] + [args[8]]
+    full = fused_posterior(5, *targs)
+    halves = [fused_posterior(5 + i, *[t[i:i + 2] for t in targs[:5]],
+                              *targs[5:]) for i in (0, 2)]
+    det = fused_posterior(5, *targs, deterministic=True)
+    for name in full:
+        torch.testing.assert_close(
+            full[name], torch.cat([h[name] for h in halves]), rtol=0, atol=0)
+    # the KL does not depend on the sample
+    torch.testing.assert_close(full["kl"], det["kl"], rtol=1e-6, atol=1e-6)
+    assert not torch.equal(full["dx"], det["dx"])
+
+
+@pytest.mark.parametrize("num_layers", [2, 4])
+def test_pose_decoder_plain_matches_jax_kernel(jx, num_layers):
+    cfg = _pose_config(num_layers)
+    jcfg = jx.GenConfig(**cfg.__dict__)
+    jp = jx.gen_init(jx.jax.random.key(0), jcfg)
+    theta, dx, z = _pose_inputs()
+    n = 18
+    jnp = jx.jnp
+    ref = np.asarray(jx.pose(jnp.asarray(theta), jnp.asarray(dx),
+                             jnp.asarray(z), jp, jcfg, n, tr=8,
+                             interpret=True))
+    tp = params_from_jax(jx.jax.tree.map(np.asarray, jp))
+    got = fused_pose_decoder(torch.from_numpy(theta), torch.from_numpy(dx),
+                             torch.from_numpy(z), tp, cfg, n)
+    assert got.shape == ref.shape == (3, n * n, 1)
+    assert float(np.abs(got.numpy() - ref).max()) < 1e-2
+
+
+# ---- on the card: each kernel against its plain version ----
+
+def test_mix_heads_kernel_on_cuda(cuda):
+    R, K = 4, 128
+    args = [torch.from_numpy(a).to(cuda) for a in _mix_inputs(R=R, K=K)]
+    args[0] = args[0].to(torch.bfloat16)
+    kernels.reset_launch_counts()
+    got = fused_lift_act_mix_heads(*args, R=R, K=K)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["mix_heads_fwd"] == 1
+    ref = lift_act_mix_heads_plain(*args, R=R, K=K)
+    assert float((got - ref).abs().max()) < 5e-3
+
+
+def test_posterior_kernel_on_cuda(cuda):
+    args = _posterior_inputs()
+    targs = [torch.from_numpy(a).to(cuda) for a in args[:8]] + [args[8]]
+    got = fused_posterior(9, *targs, deterministic=True)
+    ref = posterior_plain(*targs)
+    for name in ref:
+        assert float((got[name] - ref[name]).abs().max()) < 1e-4, name
+    s1, s2 = fused_posterior(3, *targs), fused_posterior(3, *targs)
+    for name in s1:
+        assert torch.equal(s1[name], s2[name])
+    torch.testing.assert_close(s1["kl"], got["kl"], rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("num_layers", [2, 4])
+def test_pose_decoder_kernel_on_cuda(cuda, num_layers):
+    cfg = _pose_config(num_layers)
+    tp = generator_init(torch.Generator().manual_seed(0), cfg, device=cuda)
+    th, d, zz = (torch.from_numpy(a).to(cuda) for a in _pose_inputs())
+    wf = tp["fourier"]["w"] / cfg.fourier_sigma
+    u, v, p, q = pose_tables(th, d, wf, tp["fourier"]["b"], 18)
+    args = (u, v, p, q, zz @ tp["latent_linear"]["w"],
+            tp["coord_linear"]["w"], tp["coord_linear"]["b"],
+            torch.stack([h["w"] for h in tp["hidden"]]),
+            torch.stack([h["b"] for h in tp["hidden"]]),
+            tp["out"]["w"], tp["out"]["b"])
+    got = fused_pose_decoder_tables(*args)
+    ref = pose_decoder_plain(*args)
+    assert float((got - ref).abs().max()) < 1e-2

@@ -1,0 +1,135 @@
+"""The port's inference slice (embed, held-out ELBO, embed_dataset) against
+the JAX package's float32 tier, with the same params and the same noise.
+
+Tolerance rtol 2e-4 / atol 1e-4 throughout: the two sides sum the float32
+lift convolution (and the matmuls after it) in different orders, and the
+ELBO adds up thousands of such terms.
+"""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+import targetvae_tpu.models.encoders as jax_enc
+from targetvae_tpu.cli.clustering_common import embed_dataset as jax_embed_dataset
+from targetvae_tpu.losses.elbo import compute_elbo as jax_compute_elbo
+from targetvae_tpu.models import TargetVAE as JaxTargetVAE
+from targetvae_tpu.utils import config as jcfg
+
+from targetvae_tpu_torch import TargetVAE, ModelConfig
+from targetvae_tpu_torch.cli.clustering_common import embed_dataset
+from targetvae_tpu_torch.losses.elbo import compute_elbo
+from targetvae_tpu_torch.utils.jax_params import params_from_jax
+
+RTOL, ATOL = 2e-4, 1e-4
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _config():
+    return jcfg.ModelConfig(
+        generator=jcfg.GeneratorConfig(z_dim=2, hidden_dim=32, n_out=1,
+                                       num_layers=2, fourier_expansion=True,
+                                       fourier_sigma=2.0 / 13,
+                                       embedding_dim=64),
+        encoder=jcfg.EncoderConfig(image_dim=14, z_dim=2, kernels_num=16,
+                                   kernels_size=8, padding=3, groupconv=4),
+        likelihood=jcfg.LikelihoodConfig(kind="bernoulli"))
+
+
+@pytest.fixture(scope="module")
+def pair():
+    jc = _config()
+    jm = JaxTargetVAE(jc)
+    jp = jm.init(jax.random.key(0))
+    tm = TargetVAE(ModelConfig.from_json(jc.to_json()))
+    tm.load_params(params_from_jax(jax.tree.map(np.asarray, jp)))
+    images = np.random.default_rng(0).uniform(0, 1, (10, 14, 14, 1)).astype(
+        np.float32)
+    return jm, jp, tm, images
+
+
+def test_embed_matches_jax(pair):
+    jm, jp, tm, images = pair
+    ref = jm.embed(jp, jnp.asarray(images[:5]))
+    with torch.inference_mode():
+        got = tm.embed(tm.params(), torch.from_numpy(images[:5]))
+    for name in ("z_content", "theta_mu", "dx"):
+        np.testing.assert_allclose(got[name].numpy(), np.asarray(ref[name]),
+                                   rtol=RTOL, atol=ATOL, err_msg=name)
+
+
+def test_elbo_matches_jax_with_zero_noise(pair, monkeypatch):
+    """JAX side: the reparameterisation normals are zeroed and the Gumbel
+    sample is the plain softmax, as tests/test_elbo.py does; port side:
+    generator=None, which means exactly that."""
+    jm, jp, tm, images = pair
+    monkeypatch.setattr(jax.random, "normal",
+                        lambda key, shape=(), dtype=jnp.float32:
+                        jnp.zeros(shape, dtype))
+    monkeypatch.setattr(jax_enc, "gumbel_softmax",
+                        lambda key, logits, tau=1.0, axis=-1:
+                        jax.nn.softmax(logits, axis=axis))
+    y = images[:6]
+    ref = jax_compute_elbo(jp, jm.cfg, jm.base_grid(), jnp.asarray(y),
+                           jax.random.key(1))
+    with torch.inference_mode():
+        got = compute_elbo(tm.params(), tm.cfg, tm.base_grid(),
+                           torch.from_numpy(y), None)
+    np.testing.assert_allclose([float(t) for t in got],
+                               [float(t) for t in ref], rtol=RTOL, atol=ATOL)
+
+
+def test_embed_dataset_ragged_tail_matches_jax(pair):
+    jm, jp, tm, images = pair
+    ref = jax_embed_dataset(jm, jp, images, minibatch_size=4)
+    got = embed_dataset(tm, tm.params(), images, minibatch_size=4)
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape
+        np.testing.assert_allclose(g, r, rtol=RTOL, atol=ATOL)
+
+
+def test_bf16_kernel_tier_tracks_f32_tier(pair):
+    """On the CPU the bf16 tier runs the kernels' plain versions: same
+    model, bf16 lift conv and matmul operands; the ELBO moves by much less
+    than the 2e-2 bound chip_smoke.py holds the card to."""
+    _, _, tm, images = pair
+    y = torch.from_numpy(images[:6])
+    with torch.inference_mode():
+        e32 = tm.elbo(tm.params(), tm.base_grid(), y, None)
+        e16 = tm.elbo(tm.params(), tm.base_grid(), y, None, torch.bfloat16)
+        with pytest.raises(NotImplementedError, match="decoder_mlp"):
+            tm.decode(tm.params(), tm.base_grid()[None].expand(2, -1, -1),
+                      torch.zeros(2, 2), compute_dtype=torch.bfloat16)
+        sampled = tm(y, torch.Generator().manual_seed(0), torch.bfloat16)
+    assert abs(float(e16[0]) - float(e32[0])) < 2e-2 * abs(float(e32[0]))
+    assert all(np.isfinite(float(t)) for t in sampled)
+
+
+def test_port_runs_without_jax():
+    code = (
+        "import sys\n"
+        "for m in ('jax', 'jaxlib', 'flax', 'optax', 'targetvae_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        "import numpy as np, torch\n"
+        "from targetvae_tpu_torch import TargetVAE, ModelConfig\n"
+        "from targetvae_tpu_torch.utils.config import EncoderConfig, "
+        "GeneratorConfig\n"
+        "cfg = ModelConfig(GeneratorConfig(hidden_dim=32, "
+        "fourier_expansion=True, embedding_dim=64), EncoderConfig("
+        "image_dim=14, kernels_num=16, kernels_size=8, padding=3, "
+        "groupconv=4))\n"
+        "m = TargetVAE(cfg)\n"
+        "p = m.init(torch.Generator().manual_seed(0))\n"
+        "out = m.embed(p, torch.rand(2, 14, 14, 1))\n"
+        "assert out['z_content'].shape == (2, 4)\n"
+        "print('ok')\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
