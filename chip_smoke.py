@@ -9,16 +9,27 @@ hidden 512, 2 layers, Bernoulli, bf16 compute, batch 100; random weights
 from a seed):
 
   1. prints the card (nvidia-smi name and power limit) and the versions;
-  2. holds each kernel against its plain PyTorch version at flagship shapes,
-     and the sampled posterior by seed, batch split and distribution;
+  2. holds each forward kernel against its plain PyTorch version at flagship
+     shapes, and the sampled posterior by seed, batch split and distribution;
   3. embeds ~1,000 synthetic images with embed_dataset (bf16 serving tier);
   4. evaluates the held-out ELBO over a few batches in bf16, and against the
      float32 tier with deterministic noise;
-  5. times each kernel against its plain version, embed and eval img/s.
+  5. times each forward kernel against its plain version, embed and eval
+     img/s;
+  6. holds each backward kernel (K2, K4, K8) and K7's save-residuals mode
+     against its plain version at flagship shapes, and the sampled K4
+     against a central difference of K3's own forward;
+  7. trains: ~30 bf16 Trainer.train_step calls on fixed synthetic batches
+     (finite, rising ELBO; every kernel launched), and one deterministic
+     step's gradients on the bf16 kernel tier against the float32 tier;
+  8. times each backward kernel against its plain version, K7 with and
+     without saved residuals, and the train step's img/s.
 
-Every failed check exits non-zero. With no CUDA device, or outside a
-checkout, it fails without printing a result. Its last line is
-{"ok": true, "device": {...}}; the line before it is the kernels' JSON.
+Each of phases 3, 4 and 7 sets the launch counts to 0 just before it drives
+its path and reads them just after. Every failed check exits non-zero. With
+no CUDA device, or outside a checkout, it fails without printing a result.
+Its last line is {"ok": true, "device": {...}}; the line before it is the
+kernels' JSON.
 """
 
 from __future__ import annotations
@@ -35,11 +46,41 @@ B = 100             # batch
 N_EMBED = 1000      # images embedded in phase 3
 EVAL_BATCHES = 3    # batches of the held-out ELBO in phase 4
 SEEDS = 64          # seeds for the sampled-posterior distribution check
+TRAIN_STEPS = 30    # flagship train steps in phase 7
+TRAIN_BATCHES = 5   # fixed synthetic batches they cycle through
 TOL_K1 = 5e-3       # abs, kernel vs plain (same bf16 rounding points; f32 sum order)
 TOL_K3 = 1e-4       # abs per unit of max(1, |value|), deterministic posterior
 TOL_K7 = 1e-2       # abs, kernel vs plain pose decoder
 TOL_ELBO = 2e-2     # rel, bf16 kernel tier vs float32 tier, deterministic noise
 TOL_DX = 2e-2       # abs, bf16 vs float32 embed dx (half an attention-grid pitch)
+# Backward kernels against their plain versions, which round at the same
+# points: the f32 outputs differ by summation order only, so 1e-3 relative
+# L2 per output (K2's and K8's sums run over 152,100 positions and 250,000
+# pixels); K7's saved bf16 h may sit one bf16 step from the plain value
+# where a sum lands near a rounding boundary: max abs error <= 2^-7 of its
+# largest magnitude.
+TOL_BWD_REL = 1e-3
+# K2's bf16 dpre1: K2 recomputes pre2 = h1 W2 + b2 as a sum in another order
+# than the plain version's. Where that sum lies within the two orders' f32
+# rounding of zero its sign, and with it the leaky slope (1 or 0.01) of the
+# whole (position, rotation) row of dpre1, may differ between the two.
+# Outside such rows dpre1 must sit within one bf16 step (1/128) of its
+# largest magnitude; each row beyond that must come within the same step of
+# the plain row once the slope is flipped at some of its near-zero pre2
+# entries (at most K2_MAX_FLIPS). Over all N x R*K entries, relative L2
+# <= 1e-2.
+K2_MAX_FLIPS = 4
+TOL_DPRE1_REL = 1e-2
+TOL_K4 = 1e-4       # abs per unit of max(1, |value|), as K3: same f32 formulas
+TOL_K4_FD = 2e-2    # rel, central difference of K3 (step 1e-2) vs <grad, dir>
+# bf16 kernel tier vs float32 tier, gradients of one deterministic step, per
+# parameter leaf, relative L2: the bound the JAX kernels' gradients were held
+# to (tests/test_kernels.py:512-517)
+TOL_GRAD = 0.05
+# The H100 SXM's published peaks (NVIDIA H100 datasheet), for bound_ms
+HBM_BPS = 3.35e12
+PEAK_BF16 = 989e12
+PEAK_F32 = 67e12
 
 
 class CheckFailed(Exception):
@@ -131,7 +172,123 @@ def kernel_inputs(params, cfg, dev):
           pg["coord_linear"]["b"], torch.stack([h["w"] for h in pg["hidden"]]),
           torch.stack([h["b"] for h in pg["hidden"]]), pg["out"]["w"],
           pg["out"]["b"])
-    return k1, k3, k7
+    return k1, k3, k7, (theta, dx, wf, pg["fourier"]["b"])
+
+
+def bound(nbytes: float, ops: float, peak: float):
+    """(bound_ms, bound_by): the larger of the bytes over the HBM rate and
+    the operations over the peak rate of their type."""
+    t_mem, t_ops = nbytes / HBM_BPS, ops / peak
+    return (max(t_mem, t_ops) * 1e3,
+            "bytes" if t_mem >= t_ops else "operations")
+
+
+def kernel_bounds(cfg, n_pos: int) -> dict:
+    """Each kernel's least time on the H100 at this run's shapes: every input
+    read once, every output written once; the operations its arithmetic
+    needs (matrix products at the bf16 tensor-core peak; the posterior's
+    elementwise float32 math at the f32 peak, about 40 + 16 zd operations a
+    cell forward and twice that backward)."""
+    e, g = cfg.encoder, cfg.generator
+    R, K, zd, D = e.groupconv, e.kernels_num, e.z_dim, 3 + 2 * e.z_dim
+    n, F, H, L = e.image_dim, g.embedding_dim, g.hidden_dim, g.num_layers
+    cells = n_pos // B * R              # R * M cells an image; n_pos = B * M
+    px = B * n * n
+    bf, f4 = 2, 4
+    w_mix = (K * K + K * D) * bf + (R * K + K + D) * f4
+    w_dec = (F * H + (L - 1) * H * H + H * g.n_out) * bf + (L * H + 1) * f4
+    planes = (3 + 2 * zd) * B * cells * f4
+    tables = 4 * B * n * F * f4
+    return {
+        "mix_heads_fwd": bound(n_pos * R * K * bf + w_mix
+                               + n_pos * R * D * f4,
+                               2 * n_pos * R * (K * K + K * D), PEAK_BF16),
+        "mix_heads_bwd": bound(n_pos * R * K * bf + n_pos * R * D * f4 + w_mix
+                               + n_pos * R * K * bf
+                               + (K * K + K * D + K + D + R * K) * f4,
+                               2 * n_pos * R * (3 * K * K + 2 * K * D),
+                               PEAK_BF16),
+        "posterior_fwd": bound(planes + B * (2 * zd + 5) * f4,
+                               B * cells * (40 + 16 * zd), PEAK_F32),
+        "posterior_bwd": bound(2 * planes + B * (2 * zd + 5) * f4,
+                               B * cells * 2 * (40 + 16 * zd), PEAK_F32),
+        "pose_decoder_fwd": bound(tables + w_dec + B * H * f4
+                                  + px * g.n_out * f4,
+                                  2 * px * (F * H + (L - 1) * H * H
+                                            + H * g.n_out), PEAK_BF16),
+        "pose_decoder_bwd": bound(tables + L * px * H * bf + px * g.n_out * f4
+                                  + w_dec + 3 * B * F * f4 + B * H * f4
+                                  + (F * H + (L - 1) * H * H + H * g.n_out
+                                     + L * H + g.n_out) * f4,
+                                  2 * px * (2 * F * H + 2 * (L - 1) * H * H
+                                            + 2 * H * g.n_out), PEAK_BF16),
+    }
+
+
+def rel_l2(a, b) -> float:
+    return float((a.float() - b.float()).norm()
+                 / b.float().norm().clamp(min=1e-12))
+
+
+def k2_leaky_flips(torch, k1, g, got, ref, R: int, K: int) -> dict:
+    """Accounts for K2's dpre1 `got` against the plain `ref`, row by row
+    (one row per position and rotation). A pre2 entry is near zero where
+    |pre2| <= 4 K 2^-24 sum_k |h1_k W2_kj|, twice the worst f32 rounding of
+    two sums of K exact products, so that only there can the two orders
+    disagree on its sign. Returns the step (1/128 of max |ref|), the count
+    of near-zero entries and of rows holding one, the largest error of a row
+    holding none, the rows past one step, how many of those a flip of the
+    slope at some of their near-zero entries brings within one step, and
+    the flips that took."""
+    from targetvae_tpu_torch.kernels.decoder_pose import (
+        LEAKY_SLOPE, _act, _dact_from_h, bf16_round)
+    leaky = "leakyrelu"
+    pre1, bc, w2, b2, wh = k1[:5]
+    rows, d, dev = pre1.shape[0] * R, wh.shape[1], pre1.device
+    w2r = bf16_round(w2.float())
+    h1 = bf16_round(_act(pre1.float() + bc.float(), leaky)).reshape(rows, K)
+    pre2 = h1 @ w2r + b2.float()
+    near = pre2.abs() <= 4 * K * 2.0 ** -24 * (h1.abs() @ w2r.abs())
+    step = float(ref.float().abs().max()) / 128
+    got = got.float().reshape(rows, K)
+    err = (got - ref.float().reshape(rows, K)).abs().amax(1)
+    suspect = near.any(1)
+    bad = (err > step).nonzero().squeeze(1)
+    best = torch.full((len(bad),), float("inf"), device=dev)
+    flips = torch.zeros(len(bad), dtype=torch.long, device=dev)
+    nb = near[bad]
+    n_near = nb.sum(1)
+    for m in range(1, K2_MAX_FLIPS + 1):
+        sel = (n_near == m).nonzero().squeeze(1)
+        if not len(sel):
+            continue
+        at = bad[sel]
+        ks = nb[sel].float().topk(m, dim=1).indices
+        idx = torch.arange(len(sel), device=dev)
+        dh2 = bf16_round(g.float().reshape(rows, d)[at]) @ bf16_round(
+            wh.float()).T
+        slope0 = _dact_from_h(bf16_round(_act(pre2[at], leaky)), leaky)
+        dact1 = _dact_from_h(h1[at], leaky)
+        for pattern in range(1, 2 ** m):
+            slope = slope0.clone()
+            for bit in range(m):
+                if pattern >> bit & 1:
+                    c = ks[:, bit]
+                    slope[idx, c] = torch.where(slope[idx, c] == 1.0,
+                                                LEAKY_SLOPE, 1.0)
+            cand = bf16_round((bf16_round(dh2 * slope) @ w2r.T) * dact1)
+            e = (cand - got[at]).abs().amax(1)
+            better = e < best[sel]
+            best[sel] = torch.where(better, e, best[sel])
+            flips[sel] = torch.where(better, bin(pattern).count("1"),
+                                     flips[sel])
+    ok = best <= step
+    return {"step": step, "near_zero": int(near.sum()),
+            "rows_near_zero": int(suspect.sum()),
+            "err_other_rows": float(err[~suspect].max()) if bool(
+                (~suspect).any()) else 0.0,
+            "rows_past_step": len(bad), "rows_explained": int(ok.sum()),
+            "flips": int(flips[ok].sum())}
 
 
 def main() -> int:
@@ -196,7 +353,7 @@ def run(torch, dev) -> int:
 
     with torch.inference_mode():
         # ---- phase 2: each kernel against its plain version ----
-        k1, k3, k7 = kernel_inputs(params, cfg, dev)
+        k1, k3, k7, pose = kernel_inputs(params, cfg, dev)
         R, K = cfg.encoder.groupconv, cfg.encoder.kernels_num
         o_k = fused_lift_act_mix_heads(*k1, R=R, K=K)
         o_p = lift_act_mix_heads_plain(*k1, R=R, K=K)
@@ -281,17 +438,21 @@ def run(torch, dev) -> int:
 
         x_coord = model.base_grid()
         gen = torch.Generator().manual_seed(5)
+        kernels.reset_launch_counts()
         elbos = []
         for i in range(EVAL_BATCHES):
             yb = torch.from_numpy(images[i * B:(i + 1) * B]).to(dev)
             elbos.append([float(t) for t in model.elbo(
                 params, x_coord, yb, gen, compute_dtype=bf16)])
         counts = kernels.launch_counts()
+        eval_counts = dict(counts)
+        fwd_names = ("mix_heads_fwd", "posterior_fwd", "pose_decoder_fwd")
         check(bool(np.isfinite(elbos).all())
-              and all(v > 0 for v in counts.values()),
+              and all(counts[k] > 0 for k in fwd_names)
+              and not any(counts[k] for k in counts if k not in fwd_names),
               f"phase 4: held-out ELBO bf16 over {EVAL_BATCHES} batches "
               f"(elbo, log_p, kl) = {np.round(elbos, 3).tolist()}, launches "
-              f"{counts}")
+              f"{counts} (forward kernels only)")
         yb = torch.from_numpy(images[:B]).to(dev)
         e16 = [float(t) for t in model.elbo(params, x_coord, yb, None, bf16)]
         e32 = [float(t) for t in model.elbo(params, x_coord, yb, None, None)]
@@ -299,7 +460,6 @@ def run(torch, dev) -> int:
         check(rel <= TOL_ELBO,
               f"phase 4: deterministic ELBO bf16 kernels {e16[0]:.4f} vs "
               f"float32 tier {e32[0]:.4f}: rel diff {rel:.3e} <= {TOL_ELBO}")
-        main_counts = kernels.launch_counts()
 
         # ---- phase 5: timings ----
         for name, kfn, pfn in (
@@ -334,20 +494,258 @@ def run(torch, dev) -> int:
               f"(ELBO bf16, B={B}, {eval_ms:.3f} ms/batch, device time)",
               flush=True)
 
-    sources = {"mix_heads_fwd": ("targetvae_tpu_torch/csrc/mix_heads.cu",
-                                 "targetvae_tpu/kernels/mix_heads.py:232"),
-               "posterior_fwd": ("targetvae_tpu_torch/csrc/posterior.cu",
-                                 "targetvae_tpu/kernels/posterior.py:241"),
-               "pose_decoder_fwd": ("targetvae_tpu_torch/csrc/decoder_pose.cu",
-                                    "targetvae_tpu/kernels/decoder_pose.py:390")}
+    # ---- phases 6-8: the training slice ----
+    with torch.inference_mode():
+        cot = check_backward_kernels(torch, cfg, dev, k1, k3, k7, pose,
+                                     results)
+    trainer, state, data, train_counts = train_path(torch, kernels, cfg, dev)
+    time_training(torch, cfg, k1, k3, k7, cot, trainer, state, data, results)
+
+    sources = {
+        "mix_heads_fwd": ("mix_heads.cu", "mix_heads.py:232"),
+        "mix_heads_bwd": ("mix_heads.cu", "mix_heads.py:269"),
+        "posterior_fwd": ("posterior.cu", "posterior.py:241"),
+        "posterior_bwd": ("posterior.cu", "posterior.py:253"),
+        "pose_decoder_fwd": ("decoder_pose.cu", "decoder_pose.py:390"),
+        "pose_decoder_bwd": ("decoder_pose.cu", "decoder_pose.py:439")}
+    bounds = kernel_bounds(cfg, k1[0].shape[0])
     print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": main_counts[name], **results[name]}
+        {"name": name, "route": "cuda",
+         "source": "targetvae_tpu_torch/csrc/" + src,
+         "replaces": "targetvae_tpu/kernels/" + rep,
+         "launches": train_counts[name],
+         "launches_by_path": {"embed": embed_counts[name],
+                              "eval": eval_counts[name],
+                              "train": train_counts[name]},
+         **results[name], "bound_ms": bounds[name][0],
+         "bound_by": bounds[name][1], "library_ms": None}
         for name, (src, rep) in sources.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def check_backward_kernels(torch, cfg, dev, k1, k3, k7, pose, results):
+    """Phase 6: K2, K4, K8 and K7's save-residuals mode against their plain
+    versions on the same flagship-shape inputs, with seeded cotangents.
+    Returns the cotangents and K7's saved tiles for the timings."""
+    from targetvae_tpu_torch.kernels.decoder_pose import (
+        fused_pose_decoder_tables, pose_closure, pose_decoder_bwd,
+        pose_decoder_bwd_plain, pose_decoder_plain)
+    from targetvae_tpu_torch.kernels.mix_heads import (
+        lift_act_mix_heads_bwd_plain, mix_heads_bwd)
+    from targetvae_tpu_torch.kernels.posterior import (
+        posterior_bwd, posterior_bwd_plain, posterior_fwd)
+
+    R, K, zd = cfg.encoder.groupconv, cfg.encoder.kernels_num, cfg.encoder.z_dim
+    gen = torch.Generator(device=dev).manual_seed(13)
+    rn = lambda *s: torch.randn(s, generator=gen, device=dev)
+    max_abs = lambda a, b: max(float((x.float() - y.float()).abs().max())
+                               for x, y in zip(a, b))
+    same = lambda a, b: all(torch.equal(x, y) for x, y in zip(a, b))
+    finite = lambda a: all(bool(torch.isfinite(x).all()) for x in a)
+
+    # K2
+    g1 = rn(k1[0].shape[0], R * (3 + 2 * zd))
+    got = mix_heads_bwd(*k1[:5], g1, R=R, K=K)
+    again = mix_heads_bwd(*k1[:5], g1, R=R, K=K)
+    ref = lift_act_mix_heads_bwd_plain(*k1[:5], g1, R=R, K=K)
+    torch.cuda.synchronize()
+    err_dp = float((got[0].float() - ref[0].float()).abs().max())
+    rel_dp = rel_l2(got[0], ref[0])
+    rels = [rel_l2(a, b) for a, b in zip(got[1:], ref[1:])]
+    fl = k2_leaky_flips(torch, k1, g1, got[0], ref[0], R, K)
+    check(finite(got) and fl["err_other_rows"] <= fl["step"]
+          and fl["rows_explained"] == fl["rows_past_step"]
+          and rel_dp <= TOL_DPRE1_REL and max(rels) <= TOL_BWD_REL
+          and same(got, again),
+          f"phase 6: K2 mix_heads_bwd {tuple(k1[0].shape)}: dpre1 max_abs_err "
+          f"{err_dp:.3e}; {fl['near_zero']} pre2 entries near zero in "
+          f"{fl['rows_near_zero']} rows; other rows max_abs_err "
+          f"{fl['err_other_rows']:.3e} <= one bf16 step {fl['step']:.3e}; "
+          f"{fl['rows_past_step']} rows past it, {fl['rows_explained']} "
+          f"within it after {fl['flips']} leaky-slope flips at near-zero "
+          f"pre2; rel L2 {rel_dp:.3e} <= {TOL_DPRE1_REL}; dbc, dW2, db2, "
+          f"dWh, dbh rel L2 {np.round(rels, 7).tolist()} <= {TOL_BWD_REL}; "
+          f"rerun bitwise identical")
+    results["mix_heads_bwd"] = {"max_abs_err": max_abs(got, ref)}
+
+    # K4 deterministic
+    g3 = rn(B, 2 * zd + 5)
+    got = posterior_bwd(7, g3, *k3, deterministic=True)
+    ref = posterior_bwd_plain(g3, *k3)
+    torch.cuda.synchronize()
+    err = max(float(((a - b).abs() / b.abs().clamp(min=1.0)).max())
+              for a, b in zip(got, ref))
+    abs4 = max_abs(got, ref)
+    check(finite(got) and err <= TOL_K4,
+          f"phase 6: K4 posterior_bwd deterministic {tuple(k3[0].shape)}: "
+          f"max err {err:.3e} (abs {abs4:.3e}) <= {TOL_K4} * max(1, |ref|)")
+    results["posterior_bwd"] = {"max_abs_err": abs4}
+
+    # K4 sampled: deterministic in the seed, split-invariant, and the
+    # derivative of K3's own forward at that seed
+    s1 = posterior_bwd(11, g3, *k3)
+    check(same(s1, posterior_bwd(11, g3, *k3)),
+          "phase 6: K4 sampled: same seed gives identical gradients")
+    h = B // 2
+    halves = [posterior_bwd(11 + i, g3[i:i + h], *(t[i:i + h] for t in k3[:5]),
+                            *k3[5:]) for i in (0, h)]
+    check(all(torch.equal(a, torch.cat([x[j] for x in halves]))
+              for j, a in enumerate(s1)),
+          "phase 6: K4 sampled: gradient rows identical for batch 100 vs "
+          "2 x 50 with the seed offset")
+    dirs = [rn(*t.shape) for t in k3[:5]]
+    step = 1e-2
+    fwd = lambda eps: posterior_fwd(
+        11, *[t + eps * d for t, d in zip(k3[:5], dirs)], *k3[5:]).double()
+    fd = float(((fwd(step) - fwd(-step)) * g3.double()).sum()) / (2 * step)
+    an = sum(float((a.double() * d.double()).sum()) for a, d in zip(s1, dirs))
+    check(abs(fd - an) <= TOL_K4_FD * max(abs(an), 1.0),
+          f"phase 6: K4 sampled: <grad, dir> {an:.6g} vs central difference "
+          f"of K3 at the same seed {fd:.6g} (step {step}): rel "
+          f"{abs(fd - an) / max(abs(an), 1.0):.3e} <= {TOL_K4_FD}")
+
+    # K7 save-residuals mode, then K8 and the pose closure
+    y, hs = fused_pose_decoder_tables(*k7, save_res=True)
+    y0 = fused_pose_decoder_tables(*k7)
+    _, hs_p = pose_decoder_plain(*k7, save_res=True)
+    torch.cuda.synchronize()
+    hscale = float(hs_p.float().abs().max())
+    err_hs = float((hs.float() - hs_p.float()).abs().max())
+    check(torch.equal(y, y0) and err_hs <= hscale / 128,
+          f"phase 6: K7 save-residuals: output identical to the serving "
+          f"forward; h tiles {tuple(hs.shape)} max_abs_err {err_hs:.3e} <= "
+          f"{hscale / 128:.3e} (one bf16 step)")
+    g7 = rn(*y.shape)
+    bwd_args = (*k7[:4], hs, k7[5], k7[7], k7[9], g7)
+    got = pose_decoder_bwd(*bwd_args)
+    again = pose_decoder_bwd(*bwd_args)
+    ref = pose_decoder_bwd_plain(*bwd_args)
+    got = (*got, *pose_closure(*pose, *got[:3]))
+    ref = (*ref, *pose_closure(*pose, *ref[:3]))
+    torch.cuda.synchronize()
+    names = ("dfx", "dfy", "dfc", "dhz", "dW1", "db1", "dWh", "dbh", "dW3",
+             "db3", "dtheta", "d(dx)")
+    rels = {n: rel_l2(a, b) for n, a, b in zip(names, got, ref)}
+    check(finite(got) and max(rels.values()) <= TOL_BWD_REL
+          and same(got[:10], again),
+          f"phase 6: K8 pose_decoder_bwd {tuple(k7[0].shape)} + closure: rel "
+          f"L2 {({n: float(f'{r:.2e}') for n, r in rels.items()})} <= "
+          f"{TOL_BWD_REL}; rerun bitwise identical")
+    results["pose_decoder_bwd"] = {"max_abs_err": max_abs(got, ref)}
+    return g1, g3, g7, hs
+
+
+def train_path(torch, kernels, cfg, dev):
+    """Phase 7: one deterministic step's gradients, bf16 kernel tier against
+    float32 tier, then TRAIN_STEPS bf16 train steps (the main path of this
+    slice) with the launch counts read around them."""
+    from targetvae_tpu_torch.losses.elbo import compute_elbo
+    from targetvae_tpu_torch.train import Trainer
+    from targetvae_tpu_torch.utils.config import TrainConfig
+
+    trainer = Trainer(cfg, TrainConfig(compute_dtype="bfloat16",
+                                       minibatch_size=B), device=dev)
+    state = trainer.init_state(0)
+    model = trainer.model
+    data = torch.from_numpy(synthetic_images(TRAIN_BATCHES * B,
+                                             cfg.encoder.image_dim, 3)).to(dev)
+
+    def tier_grads(dt):
+        model.zero_grad(set_to_none=True)
+        elbo = compute_elbo(model.params(), cfg, model.base_grid(), data[:B],
+                            None, dt)[0]
+        (-elbo).backward()
+        return {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+
+    g16, g32 = tier_grads(torch.bfloat16), tier_grads(None)
+    model.zero_grad(set_to_none=True)
+    # the attention head's bias: the joint softmax is invariant to a shift
+    # of every logit, so its exact gradient is zero and both tiers hold
+    # rounding noise, held to 1e-3 of the attention weights' gradient
+    shift = "encoder.conv_a.b"
+    noise_floor = 1e-3 * float(g32["encoder.conv_a.w"].norm())
+    rels = {n: rel_l2(g16[n], g32[n]) for n in g32 if n != shift}
+    worst = max(rels, key=rels.get)
+    check(all(bool(torch.isfinite(g).all()) for g in g16.values())
+          and rels[worst] <= TOL_GRAD
+          and float(g16[shift].norm()) <= noise_floor
+          and float(g32[shift].norm()) <= noise_floor,
+          f"phase 7: deterministic step gradients, bf16 kernel tier vs float32"
+          f" tier, rel L2 per leaf <= {TOL_GRAD}: "
+          f"{({n: float(f'{r:.2e}') for n, r in rels.items()})}; worst {worst};"
+          f" {shift} |g| {float(g16[shift].norm()):.2e} / "
+          f"{float(g32[shift].norm()):.2e} <= {noise_floor:.2e}")
+
+    kernels.reset_launch_counts()
+    metrics = []
+    for i in range(TRAIN_STEPS):
+        j = i % TRAIN_BATCHES
+        state, m = trainer.train_step(state, data[j * B:(j + 1) * B])
+        metrics.append(m)
+    m = torch.stack(metrics).cpu().numpy()
+    counts = kernels.launch_counts()
+    first, last = float(m[:5, 0].mean()), float(m[-5:, 0].mean())
+    check(bool(np.isfinite(m).all()) and last > first
+          and all(v > 0 for v in counts.values()) and state.step == TRAIN_STEPS,
+          f"phase 7: {TRAIN_STEPS} bf16 train steps at B={B} (Adam, lr "
+          f"{trainer.cfg.learning_rate}): ELBO finite, mean of the first 5 "
+          f"{first:.3f} -> last 5 {last:.3f}; launches {counts}")
+    print(f"phase 7: ELBO per step {np.round(m[:, 0], 2).tolist()}", flush=True)
+    return trainer, state, data, counts
+
+
+def time_training(torch, cfg, k1, k3, k7, cot, trainer, state, data, results):
+    """Phase 8: each backward kernel against its plain version, K7 with and
+    without saved residuals, and the train step."""
+    from targetvae_tpu_torch.kernels.decoder_pose import (
+        fused_pose_decoder_tables, pose_decoder_bwd, pose_decoder_bwd_plain)
+    from targetvae_tpu_torch.kernels.mix_heads import (
+        lift_act_mix_heads_bwd_plain, mix_heads_bwd)
+    from targetvae_tpu_torch.kernels.posterior import (
+        posterior_bwd, posterior_bwd_plain)
+
+    R, K = cfg.encoder.groupconv, cfg.encoder.kernels_num
+    g1, g3, g7, hs = cot
+    bwd7 = (*k7[:4], hs, k7[5], k7[7], k7[9], g7)
+    with torch.inference_mode():
+        for name, kfn, pfn in (
+                ("mix_heads_bwd",
+                 lambda: mix_heads_bwd(*k1[:5], g1, R=R, K=K),
+                 lambda: lift_act_mix_heads_bwd_plain(*k1[:5], g1, R=R, K=K)),
+                ("posterior_bwd",
+                 lambda: posterior_bwd(9, g3, *k3),
+                 lambda: posterior_bwd_plain(g3, *k3, noise=k3[0])),
+                ("pose_decoder_bwd",
+                 lambda: pose_decoder_bwd(*bwd7),
+                 lambda: pose_decoder_bwd_plain(*bwd7))):
+            p1, k1_, k2_, p2 = (cuda_ms(pfn), cuda_ms(kfn), cuda_ms(kfn),
+                                cuda_ms(pfn))
+            results[name].update(ms=min(k1_, k2_), plain_ms=min(p1, p2))
+            print(f"phase 8: {name}: kernel {k1_:.4f} / {k2_:.4f} ms, plain "
+                  f"{p1:.4f} / {p2:.4f} ms (plain, kernel, kernel, plain)",
+                  flush=True)
+        plain_fwd = lambda: fused_pose_decoder_tables(*k7)
+        saving = lambda: fused_pose_decoder_tables(*k7, save_res=True)
+        a1, b1, b2, a2 = (cuda_ms(plain_fwd), cuda_ms(saving), cuda_ms(saving),
+                          cuda_ms(plain_fwd))
+        print(f"phase 8: pose_decoder_fwd save-residuals {b1:.4f} / {b2:.4f} "
+              f"ms vs serving {a1:.4f} / {a2:.4f} ms (serving, saving, saving,"
+              f" serving)", flush=True)
+
+    yb = data[:B]
+    step_ms = cuda_ms(lambda: trainer.train_step(state, yb))
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(10):
+        trainer.train_step(state, yb)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t) / 10 * 1e3
+    print(f"phase 8: train {B / step_ms * 1e3:.1f} img/s (bf16 train_step, "
+          f"B={B}, {step_ms:.3f} ms/step device time incl. Adam; "
+          f"{wall_ms:.3f} ms/step host clock)", flush=True)
 
 
 if __name__ == "__main__":

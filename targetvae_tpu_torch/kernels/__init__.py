@@ -6,21 +6,27 @@ the fused kernels; the float32 tier is model code in plain PyTorch.
 
 Inside the kernel tier each wrapper dispatches on the device of its input
 only: a CPU tensor takes the plain version, a CUDA tensor launches the kernel
-or raises. Each wrapper counts its launches in a plain integer attribute
-(`launches`), which launch_counts / reset_launch_counts read and clear.
+or raises. The backward wrappers are joined to their forwards by
+torch.autograd.Functions (one per module), which the model code reaches
+whenever autograd wants a gradient. Each wrapper counts its launches in a
+plain integer attribute (`launches`), which launch_counts /
+reset_launch_counts read and clear.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .decoder_pose import fused_pose_decoder_tables
-from .mix_heads import fused_lift_act_mix_heads
-from .posterior import fused_posterior
+from .decoder_pose import fused_pose_decoder_tables, pose_decoder_bwd
+from .mix_heads import mix_heads_bwd, mix_heads_fwd
+from .posterior import posterior_bwd, posterior_fwd
 
-WRAPPERS = {"mix_heads_fwd": fused_lift_act_mix_heads,
-            "posterior_fwd": fused_posterior,
-            "pose_decoder_fwd": fused_pose_decoder_tables}
+WRAPPERS = {"mix_heads_fwd": mix_heads_fwd,
+            "mix_heads_bwd": mix_heads_bwd,
+            "posterior_fwd": posterior_fwd,
+            "posterior_bwd": posterior_bwd,
+            "pose_decoder_fwd": fused_pose_decoder_tables,
+            "pose_decoder_bwd": pose_decoder_bwd}
 
 
 def kernel_tier(compute_dtype) -> bool:

@@ -2,7 +2,9 @@
 
 All CUDA sources under targetvae_tpu_torch/csrc/ compile with nvcc into one
 shared library with a plain C interface (no PyTorch headers, so a build takes
-seconds), which is loaded with ctypes. The build happens at the first kernel
+seconds), which is loaded with ctypes. Each source compiles in its own nvcc
+process, all started together, and one more nvcc links the objects. The
+build happens at the first kernel
 launch, never at import, into targetvae_tpu_torch/build/ (listed in
 .gitignore); the file name carries a hash of the sources, so an edited source
 always rebuilds.
@@ -35,8 +37,17 @@ SIGNATURES = {
     # attn, th_mu, th_ls, z_mu, z_ls, p_tr, gx, gy, offs, out,
     # B, R, M, zd, sig_r, deterministic, seed, stream
     "tvae_posterior_fwd": [_P] * 10 + [_I] * 4 + [_F, _I, _I, _P],
-    # u, v, p, q, hz, w1, b1, wh, bh, w3, b3, y, B, n, F, H, L, n_out, act, stream
-    "tvae_pose_decoder_fwd": [_P] * 12 + [_I] * 7 + [_P],
+    # pre1, bc, w2, b2, wh, g, dpre1, part, out, N, R, K, D, G, SP, act, stream
+    "tvae_mix_heads_bwd": [_P] * 9 + [_I] * 7 + [_P],
+    # the forward's nine inputs, g, dattn, dth_mu, dth_ls, dz_mu, dz_ls,
+    # B, R, M, zd, sig_r, deterministic, seed, stream
+    "tvae_posterior_bwd": [_P] * 15 + [_I] * 4 + [_F, _I, _I, _P],
+    # u, v, p, q, hz, w1, b1, wh, bh, w3, b3, y, hs_out (or null),
+    # B, n, F, H, L, n_out, act, stream
+    "tvae_pose_decoder_fwd": [_P] * 13 + [_I] * 7 + [_P],
+    # u, v, p, q, w1, wh, w3, g, hs, gx, gy, dP, part, cols_img, cols, gpart,
+    # dfx, dfy, dfc, dw1, dwh, B, n, F, H, L, n_out, S1, S2, act, stream
+    "tvae_pose_decoder_bwd": [_P] * 21 + [_I] * 9 + [_P],
 }
 
 
@@ -66,20 +77,44 @@ def library_path() -> Path:
 
 def build() -> Path:
     """Compile csrc/*.cu into the shared library unless it is already built.
-    Returns its path; nvcc's -Xptxas -v report is kept beside it (.log)."""
+    Returns its path; nvcc's -Xptxas -v reports are kept beside it (.log)."""
     lib = library_path()
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    work = BUILD_DIR / f"{lib.stem}.{os.getpid()}.objs"
+    work.mkdir(exist_ok=True)
+    nvcc = _nvcc()
+    jobs = []
+    for src in _sources():
+        if src.suffix != ".cu":
+            continue
+        obj = work / f"{src.stem}.o"
+        cmd = ([nvcc] + ARCH_FLAGS
+               + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+                  "-c", "-o", str(obj), str(src)])
+        jobs.append((obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                           stderr=subprocess.STDOUT,
+                                           text=True)))
+    log, failed = [], []
+    for obj, proc in jobs:
+        out, _ = proc.communicate()
+        log.append(out)
+        if proc.returncode != 0:
+            failed.append(f"{obj.stem}.cu ({proc.returncode}):\n{out}")
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = ([_nvcc()] + ARCH_FLAGS
-           + ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v", "-o", str(tmp)]
-           + [str(s) for s in _sources() if s.suffix == ".cu"])
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    if not failed:
+        link = subprocess.run([nvcc] + ARCH_FLAGS
+                              + ["-shared", "-o", str(tmp)]
+                              + [str(obj) for obj, _ in jobs],
+                              capture_output=True, text=True)
+        log.append(link.stdout + link.stderr)
+        if link.returncode != 0:
+            failed.append(f"link ({link.returncode}):\n{link.stderr}")
+    lib.with_suffix(".log").write_text("".join(log))
+    shutil.rmtree(work, ignore_errors=True)
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
     tmp.replace(lib)
     return lib
 

@@ -1,7 +1,7 @@
-"""Pose-aware fused decoder, forward (K7): separable Fourier phase.
+"""Pose-aware fused decoder (K7 forward, K8 backward): separable Fourier phase.
 
-Port of targetvae_tpu/kernels/decoder_pose.py::fused_pose_decoder (its `_fwd`
-with save_res=False). The decoder's coordinates are an affine transform of
+Port of targetvae_tpu/kernels/decoder_pose.py::fused_pose_decoder (its `_fwd`,
+`_bwd` and `_vjp_bwd`). The decoder's coordinates are an affine transform of
 the regular pixel grid, x = (x0 - dx) @ R(theta) with x0[i, j] = (gx[j],
 gy[i]), so the Fourier phase is separable:
 
@@ -15,6 +15,13 @@ U, V, P, Q (B, n, F) are built here in plain torch (pose_tables); the kernel
 on chip and runs W1 (+ b1 + hz) -> act -> (L-1) x (H -> H, act) -> W3, with
 every h rounded to bf16 before the next matmul and f32 accumulation. The
 (pixels, F) feature matrix never reaches device memory.
+
+For training, the forward runs in its save-residuals mode and also writes the
+L bf16 h tiles (one after coord_linear, one after each hidden layer); the
+backward (K8, csrc/decoder_pose.cu) consumes them, returns the weight
+gradients, dhz, and the pose cotangents reduced to three (B, F) vectors,
+which pose_closure turns into dtheta and d(dx). _PoseDecoder joins the two
+as one autograd Function; the Fourier w and b get no gradient.
 """
 
 from __future__ import annotations
@@ -32,6 +39,16 @@ def _act(h: torch.Tensor, kind: str) -> torch.Tensor:
     if kind == "tanh":
         return torch.tanh(h)
     return torch.where(h >= 0, h, LEAKY_SLOPE * h)
+
+
+def _dact_from_h(h: torch.Tensor, kind: str) -> torch.Tensor:
+    """The activation's derivative recovered from its (bf16) value h
+    (targetvae_tpu/kernels/decoder_mlp.py): leaky keeps the sign of its
+    input, tanh' = 1 - h^2."""
+    h = h.float()
+    if kind == "tanh":
+        return 1.0 - h * h
+    return torch.where(h >= 0, 1.0, LEAKY_SLOPE)
 
 
 def bf16_round(x: torch.Tensor) -> torch.Tensor:
@@ -57,41 +74,54 @@ def pose_freqs(theta, dx, wf_over_sigma, bf):
     return w0, w1, cvec
 
 
+def _pixel_grid(n: int, device):
+    """The pixel coordinates gx = linspace(-1, 1), gy = linspace(1, -1), (n,)
+    each, that the forward's tables and the backward's pose sums share."""
+    return (torch.linspace(-1.0, 1.0, n, device=device),
+            torch.linspace(1.0, -1.0, n, device=device))
+
+
 def pose_tables(theta, dx, wf_over_sigma, bf, image_dim: int):
-    """U, V, P, Q (B, n, F) float32; gx = linspace(-1, 1), gy = linspace(1, -1)."""
-    n = image_dim
+    """U, V, P, Q (B, n, F) float32 over the pixel grid of _pixel_grid."""
     w0, w1, cvec = pose_freqs(theta, dx, wf_over_sigma, bf)
-    gx = torch.linspace(-1.0, 1.0, n, device=theta.device)
-    gy = torch.linspace(1.0, -1.0, n, device=theta.device)
+    gx, gy = _pixel_grid(image_dim, theta.device)
     ax = gx[None, :, None] * w0[:, None, :]
     ay = gy[None, :, None] * w1[:, None, :] + cvec[:, None, :]
     return torch.cos(ax), torch.sin(ax), torch.cos(ay), torch.sin(ay)
 
 
 def pose_decoder_plain(u, v, p, q, hz, w1, b1, wh, bh, w3, b3, *,
-                       act_kind: str = "leakyrelu") -> torch.Tensor:
+                       act_kind: str = "leakyrelu", save_res: bool = False):
     """Plain PyTorch version (materialises the (B, n*n, F) features).
-    wh (L-1, H, H), bh (L-1, H). Returns (B, n*n, n_out) float32."""
+    wh (L-1, H, H), bh (L-1, H). Returns (B, n*n, n_out) float32, and with
+    save_res also the bf16 h tiles (L, B, n*n, H)."""
     b, n, f = u.shape
     feat = (u[:, None] * p[:, :, None] - v[:, None] * q[:, :, None])
     feat = bf16_round(feat.reshape(b, n * n, f))
     h = bf16_round(_act(feat @ bf16_round(w1.float()) + b1.float()
                         + hz.float()[:, None, :], act_kind))
+    hs = [h]
     for l in range(wh.shape[0]):
         h = bf16_round(_act(h @ bf16_round(wh[l].float()) + bh[l].float(),
                             act_kind))
-    return h @ bf16_round(w3.float()) + b3.float()
+        hs.append(h)
+    y = h @ bf16_round(w3.float()) + b3.float()
+    if save_res:
+        return y, torch.stack(hs).to(torch.bfloat16)
+    return y
 
 
 def fused_pose_decoder_tables(u, v, p, q, hz, w1, b1, wh, bh, w3, b3, *,
-                              act_kind: str = "leakyrelu") -> torch.Tensor:
+                              act_kind: str = "leakyrelu",
+                              save_res: bool = False):
     """u, v, p, q (B, n, F) f32; hz (B, H) f32; w1 (F, H); b1 (H,);
     wh (L-1, H, H); bh (L-1, H); w3 (H, n_out); b3 (n_out,).
-    Returns (B, n*n, n_out) float32. A CPU u takes the plain version; a CUDA
-    one launches csrc/decoder_pose.cu."""
+    Returns (B, n*n, n_out) float32; with save_res (training) also the bf16
+    h tiles (L, B, n*n, H) that the backward consumes. A CPU u takes the
+    plain version; a CUDA one launches csrc/decoder_pose.cu."""
     if u.device.type == "cpu":
         return pose_decoder_plain(u, v, p, q, hz, w1, b1, wh, bh, w3, b3,
-                                  act_kind=act_kind)
+                                  act_kind=act_kind, save_res=save_res)
     b, n, f = u.shape
     hdim = w1.shape[1]
     n_hidden = wh.shape[0]
@@ -113,30 +143,178 @@ def fused_pose_decoder_tables(u, v, p, q, hz, w1, b1, wh, bh, w3, b3, *,
         if tuple(t.shape) != shape:
             raise ValueError(f"expected {shape}, got {tuple(t.shape)}")
     y = torch.empty((b, n * n, n_out), dtype=f32, device=u.device)
+    hs = (torch.empty((n_hidden + 1, b, n * n, hdim), dtype=bf, device=u.device)
+          if save_res else None)
     if b:
         _build.launch("tvae_pose_decoder_fwd", *(t.data_ptr() for t in args),
-                      y.data_ptr(), b, n, f, hdim, n_hidden + 1, n_out,
-                      ACT_CODES[act_kind],
+                      y.data_ptr(), None if hs is None else hs.data_ptr(),
+                      b, n, f, hdim, n_hidden + 1, n_out, ACT_CODES[act_kind],
                       torch.cuda.current_stream(u.device).cuda_stream)
         fused_pose_decoder_tables.launches += 1
-    return y
+    return (y, hs) if save_res else y
 
 
 fused_pose_decoder_tables.launches = 0
+
+
+def pose_decoder_bwd_plain(u, v, p, q, hs, w1, wh, w3, g, *,
+                           act_kind: str = "leakyrelu"):
+    """Plain PyTorch version of the backward, with the kernel's rounding
+    points. hs (L, B, n*n, H) bf16 from the forward; g (B, n*n, n_out).
+    Returns dfx, dfy, dfc (B, F), dhz (B, H), dw1 (F, H), db1 (H,),
+    dwh (L-1, H, H), dbh (L-1, H), dw3 (H, n_out), db3 (n_out,)."""
+    b, n, f = u.shape
+    L = hs.shape[0]
+    hsf = hs.float()
+    g = g.float()
+    g16 = bf16_round(g)
+    db3 = g.sum((0, 1))
+    dw3 = torch.einsum("bph,bpc->hc", hsf[L - 1], g16)
+    dh = g16 @ bf16_round(w3.float()).T
+    dwh, dbh = [None] * (L - 1), [None] * (L - 1)
+    for l in range(L - 1, 0, -1):
+        dpre = dh * _dact_from_h(hsf[l], act_kind)
+        dpre16 = bf16_round(dpre)
+        dwh[l - 1] = torch.einsum("bph,bpk->hk", hsf[l - 1], dpre16)
+        dbh[l - 1] = dpre.sum((0, 1))
+        dh = dpre16 @ bf16_round(wh[l - 1].float()).T
+    dpre1 = dh * _dact_from_h(hsf[0], act_kind)
+    dpre1_16 = bf16_round(dpre1)
+    dhz = dpre1.sum(1)
+    db1 = dhz.sum(0)
+    feat = bf16_round((u[:, None] * p[:, :, None]
+                       - v[:, None] * q[:, :, None]).reshape(b, n * n, f))
+    dw1 = torch.einsum("bpf,bph->fh", feat, dpre1_16)
+    del feat
+    s = (v[:, None] * p[:, :, None] + u[:, None] * q[:, :, None]).reshape(
+        b, n * n, f)
+    t = (dpre1_16 @ bf16_round(w1.float()).T) * s
+    del s
+    gx, gy = _pixel_grid(n, u.device)
+    wx = gx.repeat(n)[None, :, None]                # pixel i*n + j -> gx[j]
+    wy = gy.repeat_interleave(n)[None, :, None]     # -> gy[i]
+    return (-(t * wx).sum(1), -(t * wy).sum(1), -t.sum(1), dhz, dw1, db1,
+            torch.stack(dwh), torch.stack(dbh), dw3, db3)
+
+
+def _splits(m: int, n: int) -> int:
+    """Pixel splits of K8's split-K weight-gradient product of an (m, n)
+    output: about 1,024 blocks in all, at most 64 splits. Its output tiles
+    are 64 x 128, or 64 x 64 where n is no multiple of 128."""
+    tiles = (m // 64) * (n // (128 if n % 128 == 0 else 64))
+    return max(1, min(64, 1024 // tiles))
+
+
+def pose_decoder_bwd(u, v, p, q, hs, w1, wh, w3, g, *,
+                     act_kind: str = "leakyrelu"):
+    """The backward of fused_pose_decoder_tables (K8), with the outputs of
+    pose_decoder_bwd_plain. A CPU u takes the plain version; a CUDA one
+    launches csrc/decoder_pose.cu (its passes run on the current stream)."""
+    if u.device.type == "cpu":
+        return pose_decoder_bwd_plain(u, v, p, q, hs, w1, wh, w3, g,
+                                      act_kind=act_kind)
+    b, n, f = u.shape
+    L, _, npx, hdim = hs.shape
+    n_out = w3.shape[1]
+    if (hdim not in (64, 128, 256, 512) or f % 64 or n_out > 8 or L < 2
+            or npx != n * n or n > 115):
+        raise ValueError(f"pose decoder backward kernel needs hidden in (64, "
+                         f"128, 256, 512), F % 64 == 0, n_out <= 8, >= 2 "
+                         f"layers and image_dim <= 115, got hidden={hdim} "
+                         f"F={f} n_out={n_out} layers={L} image_dim={n}")
+    bf, f32 = torch.bfloat16, torch.float32
+    c = lambda t, dt: t.to(dt).contiguous()
+    gx, gy = _pixel_grid(n, u.device)
+    args = (c(u, f32), c(v, f32), c(p, f32), c(q, f32), c(w1, bf), c(wh, bf),
+            c(w3, bf), c(g, f32), c(hs, bf), gx, gy)
+    _build.check_cuda(*args, dtypes=(f32,) * 4 + (bf,) * 3 + (f32, bf, f32, f32))
+    for t, shape in ((args[1], (b, n, f)), (args[2], (b, n, f)),
+                     (args[3], (b, n, f)), (args[4], (f, hdim)),
+                     (args[5], (L - 1, hdim, hdim)), (args[6], (hdim, n_out)),
+                     (args[7], (b, npx, n_out))):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"expected {shape}, got {tuple(t.shape)}")
+    dev = u.device
+    x = L * hdim + hdim * n_out + n_out
+    ntiles = -(-npx // 32)
+    s1, s2 = _splits(f, hdim), _splits(hdim, hdim)
+    e = lambda *shape, dt=f32: torch.empty(shape, dtype=dt, device=dev)
+    dP = e(L, b, npx, hdim, dt=bf)
+    part, cols_img, cols = e(b * ntiles, x), e(b, x), e(x)
+    gpart = e(max(s1 * f * hdim, s2 * hdim * hdim))
+    dfx, dfy, dfc = e(b, f), e(b, f), e(b, f)
+    dw1, dwh = e(f, hdim), e(L - 1, hdim, hdim)
+    if b:
+        _build.launch("tvae_pose_decoder_bwd", *(t.data_ptr() for t in args),
+                      *(t.data_ptr() for t in (dP, part, cols_img, cols, gpart,
+                                               dfx, dfy, dfc, dw1, dwh)),
+                      b, n, f, hdim, L, n_out, s1, s2, ACT_CODES[act_kind],
+                      torch.cuda.current_stream(dev).cuda_stream)
+        pose_decoder_bwd.launches += 1
+    h = hdim
+    return (dfx, dfy, dfc, cols_img[:, :h], dw1, cols[:h], dwh,
+            cols[h:L * h].reshape(L - 1, h),
+            cols[L * h:L * h + h * n_out].reshape(h, n_out),
+            cols[L * h + h * n_out:])
+
+
+pose_decoder_bwd.launches = 0
+
+
+def pose_closure(theta, dx, wf_over_sigma, bf, dfx, dfy, dfc):
+    """dtheta (B,) and d(dx) (B, 2) from the backward's frequency cotangents
+    (targetvae_tpu/kernels/decoder_pose.py::_vjp_bwd), O(B*F) work."""
+    a0, a1, _ = pose_freqs(theta, dx, wf_over_sigma, bf)
+    ddx = -torch.stack([(dfc * a0).sum(1), (dfc * a1).sum(1)], dim=1)
+    a0_tot = dfx - dfc * dx[:, 0:1]
+    a1_tot = dfy - dfc * dx[:, 1:2]
+    return (a0_tot * a1 - a1_tot * a0).sum(1), ddx
+
+
+class _PoseDecoder(torch.autograd.Function):
+    """K7 in its save-residuals mode, with K8 and pose_closure as its
+    backward. Gradients for theta, dx, hz and every weight; none for the
+    Fourier w and b."""
+
+    @staticmethod
+    def forward(ctx, theta, dx, wf, bf, hz, w1, b1, wh, bh, w3, b3,
+                image_dim, act_kind):
+        u, v, p, q = pose_tables(theta, dx, wf, bf, image_dim)
+        y, hs = fused_pose_decoder_tables(u, v, p, q, hz, w1, b1, wh, bh, w3,
+                                          b3, act_kind=act_kind, save_res=True)
+        ctx.save_for_backward(theta, dx, wf, bf, u, v, p, q, hs, w1, wh, w3)
+        ctx.act_kind = act_kind
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        theta, dx, wf, bf, u, v, p, q, hs, w1, wh, w3 = ctx.saved_tensors
+        (dfx, dfy, dfc, dhz, dw1, db1, dwh, dbh, dw3, db3) = pose_decoder_bwd(
+            u, v, p, q, hs, w1, wh, w3, g, act_kind=ctx.act_kind)
+        dtheta, ddx = pose_closure(theta, dx, wf, bf, dfx, dfy, dfc)
+        return (dtheta, ddx, None, None, dhz, dw1, db1, dwh, dbh, dw3, db3,
+                None, None)
 
 
 def fused_pose_decoder(theta, dx, z, params: dict, cfg,
                        image_dim: int) -> torch.Tensor:
     """(theta (B,), dx (B, 2), z (B, zd)) -> (B, image_dim^2, n_out); equal to
     generator_apply(params, cfg, transform_coords(grid, dx, theta), z) up to
-    the bf16 rounding of the matmul operands."""
+    the bf16 rounding of the matmul operands. Differentiable in theta, dx, z
+    and every weight but the Fourier buffers."""
     wf = params["fourier"]["w"].detach() / cfg.fourier_sigma
     bf = params["fourier"]["b"].detach()
-    u, v, p, q = pose_tables(theta, dx, wf, bf, image_dim)
     hz = z @ params["latent_linear"]["w"]
     hidden = params["hidden"]
     wh = torch.stack([h["w"] for h in hidden])
     bh = torch.stack([h["b"] for h in hidden])
-    return fused_pose_decoder_tables(
-        u, v, p, q, hz, params["coord_linear"]["w"], params["coord_linear"]["b"],
-        wh, bh, params["out"]["w"], params["out"]["b"], act_kind=cfg.activation)
+    w1, b1 = params["coord_linear"]["w"], params["coord_linear"]["b"]
+    w3, b3 = params["out"]["w"], params["out"]["b"]
+    # only training pays for the saved h tiles: serving runs K7 alone
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (theta, dx, hz, w1, b1, wh, bh, w3, b3)):
+        return _PoseDecoder.apply(theta, dx, wf, bf, hz, w1, b1, wh, bh, w3,
+                                  b3, image_dim, cfg.activation)
+    u, v, p, q = pose_tables(theta, dx, wf, bf, image_dim)
+    return fused_pose_decoder_tables(u, v, p, q, hz, w1, b1, wh, bh, w3, b3,
+                                     act_kind=cfg.activation)

@@ -1,8 +1,8 @@
-"""Fused lift-activation + mixing + heads, forward (K1).
+"""Fused lift-activation + mixing + heads: forward (K1) and backward (K2).
 
 Port of targetvae_tpu/kernels/mix_heads.py::fused_lift_act_mix_heads (its
-`_fwd` with lift=True). Per position, with pre1 the raw lift-conv output and
-one W2 shared by every rotation r:
+`_fwd` and `_bwd` with lift=True). Per position, with pre1 the raw lift-conv
+output and one W2 shared by every rotation r:
 
     h1_r  = bf16(act(pre1_r + bc_r))
     h2_r  = bf16(act(h1_r @ bf16(W2) + b2))        (f32 accumulation)
@@ -10,8 +10,12 @@ one W2 shared by every rotation r:
 
 pre1 is (N, R*K) bf16 with r-major channels (index r*K + o), the row order of
 positions is free; out is (N, R*D) float32 with D = 3 + 2*z_dim heads per
-rotation. The kernel is csrc/mix_heads.cu; the plain version below rounds at
-the same points (cast to bf16, back to f32, then an f32 matmul).
+rotation. The kernels are csrc/mix_heads.cu; the plain versions below round
+at the same points (cast to bf16, back to f32, then an f32 matmul).
+
+The backward saves nothing but the inputs: it recomputes h1 and h2 and
+returns the bf16 cotangent dpre1 of the lift conv plus dbc, dW2, db2, dWh,
+dbh in float32. _LiftActMixHeads joins the two as one autograd Function.
 """
 
 from __future__ import annotations
@@ -19,7 +23,11 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .decoder_pose import ACT_CODES, _act, bf16_round
+from .decoder_pose import ACT_CODES, _act, _dact_from_h, bf16_round
+
+# the backward's grid, fixed so that its sums always run in one order: two
+# waves of one block (129 KB of shared memory) on each of the H100's 132 SMs
+_BWD_BLOCKS = 264
 
 
 def lift_act_mix_heads_plain(pre1, bc, w2, b2, wh, bh, *, R: int, K: int,
@@ -33,8 +41,8 @@ def lift_act_mix_heads_plain(pre1, bc, w2, b2, wh, bh, *, R: int, K: int,
     return out.reshape(n, -1)
 
 
-def fused_lift_act_mix_heads(pre1, bc, w2, b2, wh, bh, *, R: int, K: int,
-                             act_kind: str = "leakyrelu") -> torch.Tensor:
+def mix_heads_fwd(pre1, bc, w2, b2, wh, bh, *, R: int, K: int,
+                  act_kind: str = "leakyrelu") -> torch.Tensor:
     """pre1 (N, R*K) bf16; bc (R*K,); w2 (K, K); b2 (K,); wh (K, D); bh (D,).
     Returns (N, R*D) float32. A CPU pre1 takes the plain version; a CUDA one
     launches csrc/mix_heads.cu."""
@@ -62,8 +70,103 @@ def fused_lift_act_mix_heads(pre1, bc, w2, b2, wh, bh, *, R: int, K: int,
                       *(t.data_ptr() for t in args), out.data_ptr(),
                       n, R, K, d, ACT_CODES[act_kind],
                       torch.cuda.current_stream(pre1.device).cuda_stream)
-        fused_lift_act_mix_heads.launches += 1
+        mix_heads_fwd.launches += 1
     return out
 
 
-fused_lift_act_mix_heads.launches = 0
+mix_heads_fwd.launches = 0
+
+
+def lift_act_mix_heads_bwd_plain(pre1, bc, w2, b2, wh, g, *, R: int, K: int,
+                                 act_kind: str = "leakyrelu"):
+    """Plain PyTorch version of the backward, with the kernel's rounding
+    points. g (N, R*D) float32. Returns dpre1 (N, R*K) bf16 and dbc (R*K,),
+    dw2 (K, K), db2 (K,), dwh (K, D), dbh (D,) float32."""
+    n = pre1.shape[0]
+    d = wh.shape[1]
+    h1 = bf16_round(_act(pre1.float() + bc.float(), act_kind)).reshape(n, R, K)
+    w2r = bf16_round(w2.float())
+    h2 = bf16_round(_act(h1 @ w2r + b2.float(), act_kind))
+    g3 = g.float().reshape(n, R, d)
+    g16 = bf16_round(g3)
+    dwh = torch.einsum("nrk,nrd->kd", h2, g16)
+    dbh = g3.sum((0, 1))
+    dpre2 = (g16 @ bf16_round(wh.float()).T) * _dact_from_h(h2, act_kind)
+    dpre2_16 = bf16_round(dpre2)
+    dw2 = torch.einsum("nrk,nrj->kj", h1, dpre2_16)
+    db2 = dpre2.sum((0, 1))
+    dpre1 = (dpre2_16 @ w2r.T) * _dact_from_h(h1, act_kind)
+    return (dpre1.reshape(n, R * K).to(torch.bfloat16),
+            dpre1.sum(0).reshape(R * K), dw2, db2, dwh, dbh)
+
+
+def mix_heads_bwd(pre1, bc, w2, b2, wh, g, *, R: int, K: int,
+                  act_kind: str = "leakyrelu"):
+    """The backward of mix_heads_fwd (K2), with the outputs of
+    lift_act_mix_heads_bwd_plain. A CPU pre1 takes the plain version; a CUDA
+    one launches csrc/mix_heads.cu (the kernel, then the in-order sum of its
+    per-block partials)."""
+    if pre1.device.type == "cpu":
+        return lift_act_mix_heads_bwd_plain(pre1, bc, w2, b2, wh, g, R=R, K=K,
+                                            act_kind=act_kind)
+    n, rk = pre1.shape
+    d = wh.shape[1]
+    if rk != R * K or tuple(w2.shape) != (K, K) or wh.shape[0] != K:
+        raise ValueError(f"shape mismatch: pre1 {tuple(pre1.shape)}, w2 "
+                         f"{tuple(w2.shape)}, wh {tuple(wh.shape)}, R={R} K={K}")
+    if K not in (16, 32, 64, 128) or d > 16:
+        raise ValueError(f"mix_heads backward kernel needs K in (16, 32, 64, "
+                         f"128) and D <= 16, got K={K} D={d}")
+    if pre1.data_ptr() % 16:
+        raise ValueError("mix_heads kernel needs pre1 16-byte aligned")
+    bf, f32 = torch.bfloat16, torch.float32
+    args = (pre1, bc.to(f32).contiguous(), w2.to(bf).contiguous(),
+            b2.to(f32).contiguous(), wh.to(bf).contiguous(),
+            g.to(f32).contiguous())
+    _build.check_cuda(*args, dtypes=(bf, f32, bf, f32, bf, f32))
+    if tuple(args[5].shape) != (n, R * d):
+        raise ValueError(f"g: expected {(n, R * d)}, got {tuple(g.shape)}")
+    sizes = (K * K, K * d, K, d, R * K)
+    sp = -(-sum(sizes) // 64) * 64
+    blocks = min(-(-n // 64), _BWD_BLOCKS)
+    dpre1 = torch.empty_like(pre1)
+    out = torch.zeros((sp,), dtype=f32, device=pre1.device)
+    if n:
+        part = torch.empty((blocks, sp), dtype=f32, device=pre1.device)
+        _build.launch("tvae_mix_heads_bwd", *(t.data_ptr() for t in args),
+                      dpre1.data_ptr(), part.data_ptr(), out.data_ptr(),
+                      n, R, K, d, blocks, sp, ACT_CODES[act_kind],
+                      torch.cuda.current_stream(pre1.device).cuda_stream)
+        mix_heads_bwd.launches += 1
+    dw2, dwh, db2, dbh, dbc = out[:sum(sizes)].split(sizes)
+    return dpre1, dbc, dw2.reshape(K, K), db2, dwh.reshape(K, d), dbh
+
+
+mix_heads_bwd.launches = 0
+
+
+class _LiftActMixHeads(torch.autograd.Function):
+    """K1 forward, K2 backward; keeps only the inputs."""
+
+    @staticmethod
+    def forward(ctx, pre1, bc, w2, b2, wh, bh, R, K, act_kind):
+        ctx.save_for_backward(pre1, bc, w2, b2, wh)
+        ctx.cfg = (R, K, act_kind)
+        return mix_heads_fwd(pre1, bc, w2, b2, wh, bh, R=R, K=K,
+                             act_kind=act_kind)
+
+    @staticmethod
+    def backward(ctx, g):
+        pre1, bc, w2, b2, wh = ctx.saved_tensors
+        R, K, act_kind = ctx.cfg
+        grads = mix_heads_bwd(pre1, bc, w2, b2, wh, g.contiguous(), R=R, K=K,
+                              act_kind=act_kind)
+        return (*grads, None, None, None)
+
+
+def fused_lift_act_mix_heads(pre1, bc, w2, b2, wh, bh, *, R: int, K: int,
+                             act_kind: str = "leakyrelu") -> torch.Tensor:
+    """mix_heads_fwd, differentiable in pre1, bc and all weights through K2.
+    It keeps only references to its inputs, so the serving path (no
+    gradient) pays nothing for the Function."""
+    return _LiftActMixHeads.apply(pre1, bc, w2, b2, wh, bh, R, K, act_kind)

@@ -1,7 +1,9 @@
-"""Fused joint posterior, forward (K3): softmax + Gumbel sample + moments + KL.
+"""Fused joint posterior (K3 forward, K4 backward): softmax + Gumbel sample +
+moments + KL.
 
-Port of targetvae_tpu/kernels/posterior.py::fused_posterior (the forward of
-its `_call`). For each image, over its (R, M) cell planes, in float32:
+Port of targetvae_tpu/kernels/posterior.py::fused_posterior (its `_call`,
+forward and backward). For each image, over its (R, M) cell planes, in
+float32:
 
   q        = log_softmax(attn)                       (joint posterior)
   a        = softmax(attn + Gumbel noise), or e^q when deterministic
@@ -11,12 +13,17 @@ its `_call`). For each image, over its (R, M) cell planes, in float32:
            + sum e^q (KL(q(theta|t,r) || N(offset_r, sig_r))
                       + sum_d KL(q(z_d|t,r) || N(0,1)))     [guarded where e^q == 0]
 
-Only per-image scalars leave the kernel (csrc/posterior.cu). Its Gumbel noise
-comes from an in-kernel Philox4x32-10 keyed by seed + image index, so a row
-does not depend on how the batch is split: the rows of images i0.. of a batch
-equal a call on that slice with seed + i0. It cannot reproduce the TPU's
-bits; the plain version draws its noise from a torch.Generator seeded the
-same way per image, so the sampled modes agree in distribution only.
+Only per-image scalars leave the kernel (csrc/posterior.cu), packed as
+(B, 2*zd + 5). Its Gumbel noise comes from an in-kernel Philox4x32-10 keyed
+by seed + image index, so a row does not depend on how the batch is split:
+the rows of images i0.. of a batch equal a call on that slice with seed + i0.
+It cannot reproduce the TPU's bits; the plain version draws its noise from a
+torch.Generator seeded the same way per image, so the sampled modes agree in
+distribution only.
+
+The backward (K4) recomputes the forward, noise included, from the seed the
+forward was given: _Posterior saves the seed, not the noise, and returns the
+packed output so that its cotangent arrives packed.
 """
 
 from __future__ import annotations
@@ -42,23 +49,14 @@ def _unpack(out: torch.Tensor, zd: int) -> dict:
     }
 
 
-def posterior_plain(attn, theta_mu, theta_logstd, z_mu, z_logstd, p_tr, grid,
-                    offsets, sig_r: float,
-                    noise: Optional[torch.Tensor] = None) -> dict:
-    """Plain PyTorch version. noise: (B, R, M) Gumbel noise for the sample,
-    or None for the deterministic a = e^q."""
-    b = attn.shape[0]
-    flat = attn.reshape(b, -1)
-    q = torch.log_softmax(flat, dim=1).reshape(attn.shape)
-    eq = torch.softmax(flat, dim=1).reshape(attn.shape)
-    if noise is None:
-        a = eq
-    else:
-        a = torch.softmax((attn + noise).reshape(b, -1), dim=1).reshape(attn.shape)
-    a_locs = a.sum(dim=1)                                        # (B, M)
-    dx = a_locs @ grid
-    th_std = torch.exp(theta_logstd) + _EPS
-    z_std = torch.exp(z_logstd) + _EPS
+def _pack(d: dict) -> torch.Tensor:
+    return torch.cat([d["z_mu_e"], d["z_std_e"], d["theta_mu_e"][:, None],
+                      d["theta_std_e"][:, None], d["dx"], d["kl"][:, None]],
+                     dim=1)
+
+
+def _kl_terms(eq, theta_mu, th_std, z_mu, z_std, offsets, sig_r):
+    """The guarded per-cell KLs of theta (B, R, M) and of z summed over d."""
     dead = eq == 0.0
     offs = offsets.reshape(1, -1, 1)
     tq_mu = torch.where(dead, 0.0, theta_mu)
@@ -70,6 +68,30 @@ def posterior_plain(attn, theta_mu, theta_logstd, z_mu, z_logstd, p_tr, grid,
     zq_std = torch.where(dead[:, None], 1.0, z_std)
     kl_z = (-torch.log(zq_std) + 0.5 * (zq_std * zq_std + zq_mu * zq_mu)
             - 0.5).sum(dim=1)
+    return kl_th, kl_z
+
+
+def _posterior_core(attn, noise):
+    b = attn.shape[0]
+    flat = attn.reshape(b, -1)
+    q = torch.log_softmax(flat, dim=1).reshape(attn.shape)
+    eq = torch.softmax(flat, dim=1).reshape(attn.shape)
+    if noise is None:
+        return q, eq, eq
+    a = torch.softmax((attn + noise).reshape(b, -1), dim=1).reshape(attn.shape)
+    return q, eq, a
+
+
+def posterior_plain(attn, theta_mu, theta_logstd, z_mu, z_logstd, p_tr, grid,
+                    offsets, sig_r: float,
+                    noise: Optional[torch.Tensor] = None) -> dict:
+    """Plain PyTorch version. noise: (B, R, M) Gumbel noise for the sample,
+    or None for the deterministic a = e^q."""
+    q, eq, a = _posterior_core(attn, noise)
+    dx = a.sum(dim=1) @ grid                                     # (B, 2)
+    th_std = torch.exp(theta_logstd) + _EPS
+    z_std = torch.exp(z_logstd) + _EPS
+    kl_th, kl_z = _kl_terms(eq, theta_mu, th_std, z_mu, z_std, offsets, sig_r)
     kl = ((eq * (q - p_tr)).sum(dim=(1, 2))
           + (eq * (kl_th + kl_z)).sum(dim=(1, 2)))
     return {
@@ -90,21 +112,8 @@ def per_image_gumbel(seed: int, shape, device=None) -> torch.Tensor:
         for i in range(b)]).to(device)
 
 
-def fused_posterior(seed: int, attn, theta_mu, theta_logstd, z_mu, z_logstd,
-                    p_tr, grid, offsets, sig_r: float, *,
-                    deterministic: bool = False) -> dict:
-    """attn (B, R, M) logits incl. log p(r); theta_* (B, R, M) (mu incl.
-    offsets); z_* (B, zd, R, M); p_tr (R, M) log p(t, r); grid (M, 2);
-    offsets (R,); sig_r the conditional prior std; seed an int.
-
-    Returns z_mu_e/z_std_e (B, zd), theta_mu_e/theta_std_e (B,), dx (B, 2),
-    kl (B,). A CPU attn takes the plain version; a CUDA one launches
-    csrc/posterior.cu."""
-    if attn.device.type == "cpu":
-        noise = (None if deterministic
-                 else per_image_gumbel(seed, attn.shape, attn.device))
-        return posterior_plain(attn, theta_mu, theta_logstd, z_mu, z_logstd,
-                               p_tr, grid, offsets, sig_r, noise=noise)
+def _cuda_args(attn, theta_mu, theta_logstd, z_mu, z_logstd, p_tr, grid,
+               offsets):
     b, r, m = attn.shape
     zd = z_mu.shape[1]
     if zd > 8:
@@ -122,14 +131,142 @@ def fused_posterior(seed: int, attn, theta_mu, theta_logstd, z_mu, z_logstd,
                            ("offsets", args[8], (r,))):
         if tuple(t.shape) != shape:
             raise ValueError(f"{name}: expected {shape}, got {tuple(t.shape)}")
-    out = torch.empty((b, 2 * zd + 5), dtype=f32, device=attn.device)
+    return args
+
+
+def posterior_fwd(seed: int, attn, theta_mu, theta_logstd, z_mu, z_logstd,
+                  p_tr, grid, offsets, sig_r: float, *,
+                  deterministic: bool = False) -> torch.Tensor:
+    """The packed forward (B, 2*zd + 5): [z_mu_e, z_std_e, theta_mu_e,
+    theta_std_e, dx, kl]. A CPU attn takes the plain version; a CUDA one
+    launches csrc/posterior.cu."""
+    if attn.device.type == "cpu":
+        noise = (None if deterministic
+                 else per_image_gumbel(seed, attn.shape, attn.device))
+        return _pack(posterior_plain(attn, theta_mu, theta_logstd, z_mu,
+                                     z_logstd, p_tr, grid, offsets, sig_r,
+                                     noise=noise))
+    args = _cuda_args(attn, theta_mu, theta_logstd, z_mu, z_logstd, p_tr,
+                      grid, offsets)
+    b, r, m = attn.shape
+    zd = z_mu.shape[1]
+    out = torch.empty((b, 2 * zd + 5), dtype=torch.float32, device=attn.device)
     if b:
         _build.launch("tvae_posterior_fwd", *(t.data_ptr() for t in args),
                       out.data_ptr(), b, r, m, zd, float(sig_r),
                       int(deterministic), int(seed) & 0x7FFFFFFF,
                       torch.cuda.current_stream(attn.device).cuda_stream)
-        fused_posterior.launches += 1
-    return _unpack(out, zd)
+        posterior_fwd.launches += 1
+    return out
 
 
-fused_posterior.launches = 0
+posterior_fwd.launches = 0
+
+
+def posterior_bwd_plain(g, attn, theta_mu, theta_logstd, z_mu, z_logstd,
+                        p_tr, grid, offsets, sig_r: float,
+                        noise: Optional[torch.Tensor] = None):
+    """Plain PyTorch version of the backward (the hand-derived VJP of
+    targetvae_tpu/kernels/posterior.py::_bwd_one). g (B, 2*zd + 5) is the
+    packed cotangent. Returns dattn, dtheta_mu, dtheta_logstd (B, R, M) and
+    dz_mu, dz_logstd (B, zd, R, M)."""
+    zd = z_mu.shape[1]
+    q, eq, a = _posterior_core(attn, noise)
+    th_std = torch.exp(theta_logstd) + _EPS
+    z_std = torch.exp(z_logstd) + _EPS
+    col = lambda i: g[:, i, None, None]                          # (B, 1, 1)
+    g_zmu, g_zstd = g[:, :zd, None, None], g[:, zd:2 * zd, None, None]
+    g_thmu, g_thstd, g_kl = col(2 * zd), col(2 * zd + 1), col(2 * zd + 4)
+    d_a = (g_thmu * theta_mu + g_thstd * th_std
+           + (col(2 * zd + 2) * grid[:, 0] + col(2 * zd + 3) * grid[:, 1])
+           + (g_zmu * z_mu + g_zstd * z_std).sum(dim=1))
+    kl_th, kl_z = _kl_terms(eq, theta_mu, th_std, z_mu, z_std, offsets, sig_r)
+    d_q = g_kl * eq * ((q - p_tr) + 1.0 + (kl_th + kl_z))
+    scale = g_kl * eq
+    live = eq != 0.0
+    s2 = sig_r * sig_r
+    offs = offsets.reshape(1, -1, 1)
+    d_thmu = g_thmu * a + torch.where(live, scale * (theta_mu - offs) / s2, 0.0)
+    d_thstd = g_thstd * a + torch.where(
+        live, scale * (th_std / s2 - 1.0 / th_std), 0.0)
+    d_zm = g_zmu * a[:, None] + torch.where(live[:, None],
+                                            scale[:, None] * z_mu, 0.0)
+    d_zs = g_zstd * a[:, None] + torch.where(
+        live[:, None], scale[:, None] * (z_std - 1.0 / z_std), 0.0)
+    d_attn = (a * (d_a - (d_a * a).sum(dim=(1, 2), keepdim=True))
+              + d_q - eq * d_q.sum(dim=(1, 2), keepdim=True))
+    return (d_attn, d_thmu, d_thstd * (th_std - _EPS), d_zm,
+            d_zs * (z_std - _EPS))
+
+
+def posterior_bwd(seed: int, g, attn, theta_mu, theta_logstd, z_mu, z_logstd,
+                  p_tr, grid, offsets, sig_r: float, *,
+                  deterministic: bool = False):
+    """The backward of posterior_fwd (K4) at the same seed, with the outputs
+    of posterior_bwd_plain. A CPU attn takes the plain version (its noise
+    regenerated by per_image_gumbel from the seed); a CUDA one launches
+    csrc/posterior.cu, which regenerates the forward's Philox bits."""
+    if attn.device.type == "cpu":
+        noise = (None if deterministic
+                 else per_image_gumbel(seed, attn.shape, attn.device))
+        return posterior_bwd_plain(g, attn, theta_mu, theta_logstd, z_mu,
+                                   z_logstd, p_tr, grid, offsets, sig_r,
+                                   noise=noise)
+    args = _cuda_args(attn, theta_mu, theta_logstd, z_mu, z_logstd, p_tr,
+                      grid, offsets)
+    b, r, m = attn.shape
+    zd = z_mu.shape[1]
+    g = g.to(torch.float32).contiguous()
+    _build.check_cuda(args[0], g, dtypes=(torch.float32,) * 2)
+    if tuple(g.shape) != (b, 2 * zd + 5):
+        raise ValueError(f"g: expected {(b, 2 * zd + 5)}, got {tuple(g.shape)}")
+    grads = tuple(torch.empty_like(t) for t in args[:5])
+    if b:
+        _build.launch("tvae_posterior_bwd", *(t.data_ptr() for t in args),
+                      g.data_ptr(), *(t.data_ptr() for t in grads),
+                      b, r, m, zd, float(sig_r), int(deterministic),
+                      int(seed) & 0x7FFFFFFF,
+                      torch.cuda.current_stream(attn.device).cuda_stream)
+        posterior_bwd.launches += 1
+    return grads
+
+
+posterior_bwd.launches = 0
+
+
+class _Posterior(torch.autograd.Function):
+    """K3 forward, K4 backward at the saved seed. Gradients for attn and the
+    theta and z planes; p_tr, grid and offsets are constants."""
+
+    @staticmethod
+    def forward(ctx, attn, theta_mu, theta_logstd, z_mu, z_logstd, p_tr, grid,
+                offsets, sig_r, seed, deterministic):
+        ctx.save_for_backward(attn, theta_mu, theta_logstd, z_mu, z_logstd,
+                              p_tr, grid, offsets)
+        ctx.cfg = (sig_r, seed, deterministic)
+        return posterior_fwd(seed, attn, theta_mu, theta_logstd, z_mu,
+                             z_logstd, p_tr, grid, offsets, sig_r,
+                             deterministic=deterministic)
+
+    @staticmethod
+    def backward(ctx, g):
+        sig_r, seed, deterministic = ctx.cfg
+        grads = posterior_bwd(seed, g, *ctx.saved_tensors, sig_r,
+                              deterministic=deterministic)
+        return (*grads, None, None, None, None, None, None)
+
+
+def fused_posterior(seed: int, attn, theta_mu, theta_logstd, z_mu, z_logstd,
+                    p_tr, grid, offsets, sig_r: float, *,
+                    deterministic: bool = False) -> dict:
+    """attn (B, R, M) logits incl. log p(r); theta_* (B, R, M) (mu incl.
+    offsets); z_* (B, zd, R, M); p_tr (R, M) log p(t, r); grid (M, 2);
+    offsets (R,); sig_r the conditional prior std; seed an int.
+
+    Returns z_mu_e/z_std_e (B, zd), theta_mu_e/theta_std_e (B,), dx (B, 2),
+    kl (B,); differentiable in attn and the theta and z planes through K4.
+    The Function keeps only references to its inputs and the seed, so the
+    serving path (no gradient) pays nothing for it."""
+    out = _Posterior.apply(attn, theta_mu, theta_logstd, z_mu, z_logstd, p_tr,
+                           grid, offsets, sig_r, seed, deterministic)
+    return _unpack(out, z_mu.shape[1])

@@ -8,7 +8,8 @@ posterior is formed over the R x H' x W' grid. Heads are channels-last,
 
 Two tiers, chosen by kernels.kernel_tier(compute_dtype):
   - bf16: the lift conv runs as one bf16 F.conv2d (cuDNN on the card) and the
-    lift activation, mixing and heads run in the fused mix_heads kernel;
+    lift activation, mixing and heads run in the fused mix_heads kernel, whose
+    backward kernel returns the conv's bf16 cotangent;
   - float32 (compute_dtype=None): plain PyTorch model code.
 Modes A and B are not ported yet (ROADMAP.md, queue 1, slice 5).
 """
@@ -104,10 +105,15 @@ def lift_rows(params: dict, cfg: EncoderConfig, y: torch.Tensor):
 
     The conv runs with channels_last operands, so its (B, R*K, H', W') output
     is stored as (B, H', W', R*K) and the rows are a view of it (the final
-    contiguous() copies only if the conv returned another layout)."""
+    contiguous() copies only if the conv returned another layout).
+
+    Differentiable in the conv weight only: autograd runs the conv's weight
+    gradient (cuDNN's bf16 wgrad, f32 accumulation, bf16 out, as the JAX
+    tier's _lift_wgrad), then the cast and the rotation gather back to the
+    f32 parameter. The images are data (detached), so no dgrad is run."""
     R, K = cfg.groupconv, cfg.kernels_num
     w = lifted_weight(params["conv1"]["w"], R).to(torch.bfloat16)
-    x = y.permute(0, 3, 1, 2).to(torch.bfloat16)
+    x = y.detach().permute(0, 3, 1, 2).to(torch.bfloat16)
     pre1 = F.conv2d(x.contiguous(memory_format=torch.channels_last),
                     w.contiguous(memory_format=torch.channels_last),
                     padding=cfg.padding)

@@ -23,11 +23,29 @@ from .encoders import Encoder, encoder_apply, encoder_init
 from .generator import SpatialGenerator, generator_apply, generator_init
 
 
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: the one named, else cuda:0. With no
+    device named and no CUDA device present it raises; it never falls back
+    to the CPU, which a caller has to ask for (device="cpu"). A bare "cuda"
+    means cuda:0, so that two names of one device compare equal."""
+    if device is not None:
+        device = torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            return torch.device("cuda", 0)
+        return device
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: this package runs on cuda:0 by "
+                           "default; pass device='cpu' to run on the CPU")
+    return torch.device("cuda", 0)
+
+
 class TargetVAE(nn.Module):
     def __init__(self, cfg: ModelConfig, device=None):
+        """device: where init puts the parameters and the entry points run;
+        None means cuda:0 (resolve_device)."""
         super().__init__()
         self.cfg = cfg
-        self.device = torch.device(device or "cpu")
+        self.device = resolve_device(device)
         self.encoder: Optional[Encoder] = None
         self.spatial_generator: Optional[SpatialGenerator] = None
 

@@ -10,6 +10,7 @@ import dataclasses
 import json
 import math
 from dataclasses import dataclass, field
+from typing import Optional
 
 
 @dataclass(frozen=True)
@@ -85,3 +86,30 @@ class ModelConfig:
             likelihood=LikelihoodConfig(**d["likelihood"]),
         )
 
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Training hyperparameters, as the JAX package's TrainConfig. The mesh
+    and host-feed fields (dp, tp, sp, host_stream, stream_bf16) are kept so
+    that configs match, but the port's Trainer runs one device and raises
+    if any of them is set (ROADMAP.md, queue 1, slices 7-8)."""
+    learning_rate: float = 2e-4
+    minibatch_size: int = 100
+    num_epochs: int = 500
+    save_interval: int = 20
+    log_root: str = "./training_logs"
+    # ReduceLROnPlateau(mode='max', ...) equivalents (reference train_mnist.py:581)
+    plateau_factor: float = 0.5
+    plateau_patience: int = 9
+    plateau_threshold: float = 1e-4
+    min_lr: float = 0.0
+    # EarlyStopping (reference train_mnist.py:614)
+    early_patience: int = 20
+    early_delta: float = 1e-4
+    seed: int = 0
+    compute_dtype: Optional[str] = None  # None=float32, or 'bfloat16'
+    dp: int = 1
+    tp: int = 1
+    sp: bool = False
+    host_stream: bool = False
+    stream_bf16: bool = False

@@ -17,12 +17,13 @@ import torch
 
 import targetvae_tpu_torch.kernels as kernels
 from targetvae_tpu_torch.kernels.decoder_pose import (
-    fused_pose_decoder, fused_pose_decoder_tables, pose_decoder_plain,
-    pose_tables)
+    fused_pose_decoder, fused_pose_decoder_tables, pose_decoder_bwd,
+    pose_decoder_bwd_plain, pose_decoder_plain, pose_tables)
 from targetvae_tpu_torch.kernels.mix_heads import (
-    fused_lift_act_mix_heads, lift_act_mix_heads_plain)
+    fused_lift_act_mix_heads, lift_act_mix_heads_bwd_plain,
+    lift_act_mix_heads_plain, mix_heads_bwd)
 from targetvae_tpu_torch.kernels.posterior import (
-    fused_posterior, posterior_plain)
+    fused_posterior, posterior_bwd, posterior_bwd_plain, posterior_plain)
 from targetvae_tpu_torch.models.generator import generator_init
 from targetvae_tpu_torch.utils.config import GeneratorConfig
 from targetvae_tpu_torch.utils.jax_params import params_from_jax
@@ -190,3 +191,105 @@ def test_pose_decoder_kernel_on_cuda(cuda, num_layers):
     got = fused_pose_decoder_tables(*args)
     ref = pose_decoder_plain(*args)
     assert float((got - ref).abs().max()) < 1e-2
+
+
+# ---- on the card: each backward kernel against its plain version ----
+#
+# Tolerances: kernel and plain round at the same points, so they differ by
+# f32 summation order only. The f32 gradients summed over many pixels or
+# positions: relative L2 distance <= 1e-3. A saved bf16 h may land one bf16
+# step (2^-8 relative) apart where the f32 value sits near a rounding
+# boundary: max abs error <= 2^-7 of the largest magnitude. K2 recomputes
+# h2 from a sum taken in another order, and where it sits at zero the leaky
+# slope differs between the two sides: its bf16 dpre1 within 0.05 of the
+# largest magnitude (the JAX package's K2 gradient bound), 1e-2 relative L2.
+
+def _rel(got, ref):
+    return float((got.float() - ref.float()).norm()
+                 / ref.float().norm().clamp(min=1e-12))
+
+
+def test_mix_heads_backward_kernel_on_cuda(cuda):
+    R, K, D, N = 4, 128, 7, 700
+    args = [torch.from_numpy(a).to(cuda) for a in _mix_inputs(R=R, K=K)]
+    args[0] = args[0].to(torch.bfloat16)
+    g = torch.randn(N, R * D, generator=torch.Generator().manual_seed(4)).to(cuda)
+    kernels.reset_launch_counts()
+    got = mix_heads_bwd(*args[:5], g, R=R, K=K)
+    again = mix_heads_bwd(*args[:5], g, R=R, K=K)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["mix_heads_bwd"] == 2
+    ref = lift_act_mix_heads_bwd_plain(*args[:5], g, R=R, K=K)
+    assert got[0].dtype == torch.bfloat16
+    scale = float(ref[0].float().abs().max())
+    assert float((got[0].float() - ref[0].float()).abs().max()) <= 0.05 * scale
+    assert _rel(got[0], ref[0]) <= 1e-2
+    for i in range(1, 6):
+        assert _rel(got[i], ref[i]) < 1e-3, i
+    # fixed grid and in-order sums: a rerun is bitwise the same
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_posterior_backward_kernel_on_cuda(cuda):
+    args = _posterior_inputs()
+    targs = [torch.from_numpy(a).to(cuda) for a in args[:8]] + [args[8]]
+    g = torch.randn(3, 9, generator=torch.Generator().manual_seed(5)).to(cuda)
+    got = posterior_bwd(9, g, *targs, deterministic=True)
+    ref = posterior_bwd_plain(g, *targs)
+    for a, b in zip(got, ref):
+        err = float(((a - b).abs() / b.abs().clamp(min=1.0)).max())
+        assert err < 1e-4, err
+    s1 = posterior_bwd(3, g, *targs)
+    s2 = posterior_bwd(3, g, *targs)
+    assert all(torch.equal(a, b) for a, b in zip(s1, s2))
+
+
+def test_posterior_sampled_backward_is_its_forwards_derivative_on_cuda(cuda):
+    """The sampled backward regenerates the forward's noise: its gradient
+    matches a central difference of the kernel's own forward at the same
+    seed, along a seeded direction (float32 differences of O(1) values at
+    step 1e-2: relative tolerance 2e-2)."""
+    args = _posterior_inputs()
+    targs = [torch.from_numpy(a).to(cuda) for a in args[:8]] + [args[8]]
+    gen = torch.Generator().manual_seed(6)
+    g = torch.randn(3, 9, generator=gen).to(cuda)
+    dirs = [torch.randn(t.shape, generator=gen).to(cuda) for t in targs[:5]]
+    grads = posterior_bwd(21, g, *targs)
+    fwd = lambda eps: kernels.posterior_fwd(
+        21, *[t + eps * d for t, d in zip(targs[:5], dirs)], *targs[5:])
+    h = 1e-2
+    fd = float(((fwd(h) - fwd(-h)) * g).sum()) / (2 * h)
+    an = sum(float((gr * d).sum()) for gr, d in zip(grads, dirs))
+    assert abs(fd - an) <= 2e-2 * max(abs(an), 1.0), (fd, an)
+
+
+@pytest.mark.parametrize("num_layers", [2, 4])
+def test_pose_decoder_backward_kernel_on_cuda(cuda, num_layers):
+    cfg = _pose_config(num_layers)
+    tp = generator_init(torch.Generator().manual_seed(0), cfg, device=cuda)
+    th, d, zz = (torch.from_numpy(a).to(cuda) for a in _pose_inputs())
+    wf = tp["fourier"]["w"] / cfg.fourier_sigma
+    u, v, p, q = pose_tables(th, d, wf, tp["fourier"]["b"], 18)
+    wh = torch.stack([h["w"] for h in tp["hidden"]])
+    args = (u, v, p, q, zz @ tp["latent_linear"]["w"],
+            tp["coord_linear"]["w"], tp["coord_linear"]["b"], wh,
+            torch.stack([h["b"] for h in tp["hidden"]]),
+            tp["out"]["w"], tp["out"]["b"])
+    y, hs = fused_pose_decoder_tables(*args, save_res=True)
+    # the save-residuals mode leaves the output as it was
+    assert torch.equal(y, fused_pose_decoder_tables(*args))
+    y_p, hs_p = pose_decoder_plain(*args, save_res=True)
+    assert hs.shape == hs_p.shape == (num_layers, 3, 18 * 18, 64)
+    assert float((hs.float() - hs_p.float()).abs().max()) <= float(
+        hs_p.float().abs().max()) / 128
+    g = torch.randn(y.shape, generator=torch.Generator().manual_seed(7)).to(cuda)
+    kernels.reset_launch_counts()
+    got = pose_decoder_bwd(u, v, p, q, hs, args[5], wh, args[9], g)
+    again = pose_decoder_bwd(u, v, p, q, hs, args[5], wh, args[9], g)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["pose_decoder_bwd"] == 2
+    ref = pose_decoder_bwd_plain(u, v, p, q, hs, args[5], wh, args[9], g)
+    for i, (a, b) in enumerate(zip(got, ref)):
+        assert a.shape == b.shape, i
+        assert _rel(a, b) < 1e-3, (i, _rel(a, b))
+    assert all(torch.equal(a, b) for a, b in zip(got, again))

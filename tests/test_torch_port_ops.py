@@ -151,7 +151,7 @@ def test_params_from_jax_round_trip():
         assert a.shape == b.shape and a.dtype == b.dtype
         np.testing.assert_array_equal(a, b)
     # the module installs them, with the Fourier pair as buffers
-    m = TargetVAE(tcfg_)
+    m = TargetVAE(tcfg_, device="cpu")
     m.load_params(tp)
     assert {n for n, _ in m.named_buffers()} == {
         "spatial_generator.fourier.w", "spatial_generator.fourier.b"}
@@ -166,7 +166,7 @@ def test_params_from_jax_round_trip():
 def test_init_shapes_match_jax():
     jcfg_, tcfg_ = _small_cfgs()
     jp = JaxTargetVAE(jcfg_).init(jax.random.key(0))
-    tp = TargetVAE(tcfg_).init(torch.Generator().manual_seed(0))
+    tp = TargetVAE(tcfg_, device="cpu").init(torch.Generator().manual_seed(0))
     jshape = jax.tree.map(lambda a: tuple(a.shape), jp)
     tshape = jax.tree.map(lambda a: tuple(a.shape), params_to_jax(tp))
     assert jshape == tshape

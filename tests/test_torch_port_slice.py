@@ -47,7 +47,7 @@ def pair():
     jc = _config()
     jm = JaxTargetVAE(jc)
     jp = jm.init(jax.random.key(0))
-    tm = TargetVAE(ModelConfig.from_json(jc.to_json()))
+    tm = TargetVAE(ModelConfig.from_json(jc.to_json()), device="cpu")
     tm.load_params(params_from_jax(jax.tree.map(np.asarray, jp)))
     images = np.random.default_rng(0).uniform(0, 1, (10, 14, 14, 1)).astype(
         np.float32)
@@ -124,10 +124,15 @@ def test_port_runs_without_jax():
         "fourier_expansion=True, embedding_dim=64), EncoderConfig("
         "image_dim=14, kernels_num=16, kernels_size=8, padding=3, "
         "groupconv=4))\n"
-        "m = TargetVAE(cfg)\n"
+        "m = TargetVAE(cfg, device='cpu')\n"
         "p = m.init(torch.Generator().manual_seed(0))\n"
         "out = m.embed(p, torch.rand(2, 14, 14, 1))\n"
         "assert out['z_content'].shape == (2, 4)\n"
+        "from targetvae_tpu_torch.train import Trainer\n"
+        "from targetvae_tpu_torch.utils.config import TrainConfig\n"
+        "tr = Trainer(m, TrainConfig(compute_dtype='bfloat16'))\n"
+        "st, met = tr.train_step(tr.init_state(0), torch.rand(2, 14, 14, 1))\n"
+        "assert st.step == 1 and bool(torch.isfinite(met).all())\n"
         "print('ok')\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
