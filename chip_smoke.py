@@ -23,17 +23,24 @@ from a seed):
      (finite, rising ELBO; every kernel launched), and one deterministic
      step's gradients on the bf16 kernel tier against the float32 tier;
   8. times each backward kernel against its plain version, K7 with and
-     without saved residuals, and the train step's img/s.
+     without saved residuals, and the train step's img/s;
+  9. decodes at posed coordinates in bf16 (K9) against float32, and takes
+     a gradient through it (K10).
 
-Each of phases 3, 4 and 7 sets the launch counts to 0 just before it drives
-its path and reads them just after. Every failed check exits non-zero. With
-no CUDA device, or outside a checkout, it fails without printing a result.
-Its last line is {"ok": true, "device": {...}}; the line before it is the
-kernels' JSON.
+Phases 2-8 cover both mode-C encoder tiers: the default "conv" tier (the
+cuDNN lift conv, K1/K2) and the fused patch encoder (K11/K12) that
+TARGETVAE_ENCODER_TIER=patch selects (phases 3, 4 and 7 drive each tier's
+embed, eval and train path; phase 2 also checks K11 at the galaxy encoder's
+C = 3 shape). Each of phases 3, 4, 7 and 9 sets the launch counts to 0 just
+before it drives its path and reads them just after. Every failed check
+exits non-zero. With no CUDA device, or outside a checkout, it fails without
+printing a result. Its last line is {"ok": true, "device": {...}}; the line
+before it is the kernels' JSON.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -46,11 +53,25 @@ B = 100             # batch
 N_EMBED = 1000      # images embedded in phase 3
 EVAL_BATCHES = 3    # batches of the held-out ELBO in phase 4
 SEEDS = 64          # seeds for the sampled-posterior distribution check
-TRAIN_STEPS = 30    # flagship train steps in phase 7
+TRAIN_STEPS = 30    # flagship train steps in phase 7 (conv tier)
+PATCH_STEPS = 10    # and on the patch tier, from fresh weights
 TRAIN_BATCHES = 5   # fixed synthetic batches they cycle through
+B_GALAXY = 8        # images of the C = 3 shape K11 is checked at
 TOL_K1 = 5e-3       # abs, kernel vs plain (same bf16 rounding points; f32 sum order)
+TOL_K11 = TOL_K1    # abs, as K1: the same heads from a bf16 h1 one step apart at most
 TOL_K3 = 1e-4       # abs per unit of max(1, |value|), deterministic posterior
 TOL_K7 = 1e-2       # abs, kernel vs plain pose decoder
+TOL_K9 = TOL_K7     # abs, as K7: the decoder chain on other features
+# K9's on-chip features against the plain version's bf16(cos(phase)): the
+# kernel's accurate cosf and torch.cos may differ by an ulp, which moves a
+# bf16 feature by one step (2^-8) only where the value sits at a rounding
+# boundary, about 2^-16 of the entries; __cosf's error at phases of tens of
+# radians would move most of them
+TOL_FEAT_SHARE = 1e-4
+# patch tier vs conv tier, each encoder head, relative L2: the conv tier
+# rounds the lift conv's output to bf16 before its bias and activation, the
+# patch tier does not: h1 one bf16 step (2^-8) apart where they differ
+TOL_TIER = 2e-2
 TOL_ELBO = 2e-2     # rel, bf16 kernel tier vs float32 tier, deterministic noise
 TOL_DX = 2e-2       # abs, bf16 vs float32 embed dx (half an attention-grid pitch)
 # Backward kernels against their plain versions, which round at the same
@@ -60,6 +81,11 @@ TOL_DX = 2e-2       # abs, bf16 vs float32 embed dx (half an attention-grid pitc
 # where a sum lands near a rounding boundary: max abs error <= 2^-7 of its
 # largest magnitude.
 TOL_BWD_REL = 1e-3
+# K10 recomputes its forward, as the TPU kernel does, so unlike K8 it does
+# not share the h tiles with the plain version: where an f32 sum lands near
+# a bf16 rounding boundary the two h sit one step apart and a leaky slope
+# near zero may flip; 5e-3 relative L2 per output
+TOL_K10_REL = 5e-3
 # K2's bf16 dpre1: K2 recomputes pre2 = h1 W2 + b2 as a sum in another order
 # than the plain version's. Where that sum lies within the two orders' f32
 # rounding of zero its sign, and with it the leaky slope (1 or 0.01) of the
@@ -77,6 +103,11 @@ TOL_K4_FD = 2e-2    # rel, central difference of K3 (step 1e-2) vs <grad, dir>
 # parameter leaf, relative L2: the bound the JAX kernels' gradients were held
 # to (tests/test_kernels.py:512-517)
 TOL_GRAD = 0.05
+# bf16 decode's gradients against float32 decode's, relative L2: the bound
+# the JAX package holds its bf16 decoder gradients to (tests/test_kernels.py:
+# 175-181), 0.15 for the weights and 0.2 for the inputs x and z (a reduced
+# width measured up to 0.11 for z on the CPU)
+TOL_DECODE_GRAD, TOL_DECODE_GRAD_IN = 0.15, 0.2
 # The H100 SXM's published peaks (NVIDIA H100 datasheet), for bound_ms
 HBM_BPS = 3.35e12
 PEAK_BF16 = 989e12
@@ -109,6 +140,29 @@ def flagship_config():
         likelihood=LikelihoodConfig(kind="bernoulli"))
 
 
+def galaxy_encoder_config():
+    """The galaxy encoder's C = 3 shape (targetvae_tpu/cli/train_galaxy.py
+    defaults: 64x64x3, k = 65, padding 16), C k^2 = 12,675 patch columns."""
+    from targetvae_tpu_torch.utils.config import EncoderConfig
+    return EncoderConfig(image_dim=64, in_channels=3, z_dim=2, kernels_num=128,
+                         kernels_size=65, padding=16, groupconv=8)
+
+
+@contextlib.contextmanager
+def encoder_tier(tier: str):
+    """TARGETVAE_ENCODER_TIER set to `tier` ("conv" or "patch") for the
+    block, restored after it."""
+    old = os.environ.get("TARGETVAE_ENCODER_TIER")
+    os.environ["TARGETVAE_ENCODER_TIER"] = tier
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["TARGETVAE_ENCODER_TIER"]
+        else:
+            os.environ["TARGETVAE_ENCODER_TIER"] = old
+
+
 def synthetic_images(n: int, d: int, seed: int) -> np.ndarray:
     """MNIST-U-shaped stand-ins: three Gaussian strokes per image at random
     positions, in [0, 1], (n, d, d, 1) float32."""
@@ -137,12 +191,27 @@ def cuda_ms(fn, reps: int = 10) -> float:
     return t0.elapsed_time(t1) / reps
 
 
+def patch_inputs(pe, ecfg, y):
+    """K11's inputs for images y: the im2col patches of the padded images
+    and the rotated filter matrix, tiled bias, mixing and head weights."""
+    import torch.nn.functional as F
+    from targetvae_tpu_torch.kernels.lifted_encoder import build_patches
+    from targetvae_tpu_torch.models.encoders import attn_dim_for, mode_c_matrices
+    pad, hp = ecfg.padding, attn_dim_for(ecfg)
+    xp = F.pad(y, (0, 0, pad, pad, pad, pad))
+    wc, bc, wh, bh = mode_c_matrices(pe, ecfg)
+    return (build_patches(xp, ecfg.kernels_size, hp, hp), wc, bc,
+            pe["conv2"]["w"], pe["conv2"]["b"], wh, bh), xp
+
+
 def kernel_inputs(params, cfg, dev):
-    """Flagship-shape inputs for each kernel: K1 from the real lift conv of
-    synthetic images, K3 and K7 seeded like tests/test_kernels.py."""
+    """Flagship-shape inputs for each kernel: K1 and K11 from the real lift
+    of synthetic images, K3, K7 and K9 seeded like tests/test_kernels.py
+    (K9 at the posed 50x50 grids K7 decodes)."""
     import torch
     from targetvae_tpu_torch.models.encoders import head_weights, lift_rows
     from targetvae_tpu_torch.kernels.decoder_pose import pose_tables
+    from targetvae_tpu_torch.ops.coords import image_grid, transform_coords
 
     ecfg, gcfg = cfg.encoder, cfg.generator
     R, K, zd = ecfg.groupconv, ecfg.kernels_num, ecfg.z_dim
@@ -172,7 +241,12 @@ def kernel_inputs(params, cfg, dev):
           pg["coord_linear"]["b"], torch.stack([h["w"] for h in pg["hidden"]]),
           torch.stack([h["b"] for h in pg["hidden"]]), pg["out"]["w"],
           pg["out"]["b"])
-    return k1, k3, k7, (theta, dx, wf, pg["fourier"]["b"])
+    x = transform_coords(torch.as_tensor(image_grid(ecfg.image_dim),
+                                         device=dev), dx, theta).contiguous()
+    k9 = (x, wf, pg["fourier"]["b"], *k7[4:])
+    k11, xp = patch_inputs(pe, ecfg, y)
+    return (k1, k3, k7, (theta, dx, wf, pg["fourier"]["b"]), k9, z, k11,
+            (xp, y))
 
 
 def bound(nbytes: float, ops: float, peak: float):
@@ -199,7 +273,50 @@ def kernel_bounds(cfg, n_pos: int) -> dict:
     w_dec = (F * H + (L - 1) * H * H + H * g.n_out) * bf + (L * H + 1) * f4
     planes = (3 + 2 * zd) * B * cells * f4
     tables = 4 * B * n * F * f4
+    sp_planes = (4 + 2 * zd) * B * cells * f4
+    ck = e.in_channels * e.kernels_size ** 2
+    w_lift = ck * R * K * bf + w_mix
+    mlp_fwd_ops = 2 * px * (F * H + (L - 1) * H * H + H * g.n_out)
+    w_mlp = w_dec + 3 * F * f4 + B * H * f4     # + wf, bf and hz
     return {
+        # the patch encoder: P read, heads out (serving: no h1 written)
+        "lifted_encoder_fwd": bound(n_pos * ck * bf + w_lift
+                                    + n_pos * R * D * f4,
+                                    2 * n_pos * (ck * R * K
+                                                 + R * (K * K + K * D)),
+                                    PEAK_BF16),
+        # P, h1 and g read; dWc and the small gradients out; dWc's product
+        # and K2's chain (h2 recomputed, dW2, dh1, dWh, dh2)
+        "lifted_encoder_bwd": bound(n_pos * ck * bf + n_pos * R * K * bf
+                                    + n_pos * R * D * f4 + w_mix
+                                    + (ck * R * K + K * K + K * D + K + D
+                                       + R * K) * f4,
+                                    2 * n_pos * (ck * R * K
+                                                 + R * (3 * K * K
+                                                        + 2 * K * D)),
+                                    PEAK_BF16),
+        "decoder_mlp_fwd": bound(px * 2 * f4 + w_mlp + px * g.n_out * f4,
+                                 mlp_fwd_ops, PEAK_BF16),
+        # no residuals: the forward is part of the function (3 products a
+        # layer: the forward's, the weight gradient, the input gradient)
+        "decoder_mlp_bwd": bound(px * 2 * f4 + px * g.n_out * f4 + w_mlp
+                                 + px * 2 * f4 + B * H * f4
+                                 + (F * H + (L - 1) * H * H + H * g.n_out
+                                    + L * H + g.n_out) * f4,
+                                 3 * mlp_fwd_ops, PEAK_BF16),
+        # still to port (K5, K6): one cell shard's partials given the
+        # global normalisers (B, 4), here the whole grid on one shard. In:
+        # attn, noise, theta (2), z (2 zd) planes and four (cells,)
+        # constants; out: the (B, 2 zd + 5) partials, or backward the same
+        # planes' cotangents and (B, 2) softmax partials; K3's / K4's
+        # elementwise math
+        "posterior_shard_fwd": bound(sp_planes + 4 * cells * f4 + 4 * B * f4
+                                     + B * (2 * zd + 5) * f4,
+                                     B * cells * (40 + 16 * zd), PEAK_F32),
+        "posterior_shard_bwd": bound(2 * sp_planes + 4 * cells * f4
+                                     + 4 * B * f4 + B * (2 * zd + 5) * f4
+                                     + 2 * B * f4,
+                                     B * cells * 2 * (40 + 16 * zd), PEAK_F32),
         "mix_heads_fwd": bound(n_pos * R * K * bf + w_mix
                                + n_pos * R * D * f4,
                                2 * n_pos * R * (K * K + K * D), PEAK_BF16),
@@ -291,6 +408,111 @@ def k2_leaky_flips(torch, k1, g, got, ref, R: int, K: int) -> dict:
             "flips": int(flips[ok].sum())}
 
 
+def serve_patch_tier(torch, kernels, model, params, images, x_coord, gen,
+                     elbo32):
+    """Phases 3 and 4 on the patch encoder tier: embed_dataset and the
+    held-out ELBO with their launch counts, the encoder heads against the
+    conv tier's and the deterministic ELBO against the float32 tier's.
+    Returns the counts of each path."""
+    from targetvae_tpu_torch.cli.clustering_common import embed_dataset
+    from targetvae_tpu_torch.models.encoders import encoder_apply
+    bf16, dev = torch.bfloat16, x_coord.device
+    zd = model.cfg.encoder.z_dim
+    with encoder_tier("patch"):
+        kernels.reset_launch_counts()
+        z_c, rot, tr = embed_dataset(model, params, images, B, "bfloat16")
+        embed_counts = kernels.launch_counts()
+        ok = (z_c.shape == (N_EMBED, 2 * zd) and tr.shape == (N_EMBED, 2)
+              and all(np.isfinite(a).all() for a in (z_c, rot, tr)))
+        check(ok and embed_counts["lifted_encoder_fwd"] > 0
+              and not any(v for k, v in embed_counts.items()
+                          if k != "lifted_encoder_fwd"),
+              f"phase 3: patch tier: embed_dataset bf16 over {N_EMBED} "
+              f"images: shapes {z_c.shape} {rot.shape} {tr.shape}, finite, "
+              f"launches {embed_counts} (K11 only)")
+        yb = torch.from_numpy(images[:B]).to(dev)
+        pe, ecfg = params["encoder"], model.cfg.encoder
+        heads_p = encoder_apply(pe, ecfg, yb, None, bf16)
+        dx32 = model.embed(params, yb)["dx"].cpu().numpy()
+        dx_err = float(np.abs(tr[:B] - dx32).max())
+        kernels.reset_launch_counts()
+        elbos = [[float(t) for t in model.elbo(
+            params, x_coord, torch.from_numpy(images[i * B:(i + 1) * B]).to(dev),
+            gen, compute_dtype=bf16)] for i in range(EVAL_BATCHES)]
+        eval_counts = kernels.launch_counts()
+        e16 = float(model.elbo(params, x_coord, yb, None, bf16)[0])
+    with encoder_tier("conv"):
+        heads_c = encoder_apply(pe, ecfg, yb, None, bf16)
+    names = ("attn", "theta_mu", "theta_logstd", "z_mu", "z_logstd")
+    rels = {n: rel_l2(heads_p[n], heads_c[n]) for n in names}
+    check(max(rels.values()) <= TOL_TIER and dx_err <= TOL_DX,
+          f"phase 3: patch tier vs conv tier encoder heads, rel L2 "
+          f"{({n: float(f'{r:.2e}') for n, r in rels.items()})} <= {TOL_TIER};"
+          f" embed dx vs float32 max abs diff {dx_err:.3e} <= {TOL_DX}")
+    fwd = ("lifted_encoder_fwd", "posterior_fwd", "pose_decoder_fwd")
+    check(bool(np.isfinite(elbos).all())
+          and all(eval_counts[k] > 0 for k in fwd)
+          and not any(eval_counts[k] for k in eval_counts if k not in fwd),
+          f"phase 4: patch tier: held-out ELBO bf16 over {EVAL_BATCHES} "
+          f"batches (elbo, log_p, kl) = {np.round(elbos, 3).tolist()}, "
+          f"launches {eval_counts} (K11, K3, K7 only)")
+    rel = abs(e16 - elbo32) / abs(elbo32)
+    check(rel <= TOL_ELBO,
+          f"phase 4: patch tier: deterministic ELBO bf16 {e16:.4f} vs float32 "
+          f"tier {elbo32:.4f}: rel diff {rel:.3e} <= {TOL_ELBO}")
+    return {"embed": embed_counts, "eval": eval_counts}
+
+
+def check_k11(torch, k11, R, K, label):
+    """Phase 2: K11 serving and in save-h1 mode against its plain version.
+    Returns the heads' max abs error and the saved h1."""
+    from targetvae_tpu_torch.kernels.lifted_encoder import (
+        lifted_encoder_fwd, lifted_encoder_plain)
+    o_k = lifted_encoder_fwd(*k11, R=R, K=K)
+    o_s, h1 = lifted_encoder_fwd(*k11, R=R, K=K, save_h1=True)
+    o_p, h1_p = lifted_encoder_plain(*k11, R=R, K=K, save_h1=True)
+    torch.cuda.synchronize()
+    err = float((o_k - o_p).abs().max())
+    step = float(h1_p.float().abs().max()) / 128
+    err_h = float((h1.float() - h1_p.float()).abs().max())
+    check(bool(torch.isfinite(o_k).all()) and err <= TOL_K11
+          and torch.equal(o_k, o_s) and err_h <= step,
+          f"phase 2: K11 lifted_encoder_fwd {label} P {tuple(k11[0].shape)} "
+          f"-> {tuple(o_k.shape)}: max_abs_err {err:.3e} <= {TOL_K11}; "
+          f"save-h1 output identical, h1 {tuple(h1.shape)} max_abs_err "
+          f"{err_h:.3e} <= {step:.3e} (one bf16 step)")
+    return err, h1
+
+
+def check_k9_features(torch, k9):
+    """Phase 2: the features K9 builds on chip, read through its saved first
+    h tile with W1 = [I; 0] (then [0; I]), b1 = hz = 0: h = bf16(act(f))
+    exactly, held against the plain version's bf16(cos(phase))."""
+    from targetvae_tpu_torch.kernels.decoder_mlp import _phase, decoder_mlp_fwd
+    from targetvae_tpu_torch.kernels.decoder_pose import _act, bf16_round
+    x, wf, bf, hz, w1 = k9[:5]
+    f, h = w1.shape
+    feat = bf16_round(torch.cos(_phase(x, wf, bf)))
+    mism, worst = 0, 0.0
+    for half in range(f // h):
+        w = torch.zeros_like(w1)
+        w[half * h:(half + 1) * h] = torch.eye(h, device=w.device)
+        _, hs = decoder_mlp_fwd(x, wf, bf, torch.zeros_like(hz), w,
+                                torch.zeros_like(k9[5]), *k9[6:],
+                                save_res=True)
+        ref = bf16_round(_act(feat[..., half * h:(half + 1) * h], "leakyrelu"))
+        d = (hs[0].float() - ref).abs()
+        mism += int((d > 0).sum())
+        worst = max(worst, float(d.max()))
+    share = mism / feat.numel()
+    check(share <= TOL_FEAT_SHARE and worst <= 2.0 ** -8,
+          f"phase 2: K9's on-chip features bf16(cos(phase)) vs plain over "
+          f"{feat.numel()} entries (phases up to "
+          f"{float(_phase(x, wf, bf).abs().max()):.1f} rad): {mism} differ "
+          f"(share {share:.2e} <= {TOL_FEAT_SHARE}), by at most {worst:.3e} "
+          f"<= one bf16 step of 1")
+
+
 def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(here, "targetvae_tpu_torch")):
@@ -304,7 +526,8 @@ def main() -> int:
               flush=True)
         return 1
     try:
-        return run(torch, torch.device("cuda", 0))
+        with encoder_tier("conv"):
+            return run(torch, torch.device("cuda", 0))
     except CheckFailed:
         return 1
 
@@ -320,6 +543,11 @@ def run(torch, dev) -> int:
         fused_lift_act_mix_heads, lift_act_mix_heads_plain)
     from targetvae_tpu_torch.kernels.posterior import (
         fused_posterior, per_image_gumbel, posterior_plain)
+    from targetvae_tpu_torch.kernels.decoder_mlp import (
+        decoder_mlp_fwd, decoder_mlp_plain)
+    from targetvae_tpu_torch.kernels.lifted_encoder import (
+        build_patches, lifted_encoder_fwd, lifted_encoder_plain)
+    from targetvae_tpu_torch.models.encoders import attn_dim_for, lift_rows
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -353,7 +581,8 @@ def run(torch, dev) -> int:
 
     with torch.inference_mode():
         # ---- phase 2: each kernel against its plain version ----
-        k1, k3, k7, pose = kernel_inputs(params, cfg, dev)
+        k1, k3, k7, pose, k9, z9, k11, (xp, y1) = kernel_inputs(params, cfg,
+                                                              dev)
         R, K = cfg.encoder.groupconv, cfg.encoder.kernels_num
         o_k = fused_lift_act_mix_heads(*k1, R=R, K=K)
         o_p = lift_act_mix_heads_plain(*k1, R=R, K=K)
@@ -418,6 +647,29 @@ def run(torch, dev) -> int:
               f"{tuple(y7k.shape)}: max_abs_err {err7:.3e} <= {TOL_K7}")
         results["pose_decoder_fwd"] = {"max_abs_err": err7}
 
+        err11, h1 = check_k11(torch, k11, R, K, "flagship")
+        results["lifted_encoder_fwd"] = {"max_abs_err": err11}
+        from targetvae_tpu_torch.models.encoders import encoder_init
+        gcfg_e = galaxy_encoder_config()
+        gen_g = torch.Generator().manual_seed(4)
+        y_g = torch.rand((B_GALAXY, gcfg_e.image_dim, gcfg_e.image_dim, 3),
+                         generator=gen_g).to(dev)
+        k11_g, _ = patch_inputs(encoder_init(gen_g, gcfg_e, device=dev),
+                                gcfg_e, y_g)
+        check_k11(torch, k11_g, gcfg_e.groupconv, gcfg_e.kernels_num,
+                  "galaxy C=3")
+        del k11_g
+
+        y9k = decoder_mlp_fwd(*k9)
+        y9p = decoder_mlp_plain(*k9)
+        torch.cuda.synchronize()
+        err9 = float((y9k - y9p).abs().max())
+        check(bool(torch.isfinite(y9k).all()) and err9 <= TOL_K9,
+              f"phase 2: K9 decoder_mlp_fwd x {tuple(k9[0].shape)} -> "
+              f"{tuple(y9k.shape)}: max_abs_err {err9:.3e} <= {TOL_K9}")
+        results["decoder_mlp_fwd"] = {"max_abs_err": err9}
+        check_k9_features(torch, k9)
+
         # ---- phases 3 and 4: the main path, with launch counts ----
         images = synthetic_images(N_EMBED, cfg.encoder.image_dim, 2)
         kernels.reset_launch_counts()
@@ -461,6 +713,10 @@ def run(torch, dev) -> int:
               f"phase 4: deterministic ELBO bf16 kernels {e16[0]:.4f} vs "
               f"float32 tier {e32[0]:.4f}: rel diff {rel:.3e} <= {TOL_ELBO}")
 
+        # ---- phases 3 and 4 on the patch encoder tier ----
+        patch_counts = serve_patch_tier(torch, kernels, model, params, images,
+                                        x_coord, gen, e32[0])
+
         # ---- phase 5: timings ----
         for name, kfn, pfn in (
                 ("mix_heads_fwd",
@@ -471,35 +727,64 @@ def run(torch, dev) -> int:
                  lambda: posterior_plain(*k3, noise=k3[0])),
                 ("pose_decoder_fwd",
                  lambda: fused_pose_decoder_tables(*k7),
-                 lambda: pose_decoder_plain(*k7))):
+                 lambda: pose_decoder_plain(*k7)),
+                ("lifted_encoder_fwd",
+                 lambda: lifted_encoder_fwd(*k11, R=R, K=K),
+                 lambda: lifted_encoder_plain(*k11, R=R, K=K)),
+                ("decoder_mlp_fwd",
+                 lambda: decoder_mlp_fwd(*k9),
+                 lambda: decoder_mlp_plain(*k9))):
             p1, k1_, k2_, p2 = (cuda_ms(pfn), cuda_ms(kfn), cuda_ms(kfn),
                                 cuda_ms(pfn))
             results[name].update(ms=min(k1_, k2_), plain_ms=min(p1, p2))
             print(f"phase 5: {name}: kernel {k1_:.4f} / {k2_:.4f} ms, plain "
                   f"{p1:.4f} / {p2:.4f} ms (plain, kernel, kernel, plain)",
                   flush=True)
+        # the lift's yardsticks: the patch build, one cuBLAS bf16 GEMM P Wc
+        # (what K11 computes in its body, without the epilogue), and the
+        # conv tier's cuDNN lift conv with its copy into K1's rows
+        ecfg = cfg.encoder
+        hp = attn_dim_for(ecfg)
+        wc16 = k11[1].to(bf16)
+        lift = {"patch_build_ms": cuda_ms(lambda: build_patches(
+                    xp, ecfg.kernels_size, hp, hp)),
+                "lift_gemm_cublas_ms": cuda_ms(lambda: k11[0] @ wc16),
+                "lift_conv_cudnn_ms": cuda_ms(lambda: lift_rows(
+                    params["encoder"], ecfg, y1))}
+        results["lifted_encoder_fwd"].update(lift)
+        print(f"phase 5: lift yardsticks: patch build "
+              f"{lift['patch_build_ms']:.4f} ms, cuBLAS P @ Wc "
+              f"{tuple(k11[0].shape)} x {tuple(wc16.shape)} bf16 "
+              f"{lift['lift_gemm_cublas_ms']:.4f} ms, cuDNN lift conv + rows "
+              f"copy {lift['lift_conv_cudnn_ms']:.4f} ms", flush=True)
 
-        def embed_all():
-            embed_dataset(model, params, images, B, "bfloat16")
-        embed_all()
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        embed_all()
-        torch.cuda.synchronize()
-        embed_s = time.perf_counter() - t
         yb = torch.from_numpy(images[:B]).to(dev)
-        eval_ms = cuda_ms(lambda: model.elbo(params, x_coord, yb, gen, bf16))
-        print(f"phase 5: embed {N_EMBED / embed_s:.1f} img/s (embed_dataset, "
-              f"B={B}, bf16, host to host); eval {B / eval_ms * 1e3:.1f} img/s "
-              f"(ELBO bf16, B={B}, {eval_ms:.3f} ms/batch, device time)",
-              flush=True)
+        for tier in ("conv", "patch"):
+            with encoder_tier(tier):
+                embed_dataset(model, params, images, B, "bfloat16")
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                embed_dataset(model, params, images, B, "bfloat16")
+                torch.cuda.synchronize()
+                embed_s = time.perf_counter() - t
+                eval_ms = cuda_ms(lambda: model.elbo(params, x_coord, yb, gen,
+                                                     bf16))
+            print(f"phase 5: {tier} tier: embed {N_EMBED / embed_s:.1f} img/s "
+                  f"(embed_dataset, B={B}, bf16, host to host); eval "
+                  f"{B / eval_ms * 1e3:.1f} img/s (ELBO bf16, B={B}, "
+                  f"{eval_ms:.3f} ms/batch, device time)", flush=True)
 
-    # ---- phases 6-8: the training slice ----
+    # ---- phases 6-9: the training slice, both tiers, and bf16 decode ----
     with torch.inference_mode():
-        cot = check_backward_kernels(torch, cfg, dev, k1, k3, k7, pose,
-                                     results)
-    trainer, state, data, train_counts = train_path(torch, kernels, cfg, dev)
-    time_training(torch, cfg, k1, k3, k7, cot, trainer, state, data, results)
+        cot = check_backward_kernels(torch, cfg, dev, k1, k3, k7, pose, k9,
+                                     k11, h1, results)
+    trainer, state, data, train_counts, g32 = train_path(torch, kernels, cfg,
+                                                         dev)
+    trainer_p, state_p, patch_counts["train"] = patch_train_path(
+        torch, kernels, cfg, dev, data, g32)
+    decode_counts = decode_path(torch, kernels, model, params, k9, z9)
+    time_training(torch, cfg, k1, k3, k7, k9, k11, h1, cot, trainer, state,
+                  trainer_p, state_p, data, results)
 
     sources = {
         "mix_heads_fwd": ("mix_heads.cu", "mix_heads.py:232"),
@@ -507,16 +792,32 @@ def run(torch, dev) -> int:
         "posterior_fwd": ("posterior.cu", "posterior.py:241"),
         "posterior_bwd": ("posterior.cu", "posterior.py:253"),
         "pose_decoder_fwd": ("decoder_pose.cu", "decoder_pose.py:390"),
-        "pose_decoder_bwd": ("decoder_pose.cu", "decoder_pose.py:439")}
+        "pose_decoder_bwd": ("decoder_pose.cu", "decoder_pose.py:439"),
+        "decoder_mlp_fwd": ("decoder_mlp.cu", "decoder_mlp.py:99"),
+        "decoder_mlp_bwd": ("decoder_mlp.cu", "decoder_mlp.py:234"),
+        "lifted_encoder_fwd": ("lifted_encoder.cu", "lifted_encoder.py:179"),
+        "lifted_encoder_bwd": ("lifted_encoder.cu", "lifted_encoder.py:215")}
+    by_path = {"embed": embed_counts, "eval": eval_counts,
+               "train": train_counts, "embed_patch": patch_counts["embed"],
+               "eval_patch": patch_counts["eval"],
+               "train_patch": patch_counts["train"], "decode": decode_counts}
+    # each kernel's launches on the main path that runs it: the conv tier's
+    # train step, the patch tier's (K11, K12), bf16 decode (K9, K10)
+    main_path = {"lifted_encoder_fwd": "train_patch",
+                 "lifted_encoder_bwd": "train_patch",
+                 "decoder_mlp_fwd": "decode", "decoder_mlp_bwd": "decode"}
     bounds = kernel_bounds(cfg, k1[0].shape[0])
+    print("bounds of the kernels still to port (whole grid on one shard): "
+          + json.dumps({n: bounds[n] for n in ("posterior_shard_fwd",
+                                               "posterior_shard_bwd")}),
+          flush=True)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
          "source": "targetvae_tpu_torch/csrc/" + src,
          "replaces": "targetvae_tpu/kernels/" + rep,
-         "launches": train_counts[name],
-         "launches_by_path": {"embed": embed_counts[name],
-                              "eval": eval_counts[name],
-                              "train": train_counts[name]},
+         "launches": by_path[main_path.get(name, "train")][name],
+         "launches_by_path": {path: counts[name]
+                              for path, counts in by_path.items()},
          **results[name], "bound_ms": bounds[name][0],
          "bound_by": bounds[name][1], "library_ms": None}
         for name, (src, rep) in sources.items()]}), flush=True)
@@ -526,10 +827,12 @@ def run(torch, dev) -> int:
     return 0
 
 
-def check_backward_kernels(torch, cfg, dev, k1, k3, k7, pose, results):
-    """Phase 6: K2, K4, K8 and K7's save-residuals mode against their plain
-    versions on the same flagship-shape inputs, with seeded cotangents.
-    Returns the cotangents and K7's saved tiles for the timings."""
+def check_backward_kernels(torch, cfg, dev, k1, k3, k7, pose, k9, k11, h1,
+                           results):
+    """Phase 6: K2, K4, K8, K10, K12 and K7's save-residuals mode against
+    their plain versions on the same flagship-shape inputs, with seeded
+    cotangents. Returns the cotangents and K7's saved tiles for the
+    timings."""
     from targetvae_tpu_torch.kernels.decoder_pose import (
         fused_pose_decoder_tables, pose_closure, pose_decoder_bwd,
         pose_decoder_bwd_plain, pose_decoder_plain)
@@ -635,7 +938,41 @@ def check_backward_kernels(torch, cfg, dev, k1, k3, k7, pose, results):
           f"L2 {({n: float(f'{r:.2e}') for n, r in rels.items()})} <= "
           f"{TOL_BWD_REL}; rerun bitwise identical")
     results["pose_decoder_bwd"] = {"max_abs_err": max_abs(got, ref)}
-    return g1, g3, g7, hs
+
+    # K12 from K11's saved h1, K10 from K9's inputs
+    from targetvae_tpu_torch.kernels.decoder_mlp import (
+        decoder_mlp_bwd, decoder_mlp_bwd_plain)
+    from targetvae_tpu_torch.kernels.lifted_encoder import (
+        lifted_encoder_bwd, lifted_encoder_bwd_plain)
+    g11 = rn(k11[0].shape[0], R * (3 + 2 * zd))
+    bwd11 = (k11[0], h1, *k11[3:6], g11)
+    got = lifted_encoder_bwd(*bwd11, R=R, K=K)
+    again = lifted_encoder_bwd(*bwd11, R=R, K=K)
+    ref = lifted_encoder_bwd_plain(*bwd11, R=R, K=K)
+    torch.cuda.synchronize()
+    names = ("dWc", "dbc", "dW2", "db2", "dWh", "dbh")
+    rels = {n: rel_l2(a, b) for n, a, b in zip(names, got, ref)}
+    check(finite(got) and max(rels.values()) <= TOL_BWD_REL
+          and same(got, again),
+          f"phase 6: K12 lifted_encoder_bwd P {tuple(k11[0].shape)}: rel L2 "
+          f"{({n: float(f'{r:.2e}') for n, r in rels.items()})} <= "
+          f"{TOL_BWD_REL}; rerun bitwise identical")
+    results["lifted_encoder_bwd"] = {"max_abs_err": max_abs(got, ref)}
+
+    g9 = rn(*k9[0].shape[:2], 1)
+    got = decoder_mlp_bwd(*k9, g9)
+    again = decoder_mlp_bwd(*k9, g9)
+    ref = decoder_mlp_bwd_plain(*k9, g9)
+    torch.cuda.synchronize()
+    names = ("dx", "dhz", "dW1", "db1", "dWh", "dbh", "dW3", "db3")
+    rels = {n: rel_l2(a, b) for n, a, b in zip(names, got, ref)}
+    check(finite(got) and max(rels.values()) <= TOL_K10_REL
+          and same(got, again),
+          f"phase 6: K10 decoder_mlp_bwd x {tuple(k9[0].shape)}: rel L2 "
+          f"{({n: float(f'{r:.2e}') for n, r in rels.items()})} <= "
+          f"{TOL_K10_REL}; rerun bitwise identical")
+    results["decoder_mlp_bwd"] = {"max_abs_err": max_abs(got, ref)}
+    return g1, g3, g7, hs, g11, g9
 
 
 def train_path(torch, kernels, cfg, dev):
@@ -660,11 +997,29 @@ def train_path(torch, kernels, cfg, dev):
         (-elbo).backward()
         return {n: p.grad.detach().clone() for n, p in model.named_parameters()}
 
-    g16, g32 = tier_grads(torch.bfloat16), tier_grads(None)
+    with encoder_tier("conv"):
+        g16 = tier_grads(torch.bfloat16)
+    g32 = tier_grads(None)
     model.zero_grad(set_to_none=True)
-    # the attention head's bias: the joint softmax is invariant to a shift
-    # of every logit, so its exact gradient is zero and both tiers hold
-    # rounding noise, held to 1e-3 of the attention weights' gradient
+    check_tier_grads(torch, g16, g32, "conv")
+
+    with encoder_tier("conv"):
+        state, counts = train_steps(torch, kernels, trainer, state, data,
+                                    TRAIN_STEPS, "conv")
+    used = ("mix_heads_fwd", "mix_heads_bwd", "posterior_fwd",
+            "posterior_bwd", "pose_decoder_fwd", "pose_decoder_bwd")
+    check(all(counts[k] > 0 for k in used)
+          and not any(counts[k] for k in counts if k not in used),
+          f"phase 7: conv tier launches {counts} (K1-K4, K7, K8 only)")
+    return trainer, state, data, counts, g32
+
+
+def check_tier_grads(torch, g16, g32, tier):
+    """One deterministic step's gradients, a bf16 kernel tier against the
+    float32 tier, each parameter leaf within TOL_GRAD relative L2. The
+    attention head's bias: the joint softmax is invariant to a shift of
+    every logit, so its exact gradient is zero and both tiers hold rounding
+    noise, held to 1e-3 of the attention weights' gradient."""
     shift = "encoder.conv_a.b"
     noise_floor = 1e-3 * float(g32["encoder.conv_a.w"].norm())
     rels = {n: rel_l2(g16[n], g32[n]) for n in g32 if n != shift}
@@ -673,43 +1028,134 @@ def train_path(torch, kernels, cfg, dev):
           and rels[worst] <= TOL_GRAD
           and float(g16[shift].norm()) <= noise_floor
           and float(g32[shift].norm()) <= noise_floor,
-          f"phase 7: deterministic step gradients, bf16 kernel tier vs float32"
+          f"phase 7: deterministic step gradients, bf16 {tier} tier vs float32"
           f" tier, rel L2 per leaf <= {TOL_GRAD}: "
           f"{({n: float(f'{r:.2e}') for n, r in rels.items()})}; worst {worst};"
           f" {shift} |g| {float(g16[shift].norm()):.2e} / "
           f"{float(g32[shift].norm()):.2e} <= {noise_floor:.2e}")
 
+
+def train_steps(torch, kernels, trainer, state, data, steps, tier):
+    """`steps` bf16 train steps over the fixed batches with the launch
+    counts read around them: finite metrics and a rising ELBO. Returns the
+    state and the counts."""
     kernels.reset_launch_counts()
     metrics = []
-    for i in range(TRAIN_STEPS):
+    for i in range(steps):
         j = i % TRAIN_BATCHES
         state, m = trainer.train_step(state, data[j * B:(j + 1) * B])
         metrics.append(m)
     m = torch.stack(metrics).cpu().numpy()
     counts = kernels.launch_counts()
     first, last = float(m[:5, 0].mean()), float(m[-5:, 0].mean())
-    check(bool(np.isfinite(m).all()) and last > first
-          and all(v > 0 for v in counts.values()) and state.step == TRAIN_STEPS,
-          f"phase 7: {TRAIN_STEPS} bf16 train steps at B={B} (Adam, lr "
+    check(bool(np.isfinite(m).all()) and last > first and state.step == steps,
+          f"phase 7: {tier} tier: {steps} bf16 train steps at B={B} (Adam, lr "
           f"{trainer.cfg.learning_rate}): ELBO finite, mean of the first 5 "
           f"{first:.3f} -> last 5 {last:.3f}; launches {counts}")
-    print(f"phase 7: ELBO per step {np.round(m[:, 0], 2).tolist()}", flush=True)
-    return trainer, state, data, counts
+    print(f"phase 7: {tier} tier: ELBO per step "
+          f"{np.round(m[:, 0], 2).tolist()}", flush=True)
+    return state, counts
 
 
-def time_training(torch, cfg, k1, k3, k7, cot, trainer, state, data, results):
+def patch_train_path(torch, kernels, cfg, dev, data, g32):
+    """Phase 7 on the patch encoder tier: one deterministic step's gradients
+    against the float32 tier's (g32, the same weights and batch), then
+    PATCH_STEPS train steps from the same fresh weights, launching K11 and
+    K12 and neither K1 nor K2."""
+    from targetvae_tpu_torch.losses.elbo import compute_elbo
+    from targetvae_tpu_torch.train import Trainer
+    from targetvae_tpu_torch.utils.config import TrainConfig
+    trainer = Trainer(cfg, TrainConfig(compute_dtype="bfloat16",
+                                       minibatch_size=B), device=dev)
+    state = trainer.init_state(0)
+    model = trainer.model
+    with encoder_tier("patch"):
+        model.zero_grad(set_to_none=True)
+        elbo = compute_elbo(model.params(), cfg, model.base_grid(), data[:B],
+                            None, torch.bfloat16)[0]
+        (-elbo).backward()
+        g16 = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+        model.zero_grad(set_to_none=True)
+        check_tier_grads(torch, g16, g32, "patch")
+        state, counts = train_steps(torch, kernels, trainer, state, data,
+                                    PATCH_STEPS, "patch")
+    used = ("lifted_encoder_fwd", "lifted_encoder_bwd", "posterior_fwd",
+            "posterior_bwd", "pose_decoder_fwd", "pose_decoder_bwd")
+    check(all(counts[k] > 0 for k in used)
+          and not any(counts[k] for k in counts if k not in used),
+          f"phase 7: patch tier launches {counts} (K11, K12, K3, K4, K7, K8 "
+          f"only)")
+    return trainer, state, counts
+
+
+def decode_path(torch, kernels, model, params, k9, z):
+    """Phase 9: TargetVAE.decode in bf16 (K9) at the posed 50x50 grids
+    against float32 decode, then a gradient through it (K10), held against
+    float32 decode's. Returns the launch counts of the two bf16 calls."""
+    x = k9[0]
+    g = torch.randn(x.shape[:2] + (1,),
+                    generator=torch.Generator(device=x.device).manual_seed(17),
+                    device=x.device)
+
+    def grads(dt):
+        model.zero_grad(set_to_none=True)
+        xx, zz = x.clone().requires_grad_(), z.clone().requires_grad_()
+        y = model.decode(model.params(), xx, zz, dt)
+        y.backward(g)
+        out = {"x": xx.grad, "z": zz.grad}
+        out.update({n: p.grad for n, p in model.named_parameters()
+                    if p.grad is not None})
+        return y.detach(), out
+
+    with torch.inference_mode():
+        d32 = model.decode(params, x, z)
+    kernels.reset_launch_counts()
+    with torch.inference_mode():
+        d16 = model.decode(params, x, z, torch.bfloat16)
+    y16, g16 = grads(torch.bfloat16)
+    counts = kernels.launch_counts()
+    _, g32 = grads(None)
+    model.zero_grad(set_to_none=True)
+    err = float((d16 - d32).abs().max())
+    scale = float(d32.abs().max())
+    rels = {n: rel_l2(g16[n], g32[n]) for n in g32}
+    ok_grads = all(r <= (TOL_DECODE_GRAD_IN if n in ("x", "z")
+                         else TOL_DECODE_GRAD) for n, r in rels.items())
+    check(bool(torch.isfinite(d16).all()) and err <= 2e-2 * scale
+          and torch.equal(y16, d16)
+          and all(bool(torch.isfinite(v).all()) for v in g16.values())
+          and ok_grads and counts["decoder_mlp_fwd"] == 2
+          and counts["decoder_mlp_bwd"] == 1
+          and not any(v for k, v in counts.items()
+                      if k not in ("decoder_mlp_fwd", "decoder_mlp_bwd")),
+          f"phase 9: bf16 decode x {tuple(x.shape)} vs float32: max abs diff "
+          f"{err:.3e} <= 2e-2 of {scale:.3e}; gradient through it, rel L2 vs "
+          f"float32 {({n: float(f'{r:.2e}') for n, r in rels.items()})} <= "
+          f"{TOL_DECODE_GRAD} (x, z {TOL_DECODE_GRAD_IN}); launches {counts} "
+          f"(K9 twice, K10 once)")
+    return counts
+
+
+def time_training(torch, cfg, k1, k3, k7, k9, k11, h1, cot, trainer, state,
+                  trainer_p, state_p, data, results):
     """Phase 8: each backward kernel against its plain version, K7 with and
-    without saved residuals, and the train step."""
+    without saved residuals, K11 with and without saving h1, and the train
+    step of each encoder tier."""
+    from targetvae_tpu_torch.kernels.decoder_mlp import (
+        decoder_mlp_bwd, decoder_mlp_bwd_plain)
     from targetvae_tpu_torch.kernels.decoder_pose import (
         fused_pose_decoder_tables, pose_decoder_bwd, pose_decoder_bwd_plain)
+    from targetvae_tpu_torch.kernels.lifted_encoder import (
+        lifted_encoder_bwd, lifted_encoder_bwd_plain, lifted_encoder_fwd)
     from targetvae_tpu_torch.kernels.mix_heads import (
         lift_act_mix_heads_bwd_plain, mix_heads_bwd)
     from targetvae_tpu_torch.kernels.posterior import (
         posterior_bwd, posterior_bwd_plain)
 
     R, K = cfg.encoder.groupconv, cfg.encoder.kernels_num
-    g1, g3, g7, hs = cot
+    g1, g3, g7, hs, g11, g9 = cot
     bwd7 = (*k7[:4], hs, k7[5], k7[7], k7[9], g7)
+    bwd11 = (k11[0], h1, *k11[3:6], g11)
     with torch.inference_mode():
         for name, kfn, pfn in (
                 ("mix_heads_bwd",
@@ -720,32 +1166,45 @@ def time_training(torch, cfg, k1, k3, k7, cot, trainer, state, data, results):
                  lambda: posterior_bwd_plain(g3, *k3, noise=k3[0])),
                 ("pose_decoder_bwd",
                  lambda: pose_decoder_bwd(*bwd7),
-                 lambda: pose_decoder_bwd_plain(*bwd7))):
+                 lambda: pose_decoder_bwd_plain(*bwd7)),
+                ("lifted_encoder_bwd",
+                 lambda: lifted_encoder_bwd(*bwd11, R=R, K=K),
+                 lambda: lifted_encoder_bwd_plain(*bwd11, R=R, K=K)),
+                ("decoder_mlp_bwd",
+                 lambda: decoder_mlp_bwd(*k9, g9),
+                 lambda: decoder_mlp_bwd_plain(*k9, g9))):
             p1, k1_, k2_, p2 = (cuda_ms(pfn), cuda_ms(kfn), cuda_ms(kfn),
                                 cuda_ms(pfn))
             results[name].update(ms=min(k1_, k2_), plain_ms=min(p1, p2))
             print(f"phase 8: {name}: kernel {k1_:.4f} / {k2_:.4f} ms, plain "
                   f"{p1:.4f} / {p2:.4f} ms (plain, kernel, kernel, plain)",
                   flush=True)
-        plain_fwd = lambda: fused_pose_decoder_tables(*k7)
-        saving = lambda: fused_pose_decoder_tables(*k7, save_res=True)
-        a1, b1, b2, a2 = (cuda_ms(plain_fwd), cuda_ms(saving), cuda_ms(saving),
-                          cuda_ms(plain_fwd))
-        print(f"phase 8: pose_decoder_fwd save-residuals {b1:.4f} / {b2:.4f} "
-              f"ms vs serving {a1:.4f} / {a2:.4f} ms (serving, saving, saving,"
-              f" serving)", flush=True)
+        for name, serve, save in (
+                ("pose_decoder_fwd", lambda: fused_pose_decoder_tables(*k7),
+                 lambda: fused_pose_decoder_tables(*k7, save_res=True)),
+                ("lifted_encoder_fwd",
+                 lambda: lifted_encoder_fwd(*k11, R=R, K=K),
+                 lambda: lifted_encoder_fwd(*k11, R=R, K=K, save_h1=True))):
+            a1, b1, b2, a2 = (cuda_ms(serve), cuda_ms(save), cuda_ms(save),
+                              cuda_ms(serve))
+            print(f"phase 8: {name} saving for the backward {b1:.4f} / "
+                  f"{b2:.4f} ms vs serving {a1:.4f} / {a2:.4f} ms (serving, "
+                  f"saving, saving, serving)", flush=True)
 
     yb = data[:B]
-    step_ms = cuda_ms(lambda: trainer.train_step(state, yb))
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    for _ in range(10):
-        trainer.train_step(state, yb)
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t) / 10 * 1e3
-    print(f"phase 8: train {B / step_ms * 1e3:.1f} img/s (bf16 train_step, "
-          f"B={B}, {step_ms:.3f} ms/step device time incl. Adam; "
-          f"{wall_ms:.3f} ms/step host clock)", flush=True)
+    for tier, tr, st in (("conv", trainer, state), ("patch", trainer_p,
+                                                     state_p)):
+        with encoder_tier(tier):
+            step_ms = cuda_ms(lambda: tr.train_step(st, yb))
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(10):
+                tr.train_step(st, yb)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t) / 10 * 1e3
+        print(f"phase 8: {tier} tier: train {B / step_ms * 1e3:.1f} img/s "
+              f"(bf16 train_step, B={B}, {step_ms:.3f} ms/step device time "
+              f"incl. Adam; {wall_ms:.3f} ms/step host clock)", flush=True)
 
 
 if __name__ == "__main__":

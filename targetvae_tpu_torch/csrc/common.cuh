@@ -22,11 +22,34 @@ static __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16(x));
 }
 
+// asynchronous 16-byte copies from device to shared memory
+static __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
+}
+static __device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+static __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
 // Deterministic second pass of the backward kernels' cross-block sums
 // (csrc/reduce.cu): out[b, x] = sum over s in order of in[b, s, x], for an
 // (nb, S, X) float32 array. Launches on `stream`; returns the CUDA error.
 int sum_partials(const float* in, float* out, int nb, int S, int X,
                  cudaStream_t stream);
+
+// K2's chain pass and the in-order sum of its partials (csrc/mix_heads.cu),
+// also the first pass of K12 (csrc/lifted_encoder.cu): with from_h1 = 0, src
+// is the raw lift pre1 and h1 = bf16(act(pre1 + bc)); with from_h1 = 1, src
+// is h1 itself (bc unused). Arguments as tvae_mix_heads_bwd's.
+int mix_heads_bwd_run(const void* src, const void* bc, const void* w2,
+                      const void* b2, const void* wh, const void* g,
+                      void* dpre1, void* part, void* out, int N, int R, int K,
+                      int D, int G, int SP, int act, int from_h1,
+                      cudaStream_t stream);
 
 // Sets the dynamic shared memory a kernel may use and launches nothing;
 // returns the CUDA error code.

@@ -144,7 +144,9 @@ __global__ void __launch_bounds__(THREADS) mix_heads_fwd_kernel(
 //   dh1  = bf16(dpre2) W2^T           dpre1 = dh1 * act'(h1)  -> bf16 out
 //   dbc += sum dpre1 (f32, before the rounding)
 // act' is recovered from the bf16 activation values, as the TPU kernel does.
-// Per rotation, no block-diagonal grouping (a TPU matrix-unit trick).
+// Per rotation, no block-diagonal grouping (a TPU matrix-unit trick). With
+// from_h1 the kernel reads the bf16 h1 a forward saved in place of pre1 (the
+// first pass of K12, csrc/lifted_encoder.cu, whose lift is a GEMM in K11).
 //
 // What bounds it on the H100: at the flagship shape (N = 152,100, R = 8,
 // K = 128, D = 7) three 2*N*R*K^2 products (0.12 TFLOP with the heads) and
@@ -172,7 +174,7 @@ __global__ void __launch_bounds__(THREADS) mix_heads_bwd_kernel(
     const __nv_bfloat16* __restrict__ w2, const float* __restrict__ b2,
     const __nv_bfloat16* __restrict__ wh, const float* __restrict__ g,
     __nv_bfloat16* __restrict__ dpre1, float* __restrict__ part, int N, int R,
-    int D, int SP, int act) {
+    int D, int SP, int act, int from_h1) {
   constexpr int KB = K / 16;
   constexpr int NW2 = (KB * KB + WARPS - 1) / WARPS;  // dW2 fragments a warp
   constexpr int NWH = (KB + WARPS - 1) / WARPS;       // dWh fragments a warp
@@ -214,13 +216,18 @@ __global__ void __launch_bounds__(THREADS) mix_heads_bwd_kernel(
   for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
     const int p0 = t * TP;
     for (int r = 0; r < R; ++r) {
-      // h1 = bf16(act(pre1 + bc)), and the tile of g, f32 and bf16
+      // h1 = bf16(act(pre1 + bc)), or h1 as given (from_h1), and the tile
+      // of g, f32 and bf16
       for (int i = tid; i < TP * K8; i += THREADS) {
         const int p = i / K8, c = (i - p * K8) * 8;
         const int row = p0 + p;
         uint4 raw = make_uint4(0u, 0u, 0u, 0u);
         if (row < N)
           raw = *reinterpret_cast<const uint4*>(pre1 + (size_t)row * RK + r * K + c);
+        if (from_h1) {
+          *reinterpret_cast<uint4*>(h1s + p * K + c) = raw;
+          continue;
+        }
         const __nv_bfloat16* x = reinterpret_cast<const __nv_bfloat16*>(&raw);
         __align__(16) __nv_bfloat16 h[8];
 #pragma unroll
@@ -402,7 +409,7 @@ template <int K>
 int launch_bwd(const void* pre1, const void* bc, const void* w2,
                const void* b2, const void* wh, const void* g, void* dpre1,
                void* part, int N, int R, int D, int G, int SP, int act,
-               cudaStream_t stream) {
+               int from_h1, cudaStream_t stream) {
   const size_t smem = ((size_t)K * K + (size_t)K * DP + 3 * (size_t)TP * K +
                        (size_t)TP * DP) * 2 +
                       ((size_t)TP * DP + (size_t)TP * K + K + DP + (size_t)R * K) * 4;
@@ -411,11 +418,40 @@ int launch_bwd(const void* pre1, const void* bc, const void* w2,
   mix_heads_bwd_kernel<K><<<G, THREADS, smem, stream>>>(
       (const __nv_bfloat16*)pre1, (const float*)bc, (const __nv_bfloat16*)w2,
       (const float*)b2, (const __nv_bfloat16*)wh, (const float*)g,
-      (__nv_bfloat16*)dpre1, (float*)part, N, R, D, SP, act);
+      (__nv_bfloat16*)dpre1, (float*)part, N, R, D, SP, act, from_h1);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
+
+int mix_heads_bwd_run(const void* src, const void* bc, const void* w2,
+                      const void* b2, const void* wh, const void* g,
+                      void* dpre1, void* part, void* out, int N, int R, int K,
+                      int D, int G, int SP, int act, int from_h1,
+                      cudaStream_t s) {
+  if (D > DP || G < 1 || SP % 8 ||
+      SP < K * K + K * D + K + D + R * K)
+    return (int)cudaErrorInvalidValue;
+  int err;
+  switch (K) {
+    case 16:
+      err = launch_bwd<16>(src, bc, w2, b2, wh, g, dpre1, part, N, R, D, G, SP, act, from_h1, s);
+      break;
+    case 32:
+      err = launch_bwd<32>(src, bc, w2, b2, wh, g, dpre1, part, N, R, D, G, SP, act, from_h1, s);
+      break;
+    case 64:
+      err = launch_bwd<64>(src, bc, w2, b2, wh, g, dpre1, part, N, R, D, G, SP, act, from_h1, s);
+      break;
+    case 128:
+      err = launch_bwd<128>(src, bc, w2, b2, wh, g, dpre1, part, N, R, D, G, SP, act, from_h1, s);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  if (err) return err;
+  return sum_partials((const float*)part, (float*)out, 1, G, SP, s);
+}
 
 // part: (G, SP) f32 scratch; out: (SP,) f32, the first
 // K*K + K*D + K + D + R*K entries of which receive
@@ -426,29 +462,8 @@ extern "C" int tvae_mix_heads_bwd(const void* pre1, const void* bc,
                                   void* part, void* out, int N, int R, int K,
                                   int D, int G, int SP, int act,
                                   void* stream) {
-  if (D > DP || G < 1 || SP % 8 ||
-      SP < K * K + K * D + K + D + R * K)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  int err;
-  switch (K) {
-    case 16:
-      err = launch_bwd<16>(pre1, bc, w2, b2, wh, g, dpre1, part, N, R, D, G, SP, act, s);
-      break;
-    case 32:
-      err = launch_bwd<32>(pre1, bc, w2, b2, wh, g, dpre1, part, N, R, D, G, SP, act, s);
-      break;
-    case 64:
-      err = launch_bwd<64>(pre1, bc, w2, b2, wh, g, dpre1, part, N, R, D, G, SP, act, s);
-      break;
-    case 128:
-      err = launch_bwd<128>(pre1, bc, w2, b2, wh, g, dpre1, part, N, R, D, G, SP, act, s);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-  if (err) return err;
-  return sum_partials((const float*)part, (float*)out, 1, G, SP, s);
+  return mix_heads_bwd_run(pre1, bc, w2, b2, wh, g, dpre1, part, out, N, R, K,
+                           D, G, SP, act, 0, (cudaStream_t)stream);
 }
 
 extern "C" int tvae_mix_heads_fwd(const void* pre1, const void* bc,

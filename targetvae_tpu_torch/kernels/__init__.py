@@ -4,6 +4,11 @@ kernel_tier is the package's one kernel switch: every dispatch site (encoder,
 ELBO, generator) asks it, and nothing else decides. The bf16 compute tier runs
 the fused kernels; the float32 tier is model code in plain PyTorch.
 
+encoder_tier picks the mode-C encoder inside the kernel tier, read from
+TARGETVAE_ENCODER_TIER at call time as the JAX package reads it: "patch" runs
+the fused patch encoder (K11/K12, one im2col GEMM inside the kernel), any
+other value the default "conv" tier (the lift conv, then K1/K2).
+
 Inside the kernel tier each wrapper dispatches on the device of its input
 only: a CPU tensor takes the plain version, a CUDA tensor launches the kernel
 or raises. The backward wrappers are joined to their forwards by
@@ -15,9 +20,13 @@ reset_launch_counts read and clear.
 
 from __future__ import annotations
 
+import os
+
 import torch
 
+from .decoder_mlp import decoder_mlp_bwd, decoder_mlp_fwd
 from .decoder_pose import fused_pose_decoder_tables, pose_decoder_bwd
+from .lifted_encoder import lifted_encoder_bwd, lifted_encoder_fwd
 from .mix_heads import mix_heads_bwd, mix_heads_fwd
 from .posterior import posterior_bwd, posterior_fwd
 
@@ -26,12 +35,23 @@ WRAPPERS = {"mix_heads_fwd": mix_heads_fwd,
             "posterior_fwd": posterior_fwd,
             "posterior_bwd": posterior_bwd,
             "pose_decoder_fwd": fused_pose_decoder_tables,
-            "pose_decoder_bwd": pose_decoder_bwd}
+            "pose_decoder_bwd": pose_decoder_bwd,
+            "decoder_mlp_fwd": decoder_mlp_fwd,
+            "decoder_mlp_bwd": decoder_mlp_bwd,
+            "lifted_encoder_fwd": lifted_encoder_fwd,
+            "lifted_encoder_bwd": lifted_encoder_bwd}
 
 
 def kernel_tier(compute_dtype) -> bool:
     """True when a computation should go through the fused kernels."""
     return compute_dtype == torch.bfloat16
+
+
+def encoder_tier() -> str:
+    """The kernel tier's mode-C encoder: "patch" when TARGETVAE_ENCODER_TIER
+    is "patch" (read at each call), else "conv"."""
+    return ("patch" if os.environ.get("TARGETVAE_ENCODER_TIER") == "patch"
+            else "conv")
 
 
 def launch_counts() -> dict:

@@ -48,6 +48,18 @@ SIGNATURES = {
     # u, v, p, q, w1, wh, w3, g, hs, gx, gy, dP, part, cols_img, cols, gpart,
     # dfx, dfy, dfc, dw1, dwh, B, n, F, H, L, n_out, S1, S2, act, stream
     "tvae_pose_decoder_bwd": [_P] * 21 + [_I] * 9 + [_P],
+    # p, wc, bc, w2, b2, wh, bh, out, h1_out (or null), N, CK, R, K, D, act,
+    # stream
+    "tvae_lifted_encoder_fwd": [_P] * 9 + [_I] * 6 + [_P],
+    # p, h1, w2, b2, wh, g, dpre1, part, out, gpart, dwc,
+    # N, CK, R, K, D, G, SP, S, act, stream
+    "tvae_lifted_encoder_bwd": [_P] * 11 + [_I] * 9 + [_P],
+    # x, wf, bf, hz, w1, b1, wh, bh, w3, b3, y, hs_out (or null),
+    # B, npx, F, H, L, n_out, act, stream
+    "tvae_decoder_mlp_fwd": [_P] * 12 + [_I] * 7 + [_P],
+    # the forward's ten inputs, g, y, hs, dP, part, cols_img, cols, gpart, dx,
+    # dw1, dwh, B, npx, F, H, L, n_out, S1, S2, act, stream
+    "tvae_decoder_mlp_bwd": [_P] * 21 + [_I] * 9 + [_P],
 }
 
 

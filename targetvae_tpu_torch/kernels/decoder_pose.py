@@ -90,14 +90,26 @@ def pose_tables(theta, dx, wf_over_sigma, bf, image_dim: int):
     return torch.cos(ax), torch.sin(ax), torch.cos(ay), torch.sin(ay)
 
 
+def pose_features(u, v, p, q):
+    """The (B, n*n, F) features bf16(U[j] P[i] - V[j] Q[i]), as float32."""
+    b, n, f = u.shape
+    feat = (u[:, None] * p[:, :, None] - v[:, None] * q[:, :, None])
+    return bf16_round(feat.reshape(b, n * n, f))
+
+
 def pose_decoder_plain(u, v, p, q, hz, w1, b1, wh, bh, w3, b3, *,
                        act_kind: str = "leakyrelu", save_res: bool = False):
     """Plain PyTorch version (materialises the (B, n*n, F) features).
     wh (L-1, H, H), bh (L-1, H). Returns (B, n*n, n_out) float32, and with
     save_res also the bf16 h tiles (L, B, n*n, H)."""
-    b, n, f = u.shape
-    feat = (u[:, None] * p[:, :, None] - v[:, None] * q[:, :, None])
-    feat = bf16_round(feat.reshape(b, n * n, f))
+    return mlp_chain_plain(pose_features(u, v, p, q), hz, w1, b1, wh, bh, w3,
+                           b3, act_kind=act_kind, save_res=save_res)
+
+
+def mlp_chain_plain(feat, hz, w1, b1, wh, bh, w3, b3, *,
+                    act_kind: str = "leakyrelu", save_res: bool = False):
+    """The decoder's chain after its bf16-valued features feat (B, P, F),
+    with the kernels' rounding points (K7's and K9's plain versions)."""
     h = bf16_round(_act(feat @ bf16_round(w1.float()) + b1.float()
                         + hz.float()[:, None, :], act_kind))
     hs = [h]
@@ -164,6 +176,27 @@ def pose_decoder_bwd_plain(u, v, p, q, hs, w1, wh, w3, g, *,
     Returns dfx, dfy, dfc (B, F), dhz (B, H), dw1 (F, H), db1 (H,),
     dwh (L-1, H, H), dbh (L-1, H), dw3 (H, n_out), db3 (n_out,)."""
     b, n, f = u.shape
+    dpre1, dwh, dbh, dw3, db3 = mlp_chain_bwd_plain(hs, wh, w3, g,
+                                                    act_kind=act_kind)
+    dpre1_16 = bf16_round(dpre1)
+    dhz = dpre1.sum(1)
+    dw1 = torch.einsum("bpf,bph->fh", pose_features(u, v, p, q), dpre1_16)
+    s = (v[:, None] * p[:, :, None] + u[:, None] * q[:, :, None]).reshape(
+        b, n * n, f)
+    t = (dpre1_16 @ bf16_round(w1.float()).T) * s
+    del s
+    gx, gy = _pixel_grid(n, u.device)
+    wx = gx.repeat(n)[None, :, None]                # pixel i*n + j -> gx[j]
+    wy = gy.repeat_interleave(n)[None, :, None]     # -> gy[i]
+    return (-(t * wx).sum(1), -(t * wy).sum(1), -t.sum(1), dhz, dw1,
+            dhz.sum(0), dwh, dbh, dw3, db3)
+
+
+def mlp_chain_bwd_plain(hs, wh, w3, g, *, act_kind: str = "leakyrelu"):
+    """The chain pass of K8 and K10 with their rounding points: from g
+    (B, P, n_out) and the bf16 h tiles hs (L, B, P, H) down to the f32
+    dpre1 (B, P, H). Returns dpre1, dwh (L-1, H, H), dbh (L-1, H),
+    dw3 (H, n_out), db3 (n_out,)."""
     L = hs.shape[0]
     hsf = hs.float()
     g = g.float()
@@ -179,22 +212,7 @@ def pose_decoder_bwd_plain(u, v, p, q, hs, w1, wh, w3, g, *,
         dbh[l - 1] = dpre.sum((0, 1))
         dh = dpre16 @ bf16_round(wh[l - 1].float()).T
     dpre1 = dh * _dact_from_h(hsf[0], act_kind)
-    dpre1_16 = bf16_round(dpre1)
-    dhz = dpre1.sum(1)
-    db1 = dhz.sum(0)
-    feat = bf16_round((u[:, None] * p[:, :, None]
-                       - v[:, None] * q[:, :, None]).reshape(b, n * n, f))
-    dw1 = torch.einsum("bpf,bph->fh", feat, dpre1_16)
-    del feat
-    s = (v[:, None] * p[:, :, None] + u[:, None] * q[:, :, None]).reshape(
-        b, n * n, f)
-    t = (dpre1_16 @ bf16_round(w1.float()).T) * s
-    del s
-    gx, gy = _pixel_grid(n, u.device)
-    wx = gx.repeat(n)[None, :, None]                # pixel i*n + j -> gx[j]
-    wy = gy.repeat_interleave(n)[None, :, None]     # -> gy[i]
-    return (-(t * wx).sum(1), -(t * wy).sum(1), -t.sum(1), dhz, dw1, db1,
-            torch.stack(dwh), torch.stack(dbh), dw3, db3)
+    return dpre1, torch.stack(dwh), torch.stack(dbh), dw3, db3
 
 
 def _splits(m: int, n: int) -> int:

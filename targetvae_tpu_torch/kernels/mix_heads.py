@@ -30,15 +30,22 @@ from .decoder_pose import ACT_CODES, _act, _dact_from_h, bf16_round
 _BWD_BLOCKS = 264
 
 
-def lift_act_mix_heads_plain(pre1, bc, w2, b2, wh, bh, *, R: int, K: int,
-                             act_kind: str = "leakyrelu") -> torch.Tensor:
-    """Plain PyTorch version of the kernel, on any device."""
-    n = pre1.shape[0]
-    h1 = bf16_round(_act(pre1.float() + bc.float(), act_kind))
-    pre2 = h1.reshape(n, R, K) @ bf16_round(w2.float()) + b2.float()
+def mix_heads_from_h1(h1, w2, b2, wh, bh, *, R: int, K: int,
+                      act_kind: str = "leakyrelu") -> torch.Tensor:
+    """Mixing and heads from the bf16-valued h1 (N, R*K), with the kernels'
+    rounding points; shared by K1's and K11's plain versions."""
+    n = h1.shape[0]
+    pre2 = h1.float().reshape(n, R, K) @ bf16_round(w2.float()) + b2.float()
     h2 = bf16_round(_act(pre2, act_kind))
     out = h2 @ bf16_round(wh.float()) + bh.float()
     return out.reshape(n, -1)
+
+
+def lift_act_mix_heads_plain(pre1, bc, w2, b2, wh, bh, *, R: int, K: int,
+                             act_kind: str = "leakyrelu") -> torch.Tensor:
+    """Plain PyTorch version of the kernel, on any device."""
+    h1 = bf16_round(_act(pre1.float() + bc.float(), act_kind))
+    return mix_heads_from_h1(h1, w2, b2, wh, bh, R=R, K=K, act_kind=act_kind)
 
 
 def mix_heads_fwd(pre1, bc, w2, b2, wh, bh, *, R: int, K: int,
@@ -82,9 +89,19 @@ def lift_act_mix_heads_bwd_plain(pre1, bc, w2, b2, wh, g, *, R: int, K: int,
     """Plain PyTorch version of the backward, with the kernel's rounding
     points. g (N, R*D) float32. Returns dpre1 (N, R*K) bf16 and dbc (R*K,),
     dw2 (K, K), db2 (K,), dwh (K, D), dbh (D,) float32."""
-    n = pre1.shape[0]
+    h1 = bf16_round(_act(pre1.float() + bc.float(), act_kind))
+    return mix_heads_bwd_from_h1(h1, w2, b2, wh, g, R=R, K=K,
+                                 act_kind=act_kind)
+
+
+def mix_heads_bwd_from_h1(h1, w2, b2, wh, g, *, R: int, K: int,
+                          act_kind: str = "leakyrelu"):
+    """K2's chain from the bf16-valued h1 (N, R*K), with its rounding points;
+    shared by K2's and K12's plain versions. Returns what
+    lift_act_mix_heads_bwd_plain returns."""
+    n = h1.shape[0]
     d = wh.shape[1]
-    h1 = bf16_round(_act(pre1.float() + bc.float(), act_kind)).reshape(n, R, K)
+    h1 = h1.float().reshape(n, R, K)
     w2r = bf16_round(w2.float())
     h2 = bf16_round(_act(h1 @ w2r + b2.float(), act_kind))
     g3 = g.float().reshape(n, R, d)
@@ -98,6 +115,31 @@ def lift_act_mix_heads_bwd_plain(pre1, bc, w2, b2, wh, g, *, R: int, K: int,
     dpre1 = (dpre2_16 @ w2r.T) * _dact_from_h(h1, act_kind)
     return (dpre1.reshape(n, R * K).to(torch.bfloat16),
             dpre1.sum(0).reshape(R * K), dw2, db2, dwh, dbh)
+
+
+def _chain_sizes(R: int, K: int, d: int):
+    """The chain pass's sums in the order csrc/mix_heads.cu writes them:
+    dW2, dWh, db2, dbh, dbc."""
+    return (K * K, K * d, K, d, R * K)
+
+
+def chain_scratch(n: int, R: int, K: int, d: int, device):
+    """K2's chain pass (also K12's first pass): its grid of G blocks, the
+    length SP of a partial-sum row, the (G, SP) partials and the (SP,) sums
+    they are added into."""
+    sp = -(-sum(_chain_sizes(R, K, d)) // 64) * 64
+    blocks = max(1, min(-(-n // 64), _BWD_BLOCKS))
+    f32 = torch.float32
+    return (blocks, sp, torch.empty((blocks, sp), dtype=f32, device=device),
+            torch.zeros((sp,), dtype=f32, device=device))
+
+
+def chain_grads(out, R: int, K: int, d: int):
+    """dbc (R*K,), dw2 (K, K), db2 (K,), dwh (K, D), dbh (D,) from the chain
+    pass's summed row."""
+    sizes = _chain_sizes(R, K, d)
+    dw2, dwh, db2, dbh, dbc = out[:sum(sizes)].split(sizes)
+    return dbc, dw2.reshape(K, K), db2, dwh.reshape(K, d), dbh
 
 
 def mix_heads_bwd(pre1, bc, w2, b2, wh, g, *, R: int, K: int,
@@ -126,20 +168,15 @@ def mix_heads_bwd(pre1, bc, w2, b2, wh, g, *, R: int, K: int,
     _build.check_cuda(*args, dtypes=(bf, f32, bf, f32, bf, f32))
     if tuple(args[5].shape) != (n, R * d):
         raise ValueError(f"g: expected {(n, R * d)}, got {tuple(g.shape)}")
-    sizes = (K * K, K * d, K, d, R * K)
-    sp = -(-sum(sizes) // 64) * 64
-    blocks = min(-(-n // 64), _BWD_BLOCKS)
+    blocks, sp, part, out = chain_scratch(n, R, K, d, pre1.device)
     dpre1 = torch.empty_like(pre1)
-    out = torch.zeros((sp,), dtype=f32, device=pre1.device)
     if n:
-        part = torch.empty((blocks, sp), dtype=f32, device=pre1.device)
         _build.launch("tvae_mix_heads_bwd", *(t.data_ptr() for t in args),
                       dpre1.data_ptr(), part.data_ptr(), out.data_ptr(),
                       n, R, K, d, blocks, sp, ACT_CODES[act_kind],
                       torch.cuda.current_stream(pre1.device).cuda_stream)
         mix_heads_bwd.launches += 1
-    dw2, dwh, db2, dbh, dbc = out[:sum(sizes)].split(sizes)
-    return dpre1, dbc, dw2.reshape(K, K), db2, dwh.reshape(K, d), dbh
+    return (dpre1, *chain_grads(out, R, K, d))
 
 
 mix_heads_bwd.launches = 0

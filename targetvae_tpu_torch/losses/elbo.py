@@ -2,10 +2,12 @@
 
 Joint posterior over the R x H' x W' grid (reference train_mnist.py:187-294).
 The bf16 tier runs the posterior kernel and the pose-decoder kernel (the JAX
-kernel branch, elbo.py:312-338); the float32 tier is the plain model code of
-elbo.py:340-381. The posterior math is float32 in both. Both tiers are
+kernel branch, elbo.py:312-338), or for a generator the pose kernel does not
+cover generator_apply's bf16 tier; the float32 tier is the plain model code
+of elbo.py:340-381. The posterior math is float32 in both. Both tiers are
 differentiable end to end: on the bf16 tier through the kernels' autograd
-Functions (K2, K4, K8 backward kernels); the Fourier w and b get no gradient.
+Functions (K2 or K12, K4, K8 backward kernels); the Fourier w and b get no
+gradient.
 
 Sampling: with a torch.Generator the posterior sample is Gumbel-perturbed and
 theta and z are reparameterised with normal noise, all drawn from it. With

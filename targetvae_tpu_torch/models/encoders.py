@@ -7,9 +7,14 @@ posterior is formed over the R x H' x W' grid. Heads are channels-last,
 (B, H', W', R) and (B, H', W', R, zd), as in the JAX package.
 
 Two tiers, chosen by kernels.kernel_tier(compute_dtype):
-  - bf16: the lift conv runs as one bf16 F.conv2d (cuDNN on the card) and the
-    lift activation, mixing and heads run in the fused mix_heads kernel, whose
-    backward kernel returns the conv's bf16 cotangent;
+  - bf16, with two encoders chosen by kernels.encoder_tier() where the JAX
+    package chooses (encoders.py::_use_encoder_kernel):
+      "conv" (default): the lift conv runs as one bf16 F.conv2d (cuDNN on
+      the card) and the lift activation, mixing and heads run in the fused
+      mix_heads kernel, whose backward kernel returns the conv's bf16
+      cotangent;
+      "patch" (TARGETVAE_ENCODER_TIER=patch): the fused patch encoder, the
+      lift one im2col GEMM inside the kernel (kernels/lifted_encoder.py);
   - float32 (compute_dtype=None): plain PyTorch model code.
 Modes A and B are not ported yet (ROADMAP.md, queue 1, slice 5).
 """
@@ -23,11 +28,13 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..kernels import kernel_tier
+from ..kernels import encoder_tier, kernel_tier
 from ..kernels.decoder_pose import _act
+from ..kernels.lifted_encoder import build_patches, fused_lifted_encoder
 from ..kernels.mix_heads import fused_lift_act_mix_heads
 from ..ops.groupconv import lifted_conv2d, lifted_weight
 from ..ops.gumbel import gumbel_softmax
+from ..ops.rotate import rotate_filter_bank
 from ..utils.config import EncoderConfig
 from ..utils.initializers import groupconv_init, linear_init
 
@@ -133,6 +140,32 @@ def _mode_c_kernel_tier(params: dict, cfg: EncoderConfig, y: torch.Tensor):
     return _split_heads(out.reshape(b, hp, wp, R, -1), cfg.z_dim)
 
 
+def mode_c_matrices(params: dict, cfg: EncoderConfig):
+    """The patch tier's rotated filter matrix Wc (C*k*k, R*K) float32, rows
+    channel-major (c*k*k + di*k + dj, build_patches' columns) and columns
+    r-major (r*K + o, the tiled bias's order); the tiled bias (R*K,); the
+    fused head weights. Wc's gradient reaches conv1.w through the rotation
+    gather's autograd."""
+    R = cfg.groupconv
+    rot = rotate_filter_bank(params["conv1"]["w"], R)   # (R, K, C, 1, k, k)
+    wc = rot.permute(2, 3, 4, 5, 0, 1).reshape(-1, R * cfg.kernels_num)
+    return (wc, params["conv1"]["b"].repeat(R), *head_weights(params))
+
+
+def _mode_c_patch_tier(params: dict, cfg: EncoderConfig, y: torch.Tensor):
+    """The fused patch encoder (targetvae_tpu/models/encoders.py::
+    _mode_c_kernel): im2col patches of the padded images, then K11."""
+    R, K, pad = cfg.groupconv, cfg.kernels_num, cfg.padding
+    hp = attn_dim_for(cfg)
+    wc, bc, wh, bh = mode_c_matrices(params, cfg)
+    xp = F.pad(y, (0, 0, pad, pad, pad, pad))
+    out = fused_lifted_encoder(
+        build_patches(xp, cfg.kernels_size, hp, hp), wc, bc,
+        params["conv2"]["w"], params["conv2"]["b"], wh, bh, R=R, K=K,
+        act_kind=cfg.activation)
+    return _split_heads(out.reshape(y.shape[0], hp, hp, R, -1), cfg.z_dim)
+
+
 def _mode_c_f32(params: dict, cfg: EncoderConfig, y: torch.Tensor):
     kind = cfg.activation
     lift = _act(lifted_conv2d(y, params["conv1"]["w"], params["conv1"]["b"],
@@ -153,7 +186,8 @@ def encoder_apply(params: dict, cfg: EncoderConfig, y: torch.Tensor,
     _require_mode_c(cfg)
     R = cfg.groupconv
     if kernel_tier(compute_dtype):
-        heads = _mode_c_kernel_tier(params, cfg, y)
+        heads = (_mode_c_patch_tier(params, cfg, y) if encoder_tier() == "patch"
+                 else _mode_c_kernel_tier(params, cfg, y))
     elif compute_dtype is None:
         heads = _mode_c_f32(params, cfg, y)
     else:

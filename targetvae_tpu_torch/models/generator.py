@@ -3,8 +3,15 @@
 
 Reference src/models.py:65-123. Per-pixel output logits from (coords, z):
 h = W_c embed(x) + W_z z broadcast over pixels, then `num_layers` - 1 hidden
-layers and a final linear to n_out. This is the float32 tier; the bf16 tier
-of arbitrary coordinates is the decoder_mlp kernel, which is not ported yet.
+layers and a final linear to n_out.
+
+Three tiers, chosen where the JAX package chooses (generator.py:23-29,67-105):
+  - bf16 on a configuration decoder_kernel_supported covers, with a latent:
+    the fused decoder_mlp kernel (K9, K10 under autograd);
+  - any other bf16 generator: the JAX package's XLA recipe in plain
+    PyTorch, features computed in float32 and rounded to bf16, bf16 matmul
+    operands, float32 accumulation;
+  - float32 (compute_dtype=None): plain model code.
 """
 
 from __future__ import annotations
@@ -15,7 +22,8 @@ import torch
 import torch.nn as nn
 
 from ..kernels import kernel_tier
-from ..kernels.decoder_pose import _act
+from ..kernels.decoder_mlp import decoder_kernel_supported, fused_decoder_mlp
+from ..kernels.decoder_pose import _act, bf16_round
 from ..ops.fourier import fourier_apply, fourier_init
 from ..utils.config import GeneratorConfig
 from ..utils.initializers import linear_init
@@ -48,25 +56,25 @@ def generator_apply(params: dict, cfg: GeneratorConfig, x: torch.Tensor,
                     compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """x: (B, N, 2) transformed coordinates; z: (B, z_dim) or None.
     Returns (B, N, n_out) float32."""
-    if kernel_tier(compute_dtype):
-        raise NotImplementedError(
-            "bf16 generator_apply runs the decoder_mlp kernel "
-            "(targetvae_tpu/kernels/decoder_mlp.py::fused_decoder_mlp), which "
-            "is not ported yet (ROADMAP.md, queue 2, item 5); use "
-            "compute_dtype=None, or the pose decoder through the ELBO")
-    if compute_dtype is not None:
+    if compute_dtype is not None and not kernel_tier(compute_dtype):
         raise ValueError(f"unsupported compute_dtype {compute_dtype}")
+    bf16 = kernel_tier(compute_dtype)
+    if bf16 and z is not None and decoder_kernel_supported(cfg):
+        return fused_decoder_mlp(x, z, params, cfg)
+    # the bf16 recipe's matmul: bf16 operands, float32 accumulation
+    mm = ((lambda a, w: bf16_round(a) @ bf16_round(w)) if bf16
+          else (lambda a, w: a @ w))
     kind = cfg.activation
     if cfg.fourier_expansion:
         x = fourier_apply(params["fourier"], x, cfg.fourier_sigma)
-    h = x @ params["coord_linear"]["w"] + params["coord_linear"]["b"]
+    h = mm(x, params["coord_linear"]["w"]) + params["coord_linear"]["b"]
     if cfg.z_dim > 0 and z is not None:
-        h = h + (z @ params["latent_linear"]["w"])[:, None, :]
+        h = h + mm(z, params["latent_linear"]["w"])[:, None, :]
     h = _act(h, kind)
     for layer in params["hidden"]:
-        pre = h @ layer["w"] + layer["b"]
+        pre = mm(h, layer["w"]) + layer["b"]
         h = _act(pre + h if cfg.resid else pre, kind)
-    return h @ params["out"]["w"] + params["out"]["b"]
+    return mm(h, params["out"]["w"]) + params["out"]["b"]
 
 
 class SpatialGenerator(nn.Module):

@@ -2,8 +2,8 @@
 Trainer._step_impl and _eval_impl over the plain compute_elbo loss).
 
 A step is eager PyTorch: the ELBO forward on the chosen tier, autograd
-backward (on the bf16 tier through the K2, K4 and K8 backward kernels),
-and one in-place Adam step. The JAX package's epoch scans, ragged-tail
+backward (on the bf16 tier through the K2 or, on the patch encoder tier,
+K12, and the K4 and K8 backward kernels), and one in-place Adam step. The JAX package's epoch scans, ragged-tail
 padding with row weights, host streams and meshes are not ported yet
 (ROADMAP.md, queue 1, item 11 and later).
 """

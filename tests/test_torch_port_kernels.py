@@ -16,15 +16,21 @@ import pytest
 import torch
 
 import targetvae_tpu_torch.kernels as kernels
+from targetvae_tpu_torch.kernels.decoder_mlp import (
+    decoder_mlp_bwd, decoder_mlp_bwd_plain, decoder_mlp_fwd, decoder_mlp_plain)
 from targetvae_tpu_torch.kernels.decoder_pose import (
     fused_pose_decoder, fused_pose_decoder_tables, pose_decoder_bwd,
     pose_decoder_bwd_plain, pose_decoder_plain, pose_tables)
+from targetvae_tpu_torch.kernels.lifted_encoder import (
+    lifted_encoder_bwd, lifted_encoder_bwd_plain, lifted_encoder_fwd,
+    lifted_encoder_plain)
 from targetvae_tpu_torch.kernels.mix_heads import (
     fused_lift_act_mix_heads, lift_act_mix_heads_bwd_plain,
     lift_act_mix_heads_plain, mix_heads_bwd)
 from targetvae_tpu_torch.kernels.posterior import (
     fused_posterior, posterior_bwd, posterior_bwd_plain, posterior_plain)
 from targetvae_tpu_torch.models.generator import generator_init
+from targetvae_tpu_torch.ops.coords import image_grid, transform_coords
 from targetvae_tpu_torch.utils.config import GeneratorConfig
 from targetvae_tpu_torch.utils.jax_params import params_from_jax
 
@@ -292,4 +298,101 @@ def test_pose_decoder_backward_kernel_on_cuda(cuda, num_layers):
     for i, (a, b) in enumerate(zip(got, ref)):
         assert a.shape == b.shape, i
         assert _rel(a, b) < 1e-3, (i, _rel(a, b))
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+# ---- on the card: the patch encoder (K11, K12) and the decoder at arbitrary
+# coordinates (K9, K10) against their plain versions ----
+#
+# Same reasoning as above: the outputs within K1's 5e-3 (K11) and K7's 1e-2
+# (K9) absolute, a saved bf16 h1 within one bf16 step, K12's gradients within
+# 1e-3 relative L2, reruns bitwise equal. K10 recomputes its forward, as the
+# TPU kernel does, so unlike K8 it does not share the h tiles with the plain
+# version: where an f32 sum lands near a bf16 rounding boundary the two h
+# sit one step (2^-8) apart and a leaky slope near zero may flip. At 324
+# pixels an image the per-image dhz measured 1.05e-3; its bound is 5e-3.
+
+def _lifted_inputs(ck, R=4, K=128, D=7, N=700):
+    """Patches in [0, 1) as images give them; ck = 75 (C = 3, k = 5) is no
+    multiple of 8 and takes the padded-column path."""
+    rng = np.random.default_rng(8)
+    f = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32))
+    p = torch.from_numpy(rng.uniform(size=(N, ck)).astype(np.float32))
+    return (p.to(torch.bfloat16), f(ck, R * K) * 0.05, f(R * K) * 0.1,
+            f(K, K) * 0.05, f(K) * 0.1, f(K, D) * 0.1, f(D) * 0.1)
+
+
+@pytest.mark.parametrize("ck", [75, 784])
+def test_lifted_encoder_kernel_on_cuda(cuda, ck):
+    R, K = 4, 128
+    args = [t.to(cuda) for t in _lifted_inputs(ck)]
+    kernels.reset_launch_counts()
+    got = lifted_encoder_fwd(*args, R=R, K=K)
+    got_s, h1 = lifted_encoder_fwd(*args, R=R, K=K, save_h1=True)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["lifted_encoder_fwd"] == 2
+    ref, h1_p = lifted_encoder_plain(*args, R=R, K=K, save_h1=True)
+    assert float((got - ref).abs().max()) < 5e-3
+    assert torch.equal(got, got_s)
+    assert float((h1.float() - h1_p.float()).abs().max()) <= float(
+        h1_p.float().abs().max()) / 128
+
+
+@pytest.mark.parametrize("ck", [75, 784])
+def test_lifted_encoder_backward_kernel_on_cuda(cuda, ck):
+    R, K, D, N = 4, 128, 7, 700
+    p, wc, bc, w2, b2, wh, bh = (t.to(cuda) for t in _lifted_inputs(ck))
+    _, h1 = lifted_encoder_plain(p, wc, bc, w2, b2, wh, bh, R=R, K=K,
+                                 save_h1=True)
+    g = torch.randn(N, R * D, generator=torch.Generator().manual_seed(9)).to(cuda)
+    kernels.reset_launch_counts()
+    got = lifted_encoder_bwd(p, h1, w2, b2, wh, g, R=R, K=K)
+    again = lifted_encoder_bwd(p, h1, w2, b2, wh, g, R=R, K=K)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["lifted_encoder_bwd"] == 2
+    ref = lifted_encoder_bwd_plain(p, h1, w2, b2, wh, g, R=R, K=K)
+    for i, (a, b) in enumerate(zip(got, ref)):
+        assert a.shape == b.shape, i
+        assert _rel(a, b) < 1e-3, (i, _rel(a, b))
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def _mlp_args(cuda, n=18):
+    """The decoder's inputs at three images' posed n x n grids."""
+    cfg = _pose_config(2)
+    tp = generator_init(torch.Generator().manual_seed(0), cfg, device=cuda)
+    th, d, zz = (torch.from_numpy(a).to(cuda) for a in _pose_inputs())
+    x = transform_coords(torch.from_numpy(image_grid(n)).to(cuda), d, th)
+    return (x.contiguous(), tp["fourier"]["w"] / cfg.fourier_sigma,
+            tp["fourier"]["b"], zz @ tp["latent_linear"]["w"],
+            tp["coord_linear"]["w"], tp["coord_linear"]["b"],
+            torch.stack([h["w"] for h in tp["hidden"]]),
+            torch.stack([h["b"] for h in tp["hidden"]]),
+            tp["out"]["w"], tp["out"]["b"])
+
+
+def test_decoder_mlp_kernel_on_cuda(cuda):
+    args = _mlp_args(cuda)
+    kernels.reset_launch_counts()
+    got = decoder_mlp_fwd(*args)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["decoder_mlp_fwd"] == 1
+    ref = decoder_mlp_plain(*args)
+    assert got.shape == ref.shape == (3, 18 * 18, 1)
+    assert float((got - ref).abs().max()) < 1e-2
+
+
+def test_decoder_mlp_backward_kernel_on_cuda(cuda):
+    args = _mlp_args(cuda)
+    g = torch.randn(3, 18 * 18, 1,
+                    generator=torch.Generator().manual_seed(10)).to(cuda)
+    kernels.reset_launch_counts()
+    got = decoder_mlp_bwd(*args, g)
+    again = decoder_mlp_bwd(*args, g)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["decoder_mlp_bwd"] == 2
+    ref = decoder_mlp_bwd_plain(*args, g)
+    for i, (a, b) in enumerate(zip(got, ref)):
+        assert a.shape == b.shape, i
+        assert _rel(a, b) < 5e-3, (i, _rel(a, b))
     assert all(torch.equal(a, b) for a, b in zip(got, again))

@@ -97,17 +97,23 @@ def test_embed_dataset_ragged_tail_matches_jax(pair):
 def test_bf16_kernel_tier_tracks_f32_tier(pair):
     """On the CPU the bf16 tier runs the kernels' plain versions: same
     model, bf16 lift conv and matmul operands; the ELBO moves by much less
-    than the 2e-2 bound chip_smoke.py holds the card to."""
+    than the 2e-2 bound chip_smoke.py holds the card to. bf16 decode (the
+    decoder_mlp kernel's plain version here) tracks float32 decode to 2e-2
+    of its scale, the same bf16-operand bound."""
     _, _, tm, images = pair
     y = torch.from_numpy(images[:6])
+    x = tm.base_grid()[None].expand(2, -1, -1)
+    z = torch.from_numpy(np.random.default_rng(1).normal(size=(2, 2)).astype(
+        np.float32))
     with torch.inference_mode():
         e32 = tm.elbo(tm.params(), tm.base_grid(), y, None)
         e16 = tm.elbo(tm.params(), tm.base_grid(), y, None, torch.bfloat16)
-        with pytest.raises(NotImplementedError, match="decoder_mlp"):
-            tm.decode(tm.params(), tm.base_grid()[None].expand(2, -1, -1),
-                      torch.zeros(2, 2), compute_dtype=torch.bfloat16)
+        d16 = tm.decode(tm.params(), x, z, compute_dtype=torch.bfloat16)
+        d32 = tm.decode(tm.params(), x, z)
         sampled = tm(y, torch.Generator().manual_seed(0), torch.bfloat16)
     assert abs(float(e16[0]) - float(e32[0])) < 2e-2 * abs(float(e32[0]))
+    assert d16.shape == d32.shape == (2, 14 * 14, 1)
+    assert float((d16 - d32).abs().max()) < 2e-2 * float(d32.abs().max())
     assert all(np.isfinite(float(t)) for t in sampled)
 
 
