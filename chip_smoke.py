@@ -25,14 +25,22 @@ from a seed):
   8. times each backward kernel against its plain version, K7 with and
      without saved residuals, and the train step's img/s;
   9. decodes at posed coordinates in bf16 (K9) against float32, and takes
-     a gradient through it (K10).
+     a gradient through it (K10);
+ 10. the grid-sharded (sequence-parallel) posterior: K5/K6 against their
+     plain versions at the two-rank shard shape (B=100, 6,144 of the
+     12,288 padded cells), then the SP bf16 Trainer (tp=2, sp=True) as two
+     ranks sharing cuda:0 over gloo (run_local): one deterministic step
+     against the unsharded step (loss and gradients), SP_STEPS sampled
+     steps (finite, rising ELBO, K5/K6 launched every step, K3/K4 never,
+     parameters bitwise equal across ranks), and a profile of rank 0.
 
 Phases 2-8 cover both mode-C encoder tiers: the default "conv" tier (the
 cuDNN lift conv, K1/K2) and the fused patch encoder (K11/K12) that
 TARGETVAE_ENCODER_TIER=patch selects (phases 3, 4 and 7 drive each tier's
 embed, eval and train path; phase 2 also checks K11 at the galaxy encoder's
-C = 3 shape). Each of phases 3, 4, 7 and 9 sets the launch counts to 0 just
-before it drives its path and reads them just after. Every failed check
+C = 3 shape). Each of phases 3, 4, 7, 9 and 10 sets the launch counts to 0
+just before it drives its path and reads them just after (phase 10 in each
+rank). Every failed check
 exits non-zero. With no CUDA device, or outside a checkout, it fails without
 printing a result. Its last line is {"ok": true, "device": {...}}; the line
 before it is the kernels' JSON.
@@ -108,6 +116,19 @@ TOL_GRAD = 0.05
 # 175-181), 0.15 for the weights and 0.2 for the inputs x and z (a reduced
 # width measured up to 0.11 for z on the CPU)
 TOL_DECODE_GRAD, TOL_DECODE_GRAD_IN = 0.15, 0.2
+TOL_K5 = TOL_K3     # abs per unit of max(1, |value|): K3's formulas on one shard
+# SP step (two ranks) vs the unsharded step, deterministic, same weights and
+# 100 images: they differ by sum order (the softmax normalised over two
+# shards, the partials all-reduced) and by cuDNN and K1/K2 seeing 50 rather
+# than 100 rows, whose sums may round a bf16 value one step the other way:
+# the loss within 1e-4 relative, each parameter leaf's gradient within 1e-2
+# relative L2, a fifth of TOL_GRAD (the bf16 tier's own distance from f32)
+TOL_SP_LOSS = 1e-4
+TOL_SP_GRAD = 1e-2
+SP_RANKS = 2        # ranks of phase 10, sharing cuda:0 over gloo
+SP_STEPS = 20       # sampled SP train steps a rank takes in phase 10
+SP_PROFILE_STEPS = 3  # further steps profiled on rank 0
+SP_TIMEOUT = 600    # seconds for phase 10's ranks, all included
 # The H100 SXM's published peaks (NVIDIA H100 datasheet), for bound_ms
 HBM_BPS = 3.35e12
 PEAK_BF16 = 989e12
@@ -257,12 +278,13 @@ def bound(nbytes: float, ops: float, peak: float):
             "bytes" if t_mem >= t_ops else "operations")
 
 
-def kernel_bounds(cfg, n_pos: int) -> dict:
+def kernel_bounds(cfg, n_pos: int, shard_cells: int) -> dict:
     """Each kernel's least time on the H100 at this run's shapes: every input
     read once, every output written once; the operations its arithmetic
     needs (matrix products at the bf16 tensor-core peak; the posterior's
     elementwise float32 math at the f32 peak, about 40 + 16 zd operations a
-    cell forward and twice that backward)."""
+    cell forward and twice that backward). K5/K6 at phase 10's shard of
+    `shard_cells` cells for all B images."""
     e, g = cfg.encoder, cfg.generator
     R, K, zd, D = e.groupconv, e.kernels_num, e.z_dim, 3 + 2 * e.z_dim
     n, F, H, L = e.image_dim, g.embedding_dim, g.hidden_dim, g.num_layers
@@ -273,7 +295,7 @@ def kernel_bounds(cfg, n_pos: int) -> dict:
     w_dec = (F * H + (L - 1) * H * H + H * g.n_out) * bf + (L * H + 1) * f4
     planes = (3 + 2 * zd) * B * cells * f4
     tables = 4 * B * n * F * f4
-    sp_planes = (4 + 2 * zd) * B * cells * f4
+    sp_planes = (4 + 2 * zd) * B * shard_cells * f4
     ck = e.in_channels * e.kernels_size ** 2
     w_lift = ck * R * K * bf + w_mix
     mlp_fwd_ops = 2 * px * (F * H + (L - 1) * H * H + H * g.n_out)
@@ -304,19 +326,20 @@ def kernel_bounds(cfg, n_pos: int) -> dict:
                                  + (F * H + (L - 1) * H * H + H * g.n_out
                                     + L * H + g.n_out) * f4,
                                  3 * mlp_fwd_ops, PEAK_BF16),
-        # still to port (K5, K6): one cell shard's partials given the
-        # global normalisers (B, 4), here the whole grid on one shard. In:
-        # attn, noise, theta (2), z (2 zd) planes and four (cells,)
-        # constants; out: the (B, 2 zd + 5) partials, or backward the same
-        # planes' cotangents and (B, 2) softmax partials; K3's / K4's
-        # elementwise math
-        "posterior_shard_fwd": bound(sp_planes + 4 * cells * f4 + 4 * B * f4
-                                     + B * (2 * zd + 5) * f4,
-                                     B * cells * (40 + 16 * zd), PEAK_F32),
-        "posterior_shard_bwd": bound(2 * sp_planes + 4 * cells * f4
+        # K5, K6: one cell shard's partials given the global normalisers
+        # (B, 4). In: attn, noise, theta (2), z (2 zd) planes and four
+        # per-cell constants; out: the (B, 2 zd + 5) partials, or backward
+        # (with the cotangent in) the same planes' cotangents and the (B, 2)
+        # softmax partials; K3's / K4's elementwise math
+        "posterior_shard_fwd": bound(sp_planes + 4 * shard_cells * f4
+                                     + 4 * B * f4 + B * (2 * zd + 5) * f4,
+                                     B * shard_cells * (40 + 16 * zd),
+                                     PEAK_F32),
+        "posterior_shard_bwd": bound(2 * sp_planes + 4 * shard_cells * f4
                                      + 4 * B * f4 + B * (2 * zd + 5) * f4
                                      + 2 * B * f4,
-                                     B * cells * 2 * (40 + 16 * zd), PEAK_F32),
+                                     B * shard_cells * 2 * (40 + 16 * zd),
+                                     PEAK_F32),
         "mix_heads_fwd": bound(n_pos * R * K * bf + w_mix
                                + n_pos * R * D * f4,
                                2 * n_pos * R * (K * K + K * D), PEAK_BF16),
@@ -785,6 +808,11 @@ def run(torch, dev) -> int:
     decode_counts = decode_path(torch, kernels, model, params, k9, z9)
     time_training(torch, cfg, k1, k3, k7, k9, k11, h1, cot, trainer, state,
                   trainer_p, state_p, data, results)
+    del trainer, state, trainer_p, state_p
+
+    # ---- phase 10: the grid-sharded posterior and the SP train step ----
+    shard_cells = sp_kernel_checks(torch, cfg, dev, results)
+    sp_counts = sp_train_path(torch, cfg, dev, data)
 
     sources = {
         "mix_heads_fwd": ("mix_heads.cu", "mix_heads.py:232"),
@@ -796,21 +824,23 @@ def run(torch, dev) -> int:
         "decoder_mlp_fwd": ("decoder_mlp.cu", "decoder_mlp.py:99"),
         "decoder_mlp_bwd": ("decoder_mlp.cu", "decoder_mlp.py:234"),
         "lifted_encoder_fwd": ("lifted_encoder.cu", "lifted_encoder.py:179"),
-        "lifted_encoder_bwd": ("lifted_encoder.cu", "lifted_encoder.py:215")}
+        "lifted_encoder_bwd": ("lifted_encoder.cu", "lifted_encoder.py:215"),
+        "posterior_shard_fwd": ("posterior.cu", "posterior.py:466"),
+        "posterior_shard_bwd": ("posterior.cu", "posterior.py:477")}
     by_path = {"embed": embed_counts, "eval": eval_counts,
                "train": train_counts, "embed_patch": patch_counts["embed"],
                "eval_patch": patch_counts["eval"],
-               "train_patch": patch_counts["train"], "decode": decode_counts}
+               "train_patch": patch_counts["train"], "decode": decode_counts,
+               "train_sp": sp_counts}
     # each kernel's launches on the main path that runs it: the conv tier's
-    # train step, the patch tier's (K11, K12), bf16 decode (K9, K10)
+    # train step, the patch tier's (K11, K12), bf16 decode (K9, K10), the
+    # SP train step's rank 0 (K5, K6)
     main_path = {"lifted_encoder_fwd": "train_patch",
                  "lifted_encoder_bwd": "train_patch",
-                 "decoder_mlp_fwd": "decode", "decoder_mlp_bwd": "decode"}
-    bounds = kernel_bounds(cfg, k1[0].shape[0])
-    print("bounds of the kernels still to port (whole grid on one shard): "
-          + json.dumps({n: bounds[n] for n in ("posterior_shard_fwd",
-                                               "posterior_shard_bwd")}),
-          flush=True)
+                 "decoder_mlp_fwd": "decode", "decoder_mlp_bwd": "decode",
+                 "posterior_shard_fwd": "train_sp",
+                 "posterior_shard_bwd": "train_sp"}
+    bounds = kernel_bounds(cfg, k1[0].shape[0], shard_cells)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
          "source": "targetvae_tpu_torch/csrc/" + src,
@@ -1205,6 +1235,335 @@ def time_training(torch, cfg, k1, k3, k7, k9, k11, h1, cot, trainer, state,
         print(f"phase 8: {tier} tier: train {B / step_ms * 1e3:.1f} img/s "
               f"(bf16 train_step, B={B}, {step_ms:.3f} ms/step device time "
               f"incl. Adam; {wall_ms:.3f} ms/step host clock)", flush=True)
+
+
+def sp_shard_inputs(torch, cfg, dev, noise: bool):
+    """K5/K6's inputs at phase 10's shapes: the flagship's 12,168 cells per
+    image padded to a multiple of SP_RANKS * 1,024 (the SP step's padding,
+    -1e30 logits and log-prior), seeded planes like kernel_inputs' K3
+    planes, the cell constants of the r-minor flatten, and the normalisers
+    over the whole padded grid. Returns the shards' argument tuples (the
+    last shard holds the pads) and the number of pads."""
+    from targetvae_tpu_torch.models.encoders import attn_dim_for, group_offsets
+    from targetvae_tpu_torch.ops.coords import attention_grid
+    from targetvae_tpu_torch.ops.gumbel import gumbel_noise
+    from targetvae_tpu_torch.train.loop import SP_CELL_UNIT
+    e = cfg.encoder
+    R, zd, hp = e.groupconv, e.z_dim, attn_dim_for(e)
+    cells = hp * hp * R
+    unit = SP_RANKS * SP_CELL_UNIT
+    total = -(-cells // unit) * unit
+    pad = total - cells
+    g = torch.Generator(device=dev).manual_seed(21)
+    rn = lambda *s: torch.randn(s, generator=g, device=dev)
+    attn = rn(B, total) * 2
+    attn[:, cells:] = -1e30
+    gum = (gumbel_noise((B, total), g, dev) if noise
+           else torch.zeros(B, total, device=dev))
+    p = torch.log_softmax(rn(cells), dim=0)
+    grid = torch.as_tensor(np.repeat(attention_grid(hp, e.image_dim), R, 0),
+                           device=dev)
+    offs = torch.as_tensor(np.tile(group_offsets(R), hp * hp), device=dev)
+    zero = torch.zeros(pad, device=dev)
+    p, gx, gy, offs = (torch.cat([v, zero]) for v in (p, grid[:, 0],
+                                                      grid[:, 1], offs))
+    p[cells:] = -1e30
+    th, z = rn(B, 2, total) * 0.5, rn(B, 2, zd, total) * 0.5
+    lse = lambda x: [x.amax(1, keepdim=True), torch.log(torch.exp(
+        x - x.amax(1, keepdim=True)).sum(1, keepdim=True))]
+    norms = torch.cat(lse(attn) + lse(attn + gum), dim=1)
+    c = total // SP_RANKS
+    cut = lambda v, i: v[..., i * c:(i + 1) * c].contiguous()
+    return [(norms, *(cut(v, i) for v in (attn, gum, th, z, p, gx, gy, offs)))
+            for i in range(SP_RANKS)], pad
+
+
+def sp_kernel_checks(torch, cfg, dev, results) -> int:
+    """Phase 10: K5 and K6 against their plain versions at the two-rank
+    shard shape, deterministic and with seeded noise on the first shard and
+    on the last, whose tail is -1e30 padding (there the d_q, theta and z
+    gradients and d_attn must be exactly 0); reruns bitwise equal. Then
+    their times (plain, kernel, kernel, plain). Returns the shard's cells."""
+    from targetvae_tpu_torch.kernels.posterior import (
+        posterior_shard_bwd, posterior_shard_bwd_plain, posterior_shard_fwd,
+        posterior_shard_plain)
+    sig_r = float(np.pi / cfg.encoder.groupconv)
+    zd = cfg.encoder.z_dim
+    per_unit = lambda a, b: float(((a - b).abs() / b.abs().clamp(min=1.0))
+                                  .max())
+    g = torch.randn(B, 2 * zd + 5, generator=torch.Generator(
+        device=dev).manual_seed(22), device=dev)
+    errs = {"fwd": 0.0, "bwd": 0.0}
+    with torch.inference_mode():
+        for noise in (False, True):
+            shards, pad = sp_shard_inputs(torch, cfg, dev, noise)
+            for i in ((0,) if not noise else (0, len(shards) - 1)):
+                args = shards[i]
+                out = posterior_shard_fwd(*args, sig_r)
+                again = posterior_shard_fwd(*args, sig_r)
+                ref = posterior_shard_plain(*args, sig_r)
+                got = posterior_shard_bwd(*args, sig_r, g)
+                got2 = posterior_shard_bwd(*args, sig_r, g)
+                refb = posterior_shard_bwd_plain(*args, sig_r, g)
+                torch.cuda.synchronize()
+                ef = per_unit(out, ref)
+                eb = max(per_unit(a, b) for a, b in zip(got, refb))
+                errs["fwd"] = max(errs["fwd"], float((out - ref).abs().max()))
+                errs["bwd"] = max(errs["bwd"], max(float((a - b).abs().max())
+                                                   for a, b in zip(got, refb)))
+                dead = "no pads"
+                if i == len(shards) - 1 and pad:
+                    norms, attn = args[0], args[1]
+                    da, dq, dth, dz, spart = got
+                    a = torch.exp(attn + args[2] - norms[:, 2:3]
+                                  - norms[:, 3:4])
+                    eq = torch.exp(attn - norms[:, 0:1] - norms[:, 1:2])
+                    d_attn = a * (da - spart[:, 0:1]) + dq - eq * spart[:, 1:2]
+                    tail = slice(attn.shape[1] - pad, None)
+                    zero = not any(bool(t[..., tail].any())
+                                   for t in (dq, dth, dz, d_attn))
+                    check(zero, f"phase 10: K6 on the padded shard: d_q, "
+                          f"theta, z and d_attn exactly 0 on its {pad} pads")
+                    dead = f"{pad} pads"
+                check(bool(torch.isfinite(out).all()) and ef <= TOL_K5
+                      and eb <= TOL_K5 and torch.equal(out, again)
+                      and all(torch.equal(a, b) for a, b in zip(got, got2)),
+                      f"phase 10: K5/K6 posterior_shard shard {i} "
+                      f"{tuple(args[1].shape)} ({dead}, "
+                      f"{'seeded noise' if noise else 'no noise'}): fwd max "
+                      f"err {ef:.3e}, bwd {eb:.3e} <= {TOL_K5} * max(1, |ref|);"
+                      f" reruns bitwise identical")
+        args = shards[0]
+        for name, kfn, pfn in (
+                ("posterior_shard_fwd",
+                 lambda: posterior_shard_fwd(*args, sig_r),
+                 lambda: posterior_shard_plain(*args, sig_r)),
+                ("posterior_shard_bwd",
+                 lambda: posterior_shard_bwd(*args, sig_r, g),
+                 lambda: posterior_shard_bwd_plain(*args, sig_r, g))):
+            p1, k1_, k2_, p2 = (cuda_ms(pfn), cuda_ms(kfn), cuda_ms(kfn),
+                                cuda_ms(pfn))
+            results[name] = {"max_abs_err": errs[name[-3:]],
+                             "ms": min(k1_, k2_), "plain_ms": min(p1, p2)}
+            print(f"phase 10: {name}: kernel {k1_:.4f} / {k2_:.4f} ms, plain "
+                  f"{p1:.4f} / {p2:.4f} ms (plain, kernel, kernel, plain)",
+                  flush=True)
+    return args[1].shape[1]
+
+
+def param_digest(model) -> str:
+    import hashlib
+    h = hashlib.sha256()
+    for name, p in model.named_parameters():
+        h.update(name.encode())
+        h.update(p.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def profile_summary(prof, steps: int) -> dict:
+    """Per step: the device time of all kernels, the largest kernels by
+    device time, and the host time of the collectives (which includes
+    waiting for the other ranks)."""
+    from torch.autograd import DeviceType
+    ev = prof.key_averages()
+    dev_us = lambda e: getattr(e, "self_device_time_total",
+                               getattr(e, "self_cuda_time_total", 0))
+    # the kernels themselves: an operator's self device time is its
+    # kernels' again
+    kern = sorted((e for e in ev if e.device_type == DeviceType.CUDA
+                   and dev_us(e) > 0), key=dev_us, reverse=True)
+    coll = [e for e in ev if any(k in e.key for k in ("c10d::", "gloo:",
+                                                      "all_reduce",
+                                                      "all_to_all"))]
+    return {"device_ms": sum(dev_us(e) for e in kern) / steps / 1e3,
+            "top": [(e.key[:60], round(dev_us(e) / steps / 1e3, 4))
+                    for e in kern[:10]],
+            "collectives_host_ms": [(e.key, round(e.cpu_time_total / steps
+                                                  / 1e3, 3),
+                                     e.count // steps) for e in coll]}
+
+
+def sp_rank(rank: int, world: int, device: str) -> dict:
+    """Phase 10's work on one rank (a process of run_local, on `device`): the
+    SP bf16 Trainer at flagship width on phase 7's fixed batches. One
+    deterministic step (its loss and all-reduced gradients returned), then
+    SP_STEPS sampled steps between a reset and a read of the launch counts,
+    then SP_PROFILE_STEPS more under the profiler on rank 0."""
+    import torch
+    import targetvae_tpu_torch.kernels as kernels
+    from targetvae_tpu_torch.train import Trainer
+    from targetvae_tpu_torch.utils.config import TrainConfig
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device)
+    cfg = flagship_config()
+    data = torch.from_numpy(synthetic_images(TRAIN_BATCHES * B,
+                                             cfg.encoder.image_dim, 3)).to(dev)
+    batch = lambda i: data[(i % TRAIN_BATCHES) * B:(i % TRAIN_BATCHES + 1) * B]
+    with encoder_tier("conv"):
+        trainer = Trainer(cfg, TrainConfig(compute_dtype="bfloat16",
+                                           minibatch_size=B, tp=world,
+                                           sp=True), device=dev)
+        state = trainer.init_state(0)
+        generator, state.generator = state.generator, None
+        state, m = trainer.train_step(state, batch(0))
+        out = {"det": m.cpu().numpy(),
+               "det_grads": {n: p.grad.detach().cpu()
+                             for n, p in trainer.model.named_parameters()}}
+        state.generator = generator
+        kernels.reset_launch_counts()
+        metrics, secs = [], []
+        for i in range(SP_STEPS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state, m = trainer.train_step(state, batch(i))
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t)
+            metrics.append(m)
+        out["counts"] = kernels.launch_counts()
+        out["metrics"] = torch.stack(metrics).cpu().numpy()
+        out["step_s"] = secs
+        prof = None
+        if rank == 0:
+            from torch.profiler import ProfilerActivity, profile
+            prof = profile(activities=[ProfilerActivity.CPU,
+                                       ProfilerActivity.CUDA])
+            prof.__enter__()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for i in range(SP_PROFILE_STEPS):
+            trainer.train_step(state, batch(i))
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) / SP_PROFILE_STEPS
+        if prof is not None:
+            prof.__exit__(None, None, None)
+            out["profile"] = {"wall_ms": wall * 1e3,
+                              **profile_summary(prof, SP_PROFILE_STEPS)}
+        out["collectives_ms"] = collective_times(torch, trainer, dev)
+        out["digest"] = param_digest(trainer.model)
+        out["steps"] = state.step
+    return out
+
+
+def collective_times(torch, trainer, dev, reps: int = 5) -> dict:
+    """The SP step's gloo collectives alone, at its sizes, between the ranks
+    with no other work on the card: the batch-to-cell exchange of the
+    3 + 2 zd planes of B / ranks images over the padded cells, the
+    gradient all-reduce, and an all-reduce of (B, 2 zd + 5) partials.
+    Host-clock ms, the median of `reps` after a barrier each."""
+    import torch.distributed as dist
+    from targetvae_tpu_torch.parallel.grid_softmax import batch_to_cells
+    from targetvae_tpu_torch.train.loop import SP_CELL_UNIT
+    e = trainer.model.cfg.encoder
+    world = dist.get_world_size()
+    cells = (e.image_dim + 2 * e.padding - e.kernels_size + 1) ** 2 * e.groupconv
+    unit = world * SP_CELL_UNIT
+    planes = torch.zeros((B // world, 3 + 2 * e.z_dim,
+                          -(-cells // unit) * unit), device=dev)
+    grads = torch.zeros(sum(p.numel() for p in trainer.model.parameters()),
+                        device=dev)
+    part = torch.zeros((B, 2 * e.z_dim + 5), device=dev)
+    out = {}
+    exchange = lambda v: batch_to_cells(v, dist.group.WORLD)
+    for name, x, fn in (("all_to_all planes", planes, exchange),
+                        ("all_reduce grads", grads, dist.all_reduce),
+                        ("all_reduce partials", part, dist.all_reduce)):
+        times = []
+        for _ in range(reps + 1):
+            dist.barrier()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn(x)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+        out[name] = {"ms": float(np.median(times[1:])) * 1e3,
+                     "mb": x.numel() * 4 / 1e6}
+    return out
+
+
+def sp_train_path(torch, cfg, dev, data) -> dict:
+    """Phase 10: the SP bf16 Trainer as SP_RANKS ranks sharing cuda:0 over
+    gloo, each started by run_local after phase 1 built the kernels, and
+    the checks on what they report. Returns rank 0's launch counts of the
+    sampled steps."""
+    from targetvae_tpu_torch.losses.elbo import compute_elbo
+    from targetvae_tpu_torch.parallel.distributed import run_local
+    from targetvae_tpu_torch.train import Trainer
+    from targetvae_tpu_torch.utils.config import TrainConfig
+
+    # the unsharded deterministic step's loss and gradients, same weights
+    ref = Trainer(cfg, TrainConfig(compute_dtype="bfloat16"), device=dev)
+    ref.init_state(0)
+    with encoder_tier("conv"):
+        elbo = compute_elbo(ref.model.params(), cfg, ref.model.base_grid(),
+                            data[:B], None, torch.bfloat16)[0]
+        (-elbo).backward()
+    g1 = {n: p.grad.detach().cpu() for n, p in ref.model.named_parameters()}
+    elbo = float(elbo.detach())
+    del ref
+
+    t = time.perf_counter()
+    ranks = run_local(sp_rank, SP_RANKS, backend="gloo", timeout=SP_TIMEOUT,
+                      args=(str(dev),))
+    print(f"phase 10: {SP_RANKS} ranks on {dev} over gloo ran in "
+          f"{time.perf_counter() - t:.1f} s (spawn included)", flush=True)
+    r0 = ranks[0]
+    for r, res in enumerate(ranks):
+        m = res["metrics"]
+        first, last = float(m[:5, 0].mean()), float(m[-5:, 0].mean())
+        c = res["counts"]
+        used = ("posterior_shard_fwd", "posterior_shard_bwd", "mix_heads_fwd",
+                "mix_heads_bwd", "pose_decoder_fwd", "pose_decoder_bwd")
+        check(bool(np.isfinite(m).all()) and bool(np.isfinite(res["det"]).all())
+              and last > first
+              and c["posterior_shard_fwd"] == SP_STEPS
+              and c["posterior_shard_bwd"] == SP_STEPS
+              and all(c[k] > 0 for k in used)
+              and not any(c[k] for k in c if k not in used),
+              f"phase 10: rank {r}: {SP_STEPS} sampled SP train steps at B={B}"
+              f" ({B // SP_RANKS} rows a rank): metrics finite, ELBO mean of "
+              f"the first 5 {first:.3f} -> last 5 {last:.3f}; launches {c} "
+              f"(K5/K6 once a step, K1, K2, K7, K8; never K3/K4)")
+    print(f"phase 10: rank 0 ELBO per step "
+          f"{np.round(r0['metrics'][:, 0], 2).tolist()}", flush=True)
+    digests = {res["digest"] for res in ranks}
+    check(len(digests) == 1 and all(res["steps"] == r0["steps"]
+                                    for res in ranks),
+          f"phase 10: parameters bitwise equal across the {SP_RANKS} ranks "
+          f"after {r0['steps']} steps (sha256 {r0['digest'][:16]})")
+
+    shift = "encoder.conv_a.b"
+    noise_floor = 1e-3 * float(g1["encoder.conv_a.w"].norm())
+    for r, res in enumerate(ranks):
+        gs = res["det_grads"]
+        rels = {n: rel_l2(gs[n], g1[n]) for n in g1 if n != shift}
+        worst = max(rels, key=rels.get)
+        rel_loss = abs(float(res["det"][0]) - elbo) / abs(elbo)
+        check(rel_loss <= TOL_SP_LOSS
+              and rels[worst] <= TOL_SP_GRAD
+              and float(gs[shift].norm()) <= noise_floor,
+              f"phase 10: rank {r}: deterministic SP step vs the unsharded "
+              f"bf16 step: ELBO {float(res['det'][0]):.5f} vs {elbo:.5f} "
+              f"(rel {rel_loss:.3e} <= {TOL_SP_LOSS}); gradients rel L2 per "
+              f"leaf {({n: float(f'{v:.2e}') for n, v in rels.items()})}, "
+              f"worst {worst} <= {TOL_SP_GRAD}; {shift} |g| "
+              f"{float(gs[shift].norm()):.2e} <= {noise_floor:.2e}")
+    s = np.asarray(r0["step_s"][5:]) * 1e3
+    prof = r0["profile"]
+    print(f"phase 10: SP train step, {SP_RANKS} ranks sharing one card over "
+          f"gloo (not a multi-GPU speed): rank 0 {float(s.mean()):.3f} ms/step "
+          f"host clock (mean of steps 6-{SP_STEPS}, min {float(s.min()):.3f}, "
+          f"max {float(s.max()):.3f}), {B / float(s.mean()) * 1e3:.1f} img/s "
+          f"for the pair; profiled steps {prof['wall_ms']:.3f} ms wall, rank "
+          f"0 device {prof['device_ms']:.3f} ms/step", flush=True)
+    print("phase 10: rank 0 profile per step: top kernels (name, device ms) "
+          + json.dumps(prof["top"]) + "; collectives (name, host ms incl. "
+          "waiting for the other rank, calls) "
+          + json.dumps(prof["collectives_host_ms"]), flush=True)
+    print("phase 10: gloo collectives alone at the step's sizes, rank 0 "
+          "(host ms, median of 5; MB a rank): "
+          + json.dumps(r0["collectives_ms"]), flush=True)
+    return r0["counts"]
 
 
 if __name__ == "__main__":

@@ -1,3 +1,7 @@
+// The joint posterior's kernels: K3/K4 over each image's whole grid, and
+// K5/K6 over one cell shard of the grid-sharded posterior (further below).
+// All four share the guarded-KL device functions.
+//
 // K3: fused joint posterior, forward.
 //
 // Replaces the forward of targetvae_tpu/kernels/posterior.py::_call
@@ -90,6 +94,46 @@ __device__ __forceinline__ void block_sum(float* v, int n, float* red,
   __syncthreads();
 }
 
+// The guarded KLs of one cell, shared by K3-K6. At a dead cell (e^q == 0,
+// live false) the moments are replaced by (0, 1), so a -1e30 pad, whose
+// e^q is exactly 0, contributes 0 * finite = 0.
+// KL(N(mu, std) || N(off, sig_r)); inv2s2 = 1 / (2 sig_r^2)
+__device__ __forceinline__ float kl_theta(float mu, float std, float off,
+                                          float sig_r, float inv2s2,
+                                          bool live) {
+  const float m = live ? mu : 0.f;
+  const float s = live ? std : 1.f;
+  const float dm = m - off;
+  return logf(sig_r / s) + (s * s + dm * dm) * inv2s2 - 0.5f;
+}
+
+// KL(N(mu, std) || N(0, 1))
+__device__ __forceinline__ float kl_unit(float mu, float std, bool live) {
+  const float m = live ? mu : 0.f;
+  const float s = live ? std : 1.f;
+  return -logf(s) + 0.5f * (s * s + m * m) - 0.5f;
+}
+
+// The cotangents of a theta cell's mean and log-std (K4, K6): g . a plus,
+// at a live cell, scale = g_kl e^q times the KL's derivative; s2 = sig_r^2.
+__device__ __forceinline__ void theta_grads(float g_mu, float g_std, float a,
+                                            float scale, bool live, float mu,
+                                            float std, float off, float s2,
+                                            float* d_mu, float* d_ls) {
+  *d_mu = g_mu * a + (live ? scale * (mu - off) / s2 : 0.f);
+  const float d_std = g_std * a + (live ? scale * (std / s2 - 1.f / std) : 0.f);
+  *d_ls = d_std * (std - EPS);
+}
+
+// The same for a z cell against N(0, 1).
+__device__ __forceinline__ void z_grads(float g_mu, float g_std, float a,
+                                        float scale, bool live, float mu,
+                                        float std, float* d_mu, float* d_ls) {
+  *d_mu = g_mu * a + (live ? scale * mu : 0.f);
+  const float d_std = g_std * a + (live ? scale * (std - 1.f / std) : 0.f);
+  *d_ls = d_std * (std - EPS);
+}
+
 __global__ void __launch_bounds__(THREADS) posterior_fwd_kernel(
     const float* __restrict__ attn, const float* __restrict__ th_mu,
     const float* __restrict__ th_ls, const float* __restrict__ z_mu,
@@ -141,17 +185,14 @@ __global__ void __launch_bounds__(THREADS) posterior_fwd_kernel(
     const float q = sh - log_s;
     const float a =
         deterministic ? eq : expf(at[c] + gumbel(c, key) - ma) / sa;
-    const bool dead = eq == 0.f;
+    const bool live = !(eq == 0.f);
     const float thm = tm[c];
     const float ths = expf(tl[c]) + EPS;
     v[2 * MAXZD + 0] += a * thm;
     v[2 * MAXZD + 1] += a * ths;
     v[2 * MAXZD + 2] += a * gx[mm];
     v[2 * MAXZD + 3] += a * gy[mm];
-    const float tqm = dead ? 0.f : thm;
-    const float tqs = dead ? 1.f : ths;
-    const float dm = tqm - offs[r];
-    const float kl_th = logf(sig_r / tqs) + (tqs * tqs + dm * dm) * inv2s2 - 0.5f;
+    const float kl_th = kl_theta(thm, ths, offs[r], sig_r, inv2s2, live);
     float kl_z = 0.f;
 #pragma unroll
     for (int d = 0; d < MAXZD; ++d) {
@@ -160,9 +201,7 @@ __global__ void __launch_bounds__(THREADS) posterior_fwd_kernel(
         const float zs = expf(zl[(size_t)d * C + c]) + EPS;
         v[d] += a * zmv;
         v[MAXZD + d] += a * zs;
-        const float zqm = dead ? 0.f : zmv;
-        const float zqs = dead ? 1.f : zs;
-        kl_z += -logf(zqs) + 0.5f * (zqs * zqs + zqm * zqm) - 0.5f;
+        kl_z += kl_unit(zmv, zs, live);
       }
     }
     v[2 * MAXZD + 4] += eq * (q - p_tr[c]);
@@ -276,10 +315,7 @@ __global__ void __launch_bounds__(THREADS) posterior_bwd_kernel(
     const float thm = tm[c];
     const float ths = expf(tl[c]) + EPS;
     float d_a = g_thmu * thm + g_thstd * ths + (g_dx0 * gx[mm] + g_dx1 * gy[mm]);
-    const float tqm = live ? thm : 0.f;
-    const float tqs = live ? ths : 1.f;
-    const float dm = tqm - offs[r];
-    const float kl_th = logf(sig_r / tqs) + (tqs * tqs + dm * dm) * inv2s2 - 0.5f;
+    const float kl_th = kl_theta(thm, ths, offs[r], sig_r, inv2s2, live);
     float kl_z = 0.f;
 #pragma unroll
     for (int d = 0; d < MAXZD; ++d) {
@@ -288,18 +324,14 @@ __global__ void __launch_bounds__(THREADS) posterior_bwd_kernel(
         const float zmv = zm[ic];
         const float zs = expf(zl[ic]) + EPS;
         d_a += g_zmu[d] * zmv + g_zstd[d] * zs;
-        const float zqm = live ? zmv : 0.f;
-        const float zqs = live ? zs : 1.f;
-        kl_z += -logf(zqs) + 0.5f * (zqs * zqs + zqm * zqm) - 0.5f;
-        dz_mu[oz + ic] = g_zmu[d] * a + (live ? scale * zmv : 0.f);
-        const float d_zs = g_zstd[d] * a + (live ? scale * (zs - 1.f / zs) : 0.f);
-        dz_ls[oz + ic] = d_zs * (zs - EPS);
+        kl_z += kl_unit(zmv, zs, live);
+        z_grads(g_zmu[d], g_zstd[d], a, scale, live, zmv, zs, dz_mu + oz + ic,
+                dz_ls + oz + ic);
       }
     }
     const float d_q = g_kl * eq * ((q - p_tr[c]) + 1.f + (kl_th + kl_z));
-    dth_mu[o1 + c] = g_thmu * a + (live ? scale * (thm - offs[r]) / s2 : 0.f);
-    const float d_ths = g_thstd * a + (live ? scale * (ths / s2 - 1.f / ths) : 0.f);
-    dth_ls[o1 + c] = d_ths * (ths - EPS);
+    theta_grads(g_thmu, g_thstd, a, scale, live, thm, ths, offs[r], s2,
+                dth_mu + o1 + c, dth_ls + o1 + c);
     v[0] += d_a * a;
     v[1] += d_q;
     da[c] = a * d_a + d_q;
@@ -313,6 +345,192 @@ __global__ void __launch_bounds__(THREADS) posterior_bwd_kernel(
     const float a =
         deterministic ? eq : expf(at[c] + gumbel(c, key) - ma) / sa;
     da[c] = da[c] - a * s_da - eq * s_dq;
+  }
+}
+
+// K5: one cell shard's posterior partials under global normalisers.
+//
+// Replaces targetvae_tpu/kernels/posterior.py::posterior_shard_partials'
+// forward (_sp_fwd_kernel, the pallas_call at :466), the per-rank kernel of
+// the grid-sharded (sequence-parallel) posterior. For each image, over the C
+// cells of this rank's shard, with norms = [gmax_q, g_logsum_q, gmax_a,
+// g_logsum_a] computed across ranks by the caller:
+//   q = attn - gmax_q - g_logsum_q;  e^q;  a = exp(attn + noise - gmax_a - g_logsum_a)
+// and the 2*zd + 5 partial sums [sum a z_mu (zd), sum a z_std (zd),
+// sum a th_mu, sum a th_std, sum a gx, sum a gy,
+// sum e^q (q - p) + sum e^q (KL_theta + sum_d KL_z)], which the caller
+// all-reduces. p, gx, gy and offs are per cell (the r-minor flatten of the
+// grid), unlike K3's (R, M) planes.
+//
+// What bounds it on the H100: memory. At the flagship's two-rank shard
+// (B = 100, C = 6,144, zd = 2) it reads 8 planes of 2.5 MB once (~20 MB:
+// >= 0.006 ms); the arithmetic is ~100 flops a cell.
+//
+// Design: one block of 512 threads per image, strided over the shard's
+// cells in one pass (the normalisers arrive precomputed, so K3's max and
+// normaliser passes and its Philox are gone); the sums are reduced with
+// warp shuffles, then across warps in shared memory in a fixed order, so a
+// rerun is bitwise equal. No atomics. The TPU kernel's (C / 128, 128) view
+// and its C % 1024 rule are TPU tiling: any C is taken.
+__global__ void __launch_bounds__(THREADS) posterior_shard_fwd_kernel(
+    const float* __restrict__ norms, const float* __restrict__ attn,
+    const float* __restrict__ noise, const float* __restrict__ th,
+    const float* __restrict__ z, const float* __restrict__ p,
+    const float* __restrict__ gx, const float* __restrict__ gy,
+    const float* __restrict__ offs, float* __restrict__ out, int C, int zd,
+    float sig_r) {
+  __shared__ float red[WARPS * NACC];
+  __shared__ float tot[NACC];
+  const int b = blockIdx.x;
+  const float* at = attn + (size_t)b * C;
+  const float* nz = noise + (size_t)b * C;
+  const float* tm = th + (size_t)b * 2 * C;
+  const float* tl = tm + C;
+  const float* zm = z + (size_t)b * 2 * zd * C;
+  const float* zl = zm + (size_t)zd * C;
+  const float n0 = norms[4 * b], n1 = norms[4 * b + 1];
+  const float n2 = norms[4 * b + 2], n3 = norms[4 * b + 3];
+  const float inv2s2 = 1.f / (2.f * sig_r * sig_r);
+
+  // v: [z_mu_e (MAXZD) | z_std_e (MAXZD) | th_mu_e, th_std_e, dx0, dx1, val1, val2]
+  float v[NACC];
+#pragma unroll
+  for (int j = 0; j < NACC; ++j) v[j] = 0.f;
+  for (int c = threadIdx.x; c < C; c += THREADS) {
+    const float x = at[c];
+    const float q = x - n0 - n1;
+    const float eq = expf(q);
+    const float a = expf(x + nz[c] - n2 - n3);
+    const bool live = !(eq == 0.f);
+    const float thm = tm[c];
+    const float ths = expf(tl[c]) + EPS;
+    v[2 * MAXZD + 0] += a * thm;
+    v[2 * MAXZD + 1] += a * ths;
+    v[2 * MAXZD + 2] += a * gx[c];
+    v[2 * MAXZD + 3] += a * gy[c];
+    const float kl_th = kl_theta(thm, ths, offs[c], sig_r, inv2s2, live);
+    float kl_z = 0.f;
+#pragma unroll
+    for (int d = 0; d < MAXZD; ++d) {
+      if (d < zd) {
+        const float zmv = zm[(size_t)d * C + c];
+        const float zs = expf(zl[(size_t)d * C + c]) + EPS;
+        v[d] += a * zmv;
+        v[MAXZD + d] += a * zs;
+        kl_z += kl_unit(zmv, zs, live);
+      }
+    }
+    v[2 * MAXZD + 4] += eq * (q - p[c]);
+    v[2 * MAXZD + 5] += eq * (kl_th + kl_z);
+  }
+  block_sum(v, NACC, red, tot);
+
+  if (threadIdx.x == 0) {
+    float* o = out + (size_t)b * (2 * zd + 5);
+    for (int d = 0; d < zd; ++d) {
+      o[d] = tot[d];
+      o[zd + d] = tot[MAXZD + d];
+    }
+    for (int j = 0; j < 4; ++j) o[2 * zd + j] = tot[2 * MAXZD + j];
+    o[2 * zd + 4] = tot[2 * MAXZD + 4] + tot[2 * MAXZD + 5];
+  }
+}
+
+// K6: phase 1 of K5's VJP.
+//
+// Replaces posterior_shard_partials' backward (_sp_bwd_kernel, the
+// pallas_call at :477). With the TOTAL packed cotangent g (the caller
+// all-reduces it first) = [g_zmu (zd), g_zstd (zd), g_thmu, g_thstd, g_dx0,
+// g_dx1, g_kl], for each cell of the shard:
+//   d_a = g_thmu th_mu + g_thstd th_std + g_dx0 gx + g_dx1 gy + sum_d g_z . z
+//   d_q = g_kl e^q (q - p + 1 + KL_theta + sum_d KL_z)
+//   dth, dz as K4 (theta_grads, z_grads)
+// and per image spart = [sum d_a a, sum d_q], the softmax VJPs' local sums;
+// the caller all-reduces them and finishes
+// d_attn = a (d_a - S1) + d_q - e^q S2 elementwise. A -1e30 pad has a = e^q
+// = 0, so its d_q, dth, dz and its d_attn are exactly 0.
+//
+// What bounds it on the H100: memory. At the flagship's two-rank shard it
+// reads 8 planes and writes 8 (~39 MB: >= 0.012 ms).
+//
+// Design: one block of 512 threads per image, one pass over its cells,
+// each thread writing its own cells' gradients; the two sums in K5's fixed
+// order. No atomics: a rerun gives bitwise the same gradients.
+__global__ void __launch_bounds__(THREADS) posterior_shard_bwd_kernel(
+    const float* __restrict__ norms, const float* __restrict__ attn,
+    const float* __restrict__ noise, const float* __restrict__ th,
+    const float* __restrict__ z, const float* __restrict__ p,
+    const float* __restrict__ gx, const float* __restrict__ gy,
+    const float* __restrict__ offs, const float* __restrict__ g,
+    float* __restrict__ da, float* __restrict__ dq, float* __restrict__ dth,
+    float* __restrict__ dz, float* __restrict__ spart, int C, int zd,
+    float sig_r) {
+  __shared__ float red[WARPS * NACC];
+  __shared__ float tot[NACC];
+  const int b = blockIdx.x;
+  const size_t o1 = (size_t)b * C, o2 = (size_t)b * 2 * C;
+  const size_t oz = (size_t)b * 2 * zd * C, zl_off = (size_t)zd * C;
+  const float* at = attn + o1;
+  const float* nz = noise + o1;
+  const float* tm = th + o2;
+  const float* tl = tm + C;
+  const float* zm = z + oz;
+  const float* zl = zm + zl_off;
+  const float n0 = norms[4 * b], n1 = norms[4 * b + 1];
+  const float n2 = norms[4 * b + 2], n3 = norms[4 * b + 3];
+  const float s2 = sig_r * sig_r;
+  const float inv2s2 = 1.f / (2.f * s2);
+
+  const float* gb = g + (size_t)b * (2 * zd + 5);
+  float g_zmu[MAXZD], g_zstd[MAXZD];
+#pragma unroll
+  for (int d = 0; d < MAXZD; ++d) {
+    g_zmu[d] = d < zd ? gb[d] : 0.f;
+    g_zstd[d] = d < zd ? gb[zd + d] : 0.f;
+  }
+  const float g_thmu = gb[2 * zd], g_thstd = gb[2 * zd + 1];
+  const float g_dx0 = gb[2 * zd + 2], g_dx1 = gb[2 * zd + 3];
+  const float g_kl = gb[2 * zd + 4];
+
+  float v[NACC];
+  v[0] = 0.f;
+  v[1] = 0.f;
+  for (int c = threadIdx.x; c < C; c += THREADS) {
+    const float x = at[c];
+    const float q = x - n0 - n1;
+    const float eq = expf(q);
+    const float a = expf(x + nz[c] - n2 - n3);
+    const bool live = !(eq == 0.f);
+    const float scale = g_kl * eq;
+    const float thm = tm[c];
+    const float ths = expf(tl[c]) + EPS;
+    float d_a = g_thmu * thm + g_thstd * ths + g_dx0 * gx[c] + g_dx1 * gy[c];
+    const float kl_th = kl_theta(thm, ths, offs[c], sig_r, inv2s2, live);
+    float kl_z = 0.f;
+#pragma unroll
+    for (int d = 0; d < MAXZD; ++d) {
+      if (d < zd) {
+        const size_t ic = (size_t)d * C + c;
+        const float zmv = zm[ic];
+        const float zs = expf(zl[ic]) + EPS;
+        d_a += g_zmu[d] * zmv + g_zstd[d] * zs;
+        kl_z += kl_unit(zmv, zs, live);
+        z_grads(g_zmu[d], g_zstd[d], a, scale, live, zmv, zs, dz + oz + ic,
+                dz + oz + zl_off + ic);
+      }
+    }
+    const float d_q = g_kl * eq * ((q - p[c]) + 1.f + (kl_th + kl_z));
+    theta_grads(g_thmu, g_thstd, a, scale, live, thm, ths, offs[c], s2,
+                dth + o2 + c, dth + o2 + C + c);
+    da[o1 + c] = d_a;
+    dq[o1 + c] = d_q;
+    v[0] += d_a * a;
+    v[1] += d_q;
+  }
+  block_sum(v, 2, red, tot);
+  if (threadIdx.x == 0) {
+    spart[2 * b] = tot[0];
+    spart[2 * b + 1] = tot[1];
   }
 }
 
@@ -352,5 +570,41 @@ extern "C" int tvae_posterior_fwd(const void* attn, const void* th_mu,
       (const float*)z_mu, (const float*)z_ls, (const float*)p_tr,
       (const float*)gx, (const float*)gy, (const float*)offs, (float*)out, R,
       M, zd, sig_r, deterministic, (uint32_t)seed);
+  return (int)cudaGetLastError();
+}
+
+// K5: the shard's (B, 2*zd + 5) partial sums; norms (B, 4), attn and noise
+// (B, C), th (B, 2, C), z (B, 2, zd, C), p, gx, gy, offs (C,).
+extern "C" int tvae_posterior_shard_fwd(const void* norms, const void* attn,
+                                        const void* noise, const void* th,
+                                        const void* z, const void* p,
+                                        const void* gx, const void* gy,
+                                        const void* offs, void* out, int B,
+                                        int C, int zd, float sig_r,
+                                        void* stream) {
+  if (zd > MAXZD) return (int)cudaErrorInvalidValue;
+  posterior_shard_fwd_kernel<<<B, THREADS, 0, (cudaStream_t)stream>>>(
+      (const float*)norms, (const float*)attn, (const float*)noise,
+      (const float*)th, (const float*)z, (const float*)p, (const float*)gx,
+      (const float*)gy, (const float*)offs, (float*)out, C, zd, sig_r);
+  return (int)cudaGetLastError();
+}
+
+// K6: K5's inputs and the total cotangent g (B, 2*zd + 5); da, dq (B, C),
+// dth (B, 2, C), dz (B, 2, zd, C), spart (B, 2).
+extern "C" int tvae_posterior_shard_bwd(const void* norms, const void* attn,
+                                        const void* noise, const void* th,
+                                        const void* z, const void* p,
+                                        const void* gx, const void* gy,
+                                        const void* offs, const void* g,
+                                        void* da, void* dq, void* dth,
+                                        void* dz, void* spart, int B, int C,
+                                        int zd, float sig_r, void* stream) {
+  if (zd > MAXZD) return (int)cudaErrorInvalidValue;
+  posterior_shard_bwd_kernel<<<B, THREADS, 0, (cudaStream_t)stream>>>(
+      (const float*)norms, (const float*)attn, (const float*)noise,
+      (const float*)th, (const float*)z, (const float*)p, (const float*)gx,
+      (const float*)gy, (const float*)offs, (const float*)g, (float*)da,
+      (float*)dq, (float*)dth, (float*)dz, (float*)spart, C, zd, sig_r);
   return (int)cudaGetLastError();
 }

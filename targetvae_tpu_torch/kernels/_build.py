@@ -42,6 +42,11 @@ SIGNATURES = {
     # the forward's nine inputs, g, dattn, dth_mu, dth_ls, dz_mu, dz_ls,
     # B, R, M, zd, sig_r, deterministic, seed, stream
     "tvae_posterior_bwd": [_P] * 15 + [_I] * 4 + [_F, _I, _I, _P],
+    # norms, attn, noise, th, z, p, gx, gy, offs, out, B, C, zd, sig_r, stream
+    "tvae_posterior_shard_fwd": [_P] * 10 + [_I] * 3 + [_F, _P],
+    # the forward's nine inputs, g, da, dq, dth, dz, spart,
+    # B, C, zd, sig_r, stream
+    "tvae_posterior_shard_bwd": [_P] * 15 + [_I] * 3 + [_F, _P],
     # u, v, p, q, hz, w1, b1, wh, bh, w3, b3, y, hs_out (or null),
     # B, n, F, H, L, n_out, act, stream
     "tvae_pose_decoder_fwd": [_P] * 13 + [_I] * 7 + [_P],

@@ -45,6 +45,34 @@ def _translation_log_prior(grid: np.ndarray) -> np.ndarray:
     return lp.astype(np.float32)
 
 
+def sp_cell_views(enc: dict, ecfg, b: int) -> dict:
+    """The encoder output of b images as flat per-cell float32 arrays plus
+    the cell constants, for the grid-sharded posterior (mirror of
+    targetvae_tpu/losses/elbo.py::sp_cell_views, mode C). Cells are the
+    r-minor flatten of (H', W', R), as the unsharded tiers': attn, th_mu,
+    th_ls (b, cells); z_mu, z_ls (b, cells, zd); the unnormalised log-prior
+    log p(t) + log p(r) (cells,); grid_cells = the attention grid repeated
+    R times (cells, 2); offs_cells = the offsets tiled M times (cells,)."""
+    R, zd = ecfg.groupconv, ecfg.z_dim
+    ad = attn_dim_for(ecfg)
+    M = ad * ad
+    dev = enc["attn"].device
+    grid_np = attention_grid(ad, ecfg.image_dim)
+    p_t = torch.as_tensor(_translation_log_prior(grid_np), device=dev)
+    cells = M * R
+    f32 = lambda v, *shape: v.reshape(b, cells, *shape).float()
+    return {
+        "cells": cells, "sig_r": float(np.pi / R),
+        "attn": f32(enc["attn"]), "th_mu": f32(enc["theta_mu"]),
+        "th_ls": f32(enc["theta_logstd"]), "z_mu": f32(enc["z_mu"], zd),
+        "z_ls": f32(enc["z_logstd"], zd),
+        "log_prior": (p_t[:, None] + enc["p_r"]).reshape(-1),
+        "grid_cells": torch.as_tensor(np.repeat(grid_np, R, axis=0),
+                                      device=dev),
+        "offs_cells": enc["offsets"].repeat(M),
+    }
+
+
 def _normal_noise(generator: Optional[torch.Generator], shape, device):
     if generator is None:
         return torch.zeros(shape, device=device)

@@ -1,11 +1,19 @@
-"""The single-device training step (mirror of targetvae_tpu/train/loop.py,
-Trainer._step_impl and _eval_impl over the plain compute_elbo loss).
+"""The training step (mirror of targetvae_tpu/train/loop.py, Trainer's
+_step_impl and _eval_impl over the plain compute_elbo loss, and its
+grid-sharded _loss_fn_sp).
 
 A step is eager PyTorch: the ELBO forward on the chosen tier, autograd
 backward (on the bf16 tier through the K2 or, on the patch encoder tier,
-K12, and the K4 and K8 backward kernels), and one in-place Adam step. The JAX package's epoch scans, ragged-tail
-padding with row weights, host streams and meshes are not ported yet
-(ROADMAP.md, queue 1, item 11 and later).
+K12, and the K4 and K8 backward kernels), and one in-place Adam step.
+
+With TrainConfig(sp=True, tp=T) the bf16 step runs on T ranks of an
+initialised torch.distributed process group (parallel/), each calling
+train_step with the same whole batch: the posterior's cells are sharded
+over the ranks (K5/K6, parallel/grid_softmax.py), and each rank runs the
+encoder and decoder on its B/T rows. The JAX package's epoch scans,
+ragged-tail padding with row weights, host streams, dp > 1 and TP
+parameter sharding are not ported yet (ROADMAP.md, queue 1, items 11, 22,
+23).
 """
 
 from __future__ import annotations
@@ -13,29 +21,61 @@ from __future__ import annotations
 from typing import Optional, Tuple, Union
 
 import torch
+import torch.distributed as dist
 
-from ..losses.elbo import compute_elbo
+from ..losses.elbo import (_normal_noise, compute_elbo, reconstruct_log_prob,
+                           sp_cell_views)
+from ..models.encoders import encoder_apply
 from ..models.targetvae import TargetVAE, resolve_device
+from ..ops.gumbel import gumbel_noise
+from ..parallel.grid_softmax import (batch_to_cells, sharded_log_softmax,
+                                     sp_posterior_kernel)
+from ..parallel.mesh import make_mesh
 from ..utils.config import ModelConfig, TrainConfig
 from .state import TrainState, create_train_state
 
-_ONE_DEVICE = ("dp", "tp", "sp", "host_stream", "stream_bf16")
+_HOST_FEED = ("host_stream", "stream_bf16")
+# the per-rank cell shard is padded to a multiple of this, as the JAX
+# package's SP kernel tiles it, so that the shards match the JAX package's
+SP_CELL_UNIT = 1024
 
 
 class Trainer:
     def __init__(self, model: Union[TargetVAE, ModelConfig],
                  train_cfg: TrainConfig, device=None):
         """model: a TargetVAE, or a ModelConfig to build one on `device`
-        (None means cuda:0, and raises without CUDA: pass device='cpu')."""
-        changed = [f for f in _ONE_DEVICE
-                   if getattr(train_cfg, f) != getattr(TrainConfig, f)]
-        if changed:
-            raise NotImplementedError(
-                f"TrainConfig fields {changed} select a mesh or a host feed, "
-                "which the port does not have yet; it trains on one device")
+        (None means cuda:0, and raises without CUDA: pass device='cpu').
+        sp=True needs tp > 1, dp = 1, compute_dtype 'bfloat16' and a
+        process group of tp ranks (parallel.distributed.initialize)."""
         if train_cfg.compute_dtype not in (None, "float32", "bfloat16"):
             raise ValueError(
                 f"unsupported compute_dtype {train_cfg.compute_dtype!r}")
+        changed = [f for f in _HOST_FEED
+                   if getattr(train_cfg, f) != getattr(TrainConfig, f)]
+        if changed:
+            raise NotImplementedError(
+                f"TrainConfig fields {changed} select a host feed, which the "
+                "port does not have yet (ROADMAP.md, queue 1, item 22)")
+        if train_cfg.dp != 1:
+            raise NotImplementedError(
+                f"TrainConfig dp={train_cfg.dp}: data parallelism is not "
+                "ported yet (ROADMAP.md, queue 1, item 23)")
+        self._mesh = None
+        if train_cfg.sp:
+            if train_cfg.tp <= 1:
+                raise ValueError("sp=True shards the posterior grid over the "
+                                 "model axis; it requires tp > 1")
+            if train_cfg.compute_dtype != "bfloat16":
+                raise NotImplementedError(
+                    "sp=True runs on the bf16 kernel tier; the float32 "
+                    "tier's SP branch (compute_elbo(sp=...), "
+                    "make_joint_posterior) is not ported (ROADMAP.md)")
+            self._mesh = make_mesh(model=train_cfg.tp)
+        elif train_cfg.tp != 1:
+            raise NotImplementedError(
+                f"TrainConfig tp={train_cfg.tp} without sp: tensor-parallel "
+                "parameter sharding is not ported yet (ROADMAP.md, queue 1, "
+                "item 23)")
         if isinstance(model, ModelConfig):
             model = TargetVAE(model, device)
         elif device is not None and resolve_device(device) != model.device:
@@ -48,7 +88,9 @@ class Trainer:
 
     def init_state(self, seed: int = 0) -> TrainState:
         """Fresh parameters and Adam state. One generator seeded `seed` draws
-        the parameters and then goes on to draw the training noise."""
+        the parameters and then goes on to draw the training noise. Ranks
+        given the same seed hold the same parameters and draw the same
+        noise."""
         generator = torch.Generator().manual_seed(seed)
         self.model.init(generator)
         return create_train_state(self.model, self.cfg.learning_rate,
@@ -62,6 +104,89 @@ class Trainer:
                                        compute_dtype=self.compute_dtype)
         return -elbo, log_p, kl
 
+    def _loss_fn_sp(self, params: dict, y: torch.Tensor,
+                    generator: Optional[torch.Generator]):
+        """This rank's (kl - log_p, log_p, kl), means over its own B/T rows
+        of the whole batch y, with the posterior grid-sharded over the
+        model axis (targetvae_tpu/train/loop.py::_loss_fn_sp)."""
+        mesh = self._mesh
+        t_n, t, group = mesh.model, mesh.rank, mesh.group
+        cfg = self.model.cfg
+        ecfg = cfg.encoder
+        zd = ecfg.z_dim
+        b = y.shape[0]
+        if b % t_n:
+            raise ValueError(f"a batch of {b} does not split over {t_n} ranks")
+        b_l = b // t_n
+        rows = slice(t * b_l, (t + 1) * b_l)
+        dev = y.device
+        enc = encoder_apply(params["encoder"], ecfg, y[rows], None,
+                            self.compute_dtype)
+        cv = sp_cell_views(enc, ecfg, b_l)
+        cells = cv["cells"]
+        # pad every shard to a multiple of SP_CELL_UNIT cells: -1e30 logits
+        # and log-prior, zero moments and constants; the pads carry exactly
+        # zero posterior mass and gradient
+        unit = t_n * SP_CELL_UNIT
+        pad = -(-cells // unit) * unit - cells
+        planes = torch.cat([cv["attn"][:, None], cv["th_mu"][:, None],
+                            cv["th_ls"][:, None], cv["z_mu"].transpose(1, 2),
+                            cv["z_ls"].transpose(1, 2)], dim=1)
+        fill = torch.zeros((b_l, planes.shape[1], pad), device=dev)
+        fill[:, 0] = -1e30
+        # batch-split -> cell-split (one exchange of all 3 + 2zd planes)
+        planes = batch_to_cells(torch.cat([planes, fill], dim=2), group)
+        c_loc = planes.shape[2]
+        attn, th = planes[:, 0], planes[:, 1:3]
+        z = planes[:, 3:].reshape(b, 2, zd, c_loc)
+        shard = slice(t * c_loc, (t + 1) * c_loc)
+        const = lambda v, value: torch.cat(
+            [v, torch.full((pad, *v.shape[1:]), value, device=dev)])[shard]
+        p_loc = sharded_log_softmax(const(cv["log_prior"], -1e30)[None],
+                                    group)[0]
+        gxy = const(cv["grid_cells"], 0.0)
+        offs = const(cv["offs_cells"], 0.0)
+        # the Gumbel noise differs per rank (its generator's seed folded
+        # with the rank); the reparameterisation noise is drawn for all B
+        # rows and is the same on every rank, as the moments it scales
+        if generator is None:
+            noise = torch.zeros((b, c_loc), device=dev)
+        else:
+            seed = int(torch.randint(0, 2 ** 31 - 1, (1,), generator=generator,
+                                     device=generator.device))
+            noise = gumbel_noise((b, c_loc), torch.Generator(
+                device=dev).manual_seed(seed + t), dev)
+        out = sp_posterior_kernel(group, cv["sig_r"], zd, attn, noise, th, z,
+                                  p_loc, gxy[:, 0], gxy[:, 1], offs)
+        z_s = out[:, zd:2 * zd] * _normal_noise(generator, (b, zd), dev) \
+            + out[:, :zd]
+        theta = out[:, 2 * zd + 1] * _normal_noise(generator, (b,), dev) \
+            + out[:, 2 * zd]
+        # row s * b_l + r of the exchange is rank s's local row r
+        log_p = reconstruct_log_prob(params, cfg, self._x_coord, y[rows],
+                                     theta[rows],
+                                     out[rows, 2 * zd + 2:2 * zd + 4],
+                                     z_s[rows],
+                                     compute_dtype=self.compute_dtype)
+        kl = out[rows, 2 * zd + 4].mean()
+        return kl - log_p, log_p, kl
+
+    def _objective(self, params: dict, y: torch.Tensor,
+                   generator: Optional[torch.Generator]):
+        """(the scalar this rank differentiates, the (3,) metrics [elbo,
+        log_p, kl] of the whole batch). With sp the objective is this
+        rank's loss divided by the number of ranks, so that the ranks'
+        objectives add up to the batch mean, and the metrics are
+        all-reduced."""
+        if self._mesh is None:
+            neg_elbo, log_p, kl = self._loss_fn(params, y, generator)
+            return neg_elbo, torch.stack([-neg_elbo, log_p, kl]).detach()
+        loss, log_p, kl = self._loss_fn_sp(params, y, generator)
+        t_n = self._mesh.model
+        metrics = torch.stack([-loss, log_p, kl]).detach() / t_n
+        dist.all_reduce(metrics, group=self._mesh.group)
+        return loss / t_n, metrics
+
     def _on_device(self, y) -> torch.Tensor:
         # a bf16 batch is upcast, as the JAX loss does
         return torch.as_tensor(y).to(self.model.device, torch.float32)
@@ -72,15 +197,18 @@ class Trainer:
         state.generator (None: deterministic). Returns (state, metrics) with
         metrics the (3,) tensor [elbo, log_p, kl] on the model's device;
         reading it waits for the step. The parameters, Adam's moments and
-        state.step are updated in place."""
+        state.step are updated in place. With sp every rank passes the same
+        y and gets the same metrics and parameters."""
         y = self._on_device(y)
         state.optimizer.zero_grad(set_to_none=True)
-        neg_elbo, log_p, kl = self._loss_fn(state.model.params(), y,
-                                            state.generator)
-        neg_elbo.backward()
+        objective, metrics = self._objective(state.model.params(), y,
+                                             state.generator)
+        objective.backward()
+        if self._mesh is not None:
+            self._mesh.all_reduce_grads(state.model.parameters())
         state.optimizer.step()
         state.step += 1
-        return state, torch.stack([-neg_elbo, log_p, kl]).detach()
+        return state, metrics
 
     def eval_step(self, state: TrainState, y,
                   generator: Optional[torch.Generator] = None
@@ -88,6 +216,5 @@ class Trainer:
         """[elbo, log_p, kl] of the batch y, no gradient; noise from
         `generator` (None: deterministic)."""
         with torch.inference_mode():
-            neg_elbo, log_p, kl = self._loss_fn(state.model.params(),
-                                                self._on_device(y), generator)
-            return torch.stack([-neg_elbo, log_p, kl])
+            return self._objective(state.model.params(), self._on_device(y),
+                                   generator)[1]

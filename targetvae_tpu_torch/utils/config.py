@@ -89,10 +89,11 @@ class ModelConfig:
 
 @dataclass(frozen=True)
 class TrainConfig:
-    """Training hyperparameters, as the JAX package's TrainConfig. The mesh
-    and host-feed fields (dp, tp, sp, host_stream, stream_bf16) are kept so
-    that configs match, but the port's Trainer runs one device and raises
-    if any of them is set (ROADMAP.md, queue 1, slices 7-8)."""
+    """Training hyperparameters, as the JAX package's TrainConfig. Of the
+    mesh and host-feed fields the port's Trainer takes sp=True with tp > 1
+    (the grid-sharded bf16 step over a process group of tp ranks) and
+    raises on dp > 1, tp > 1 without sp, host_stream and stream_bf16
+    (ROADMAP.md, queue 1, slices 7-8)."""
     learning_rate: float = 2e-4
     minibatch_size: int = 100
     num_epochs: int = 500

@@ -28,7 +28,9 @@ from targetvae_tpu_torch.kernels.mix_heads import (
     fused_lift_act_mix_heads, lift_act_mix_heads_bwd_plain,
     lift_act_mix_heads_plain, mix_heads_bwd)
 from targetvae_tpu_torch.kernels.posterior import (
-    fused_posterior, posterior_bwd, posterior_bwd_plain, posterior_plain)
+    fused_posterior, posterior_bwd, posterior_bwd_plain, posterior_plain,
+    posterior_shard_bwd, posterior_shard_bwd_plain, posterior_shard_fwd,
+    posterior_shard_plain)
 from targetvae_tpu_torch.models.generator import generator_init
 from targetvae_tpu_torch.ops.coords import image_grid, transform_coords
 from targetvae_tpu_torch.utils.config import GeneratorConfig
@@ -396,3 +398,62 @@ def test_decoder_mlp_backward_kernel_on_cuda(cuda):
         assert a.shape == b.shape, i
         assert _rel(a, b) < 5e-3, (i, _rel(a, b))
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+# ---- on the card: the grid-sharded posterior partials (K5, K6) against
+# their plain versions ----
+#
+# As K3/K4: the same float32 formulas summed in another order, so 1e-4 per
+# unit of max(1, |value|); reruns bitwise equal; a -1e30 pad gets exactly
+# zero d_q, theta and z gradients (and so a zero d_attn).
+
+def _shard_case(noise: bool, pad: int, B=3, C=1000, zd=2):
+    """One shard (C cells, no multiple of 32) of a 2C-cell grid whose
+    normalisers are computed over the whole grid; its last `pad` cells are
+    -1e30 pads."""
+    rng = np.random.default_rng(11)
+    f = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32))
+    attn = f(B, 2 * C) * 2
+    attn[:, C - pad:C] = -1e30
+    g_noise = (-torch.log(-torch.log(torch.from_numpy(rng.uniform(
+        1e-6, 1 - 1e-6, (B, 2 * C)).astype(np.float32))))
+               if noise else torch.zeros(B, 2 * C))
+    lse = lambda x: [x.amax(1, keepdim=True), torch.log(torch.exp(
+        x - x.amax(1, keepdim=True)).sum(1, keepdim=True))]
+    norms = torch.cat(lse(attn) + lse(attn + g_noise), dim=1)
+    p = torch.log_softmax(f(C), dim=0)
+    p[C - pad:] = -1e30
+    return (norms, attn[:, :C].contiguous(), g_noise[:, :C].contiguous(),
+            f(B, 2, C) * 0.5, f(B, 2, zd, C) * 0.5, p, f(C), f(C),
+            f(C) * 0.3), f(B, 2 * zd + 5)
+
+
+def _close_per_unit(a, b):
+    return float(((a - b).abs() / b.abs().clamp(min=1.0)).max())
+
+
+@pytest.mark.parametrize("noise, pad", [(False, 0), (True, 0), (True, 300)])
+def test_posterior_shard_kernels_on_cuda(cuda, noise, pad):
+    args, g = _shard_case(noise, pad)
+    args = [t.to(cuda) for t in args]
+    g = g.to(cuda)
+    sig_r = float(np.pi / 8)
+    kernels.reset_launch_counts()
+    out = posterior_shard_fwd(*args, sig_r)
+    grads = posterior_shard_bwd(*args, sig_r, g)
+    again = posterior_shard_bwd(*args, sig_r, g)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert counts["posterior_shard_fwd"] == 1
+    assert counts["posterior_shard_bwd"] == 2
+    assert _close_per_unit(out, posterior_shard_plain(*args, sig_r)) < 1e-4
+    ref = posterior_shard_bwd_plain(*args, sig_r, g)
+    for a, b in zip(grads, ref):
+        assert a.shape == b.shape and bool(torch.isfinite(a).all())
+        assert _close_per_unit(a, b) < 1e-4
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+    if pad:
+        da, dq, dth, dz, _ = grads
+        dead = slice(args[1].shape[1] - pad, None)
+        for t in (dq, dth, dz):
+            assert not bool(t[..., dead].any())
