@@ -22,8 +22,10 @@ from a seed):
   7. trains: ~30 bf16 Trainer.train_step calls on fixed synthetic batches
      (finite, rising ELBO; every kernel launched), and one deterministic
      step's gradients on the bf16 kernel tier against the float32 tier;
-  8. times each backward kernel against its plain version, K7 with and
-     without saved residuals, and the train step's img/s;
+  8. times each backward kernel against its plain version, K8's passes one
+     by one (profiler), K7 with and without saved residuals, one cuBLAS
+     bf16 GEMM at K7's layer-1 shape as a yardstick, and the train step's
+     img/s;
   9. decodes at posed coordinates in bf16 (K9) against float32, and takes
      a gradient through it (K10);
  10. the grid-sharded (sequence-parallel) posterior: K5/K6 against their
@@ -820,7 +822,7 @@ def run(torch, dev) -> int:
         "posterior_fwd": ("posterior.cu", "posterior.py:241"),
         "posterior_bwd": ("posterior.cu", "posterior.py:253"),
         "pose_decoder_fwd": ("decoder_pose.cu", "decoder_pose.py:390"),
-        "pose_decoder_bwd": ("decoder_pose.cu", "decoder_pose.py:439"),
+        "pose_decoder_bwd": ("decoder_pose_bwd.cu", "decoder_pose.py:439"),
         "decoder_mlp_fwd": ("decoder_mlp.cu", "decoder_mlp.py:99"),
         "decoder_mlp_bwd": ("decoder_mlp.cu", "decoder_mlp.py:234"),
         "lifted_encoder_fwd": ("lifted_encoder.cu", "lifted_encoder.py:179"),
@@ -1166,11 +1168,40 @@ def decode_path(torch, kernels, model, params, k9, z):
     return counts
 
 
+# K8's passes by the kernel names the profiler reports (csrc/decoder_pose_bwd.cu)
+K8_PASSES = (("chain", "chain_kernel"), ("ordered sums", "sum_partials_kernel"),
+             ("dW1", "wgrad_kernel<1"), ("dWh", "wgrad_kernel<0"),
+             ("pose", "pose_kernel"))
+
+
+def k8_pass_times(torch, fn, reps: int = 5) -> dict:
+    """Device ms of each of K8's passes per call of fn, from the profiler's
+    kernel times over `reps` calls after a warm-up."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    dev_us = lambda e: getattr(e, "self_device_time_total",
+                               getattr(e, "self_cuda_time_total", 0))
+    out = {}
+    for name, key in K8_PASSES:
+        out[name] = sum(dev_us(e) for e in prof.key_averages()
+                        if key in e.key) / reps / 1e3
+    check(all(v > 0 for v in out.values()),
+          f"phase 8: the profiler sees every pass of K8 on the device: "
+          f"{ {k: round(v, 4) for k, v in out.items()} }")
+    return out
+
+
 def time_training(torch, cfg, k1, k3, k7, k9, k11, h1, cot, trainer, state,
                   trainer_p, state_p, data, results):
-    """Phase 8: each backward kernel against its plain version, K7 with and
-    without saved residuals, K11 with and without saving h1, and the train
-    step of each encoder tier."""
+    """Phase 8: each backward kernel against its plain version, K8's passes
+    one by one, K7 with and without saved residuals, K11 with and without
+    saving h1, a cuBLAS GEMM at K7's layer-1 shape, and the train step of
+    each encoder tier."""
     from targetvae_tpu_torch.kernels.decoder_mlp import (
         decoder_mlp_bwd, decoder_mlp_bwd_plain)
     from targetvae_tpu_torch.kernels.decoder_pose import (
@@ -1217,9 +1248,31 @@ def time_training(torch, cfg, k1, k3, k7, k9, k11, h1, cot, trainer, state,
                  lambda: lifted_encoder_fwd(*k11, R=R, K=K, save_h1=True))):
             a1, b1, b2, a2 = (cuda_ms(serve), cuda_ms(save), cuda_ms(save),
                               cuda_ms(serve))
+            results[name]["save_ms"] = min(b1, b2)
             print(f"phase 8: {name} saving for the backward {b1:.4f} / "
                   f"{b2:.4f} ms vs serving {a1:.4f} / {a2:.4f} ms (serving, "
                   f"saving, saving, serving)", flush=True)
+        passes = k8_pass_times(torch, lambda: pose_decoder_bwd(*bwd7))
+        results["pose_decoder_bwd"]["passes_ms"] = passes
+        print(f"phase 8: pose_decoder_bwd passes (device ms a call, "
+              f"profiler): {json.dumps({k: round(v, 4) for k, v in passes.items()})}",
+              flush=True)
+        # yardstick: one cuBLAS bf16 GEMM at K7's layer-1 shape (all pixels
+        # x F) x (F x H); no single library call computes K7 or K8, so it
+        # stays out of library_ms, and the port never calls it
+        u = k7[0]
+        npx_all, F, H = u.shape[0] * u.shape[1] ** 2, u.shape[2], k7[5].shape[1]
+        gen = torch.Generator(device=u.device).manual_seed(11)
+        a16 = torch.randn((npx_all, F), generator=gen, device=u.device,
+                          dtype=torch.bfloat16)
+        w16 = k7[5].to(torch.bfloat16)
+        gemm = min(cuda_ms(lambda: a16 @ w16), cuda_ms(lambda: a16 @ w16))
+        del a16
+        for name in ("pose_decoder_fwd", "pose_decoder_bwd"):
+            results[name]["layer1_gemm_cublas_ms"] = gemm
+        print(f"phase 8: yardstick cuBLAS bf16 ({npx_all} x {F}) @ ({F} x {H}) "
+              f"{gemm:.4f} ms ({2 * npx_all * F * H / gemm / 1e9:.1f} "
+              f"TFLOP/s)", flush=True)
 
     yb = data[:B]
     for tier, tr, st in (("conv", trainer, state), ("patch", trainer_p,

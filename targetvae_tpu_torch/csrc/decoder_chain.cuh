@@ -1,16 +1,16 @@
-// The coordinate-MLP decoder's chain, shared by the pose decoder (K7/K8,
-// csrc/decoder_pose.cu) and the decoder at arbitrary coordinates (K9/K10,
+// The coordinate-MLP decoder's chain at arbitrary coordinates (K9/K10,
 // csrc/decoder_mlp.cu), and the split-K weight-gradient product that the
-// backward kernels (K8, K10, K12 in csrc/lifted_encoder.cu) share.
+// backward kernels K10 and K12 (csrc/lifted_encoder.cu) share. The pose
+// decoder (K7/K8) runs the wgmma kernels of csrc/decoder_wgmma.cuh, which
+// are templated on the same feature sources; until K9/K10 and K12 move
+// there, the two headers' weight-gradient kernels coexist.
 //
-// The two decoders differ only in how a pixel's F Fourier features are
-// built (FeatArgs, feature<FEAT>):
-//   FEAT_POSE:  bf16(U[b, j] P[b, i] - V[b, j] Q[b, i]) for pixel (i, j) of
-//               the n x n grid, from per-image tables (the separable phase)
+// A pixel's F Fourier features come from FeatArgs, feature<FEAT>:
 //   FEAT_COORD: bf16(cos(x0 wf[0, f] + x1 wf[1, f] + bf[f])) at the pixel's
 //               own coordinates x (B, npx, 2), accurate cosf: at
 //               sigma = 2/49 the phase reaches tens of radians
-// Both take products and sums without FMA contraction, so they round as the
+//   FEAT_NONE:  a stored bf16 matrix (the weight-gradient product only)
+// products and sums taken without FMA contraction, so they round as the
 // plain versions' do.
 #pragma once
 
@@ -27,21 +27,12 @@ constexpr int FC = 32;          // rows of W1 / Wh staged per step
 constexpr int THREADS = 256;    // 8 warps
 constexpr int WARPS = THREADS / 32;
 
-constexpr int FEAT_NONE = 0, FEAT_POSE = 1, FEAT_COORD = 2;
+constexpr int FEAT_NONE = 0, FEAT_COORD = 2;
 
 // where the features of a pixel come from; unused pointers are null
 struct FeatArgs {
-  const float *U, *V, *P, *Q;   // FEAT_POSE: (B, n, F) tables
   const float *X, *WF, *BF;     // FEAT_COORD: x (B*npx, 2), wf (2, F), bf (F)
-  int n;                        // FEAT_POSE: image side, npx = n * n
 };
-
-// FEAT_POSE: the feature at table offsets jc (row b*n + col) and ir
-// (row b*n + row), each already carrying + f
-__device__ __forceinline__ float pose_feature(const FeatArgs& fa, size_t jc,
-                                              size_t ir) {
-  return __fsub_rn(__fmul_rn(fa.U[jc], fa.P[ir]), __fmul_rn(fa.V[jc], fa.Q[ir]));
-}
 
 // FEAT_COORD: the phase x0 wf[0, f] + x1 wf[1, f] + bf[f] and its cosine
 __device__ __forceinline__ float coord_phase(const FeatArgs& fa, float x0,
@@ -54,18 +45,12 @@ __device__ __forceinline__ float coord_phase(const FeatArgs& fa, float x0,
 template <int FEAT>
 __device__ __forceinline__ float feature(const FeatArgs& fa, int b, int npx,
                                          int pix, int f, int F) {
-  if (FEAT == FEAT_POSE) {
-    const int row = pix / fa.n, col = pix - row * fa.n;
-    return pose_feature(fa, ((size_t)b * fa.n + col) * F + f,
-                        ((size_t)b * fa.n + row) * F + f);
-  } else {
-    const float* x = fa.X + ((size_t)b * npx + pix) * 2;
-    return cosf(coord_phase(fa, x[0], x[1], f, F));
-  }
+  const float* x = fa.X + ((size_t)b * npx + pix) * 2;
+  return cosf(coord_phase(fa, x[0], x[1], f, F));
 }
 
 // ---------------------------------------------------------------------------
-// Forward (K7, K9). For image b and pixel p:
+// Forward (K9). For image b and pixel p:
 //   f = features (F); h = bf16(act(f @ W1 + b1 + hz[b]))       W1 (F, H) bf16
 //   h = bf16(act(h @ Wh[l] + bh[l]))   for l < L - 1            Wh (L-1, H, H)
 //   y = h @ W3 + b3                                             W3 (H, n_out)
@@ -270,7 +255,7 @@ int launch_fwd(FeatArgs fa, const void* hz, const void* w1, const void* b1,
 }
 
 // ---------------------------------------------------------------------------
-// Backward chain (K8, K10). From the saved bf16 h tiles, with g16 = bf16(g):
+// Backward chain (K10). From the saved bf16 h tiles, with g16 = bf16(g):
 //   db3 = sum g; dW3 = h_{L-1}^T g16; dh = g16 W3^T
 //   for l = L-1 .. 1: dpre = dh * act'(h_l); dWh[l-1] = h_{l-1}^T bf16(dpre);
 //                     dbh[l-1] = sum dpre;   dh = bf16(dpre) Wh[l-1]^T
@@ -463,7 +448,7 @@ inline int launch_chain(const void* g, const void* hs, const void* wh,
 // A(p, m) Bm[p, n], m < M, n < N, Bm a bf16 (P, N) matrix. A is the bf16
 // (P, lda) matrix (FEAT_NONE; columns m >= lda read as zero, so M may round
 // lda up to the tile), or the features of row p = (b, pix) rebuilt on chip
-// (FEAT_POSE, FEAT_COORD; lda unused, M = F). Output tiles of BT x BN,
+// (FEAT_COORD; lda unused, M = F). Output tiles of BT x BN,
 // BN = 128 where N allows (each feature tile is rebuilt once for each column
 // tile, so wider tiles rebuild less); shared-memory rows padded by PAD
 // against bank conflicts; nvcuda::wmma fragments with f32 accumulation.
@@ -483,9 +468,9 @@ __global__ void __launch_bounds__(THREADS) wgrad_kernel(
   constexpr int FPW = (BT / 16) * NI / WARPS;      // fragments a warp
   __shared__ __align__(128) __nv_bfloat16 As[KP * LDA];
   __shared__ __align__(128) __nv_bfloat16 Bs[KP * LDB];
-  // FEAT: each row's table offsets (FEAT_POSE) or coordinates (FEAT_COORD),
-  // computed once a step; ok = 0 past the split
-  __shared__ int offj[KP], offi[KP], ok[KP];
+  // FEAT_COORD: each row's coordinates, read once a step; ok = 0 past the
+  // split
+  __shared__ int ok[KP];
   __shared__ float cx0[KP], cx1[KP];
   const int tid = threadIdx.x, warp = tid >> 5;
   const int m0 = blockIdx.x * BT, n0 = blockIdx.y * BN;
@@ -500,27 +485,15 @@ __global__ void __launch_bounds__(THREADS) wgrad_kernel(
         const int p = p0 + tid;
         ok[tid] = p < pend;
         if (p < pend) {
-          if (FEAT == FEAT_POSE) {
-            const int b = p / npx, pix = p - b * npx;
-            const int row = pix / fa.n, col = pix - row * fa.n;
-            offj[tid] = (b * fa.n + col) * M + m0;
-            offi[tid] = (b * fa.n + row) * M + m0;
-          } else {
-            cx0[tid] = fa.X[(size_t)p * 2];
-            cx1[tid] = fa.X[(size_t)p * 2 + 1];
-          }
+          cx0[tid] = fa.X[(size_t)p * 2];
+          cx1[tid] = fa.X[(size_t)p * 2 + 1];
         }
       }
       __syncthreads();
       for (int i = tid; i < KP * BT; i += THREADS) {
         const int pp = i / BT, mm = i - pp * BT;
         float v = 0.f;
-        if (ok[pp]) {
-          if (FEAT == FEAT_POSE)
-            v = pose_feature(fa, offj[pp] + mm, offi[pp] + mm);
-          else
-            v = cosf(coord_phase(fa, cx0[pp], cx1[pp], m0 + mm, M));
-        }
+        if (ok[pp]) v = cosf(coord_phase(fa, cx0[pp], cx1[pp], m0 + mm, M));
         As[pp * LDA + mm] = __float2bfloat16(v);
       }
     } else {

@@ -14,7 +14,8 @@
 // against 2 MB of coordinates and 1 MB of output; the unfused form would
 // write and read a 1 GB (pixels, F) feature matrix.
 //
-// Design: K7's chain (csrc/decoder_chain.cuh) with the FEAT_COORD feature
+// Design: the chain of csrc/decoder_chain.cuh (K7's before it moved to
+// csrc/decoder_wgmma.cuh) with the FEAT_COORD feature
 // source, which evaluates each feature's phase on chip with products and
 // sums taken without FMA contraction and the accurate cosf (at
 // sigma = 2/49 the phase reaches tens of radians, beyond what __cosf
@@ -28,7 +29,7 @@
 // deterministic (fixed grids, partial sums added in order by
 // csrc/reduce.cu):
 //  1. K9 in save-residuals mode writes the recomputed bf16 h tiles;
-//  2. the chain pass of csrc/decoder_chain.cuh (as K8's) from g down to
+//  2. the chain pass of csrc/decoder_chain.cuh from g down to
 //     dpre1: bf16 dpre tiles, per-tile column sums, dW3, db3; rows past an
 //     image are zero before any product (the TPU kernel's lesson: garbage
 //     rows poison dW through NaN * 0);
@@ -142,8 +143,7 @@ extern "C" int tvae_decoder_mlp_fwd(const void* x, const void* wf,
                                     const void* w3, const void* b3, void* y,
                                     void* hs_out, int B, int npx, int F, int H,
                                     int L, int n_out, int act, void* stream) {
-  const FeatArgs fa{nullptr, nullptr, nullptr, nullptr, (const float*)x,
-                    (const float*)wf, (const float*)bf, 0};
+  const FeatArgs fa{(const float*)x, (const float*)wf, (const float*)bf};
   return launch_fwd<FEAT_COORD>(fa, hz, w1, b1, wh, bh, w3, b3, y, hs_out, B,
                                 npx, F, H, L, n_out, act, (cudaStream_t)stream);
 }
@@ -170,8 +170,7 @@ extern "C" int tvae_decoder_mlp_bwd(
   const size_t plane = (size_t)B * npx * H;
   const __nv_bfloat16* hsb = (const __nv_bfloat16*)hs;
   __nv_bfloat16* dPb = (__nv_bfloat16*)dP;
-  const FeatArgs fa{nullptr, nullptr, nullptr, nullptr, (const float*)x,
-                    (const float*)wf, (const float*)bf, 0};
+  const FeatArgs fa{(const float*)x, (const float*)wf, (const float*)bf};
   const FeatArgs none{};
   int err;
   if ((err = launch_fwd<FEAT_COORD>(fa, hz, w1, b1, wh, bh, w3, b3, y, hs, B,

@@ -51,8 +51,8 @@ SIGNATURES = {
     # B, n, F, H, L, n_out, act, stream
     "tvae_pose_decoder_fwd": [_P] * 13 + [_I] * 7 + [_P],
     # u, v, p, q, w1, wh, w3, g, hs, gx, gy, dP, part, cols_img, cols, gpart,
-    # dfx, dfy, dfc, dw1, dwh, B, n, F, H, L, n_out, S1, S2, act, stream
-    "tvae_pose_decoder_bwd": [_P] * 21 + [_I] * 9 + [_P],
+    # dpart, df, dw1, dwh, B, n, F, H, L, n_out, S1, C1, S2, C2, act, stream
+    "tvae_pose_decoder_bwd": [_P] * 20 + [_I] * 11 + [_P],
     # p, wc, bc, w2, b2, wh, bh, out, h1_out (or null), N, CK, R, K, D, act,
     # stream
     "tvae_lifted_encoder_fwd": [_P] * 9 + [_I] * 6 + [_P],

@@ -13,12 +13,13 @@ gy[i]), so the Fourier phase is separable:
 U, V, P, Q (B, n, F) are built here in plain torch (pose_tables); the kernel
 (csrc/decoder_pose.cu) rebuilds each pixel tile's features bf16(U P - V Q)
 on chip and runs W1 (+ b1 + hz) -> act -> (L-1) x (H -> H, act) -> W3, with
-every h rounded to bf16 before the next matmul and f32 accumulation. The
-(pixels, F) feature matrix never reaches device memory.
+every h rounded to bf16 before the next matmul and f32 accumulation, on
+wgmma (csrc/decoder_wgmma.cuh). The (pixels, F) feature matrix never reaches
+device memory.
 
 For training, the forward runs in its save-residuals mode and also writes the
 L bf16 h tiles (one after coord_linear, one after each hidden layer); the
-backward (K8, csrc/decoder_pose.cu) consumes them, returns the weight
+backward (K8, csrc/decoder_pose_bwd.cu) consumes them, returns the weight
 gradients, dhz, and the pose cotangents reduced to three (B, F) vectors,
 which pose_closure turns into dtheta and d(dx). _PoseDecoder joins the two
 as one autograd Function; the Fourier w and b get no gradient.
@@ -216,18 +217,41 @@ def mlp_chain_bwd_plain(hs, wh, w3, g, *, act_kind: str = "leakyrelu"):
 
 
 def _splits(m: int, n: int) -> int:
-    """Pixel splits of K8's split-K weight-gradient product of an (m, n)
-    output: about 1,024 blocks in all, at most 64 splits. Its output tiles
-    are 64 x 128, or 64 x 64 where n is no multiple of 128."""
+    """Pixel splits of csrc/decoder_chain.cuh's split-K weight-gradient
+    product (K10, K12) of an (m, n) output: about 1,024 blocks in all, at
+    most 64 splits. Its output tiles are 64 x 128, or 64 x 64 where n is no
+    multiple of 128."""
     tiles = (m // 64) * (n // (128 if n % 128 == 0 else 64))
     return max(1, min(64, 1024 // tiles))
+
+
+TILE_PX = 64      # pixel rows of a tile of the wgmma kernels (wgmma's M)
+
+
+def wgrad_schedule(rows: int, m: int, n: int, sms: int,
+                   rebuilt: bool = False):
+    """Grid of K8's split-K weight-gradient product of an (m, n) output over
+    `rows` pixel rows (csrc/decoder_wgmma.cuh::launch_wgrad): output tiles of
+    64 x 512 where the A operand is rebuilt features and n % 512 == 0 (each
+    feature built once for all 512 columns), else 128 x n (n <= 256) or
+    128 x 256, rows past m masked; and as many pixel splits as fill `sms`
+    SMs in one wave with the tiles. Returns (grid (x, y, splits), (tile
+    rows, tile columns), chunk): split z covers pixel rows
+    [z * chunk, min(rows, (z + 1) * chunk)), chunk a multiple of TILE_PX,
+    and every split holds at least one row."""
+    tm, tn = (64, 512) if rebuilt and n % 512 == 0 else (128, min(n, 256))
+    gx, gy = -(-m // tm), n // tn
+    s = max(1, sms // (gx * gy))
+    chunk = -(-(-(-rows // s)) // TILE_PX) * TILE_PX
+    return (gx, gy, -(-rows // chunk)), (tm, tn), chunk
 
 
 def pose_decoder_bwd(u, v, p, q, hs, w1, wh, w3, g, *,
                      act_kind: str = "leakyrelu"):
     """The backward of fused_pose_decoder_tables (K8), with the outputs of
     pose_decoder_bwd_plain. A CPU u takes the plain version; a CUDA one
-    launches csrc/decoder_pose.cu (its passes run on the current stream)."""
+    launches csrc/decoder_pose_bwd.cu (its passes run on the current
+    stream)."""
     if u.device.type == "cpu":
         return pose_decoder_bwd_plain(u, v, p, q, hs, w1, wh, w3, g,
                                       act_kind=act_kind)
@@ -235,11 +259,11 @@ def pose_decoder_bwd(u, v, p, q, hs, w1, wh, w3, g, *,
     L, _, npx, hdim = hs.shape
     n_out = w3.shape[1]
     if (hdim not in (64, 128, 256, 512) or f % 64 or n_out > 8 or L < 2
-            or npx != n * n or n > 115):
+            or npx != n * n):
         raise ValueError(f"pose decoder backward kernel needs hidden in (64, "
-                         f"128, 256, 512), F % 64 == 0, n_out <= 8, >= 2 "
-                         f"layers and image_dim <= 115, got hidden={hdim} "
-                         f"F={f} n_out={n_out} layers={L} image_dim={n}")
+                         f"128, 256, 512), F % 64 == 0, n_out <= 8 and >= 2 "
+                         f"layers, got hidden={hdim} F={f} n_out={n_out} "
+                         f"layers={L}")
     bf, f32 = torch.bfloat16, torch.float32
     c = lambda t, dt: t.to(dt).contiguous()
     gx, gy = _pixel_grid(n, u.device)
@@ -254,23 +278,26 @@ def pose_decoder_bwd(u, v, p, q, hs, w1, wh, w3, g, *,
             raise ValueError(f"expected {shape}, got {tuple(t.shape)}")
     dev = u.device
     x = L * hdim + hdim * n_out + n_out
-    ntiles = -(-npx // 32)
-    s1, s2 = _splits(f, hdim), _splits(hdim, hdim)
+    ntiles = -(-npx // TILE_PX)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    (_, _, s1), _, c1 = wgrad_schedule(b * npx, f, hdim, sms, rebuilt=True)
+    (_, _, s2), _, c2 = wgrad_schedule(b * npx, hdim, hdim, sms)
     e = lambda *shape, dt=f32: torch.empty(shape, dtype=dt, device=dev)
     dP = e(L, b, npx, hdim, dt=bf)
     part, cols_img, cols = e(b * ntiles, x), e(b, x), e(x)
     gpart = e(max(s1 * f * hdim, s2 * hdim * hdim))
-    dfx, dfy, dfc = e(b, f), e(b, f), e(b, f)
+    dpart, df = e(b * ntiles, 3, f), e(b, 3, f)
     dw1, dwh = e(f, hdim), e(L - 1, hdim, hdim)
     if b:
         _build.launch("tvae_pose_decoder_bwd", *(t.data_ptr() for t in args),
                       *(t.data_ptr() for t in (dP, part, cols_img, cols, gpart,
-                                               dfx, dfy, dfc, dw1, dwh)),
-                      b, n, f, hdim, L, n_out, s1, s2, ACT_CODES[act_kind],
+                                               dpart, df, dw1, dwh)),
+                      b, n, f, hdim, L, n_out, s1, c1, s2, c2,
+                      ACT_CODES[act_kind],
                       torch.cuda.current_stream(dev).cuda_stream)
         pose_decoder_bwd.launches += 1
     h = hdim
-    return (dfx, dfy, dfc, cols_img[:, :h], dw1, cols[:h], dwh,
+    return (df[:, 0], df[:, 1], df[:, 2], cols_img[:, :h], dw1, cols[:h], dwh,
             cols[h:L * h].reshape(L - 1, h),
             cols[L * h:L * h + h * n_out].reshape(h, n_out),
             cols[L * h + h * n_out:])

@@ -303,6 +303,99 @@ def test_pose_decoder_backward_kernel_on_cuda(cuda, num_layers):
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
+# The wgmma kernels' edges: pixel counts that leave a ragged tail in the
+# 64-pixel tile (n = 18: 324 = 5 x 64 + 4; n = 30: 900, no multiple of 128),
+# each hidden width's consumer layout (64, 128: one warpgroup; 256, 512: two),
+# L = 3, tanh, n_out > 1, and F that is no multiple of the 512-feature pose
+# block or of the 128-row weight-gradient tile (F = 192, 64), or (forward
+# only) no multiple of the 64-feature slice (F = 96).
+WIDE = [  # (layers, n, hidden, act, n_out, F)
+    (2, 18, 512, "leakyrelu", 1, 1024),
+    (3, 30, 256, "tanh", 3, 192),
+    (3, 18, 64, "tanh", 3, 1024),
+    (2, 30, 128, "leakyrelu", 2, 64),
+]
+
+
+def _wide_args(dev, layers, n, hidden, act, n_out, F):
+    cfg = GeneratorConfig(z_dim=2, hidden_dim=hidden, num_layers=layers,
+                          n_out=n_out, activation=act, fourier_expansion=True,
+                          fourier_sigma=2 / (n - 1), embedding_dim=F)
+    tp = generator_init(torch.Generator().manual_seed(0), cfg, device=dev)
+    th, d, zz = (torch.from_numpy(a).to(dev) for a in _pose_inputs())
+    wf = tp["fourier"]["w"] / cfg.fourier_sigma
+    u, v, p, q = pose_tables(th, d, wf, tp["fourier"]["b"], n)
+    return (u, v, p, q, zz @ tp["latent_linear"]["w"],
+            tp["coord_linear"]["w"], tp["coord_linear"]["b"],
+            torch.stack([h["w"] for h in tp["hidden"]]),
+            torch.stack([h["b"] for h in tp["hidden"]]),
+            tp["out"]["w"], tp["out"]["b"])
+
+
+@pytest.mark.parametrize("layers, n, hidden, act, n_out, F",
+                         WIDE + [(2, 18, 64, "leakyrelu", 1, 96)])
+def test_pose_decoder_kernel_shapes_on_cuda(cuda, layers, n, hidden, act,
+                                            n_out, F):
+    args = _wide_args(cuda, layers, n, hidden, act, n_out, F)
+    got = fused_pose_decoder_tables(*args, act_kind=act)
+    y, hs = fused_pose_decoder_tables(*args, act_kind=act, save_res=True)
+    ref, hs_p = pose_decoder_plain(*args, act_kind=act, save_res=True)
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape == (3, n * n, n_out)
+    assert float((got - ref).abs().max()) < 1e-2
+    # saving the h tiles leaves the output bitwise as serving gives it
+    assert torch.equal(y, got)
+    assert float((hs.float() - hs_p.float()).abs().max()) <= float(
+        hs_p.float().abs().max()) / 128
+
+
+@pytest.mark.parametrize("layers, n, hidden, act, n_out, F", WIDE)
+def test_pose_decoder_backward_kernel_shapes_on_cuda(cuda, layers, n, hidden,
+                                                     act, n_out, F):
+    args = _wide_args(cuda, layers, n, hidden, act, n_out, F)
+    u, v, p, q, _, w1, _, wh, _, w3, _ = args
+    _, hs = fused_pose_decoder_tables(*args, act_kind=act, save_res=True)
+    g = torch.randn((3, n * n, n_out),
+                    generator=torch.Generator().manual_seed(7)).to(cuda)
+    got = pose_decoder_bwd(u, v, p, q, hs, w1, wh, w3, g, act_kind=act)
+    again = pose_decoder_bwd(u, v, p, q, hs, w1, wh, w3, g, act_kind=act)
+    ref = pose_decoder_bwd_plain(u, v, p, q, hs, w1, wh, w3, g, act_kind=act)
+    torch.cuda.synchronize()
+    for i, (a, b) in enumerate(zip(got, ref)):
+        assert a.shape == b.shape, i
+        assert _rel(a, b) < 1e-3, (i, _rel(a, b))
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("rows, m, n, sms, rebuilt", [
+    (250_000, 1024, 512, 132, True), (250_000, 512, 512, 132, False),
+    (972, 192, 256, 132, True), (324, 64, 64, 132, True),
+    (900, 1024, 512, 8, False), (64, 128, 128, 1, True),
+    (65, 1024, 512, 132, True), (1, 64, 64, 132, False)])
+def test_wgrad_schedule_covers_each_row_and_tile_once(rows, m, n, sms,
+                                                      rebuilt):
+    """K8's split-K grid: every pixel row falls in exactly one split, no
+    split is empty, every (m, n) output entry in exactly one tile, and the
+    grid fills at most one wave unless the tiles alone exceed it."""
+    from targetvae_tpu_torch.kernels.decoder_pose import (
+        TILE_PX, wgrad_schedule)
+    (gx, gy, splits), (tm, tn), chunk = wgrad_schedule(rows, m, n, sms,
+                                                       rebuilt)
+    assert chunk % TILE_PX == 0
+    seen = np.zeros(rows, np.int64)
+    for z in range(splits):
+        lo, hi = z * chunk, min(rows, (z + 1) * chunk)
+        assert hi > lo
+        seen[lo:hi] += 1
+    assert (seen == 1).all()
+    cover = np.zeros((m, n), np.int64)
+    for x in range(gx):
+        for y in range(gy):
+            cover[x * tm:min(m, (x + 1) * tm), y * tn:(y + 1) * tn] += 1
+    assert (cover == 1).all()
+    assert gx * gy * splits <= max(sms, gx * gy)
+
+
 # ---- on the card: the patch encoder (K11, K12) and the decoder at arbitrary
 # coordinates (K9, K10) against their plain versions ----
 #
