@@ -16,16 +16,17 @@ from a seed):
      float32 tier with deterministic noise;
   5. times each forward kernel against its plain version, embed and eval
      img/s;
-  6. holds each backward kernel (K2, K4, K8) and K7's save-residuals mode
-     against its plain version at flagship shapes, and the sampled K4
-     against a central difference of K3's own forward;
+  6. holds each backward kernel (K2, K4, K8, K10, K12) and K7's
+     save-residuals mode against its plain version at flagship shapes (K12
+     also at the galaxy encoder's C = 3 shape), and the sampled K4 against
+     a central difference of K3's own forward;
   7. trains: ~30 bf16 Trainer.train_step calls on fixed synthetic batches
      (finite, rising ELBO; every kernel launched), and one deterministic
      step's gradients on the bf16 kernel tier against the float32 tier;
-  8. times each backward kernel against its plain version, K8's passes one
-     by one (profiler), K7 with and without saved residuals, one cuBLAS
-     bf16 GEMM at K7's layer-1 shape as a yardstick, and the train step's
-     img/s;
+  8. times each backward kernel against its plain version, K8's and K12's
+     passes one by one (profiler), K7 with and without saved residuals, one
+     cuBLAS bf16 GEMM at K7's layer-1 shape and one at K12's dWc shape as
+     yardsticks, and the train step's img/s;
   9. decodes at posed coordinates in bf16 (K9) against float32, and takes
      a gradient through it (K10);
  10. the grid-sharded (sequence-parallel) posterior: K5/K6 against their
@@ -39,11 +40,10 @@ from a seed):
 Phases 2-8 cover both mode-C encoder tiers: the default "conv" tier (the
 cuDNN lift conv, K1/K2) and the fused patch encoder (K11/K12) that
 TARGETVAE_ENCODER_TIER=patch selects (phases 3, 4 and 7 drive each tier's
-embed, eval and train path; phase 2 also checks K11 at the galaxy encoder's
-C = 3 shape). Each of phases 3, 4, 7, 9 and 10 sets the launch counts to 0
-just before it drives its path and reads them just after (phase 10 in each
-rank). Every failed check
-exits non-zero. With no CUDA device, or outside a checkout, it fails without
+embed, eval and train path; phases 2 and 6 also check K11 and K12 at the
+galaxy encoder's C = 3 shape). Each of phases 3, 4, 7, 9 and 10 sets the
+launch counts to 0 just before it drives its path and reads them just after
+(phase 10 in each rank). Every failed check exits non-zero. With no CUDA device, or outside a checkout, it fails without
 printing a result. Its last line is {"ok": true, "device": {...}}; the line
 before it is the kernels' JSON.
 """
@@ -488,6 +488,20 @@ def serve_patch_tier(torch, kernels, model, params, images, x_coord, gen,
     return {"embed": embed_counts, "eval": eval_counts}
 
 
+def galaxy_inputs(torch, dev):
+    """K11's inputs at the galaxy encoder's C = 3 shape (B_GALAXY random
+    images from seed 4) and that encoder's config. Phases 2 and 6 each make
+    them anew, so that they hold no device memory in the phases between."""
+    from targetvae_tpu_torch.models.encoders import encoder_init
+    gcfg_e = galaxy_encoder_config()
+    gen_g = torch.Generator().manual_seed(4)
+    y_g = torch.rand((B_GALAXY, gcfg_e.image_dim, gcfg_e.image_dim, 3),
+                     generator=gen_g).to(dev)
+    k11_g, _ = patch_inputs(encoder_init(gen_g, gcfg_e, device=dev), gcfg_e,
+                            y_g)
+    return k11_g, gcfg_e
+
+
 def check_k11(torch, k11, R, K, label):
     """Phase 2: K11 serving and in save-h1 mode against its plain version.
     Returns the heads' max abs error and the saved h1."""
@@ -674,13 +688,7 @@ def run(torch, dev) -> int:
 
         err11, h1 = check_k11(torch, k11, R, K, "flagship")
         results["lifted_encoder_fwd"] = {"max_abs_err": err11}
-        from targetvae_tpu_torch.models.encoders import encoder_init
-        gcfg_e = galaxy_encoder_config()
-        gen_g = torch.Generator().manual_seed(4)
-        y_g = torch.rand((B_GALAXY, gcfg_e.image_dim, gcfg_e.image_dim, 3),
-                         generator=gen_g).to(dev)
-        k11_g, _ = patch_inputs(encoder_init(gen_g, gcfg_e, device=dev),
-                                gcfg_e, y_g)
+        k11_g, gcfg_e = galaxy_inputs(torch, dev)
         check_k11(torch, k11_g, gcfg_e.groupconv, gcfg_e.kernels_num,
                   "galaxy C=3")
         del k11_g
@@ -863,8 +871,8 @@ def check_backward_kernels(torch, cfg, dev, k1, k3, k7, pose, k9, k11, h1,
                            results):
     """Phase 6: K2, K4, K8, K10, K12 and K7's save-residuals mode against
     their plain versions on the same flagship-shape inputs, with seeded
-    cotangents. Returns the cotangents and K7's saved tiles for the
-    timings."""
+    cotangents, and K12 at the galaxy encoder's C = 3 shape. Returns the
+    cotangents and K7's saved tiles for the timings."""
     from targetvae_tpu_torch.kernels.decoder_pose import (
         fused_pose_decoder_tables, pose_closure, pose_decoder_bwd,
         pose_decoder_bwd_plain, pose_decoder_plain)
@@ -975,7 +983,7 @@ def check_backward_kernels(torch, cfg, dev, k1, k3, k7, pose, k9, k11, h1,
     from targetvae_tpu_torch.kernels.decoder_mlp import (
         decoder_mlp_bwd, decoder_mlp_bwd_plain)
     from targetvae_tpu_torch.kernels.lifted_encoder import (
-        lifted_encoder_bwd, lifted_encoder_bwd_plain)
+        lifted_encoder_bwd, lifted_encoder_bwd_plain, lifted_encoder_fwd)
     g11 = rn(k11[0].shape[0], R * (3 + 2 * zd))
     bwd11 = (k11[0], h1, *k11[3:6], g11)
     got = lifted_encoder_bwd(*bwd11, R=R, K=K)
@@ -990,6 +998,22 @@ def check_backward_kernels(torch, cfg, dev, k1, k3, k7, pose, k9, k11, h1,
           f"{({n: float(f'{r:.2e}') for n, r in rels.items()})} <= "
           f"{TOL_BWD_REL}; rerun bitwise identical")
     results["lifted_encoder_bwd"] = {"max_abs_err": max_abs(got, ref)}
+    k11_g, ecfg_g = galaxy_inputs(torch, dev)
+    Rg, Kg = ecfg_g.groupconv, ecfg_g.kernels_num
+    _, h1_g = lifted_encoder_fwd(*k11_g, R=Rg, K=Kg, save_h1=True)
+    g11_g = rn(k11_g[0].shape[0], Rg * (3 + 2 * ecfg_g.z_dim))
+    bwd_g = (k11_g[0], h1_g, *k11_g[3:6], g11_g)
+    got = lifted_encoder_bwd(*bwd_g, R=Rg, K=Kg)
+    again = lifted_encoder_bwd(*bwd_g, R=Rg, K=Kg)
+    ref = lifted_encoder_bwd_plain(*bwd_g, R=Rg, K=Kg)
+    torch.cuda.synchronize()
+    rels = {n: rel_l2(a, b) for n, a, b in zip(names, got, ref)}
+    check(finite(got) and max(rels.values()) <= TOL_BWD_REL
+          and same(got, again),
+          f"phase 6: K12 lifted_encoder_bwd galaxy C=3 P "
+          f"{tuple(k11_g[0].shape)}: rel L2 "
+          f"{({n: float(f'{r:.2e}') for n, r in rels.items()})} <= "
+          f"{TOL_BWD_REL}; rerun bitwise identical")
 
     g9 = rn(*k9[0].shape[:2], 1)
     got = decoder_mlp_bwd(*k9, g9)
@@ -1168,15 +1192,19 @@ def decode_path(torch, kernels, model, params, k9, z):
     return counts
 
 
-# K8's passes by the kernel names the profiler reports (csrc/decoder_pose_bwd.cu)
+# K8's and K12's passes by the kernel names the profiler reports
+# (csrc/decoder_pose_bwd.cu, csrc/lifted_encoder.cu)
 K8_PASSES = (("chain", "chain_kernel"), ("ordered sums", "sum_partials_kernel"),
              ("dW1", "wgrad_kernel<1"), ("dWh", "wgrad_kernel<0"),
              ("pose", "pose_kernel"))
+K12_PASSES = (("chain", "chain_kernel"), ("dWc", "wgrad_kernel"),
+              ("ordered sums", "sum_partials_kernel"))
 
 
-def k8_pass_times(torch, fn, reps: int = 5) -> dict:
-    """Device ms of each of K8's passes per call of fn, from the profiler's
-    kernel times over `reps` calls after a warm-up."""
+def pass_times(torch, fn, passes, label: str, reps: int = 5) -> dict:
+    """Device ms of each pass (name, kernel name) of a backward kernel per
+    call of fn, from the profiler's kernel times over `reps` calls after a
+    warm-up."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -1187,21 +1215,21 @@ def k8_pass_times(torch, fn, reps: int = 5) -> dict:
     dev_us = lambda e: getattr(e, "self_device_time_total",
                                getattr(e, "self_cuda_time_total", 0))
     out = {}
-    for name, key in K8_PASSES:
+    for name, key in passes:
         out[name] = sum(dev_us(e) for e in prof.key_averages()
                         if key in e.key) / reps / 1e3
     check(all(v > 0 for v in out.values()),
-          f"phase 8: the profiler sees every pass of K8 on the device: "
+          f"phase 8: the profiler sees every pass of {label} on the device: "
           f"{ {k: round(v, 4) for k, v in out.items()} }")
     return out
 
 
 def time_training(torch, cfg, k1, k3, k7, k9, k11, h1, cot, trainer, state,
                   trainer_p, state_p, data, results):
-    """Phase 8: each backward kernel against its plain version, K8's passes
-    one by one, K7 with and without saved residuals, K11 with and without
-    saving h1, a cuBLAS GEMM at K7's layer-1 shape, and the train step of
-    each encoder tier."""
+    """Phase 8: each backward kernel against its plain version, K8's and
+    K12's passes one by one, K7 with and without saved residuals, K11 with
+    and without saving h1, cuBLAS GEMMs at K7's layer-1 shape and K12's dWc
+    shape, K2 and K12 with tanh, and the train step of each encoder tier."""
     from targetvae_tpu_torch.kernels.decoder_mlp import (
         decoder_mlp_bwd, decoder_mlp_bwd_plain)
     from targetvae_tpu_torch.kernels.decoder_pose import (
@@ -1252,11 +1280,29 @@ def time_training(torch, cfg, k1, k3, k7, k9, k11, h1, cot, trainer, state,
             print(f"phase 8: {name} saving for the backward {b1:.4f} / "
                   f"{b2:.4f} ms vs serving {a1:.4f} / {a2:.4f} ms (serving, "
                   f"saving, saving, serving)", flush=True)
-        passes = k8_pass_times(torch, lambda: pose_decoder_bwd(*bwd7))
-        results["pose_decoder_bwd"]["passes_ms"] = passes
-        print(f"phase 8: pose_decoder_bwd passes (device ms a call, "
-              f"profiler): {json.dumps({k: round(v, 4) for k, v in passes.items()})}",
-              flush=True)
+        for name, label, fn, table in (
+                ("pose_decoder_bwd", "K8", lambda: pose_decoder_bwd(*bwd7),
+                 K8_PASSES),
+                ("lifted_encoder_bwd", "K12",
+                 lambda: lifted_encoder_bwd(*bwd11, R=R, K=K), K12_PASSES)):
+            passes = pass_times(torch, fn, table, label)
+            results[name]["passes_ms"] = passes
+            print(f"phase 8: {name} passes (device ms a call, profiler): "
+                  f"{json.dumps({k: round(v, 4) for k, v in passes.items()})}",
+                  flush=True)
+        # yardstick: one cuBLAS bf16 GEMM at K12's dWc shape, P^T (C k^2 x
+        # N) @ dpre1 (N x R K), beside K12's dWc pass
+        dpre1 = mix_heads_bwd(*k1[:5], g1, R=R, K=K)[0]
+        pt = k11[0]
+        dwc_ms = min(cuda_ms(lambda: pt.T @ dpre1), cuda_ms(lambda: pt.T @ dpre1))
+        results["lifted_encoder_bwd"]["dwc_gemm_cublas_ms"] = dwc_ms
+        dwc_ops = 2 * pt.shape[0] * pt.shape[1] * dpre1.shape[1]
+        print(f"phase 8: yardstick cuBLAS bf16 P^T ({pt.shape[1]} x "
+              f"{pt.shape[0]}) @ dpre1 ({dpre1.shape[0]} x {dpre1.shape[1]}) "
+              f"{dwc_ms:.4f} ms ({dwc_ops / dwc_ms / 1e9:.1f} TFLOP/s) beside "
+              f"K12's dWc pass {passes['dWc']:.4f} ms "
+              f"({dwc_ops / passes['dWc'] / 1e9:.1f} TFLOP/s)", flush=True)
+        del dpre1
         # yardstick: one cuBLAS bf16 GEMM at K7's layer-1 shape (all pixels
         # x F) x (F x H); no single library call computes K7 or K8, so it
         # stays out of library_ms, and the port never calls it
@@ -1288,6 +1334,28 @@ def time_training(torch, cfg, k1, k3, k7, k9, k11, h1, cot, trainer, state,
         print(f"phase 8: {tier} tier: train {B / step_ms * 1e3:.1f} img/s "
               f"(bf16 train_step, B={B}, {step_ms:.3f} ms/step device time "
               f"incl. Adam; {wall_ms:.3f} ms/step host clock)", flush=True)
+
+    # K2 and K12 once more with tanh, which every CLI's --activation offers:
+    # K2's loaders then take tanh of pre1, and K12's chain keeps its act'
+    # from the f32 pre2. After the train steps, so that this profiler
+    # session does not precede their timing
+    with torch.inference_mode():
+        k12_tanh = lambda: lifted_encoder_bwd(*bwd11, R=R, K=K,
+                                              act_kind="tanh")
+        for name, fn in (
+                ("mix_heads_bwd",
+                 lambda: mix_heads_bwd(*k1[:5], g1, R=R, K=K, act_kind="tanh")),
+                ("lifted_encoder_bwd", k12_tanh)):
+            t1, t2 = cuda_ms(fn), cuda_ms(fn)
+            results[name]["tanh_ms"] = min(t1, t2)
+            print(f"phase 8: {name} tanh: kernel {t1:.4f} / {t2:.4f} ms",
+                  flush=True)
+        tanh_passes = pass_times(torch, k12_tanh, K12_PASSES, "K12 tanh")
+        results["lifted_encoder_bwd"]["tanh_passes_ms"] = tanh_passes
+        print(f"phase 8: lifted_encoder_bwd tanh passes (device ms a call, "
+              f"profiler): "
+              f"{json.dumps({k: round(v, 4) for k, v in tanh_passes.items()})}",
+              flush=True)
 
 
 def sp_shard_inputs(torch, cfg, dev, noise: bool):

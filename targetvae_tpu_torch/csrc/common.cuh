@@ -43,12 +43,14 @@ int sum_partials(const float* in, float* out, int nb, int S, int X,
 
 // K2's chain pass and the in-order sum of its partials (csrc/mix_heads.cu),
 // also the first pass of K12 (csrc/lifted_encoder.cu): with from_h1 = 0, src
-// is the raw lift pre1 and h1 = bf16(act(pre1 + bc)); with from_h1 = 1, src
-// is h1 itself (bc unused). Arguments as tvae_mix_heads_bwd's.
+// is the raw lift pre1, h1 = bf16(act(pre1 + bc)) and act' of the second
+// layer comes from the bf16 h2 (K2's TPU kernel); with from_h1 = 1, src is
+// h1 itself (bc unused) and act' comes from the f32 pre2 (K12's). G blocks
+// of `chunk` (tile, rotation) items; other arguments as tvae_mix_heads_bwd's.
 int mix_heads_bwd_run(const void* src, const void* bc, const void* w2,
                       const void* b2, const void* wh, const void* g,
                       void* dpre1, void* part, void* out, int N, int R, int K,
-                      int D, int G, int SP, int act, int from_h1,
+                      int D, int G, int chunk, int SP, int act, int from_h1,
                       cudaStream_t stream);
 
 // Sets the dynamic shared memory a kernel may use and launches nothing;

@@ -1,9 +1,9 @@
 // The coordinate-MLP decoder's chain at arbitrary coordinates (K9/K10,
-// csrc/decoder_mlp.cu), and the split-K weight-gradient product that the
-// backward kernels K10 and K12 (csrc/lifted_encoder.cu) share. The pose
-// decoder (K7/K8) runs the wgmma kernels of csrc/decoder_wgmma.cuh, which
-// are templated on the same feature sources; until K9/K10 and K12 move
-// there, the two headers' weight-gradient kernels coexist.
+// csrc/decoder_mlp.cu), and the split-K weight-gradient product of K10. Its
+// wmma weight gradient serves K10 alone: the pose decoder (K7/K8) and K12's
+// dWc run the wgmma kernels of csrc/decoder_wgmma.cuh, which are templated
+// on the same feature sources; until K9/K10 move there, the two headers'
+// weight-gradient kernels coexist.
 //
 // A pixel's F Fourier features come from FeatArgs, feature<FEAT>:
 //   FEAT_COORD: bf16(cos(x0 wf[0, f] + x1 wf[1, f] + bf[f])) at the pixel's

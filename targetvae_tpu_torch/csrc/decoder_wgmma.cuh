@@ -1,6 +1,7 @@
 // The coordinate-MLP decoder's kernels on Hopper's warpgroup products:
 // the forward (K7 through csrc/decoder_pose.cu), and the backward's chain
-// pass and split-K weight-gradient product (K8, csrc/decoder_pose_bwd.cu).
+// pass and split-K weight-gradient product (K8, csrc/decoder_pose_bwd.cu;
+// the weight gradient also takes K12's dWc, csrc/lifted_encoder.cu).
 // Templated on the feature source, as csrc/decoder_chain.cuh is; the one
 // source here is FEAT_POSE, bf16(U[b, j] P[b, i] - V[b, j] Q[b, i]) for
 // pixel (i, j) of the n x n grid from per-image (B, n, F) tables, taken
@@ -840,18 +841,20 @@ __global__ void __launch_bounds__(384, 1) wgrad_kernel(
   }
 }
 
-// S splits of `chunk` rows (a multiple of TM); N in (64, 128, 256) or a
-// multiple of 256; M % 64 == 0. a / b: the (planes, P, M) and
-// (planes, P, N) bf16 tensors (a null with FEAT != FEAT_NONE). The grid
-// is kernels/decoder_pose.py::wgrad_schedule's: rebuilt features with
-// N % 512 == 0 take 64 x 512 tiles (MA = 1), all else 128 x min(N, 256).
+// S splits of `chunk` rows (a multiple of TM); N % 64 == 0; M % 64 == 0.
+// a / b: the (planes, P, a_cols) and (planes, P, N) bf16 tensors (a null
+// with FEAT != FEAT_NONE); a_cols (M when 0, a multiple of 8) may fall
+// short of M, the columns past it reading as zero. The grid is
+// kernels/decoder_pose.py::wgrad_schedule's: rebuilt features with
+// N % 512 == 0 take 64 x 512 tiles (MA = 1), all else 128 x 256, 128 x 128
+// or 128 x 64, the widest that divides N.
 template <int FEAT>
 int launch_wgrad(const void* a, int planes_a, int pa, const FeatSrc& fs,
                  const void* b, int planes_b, int pb, float* part, int P,
                  int M, int N, int S, int chunk, int npx,
-                 cudaStream_t stream) {
-  if (M % 64 || chunk % TM || S < 1 || (long long)S * chunk < P ||
-      (N > 256 ? N % 256 : N % 64))
+                 cudaStream_t stream, int a_cols = 0) {
+  if (M % 64 || chunk % TM || S < 1 || (long long)S * chunk < P || N % 64 ||
+      a_cols % 8 || a_cols > M)
     return (int)cudaErrorInvalidValue;
   CUtensorMap ma, mb;
   const uint32_t box[2] = {64, TM};
@@ -860,7 +863,8 @@ int launch_wgrad(const void* a, int planes_a, int pa, const FeatSrc& fs,
   if ((err = make_map(&mb, b, 3, d_b, box))) return err;
   ma = mb;
   if (FEAT == FEAT_NONE) {
-    const uint64_t d_a[3] = {(uint64_t)M, (uint64_t)P, (uint64_t)planes_a};
+    const uint64_t d_a[3] = {(uint64_t)(a_cols ? a_cols : M), (uint64_t)P,
+                             (uint64_t)planes_a};
     if ((err = make_map(&ma, a, 3, d_a, box))) return err;
   }
 #define TVAE_WGRAD(NT, MA)                                                    \
@@ -872,10 +876,9 @@ int launch_wgrad(const void* a, int planes_a, int pa, const FeatSrc& fs,
         fs, ma, mb, pa, pb, part, P, M, N, chunk, npx);                       \
   } while (0)
   if (FEAT != FEAT_NONE && N % 512 == 0) TVAE_WGRAD(512, 1);
-  else if (N >= 256) TVAE_WGRAD(256, 2);
-  else if (N == 128) TVAE_WGRAD(128, 2);
-  else if (N == 64) TVAE_WGRAD(64, 2);
-  else return (int)cudaErrorInvalidValue;
+  else if (N % 256 == 0) TVAE_WGRAD(256, 2);
+  else if (N % 128 == 0) TVAE_WGRAD(128, 2);
+  else TVAE_WGRAD(64, 2);
 #undef TVAE_WGRAD
   return (int)cudaGetLastError();
 }

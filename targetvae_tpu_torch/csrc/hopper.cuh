@@ -159,6 +159,23 @@ __device__ __forceinline__ int acc_col(int t, int i) {
   return 8 * (i >> 2) + 2 * (t & 3) + (i & 1);
 }
 
+// D (64 x 16, f32, 8 registers a thread) += A (64 x 16) B (16 x 16),
+// bf16 operands from shared memory; TA / TB = 1 for an MN-major operand
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_n16(float* d, uint64_t da, uint64_t db,
+                                        int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, %11, %12;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
 // D (64 x 64, f32, 32 registers a thread) += A (64 x 16) B (16 x 64),
 // bf16 operands from shared memory; TA / TB = 1 for an MN-major operand
 template <int TA, int TB>
@@ -274,11 +291,12 @@ __device__ __forceinline__ void wgmma_n256(float* d, uint64_t da, uint64_t db,
       : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
 }
 
-// D (64 x N) += A (64 x 16) B (16 x N) for N in (64, 128, 256)
+// D (64 x N) += A (64 x 16) B (16 x N) for N in (16, 64, 128, 256)
 template <int N, int TA, int TB>
 __device__ __forceinline__ void wgmma(float* d, uint64_t da, uint64_t db,
                                       int scale_d = 1) {
-  if constexpr (N == 64) wgmma_n64<TA, TB>(d, da, db, scale_d);
+  if constexpr (N == 16) wgmma_n16<TA, TB>(d, da, db, scale_d);
+  else if constexpr (N == 64) wgmma_n64<TA, TB>(d, da, db, scale_d);
   else if constexpr (N == 128) wgmma_n128<TA, TB>(d, da, db, scale_d);
   else wgmma_n256<TA, TB>(d, da, db, scale_d);
 }
@@ -310,22 +328,22 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A bf16 tensor of `rank` (2 or 3) dims, dims[0] innermost and contiguous,
-// read or written in boxes of box[0] (64: 128 bytes) x box[1] x 1 with the
-// 128-byte swizzle; elements outside the tensor read as zero. Returns a
-// cudaError_t value (cudaErrorInvalidValue if the encoding fails).
-inline int make_map(CUtensorMap* m, const void* base, int rank,
-                    const uint64_t* dims, const uint32_t* box) {
+// A bf16 tensor of `rank` (2 or 3) dims, dims[0] contiguous, dims[i] at
+// strides[i - 1] bytes (multiples of 16), read or written in boxes of
+// box[0] (64: 128 bytes) x box[1] (x box[2]) elements with the 128-byte
+// swizzle; elements outside the tensor read as zero and are not written.
+// Returns a cudaError_t value (cudaErrorInvalidValue if the encoding fails).
+inline int make_map_strided(CUtensorMap* m, const void* base, int rank,
+                            const uint64_t* dims, const uint64_t* strides,
+                            const uint32_t* box) {
   EncodeTiledFn fn = encode_tiled();
   if (!fn) return (int)cudaErrorNotSupported;
   cuuint64_t gd[3], gs[2];
   cuuint32_t bx[3], es[3] = {1, 1, 1};
-  uint64_t stride = 2;
   for (int i = 0; i < rank; ++i) {
     gd[i] = dims[i];
-    bx[i] = i < 2 ? box[i] : 1;
-    if (i > 0) gs[i - 1] = stride;
-    stride *= dims[i];
+    bx[i] = box[i];
+    if (i > 0) gs[i - 1] = strides[i - 1];
   }
   const CUresult r = fn(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
                         const_cast<void*>(base), gd, gs, bx, es,
@@ -334,6 +352,17 @@ inline int make_map(CUtensorMap* m, const void* base, int rank,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// A packed bf16 tensor of `rank` (2 or 3) dims, dims[0] innermost, in boxes
+// of box[0] x box[1] x 1 (make_map_strided with the packed strides).
+inline int make_map(CUtensorMap* m, const void* base, int rank,
+                    const uint64_t* dims, const uint32_t* box) {
+  uint64_t st[2];
+  uint64_t stride = 2;
+  for (int i = 0; i + 1 < rank; ++i) st[i] = stride *= dims[i];
+  const uint32_t bx[3] = {box[0], box[1], 1};
+  return make_map_strided(m, base, rank, dims, st, bx);
 }
 
 }  // namespace

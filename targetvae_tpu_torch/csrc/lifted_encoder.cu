@@ -35,26 +35,37 @@
 //
 // K12: the backward of K11.
 //
-// Replaces targetvae_tpu/kernels/lifted_encoder.py::_bwd_kernel. From the
-// saved h1 and P (images are data: no patch gradient), two deterministic
-// passes:
-//  A. K2's chain (csrc/mix_heads.cu, from_h1 mode): per 64-position tile and
-//     rotation, h2 recomputed from h1, then dWh, dbh, dW2, db2 and
-//     dpre1 = (bf16(dpre2) W2^T) * act'(h1), written as bf16 (N, R*K); dbc
-//     is the column sum of the f32 dpre1, as the TPU kernel takes it. The
-//     lift is not recomputed.
-//  B. split-K dWc = P^T bf16(dpre1) (csrc/decoder_chain.cuh's wgrad, P's
-//     columns padded to the 64-row output tile with zeros), each split its
-//     own partial, added in order by csrc/reduce.cu.
+// Replaces targetvae_tpu/kernels/lifted_encoder.py::_bwd_kernel (pallas_call
+// at :215). From the saved h1 and P (images are data: no patch gradient),
+// two deterministic passes, both on wgmma with TMA-fed operands:
+//  A. the chain (csrc/mix_heads.cu's chain kernel, from_h1 mode): per
+//     64-position tile and rotation, on a persistent grid, pre2 = h1 W2 +
+//     b2 and h2 recomputed, then dWh, dbh, dW2, db2 with dpre2 = dh2
+//     act'(f32 pre2) (the TPU kernel's rounding point; K2 takes act' from
+//     the bf16 h2), and dpre1 = (bf16(dpre2) W2^T) act'(h1) written as bf16
+//     (N, R*K); dbc is the column sum of the f32 dpre1, as the TPU kernel
+//     takes it. The lift is not recomputed.
+//  B. split-K dWc = P^T bf16(dpre1) on csrc/decoder_wgmma.cuh's weight
+//     gradient (K8's, both operands MN-major by TMA, 128 x 256 output
+//     tiles, P's columns past C k^2 read as zero up to the 64-row tile),
+//     its splits filling the card in one wave (kernels/decoder_pose.py::
+//     wgrad_schedule), each split its own partial, added in order by
+//     csrc/reduce.cu.
 // What bounds it: the tensor cores, 2 N CK R K for dWc plus the chain's
-// three 2 N R K^2 products (~0.37 TFLOP at the flagship), against at least
-// P + h1 + g read (~0.58 GB).
-#include "decoder_chain.cuh"
+// three 2 N R K^2 products (~0.37 TFLOP at the flagship, 0.37 ms at the bf16
+// peak), against at least P + h1 + g read (~0.58 GB, 0.17 ms). dWc runs
+// near the card's GEMM rate (cuBLAS at the same shape is the yardstick);
+// the chain takes longer than its bytes need (PERF.md, section 6).
+#include <mma.h>
+
+#include "decoder_wgmma.cuh"
 
 using namespace nvcuda;
 
 namespace {
 
+constexpr int THREADS = 256;    // 8 warps (the forward)
+constexpr int WARPS = THREADS / 32;
 constexpr int TP = 64;          // positions per block
 constexpr int KC = 32;          // columns of P (rows of Wc) per chunk
 constexpr int DP = 16;          // heads padded to one fragment width
@@ -307,25 +318,27 @@ extern "C" int tvae_lifted_encoder_fwd(const void* P, const void* wc,
 
 // K12. P (N, CK) and h1 (N, R*K) bf16 from the forward; w2, wh bf16; b2
 // f32; g (N, R*D) f32. Scratch: dpre1 (N, R*K) bf16; part (G, SP) f32 as
-// tvae_mix_heads_bwd's; gpart (S, MP, R*K) f32 with MP = CK rounded up to
-// 64. Outputs: out (SP,) [dW2 | dWh | db2 | dbh | dbc ...] as
-// tvae_mix_heads_bwd's; dwc (MP, R*K) f32, its first CK rows dWc.
+// tvae_mix_heads_bwd's (G blocks of `chunk` items); gpart (S, MP, R*K) f32
+// with MP = CK rounded up to 64, S splits of C rows
+// (kernels/decoder_pose.py::wgrad_schedule). Outputs: out (SP,)
+// [dW2 | dWh | db2 | dbh | dbc ...] as tvae_mix_heads_bwd's; dwc
+// (MP, R*K) f32, its first CK rows dWc.
 extern "C" int tvae_lifted_encoder_bwd(
     const void* P, const void* h1, const void* w2, const void* b2,
     const void* wh, const void* g, void* dpre1, void* part, void* out,
-    void* gpart, void* dwc, int N, int CK, int R, int K, int D, int G, int SP,
-    int S, int act, void* stream) {
-  const int MP = (CK + BT - 1) / BT * BT;
-  if (CK % 8 || (R * K) % BT) return (int)cudaErrorInvalidValue;
+    void* gpart, void* dwc, int N, int CK, int R, int K, int D, int G,
+    int chunk, int SP, int S, int C, int act, void* stream) {
+  const int MP = (CK + 63) / 64 * 64;
+  if (CK % 8 || (R * K) % 64) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   int err;
   if ((err = mix_heads_bwd_run(h1, nullptr, w2, b2, wh, g, dpre1, part, out, N,
-                               R, K, D, G, SP, act, 1, s)))
+                               R, K, D, G, chunk, SP, act, 1, s)))
     return err;
-  const FeatArgs none{};
-  if ((err = launch_wgrad<FEAT_NONE>((const __nv_bfloat16*)P, none,
-                                     (const __nv_bfloat16*)dpre1, (float*)gpart,
-                                     N, MP, R * K, S, 1, CK, s)))
+  const wg::FeatSrc none{};
+  if ((err = wg::launch_wgrad<wg::FEAT_NONE>(P, 1, 0, none, dpre1, 1, 0,
+                                             (float*)gpart, N, MP, R * K, S, C,
+                                             0, s, CK)))
     return err;
   return sum_partials((const float*)gpart, (float*)dwc, 1, S, MP * R * K, s);
 }

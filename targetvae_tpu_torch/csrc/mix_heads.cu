@@ -25,6 +25,7 @@
 #include <mma.h>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 using namespace nvcuda;
 
@@ -132,338 +133,503 @@ __global__ void __launch_bounds__(THREADS) mix_heads_fwd_kernel(
   }
 }
 
-// K2: the backward of K1.
+// K2: the backward of K1, and the first pass of K12 (csrc/lifted_encoder.cu).
 //
 // Replaces targetvae_tpu/kernels/mix_heads.py::_bwd_kernel (lift=True), the
-// Pallas kernel of _bwd. Nothing but the inputs is saved by the forward:
-// per position and rotation it recomputes h1 = bf16(act(pre1 + bc)) and
-// h2 = bf16(act(h1 @ W2 + b2)), then with g16 = bf16(g):
-//   dWh += h2^T g16        dbh += sum g
-//   dh2  = g16 Wh^T        dpre2 = dh2 * act'(h2)
-//   dW2 += h1^T bf16(dpre2)           db2 += sum dpre2
-//   dh1  = bf16(dpre2) W2^T           dpre1 = dh1 * act'(h1)  -> bf16 out
-//   dbc += sum dpre1 (f32, before the rounding)
-// act' is recovered from the bf16 activation values, as the TPU kernel does.
-// Per rotation, no block-diagonal grouping (a TPU matrix-unit trick). With
-// from_h1 the kernel reads the bf16 h1 a forward saved in place of pre1 (the
-// first pass of K12, csrc/lifted_encoder.cu, whose lift is a GEMM in K11).
+// Pallas kernel of _bwd (pallas_call at :269), and the chain half of
+// targetvae_tpu/kernels/lifted_encoder.py::_bwd_kernel. Per position p and
+// rotation r, with W2 (K, K) shared by every rotation and g16 = bf16(g):
+//   h1 = bf16(act(pre1 + bc))  (K2)   or the bf16 h1 the forward saved (K12)
+//   h2 = bf16(act(pre2)), pre2 = h1 W2 + b2
+//   dWh += h2^T g16         dbh += sum g
+//   dh2  = g16 Wh^T         dpre2 = dh2 act'(h2) (K2) or dh2 act'(pre2) (K12),
+//                           each as its TPU kernel takes it (they differ for tanh)
+//   dW2 += h1^T bf16(dpre2) db2 += sum dpre2
+//   dpre1 = (bf16(dpre2) W2^T) act'(h1), written as bf16 (N, R*K)
+//   dbc  = sum dpre1, taken in f32 before the rounding
 //
-// What bounds it on the H100: at the flagship shape (N = 152,100, R = 8,
-// K = 128, D = 7) three 2*N*R*K^2 products (0.12 TFLOP with the heads) and
-// ~0.66 GB of traffic (pre1 in, dpre1 out, g), so it sits at the ridge:
-// ~0.12 ms of tensor-core time against ~0.2 ms of HBM time.
+// What bounds it on the H100: the bytes. At the flagship (N = 152,100, R = 8,
+// K = 128, D = 7) it reads 311 MB of pre1 (or h1) and writes 311 MB of
+// dpre1, ~0.19 ms at 3.35 TB/s, against 0.12 TFLOP of products, ~0.12 ms
+// at the bf16 peak.
 //
-// Design: a fixed grid of G blocks (G = min(tiles, 264), set by the
-// caller), block g walking tiles g, g + G, ... of 64 positions. W2 and Wh
-// stay in shared memory; per rotation the h1, h2, bf16(g) and bf16(dpre2)
-// tiles are staged there and every product runs on nvcuda::wmma 16x16x16
-// bf16 fragments with f32 accumulation. dW2 and dWh accumulate in registers
-// across the block's tiles, the column sums in shared memory (one thread per
-// column, rows in order). Each block writes its partial sums to its own row
-// of `part`; csrc/reduce.cu adds the rows in order. So the gradients are
-// deterministic, and the tolerance against the plain version is that of
-// two f32 summation orders. Rows past N are zero and never stored.
-using FragAc = wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                              wmma::col_major>;
-using FragBc = wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                              wmma::col_major>;
+// Design (the wgmma/TMA principles of csrc/decoder_wgmma.cuh):
+//  - a persistent grid of about one block per SM; block b takes the work
+//    items [b chunk, (b + 1) chunk) of the (64-position tile, rotation)
+//    walk, rotations inner (kernels/mix_heads.py::chain_schedule);
+//  - one TMA thread keeps a ring of STAGES items in flight: the 64 x K
+//    slice of pre1 or h1 of one rotation, 128-byte swizzled, from a 3-D map
+//    (K, R, N) so that what lies past K or N reads as zero. Three loader
+//    warps write g16 transposed (16 heads x 64 positions, one 2 KB tile a
+//    stage) with dbh's sums on the way, and for K2 turn pre1 into h1 in
+//    place (bias, act, rows past N zeroed). g comes by plain loads, not a
+//    TMA box: its row stride R D 4 bytes need not be the multiple of 16
+//    that a tensor map requires (R = 1, D = 7), and a tile's 64 x R D f32
+//    (up to 64 KB at R = 16, D = 16) does not fit beside the ring;
+//  - W2 (two 128 x 64 column tiles) and Wh (128 x 16 used) stay resident,
+//    zero-padded to 128 channels: K < 128 runs the same kernel, its padding
+//    zero in every product and masked out of every sum and store;
+//  - two consumer warpgroups split the 128 channels, 64 each: pre2 = h1 W2
+//    (W2 as the MN-major B), dh2 = g16 Wh^T (g16^T as the MN-major A, one
+//    k16 step), dh1 = bf16(dpre2) W2^T (W2 as the K-major B), dW2 +=
+//    h1^T bf16(dpre2) (two m64 halves, h1 as the MN-major A, the 64
+//    positions as k) and dWh += h2^T g16 (m64n16), the weight gradients
+//    accumulating in registers over all of the block's items;
+//  - epilogues from the accumulator registers: bias and act into the bf16
+//    h2 tile, dpre2 in place, bf16(dpre2) into a double-buffered tile (the
+//    A operand of dh1, which needs both warpgroups' halves: one named
+//    barrier an item), dpre1 = dh1 act'(h1) into a tile that a TMA store
+//    writes out while dW2 and dWh still run. No f32 staging tile;
+//  - column sums by warp shuffles over the 16 rows of a warp and one
+//    shared-memory pass (db2 once a block, dbc once an item, both from
+//    registers); each block writes its partials to its own row of `part`
+//    and csrc/reduce.cu adds the rows in order: no f32 atomics, reruns
+//    bitwise equal.
+namespace chain {
 
-template <int K>
-__global__ void __launch_bounds__(THREADS) mix_heads_bwd_kernel(
-    const __nv_bfloat16* __restrict__ pre1, const float* __restrict__ bc,
+constexpr int TM = 64;                 // positions a tile: wgmma's M
+constexpr int KP = 128;                // channels, zero-padded past K
+constexpr int TILE = TM * 128;         // 64 rows x 64 bf16, swizzled: 8 KB
+constexpr int W2T = 2 * TILE;          // 128 rows x 64 columns: 16 KB
+constexpr int HT = 2 * TILE;           // 64 positions x 128 channels
+constexpr int GT = 16 * 128;           // g16^T: 16 heads x 64 positions
+constexpr int STAGE = HT + GT;         // one item's h1 (or pre1) and g16^T
+constexpr int STAGES = 4;
+constexpr int LOADERS = 96;            // producer warps 1-3
+// g's loads: loader lt takes head lt % D of the positions lt / D + k G,
+// G = LOADERS / D groups, so a warp reads ~32 / D rows' D-float pieces at
+// once; at most GPER positions a loader (D = 16)
+constexpr int GPER = (TM + LOADERS / 16 - 1) / (LOADERS / 16);
+constexpr int THREADS = 384;
+// setmaxnreg: the block holds 384 x 168 registers; the producers keep 88
+// (the loaders' conversion has eight values in flight), the two consumer
+// warpgroups get (64,512 - 128 x 88) / 256 = 208
+constexpr int PROD_REGS = 88;
+constexpr int CONS_REGS = (64512 - 128 * PROD_REGS) / 256 / 8 * 8;
+
+// byte offsets from the 1,024-aligned base of the dynamic shared memory
+constexpr int O_W2 = 0;
+constexpr int O_WH = O_W2 + 2 * W2T;
+constexpr int O_RING = O_WH + W2T;
+constexpr int O_H2 = O_RING + STAGES * STAGE;
+constexpr int O_DP = O_H2 + HT;          // two buffers
+constexpr int O_OUT = O_DP + 2 * HT;
+constexpr int O_B2 = O_OUT + HT;
+constexpr int O_RED = O_B2 + KP * 4;     // (8 warps, 64 columns) f32
+constexpr int O_GRED = O_RED + 8 * 64 * 4;
+constexpr int O_BARS = O_GRED + LOADERS * 4;
+constexpr int O_BC = O_BARS + 3 * STAGES * 8;   // dbc's sums, R K f32
+inline size_t smem_bytes(int R, int K) {
+  return 1024 + O_BC + (size_t)R * K * 4;
+}
+
+__device__ __forceinline__ uint32_t pack2(float a, float b) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+// byte offset of element (r, n) of a swizzled tile of 64 bf16 columns
+__device__ __forceinline__ int at(int r, int n) {
+  return swz(r, n >> 3) + (n & 7) * 2;
+}
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  const uint32_t a = smem_u32(p);
+  return p + (((a + 1023) & ~1023u) - a);
+}
+// act' from the f32 input v and a = act(v)
+__device__ __forceinline__ float dact_pre(float v, float a, int act) {
+  return act == 1 ? 1.f - a * a : (v >= 0.f ? 1.f : 0.01f);
+}
+
+template <int R_>
+__device__ __forceinline__ void zero(float* d) {
+#pragma unroll
+  for (int i = 0; i < R_; ++i) d[i] = 0.f;
+}
+
+template <bool FROM_H1, bool DACT_PRE2>
+__global__ void __launch_bounds__(THREADS, 1) chain_kernel(
+    const __grid_constant__ CUtensorMap map_in,
+    const __grid_constant__ CUtensorMap map_out, const float* __restrict__ bc,
     const __nv_bfloat16* __restrict__ w2, const float* __restrict__ b2,
     const __nv_bfloat16* __restrict__ wh, const float* __restrict__ g,
-    __nv_bfloat16* __restrict__ dpre1, float* __restrict__ part, int N, int R,
-    int D, int SP, int act, int from_h1) {
-  constexpr int KB = K / 16;
-  constexpr int NW2 = (KB * KB + WARPS - 1) / WARPS;  // dW2 fragments a warp
-  constexpr int NWH = (KB + WARPS - 1) / WARPS;       // dWh fragments a warp
-  constexpr int K8 = K / 8;
-  extern __shared__ __align__(128) unsigned char smem[];
-  // [W2 K*K | Wh K*DP | h1 TP*K | h2 TP*K | bf16(dpre2) TP*K | bf16(g) TP*DP
-  //  (all bf16) | g TP*DP | staging TP*K | sums db2 K, dbh DP, dbc R*K (f32)]
-  __nv_bfloat16* w2s = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* whs = w2s + K * K;
-  __nv_bfloat16* h1s = whs + K * DP;
-  __nv_bfloat16* h2s = h1s + TP * K;
-  __nv_bfloat16* dps = h2s + TP * K;
-  __nv_bfloat16* gs = dps + TP * K;
-  float* gf = reinterpret_cast<float*>(gs + TP * DP);
-  float* stg = gf + TP * DP;
-  float* s_b2 = stg + TP * K;
-  float* s_bh = s_b2 + K;
-  float* s_bc = s_bh + DP;
+    float* __restrict__ part, int N, int R, int K, int D, int chunk, int SP,
+    int act) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = align1024(smem_raw);
+  unsigned char* w2s = base + O_W2;
+  unsigned char* whs = base + O_WH;
+  unsigned char* ring = base + O_RING;
+  unsigned char* h2t = base + O_H2;
+  unsigned char* dpt = base + O_DP;
+  unsigned char* outt = base + O_OUT;
+  float* b2s = reinterpret_cast<float*>(base + O_B2);
+  float* red = reinterpret_cast<float*>(base + O_RED);
+  float* gred = reinterpret_cast<float*>(base + O_GRED);
+  uint64_t* tfull = reinterpret_cast<uint64_t*>(base + O_BARS);
+  uint64_t* full = tfull + STAGES;
+  uint64_t* empty = full + STAGES;
+  float* sbc = reinterpret_cast<float*>(base + O_BC);
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int RK = R * K;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int total = (N + TM - 1) / TM * R;
+  const int i0 = blockIdx.x * chunk, i1 = min(total, i0 + chunk);
+  const int nbox = K > 64 ? 2 : 1;       // 64-channel boxes an item holds
+  float* pb = part + (size_t)blockIdx.x * SP;
+  const int o_wh = K * K, o_b2 = o_wh + K * D, o_bh = o_b2 + K,
+            o_bc = o_bh + D;
 
-  for (int i = tid; i < K * K; i += THREADS) w2s[i] = w2[i];
-  for (int i = tid; i < K * DP; i += THREADS) {
-    const int k = i / DP, d = i - k * DP;
-    whs[i] = d < D ? wh[k * D + d] : __float2bfloat16(0.f);
+  // the ring and the bf16 tiles after it zero (padding stays zero), up to
+  // b2s, which other threads write before the barrier below; the weights
+  // zero-padded to 128 channels
+  for (int o = O_RING + tid * 16; o < O_B2; o += THREADS * 16)
+    *reinterpret_cast<uint4*>(base + o) = make_uint4(0u, 0u, 0u, 0u);
+  for (int idx = tid; idx < KP * 16; idx += THREADS) {
+    const int i = idx >> 4, cc = idx & 15;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (i < K && cc * 8 < K)
+      v = *reinterpret_cast<const uint4*>(w2 + (size_t)i * K + cc * 8);
+    *reinterpret_cast<uint4*>(w2s + (cc >> 3) * W2T + swz(i, cc & 7)) = v;
   }
-  for (int i = tid; i < K + DP + RK; i += THREADS) s_b2[i] = 0.f;
-
-  FragC acc2[NW2], acch[NWH];
+  for (int idx = tid; idx < KP * 8; idx += THREADS) {
+    const int i = idx >> 3, cc = idx & 7;
+    __align__(16) __nv_bfloat16 h[8];
 #pragma unroll
-  for (int j = 0; j < NW2; ++j) wmma::fill_fragment(acc2[j], 0.f);
-#pragma unroll
-  for (int j = 0; j < NWH; ++j) wmma::fill_fragment(acch[j], 0.f);
+    for (int e = 0; e < 8; ++e) {
+      const int d = cc * 8 + e;
+      h[e] = i < K && d < D ? wh[i * D + d] : __float2bfloat16(0.f);
+    }
+    *reinterpret_cast<uint4*>(whs + swz(i, cc)) = *reinterpret_cast<uint4*>(h);
+  }
+  for (int c = tid; c < KP; c += THREADS) b2s[c] = c < K ? b2[c] : 0.f;
+  for (int i = tid; i < R * K; i += THREADS) sbc[i] = 0.f;
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&tfull[s], 1);
+      mbar_init(&full[s], LOADERS / 32);
+      mbar_init(&empty[s], 8);
+    }
+    mbar_init_fence();
+  }
+  fence_async_smem();
   __syncthreads();
 
-  const int ntiles = (N + TP - 1) / TP;
-  for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
-    const int p0 = t * TP;
-    for (int r = 0; r < R; ++r) {
-      // h1 = bf16(act(pre1 + bc)), or h1 as given (from_h1), and the tile
-      // of g, f32 and bf16
-      for (int i = tid; i < TP * K8; i += THREADS) {
-        const int p = i / K8, c = (i - p * K8) * 8;
-        const int row = p0 + p;
-        uint4 raw = make_uint4(0u, 0u, 0u, 0u);
-        if (row < N)
-          raw = *reinterpret_cast<const uint4*>(pre1 + (size_t)row * RK + r * K + c);
-        if (from_h1) {
-          *reinterpret_cast<uint4*>(h1s + p * K + c) = raw;
-          continue;
-        }
-        const __nv_bfloat16* x = reinterpret_cast<const __nv_bfloat16*>(&raw);
-        __align__(16) __nv_bfloat16 h[8];
+  if (tid >= 256) {
+    // ---- producers: the TMA thread, then three loader warps ----
+    reg_dealloc<PROD_REGS>();
+    if (tid == 256) {
+      for (int i = i0, it = 0; i < i1; ++i, ++it) {
+        const int s = it % STAGES;
+        mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
+        mbar_expect_tx(&tfull[s], nbox * TILE);
+        for (int a = 0; a < nbox; ++a)
+          tma_load_3d(ring + s * STAGE + a * TILE, &map_in, &tfull[s], a * 64,
+                      i % R, (i / R) * TM);
+      }
+    } else if (tid >= 288) {
+      const int lt = tid - 288, G = LOADERS / D, grp = lt / D, d = lt - grp * D;
+      const int RD = R * D;
+      float gs = 0.f;
+      for (int i = i0, it = 0; i < i1; ++i, ++it) {
+        const int s = it % STAGES, ph = (it / STAGES) & 1;
+        const int p0 = (i / R) * TM, r = i % R;
+        unsigned char* st = ring + s * STAGE;
+        mbar_wait(&empty[s], ph ^ 1);
+        // g16^T: row d holds head d of the 64 positions (rows past D zero);
+        // a thread's loads are all issued before the first is used
+        if (grp < G) {
+          float v[GPER];
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
-          h[j] = __float2bfloat16(
-              row < N ? act_fn(__bfloat162float(x[j]) + bc[r * K + c + j], act)
-                      : 0.f);
-        *reinterpret_cast<uint4*>(h1s + p * K + c) = *reinterpret_cast<uint4*>(h);
-      }
-      for (int i = tid; i < TP * DP; i += THREADS) {
-        const int p = i / DP, d = i - p * DP;
-        const int row = p0 + p;
-        const float v = (row < N && d < D) ? g[(size_t)row * R * D + r * D + d] : 0.f;
-        gf[i] = v;
-        gs[i] = __float2bfloat16(v);
-      }
-      __syncthreads();
-
-      // pre2 = h1 @ W2 -> staging
-      for (int f = warp; f < (TP / 16) * KB; f += WARPS) {
-        const int fr = f / KB, fc = f - fr * KB;
-        FragC acc;
-        wmma::fill_fragment(acc, 0.f);
-        for (int kk = 0; kk < K; kk += 16) {
-          FragA a;
-          FragB b;
-          wmma::load_matrix_sync(a, h1s + fr * 16 * K + kk, K);
-          wmma::load_matrix_sync(b, w2s + kk * K + fc * 16, K);
-          wmma::mma_sync(acc, a, b, acc);
-        }
-        wmma::store_matrix_sync(stg + fr * 16 * K + fc * 16, acc, K,
-                                wmma::mem_row_major);
-      }
-      __syncthreads();
-
-      // h2 = bf16(act(pre2 + b2)); dbh += column sums of g
-      for (int i = tid; i < TP * K; i += THREADS) {
-        const int row = p0 + i / K;
-        h2s[i] = __float2bfloat16(row < N ? act_fn(stg[i] + b2[i % K], act) : 0.f);
-      }
-      if (tid < D) {
-        float s = 0.f;
-        for (int p = 0; p < TP; ++p) s += gf[p * DP + tid];
-        s_bh[tid] += s;
-      }
-      __syncthreads();
-
-      // dWh += h2^T g16 (registers); dh2 = g16 Wh^T -> staging
+          for (int k = 0; k < GPER; ++k) {
+            const int p = grp + k * G;
+            v[k] = p < TM && p0 + p < N ? g[(size_t)(p0 + p) * RD + r * D + d] : 0.f;
+          }
 #pragma unroll
-      for (int j = 0; j < NWH; ++j) {
-        const int f = warp + j * WARPS;
-        if (f < KB) {
-          for (int kk = 0; kk < TP; kk += 16) {
-            FragAc a;
-            FragB b;
-            wmma::load_matrix_sync(a, h2s + kk * K + f * 16, K);
-            wmma::load_matrix_sync(b, gs + kk * DP, DP);
-            wmma::mma_sync(acch[j], a, b, acch[j]);
+          for (int k = 0; k < GPER; ++k) {
+            const int p = grp + k * G;
+            if (p < TM) {
+              gs += v[k];
+              *reinterpret_cast<__nv_bfloat16*>(st + HT + at(d, p)) =
+                  __float2bfloat16(v[k]);
+            }
           }
         }
-      }
-      for (int f = warp; f < (TP / 16) * KB; f += WARPS) {
-        const int fr = f / KB, fc = f - fr * KB;
-        FragC acc;
-        wmma::fill_fragment(acc, 0.f);
-        FragA a;
-        FragBc b;
-        wmma::load_matrix_sync(a, gs + fr * 16 * DP, DP);
-        wmma::load_matrix_sync(b, whs + fc * 16 * DP, DP);
-        wmma::mma_sync(acc, a, b, acc);
-        wmma::store_matrix_sync(stg + fr * 16 * K + fc * 16, acc, K,
-                                wmma::mem_row_major);
-      }
-      __syncthreads();
-
-      // dpre2 = dh2 * act'(h2): f32 in staging, bf16 beside it
-      for (int i = tid; i < TP * K; i += THREADS) {
-        const float v = stg[i] * dact_from_h(__bfloat162float(h2s[i]), act);
-        stg[i] = v;
-        dps[i] = __float2bfloat16(v);
-      }
-      __syncthreads();
-
-      // db2 += column sums of dpre2; dW2 += h1^T bf16(dpre2) (registers)
-      if (tid < K) {
-        float s = 0.f;
-        for (int p = 0; p < TP; ++p) s += stg[p * K + tid];
-        s_b2[tid] += s;
-      }
+        if (!FROM_H1) {
+          // h1 = bf16(act(pre1 + bc)) in place; rows past N and channels
+          // past K zero (K % 8 == 0: a 16-byte chunk is in or out whole)
+          mbar_wait(&tfull[s], ph);
+          for (int idx = lt; idx < nbox * TM * 8; idx += LOADERS) {
+            const int a = idx >> 9, p = (idx >> 3) & 63, cc = idx & 7;
+            const int c0 = a * 64 + cc * 8;
+            uint4* q = reinterpret_cast<uint4*>(st + a * TILE + swz(p, cc));
+            uint4 o = make_uint4(0u, 0u, 0u, 0u);
+            if (p0 + p < N && c0 < K) {
+              const uint4 raw = *q;
+              const __nv_bfloat162* x = reinterpret_cast<const __nv_bfloat162*>(&raw);
+              const float* bcr = bc + r * K + c0;
+              uint32_t* ov = reinterpret_cast<uint32_t*>(&o);
 #pragma unroll
-      for (int j = 0; j < NW2; ++j) {
-        const int f = warp + j * WARPS;
-        if (f < KB * KB) {
-          const int mb = f / KB, nb = f - mb * KB;
-          for (int kk = 0; kk < TP; kk += 16) {
-            FragAc a;
-            FragB b;
-            wmma::load_matrix_sync(a, h1s + kk * K + mb * 16, K);
-            wmma::load_matrix_sync(b, dps + kk * K + nb * 16, K);
-            wmma::mma_sync(acc2[j], a, b, acc2[j]);
+              for (int e = 0; e < 4; ++e)
+                ov[e] = pack2(act_fn(__low2float(x[e]) + __ldg(bcr + 2 * e), act),
+                              act_fn(__high2float(x[e]) + __ldg(bcr + 2 * e + 1), act));
+            }
+            *q = o;
           }
         }
+        fence_async_smem();
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&full[s]);
       }
-      __syncthreads();
-
-      // dh1 = bf16(dpre2) W2^T -> staging
-      for (int f = warp; f < (TP / 16) * KB; f += WARPS) {
-        const int fr = f / KB, fc = f - fr * KB;
-        FragC acc;
-        wmma::fill_fragment(acc, 0.f);
-        for (int kk = 0; kk < K; kk += 16) {
-          FragA a;
-          FragBc b;
-          wmma::load_matrix_sync(a, dps + fr * 16 * K + kk, K);
-          wmma::load_matrix_sync(b, w2s + fc * 16 * K + kk, K);
-          wmma::mma_sync(acc, a, b, acc);
-        }
-        wmma::store_matrix_sync(stg + fr * 16 * K + fc * 16, acc, K,
-                                wmma::mem_row_major);
+      // dbh: the groups' sums added in order
+      gred[lt] = gs;
+      bar_sync(4, LOADERS);
+      if (lt < D) {
+        float v = 0.f;
+        for (int k = 0; k < G; ++k) v += gred[k * D + lt];
+        pb[o_bh + lt] = v;
       }
-      __syncthreads();
-
-      // dpre1 = dh1 * act'(h1)
-      for (int i = tid; i < TP * K; i += THREADS)
-        stg[i] *= dact_from_h(__bfloat162float(h1s[i]), act);
-      __syncthreads();
-
-      // dpre1 out as bf16, eight channels (16 bytes) a thread; dbc sums
-      for (int i = tid; i < TP * K8; i += THREADS) {
-        const int p = i / K8, c = (i - p * K8) * 8;
-        const int row = p0 + p;
-        if (row < N) {
-          __align__(16) __nv_bfloat16 h[8];
-#pragma unroll
-          for (int j = 0; j < 8; ++j) h[j] = __float2bfloat16(stg[p * K + c + j]);
-          *reinterpret_cast<uint4*>(dpre1 + (size_t)row * RK + r * K + c) =
-              *reinterpret_cast<uint4*>(h);
-        }
-      }
-      if (tid < K) {
-        float s = 0.f;
-        for (int p = 0; p < TP; ++p) s += stg[p * K + tid];
-        s_bc[r * K + tid] += s;
-      }
-      __syncthreads();
     }
+    return;
   }
+
+  // ---- consumers: warpgroup w owns channels [64 w, 64 w + 64) ----
+  reg_alloc<CONS_REGS>();
+  const int t = tid & 127, w = tid >> 7, q = t >> 5;
+  const int r0 = acc_row(t, 0);          // this thread's rows r0, r0 + 8
+  float pa[32], dg[32], dw2[2][32], dwh[8], cs[16];
+  zero<32>(dw2[0]);
+  zero<32>(dw2[1]);
+  zero<8>(dwh);
+  zero<16>(cs);
+  unsigned char* h2w = h2t + w * TILE;
+  unsigned char* outw = outt + w * TILE;
+  int it = 0;
+  for (int i = i0; i < i1; ++i, ++it) {
+    const int s = it % STAGES, ph = (it / STAGES) & 1;
+    const int p0 = (i / R) * TM, r = i % R;
+    const unsigned char* st = ring + s * STAGE;
+    const unsigned char* gt = st + HT;
+    unsigned char* dp = dpt + (it & 1) * HT;
+    mbar_wait(&tfull[s], ph);
+    mbar_wait(&full[s], ph);
+
+    // pre2 = h1 W2[:, own]; dh2 = g16 Wh[own]^T
+    acc_fence<32>(pa);
+    acc_fence<32>(dg);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk)
+      if (kk < 4 * nbox)
+        wgmma<64, 0, 1>(pa, gmma_desc(st + (kk >> 2) * TILE + (kk & 3) * 32, 16, 1024),
+                        gmma_desc(w2s + w * W2T + kk * 2048, TILE, 1024), kk > 0);
+    wgmma<64, 1, 0>(dg, gmma_desc(gt, TILE, 1024),
+                    gmma_desc(whs + w * TILE, 16, 1024), 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    acc_fence<32>(pa);
+    acc_fence<32>(dg);
+
+    // h2 = bf16(act(pre2 + b2)); dpre2 = dh2 act'; db2's sums; bf16(dpre2)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int n = 8 * j + 2 * (t & 3);
+      const float bb0 = b2s[64 * w + n], bb1 = b2s[64 * w + n + 1];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int x = 4 * j + 2 * h, row = r0 + 8 * h;
+        const float v0 = pa[x] + bb0, v1 = pa[x + 1] + bb1;
+        const float a0 = act_fn(v0, act), a1 = act_fn(v1, act);
+        const uint32_t hh = pack2(a0, a1);
+        float d0, d1;
+        if (DACT_PRE2) {
+          d0 = dact_pre(v0, a0, act);
+          d1 = dact_pre(v1, a1, act);
+        } else {
+          const __nv_bfloat162 hb = *reinterpret_cast<const __nv_bfloat162*>(&hh);
+          d0 = dact_from_h(__low2float(hb), act);
+          d1 = dact_from_h(__high2float(hb), act);
+        }
+        dg[x] *= d0;
+        dg[x + 1] *= d1;
+        cs[2 * j] += dg[x];
+        cs[2 * j + 1] += dg[x + 1];
+        *reinterpret_cast<uint32_t*>(h2w + at(row, n)) = hh;
+        *reinterpret_cast<uint32_t*>(dp + w * TILE + at(row, n)) =
+            pack2(dg[x], dg[x + 1]);
+      }
+    }
+    fence_async_smem();
+    if (t == 0) tma_store_wait_read();   // the last dpre1 tile has left
+    bar_sync(1, 256);                    // both halves of bf16(dpre2)
+
+    // dh1 = bf16(dpre2) W2[own]^T; then dW2 += h1^T bf16(dpre2)[:, own] and
+    // dWh[own] += h2[:, own]^T g16, still running through the epilogue
+    acc_fence<32>(pa);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk)
+      if (kk < 4 * nbox)
+        wgmma<64, 0, 0>(pa, gmma_desc(dp + (kk >> 2) * TILE + (kk & 3) * 32, 16, 1024),
+                        gmma_desc(w2s + (kk >> 2) * W2T + w * TILE + (kk & 3) * 32,
+                                  16, 1024), kk > 0);
+    wgmma_commit();
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+      if (mt < nbox)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma<64, 1, 1>(dw2[mt], gmma_desc(st + mt * TILE + kk * 2048, TILE, 1024),
+                          gmma_desc(dp + w * TILE + kk * 2048, TILE, 1024));
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma<16, 1, 0>(dwh, gmma_desc(h2w + kk * 2048, TILE, 1024),
+                      gmma_desc(gt + kk * 32, 16, 1024));
+    wgmma_commit();
+    wgmma_wait<1>();
+    acc_fence<32>(pa);
+
+    // dpre1 = dh1 act'(h1) -> the bf16 out tile; dbc's sums of this item
+    const unsigned char* h1w = st + w * TILE;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int n = 8 * j + 2 * (t & 3);
+      float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int x = 4 * j + 2 * h, row = r0 + 8 * h;
+        const __nv_bfloat162 hb =
+            *reinterpret_cast<const __nv_bfloat162*>(h1w + at(row, n));
+        const float e0 = pa[x] * dact_from_h(__low2float(hb), act);
+        const float e1 = pa[x + 1] * dact_from_h(__high2float(hb), act);
+        *reinterpret_cast<uint32_t*>(outw + at(row, n)) = pack2(e0, e1);
+        s0 += e0;
+        s1 += e1;
+      }
+#pragma unroll
+      for (int off = 4; off < 32; off <<= 1) {
+        s0 += __shfl_xor_sync(0xffffffffu, s0, off);
+        s1 += __shfl_xor_sync(0xffffffffu, s1, off);
+      }
+      if (lane < 4) {
+        red[(w * 4 + q) * 64 + n] = s0;
+        red[(w * 4 + q) * 64 + n + 1] = s1;
+      }
+    }
+    fence_async_smem();
+    bar_sync(2 + w, 128);
+    if (t == 0 && 64 * w < K) {
+      tma_store_3d(&map_out, outw, 64 * w, r, p0);
+      tma_store_commit();
+    }
+    if (t < 64 && 64 * w + t < K) {
+      const float* rw = red + w * 4 * 64 + t;
+      sbc[r * K + 64 * w + t] += ((rw[0] + rw[64]) + rw[128]) + rw[192];
+    }
+    wgmma_wait<0>();
+    acc_fence<32>(dw2[0]);
+    acc_fence<32>(dw2[1]);
+    acc_fence<8>(dwh);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
+  }
+  if (t == 0) tma_store_wait_all();
 
   // this block's partials: [dW2 K*K | dWh K*D | db2 K | dbh D | dbc R*K]
-  float* pb = part + (size_t)blockIdx.x * SP;
 #pragma unroll
-  for (int j = 0; j < NW2; ++j) {
-    const int f = warp + j * WARPS;
-    if (f < KB * KB) {
-      const int mb = f / KB, nb = f - mb * KB;
-      wmma::store_matrix_sync(pb + mb * 16 * K + nb * 16, acc2[j], K,
-                              wmma::mem_row_major);
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int x = 0; x < 32; x += 2) {
+      const int m = 64 * mt + acc_row(t, x), n = 64 * w + acc_col(t, x);
+      if (m < K && n < K)
+        *reinterpret_cast<float2*>(pb + m * K + n) =
+            make_float2(dw2[mt][x], dw2[mt][x + 1]);
+    }
+#pragma unroll
+  for (int x = 0; x < 8; ++x) {
+    const int c = 64 * w + acc_row(t, x), d = acc_col(t, x);
+    if (c < K && d < D) pb[o_wh + c * D + d] = dwh[x];
+  }
+  bar_sync(1, 256);                      // every item's reads of red are done
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    float s0 = cs[2 * j], s1 = cs[2 * j + 1];
+#pragma unroll
+    for (int off = 4; off < 32; off <<= 1) {
+      s0 += __shfl_xor_sync(0xffffffffu, s0, off);
+      s1 += __shfl_xor_sync(0xffffffffu, s1, off);
+    }
+    if (lane < 4) {
+      const int n = 8 * j + 2 * lane;
+      red[(w * 4 + q) * 64 + n] = s0;
+      red[(w * 4 + q) * 64 + n + 1] = s1;
     }
   }
-#pragma unroll
-  for (int j = 0; j < NWH; ++j) {
-    const int f = warp + j * WARPS;
-    if (f < KB)
-      wmma::store_matrix_sync(stg + f * 16 * DP, acch[j], DP,
-                              wmma::mem_row_major);
+  bar_sync(1, 256);
+  if (t < 64 && 64 * w + t < K) {
+    const float* rw = red + w * 4 * 64 + t;
+    pb[o_b2 + 64 * w + t] = ((rw[0] + rw[64]) + rw[128]) + rw[192];
   }
-  __syncthreads();
-  for (int i = tid; i < K * D; i += THREADS) {
-    const int k = i / D, d = i - k * D;
-    pb[K * K + i] = stg[k * DP + d];
-  }
-  for (int i = tid; i < K; i += THREADS) pb[K * K + K * D + i] = s_b2[i];
-  for (int i = tid; i < D; i += THREADS) pb[K * K + K * D + K + i] = s_bh[i];
-  for (int i = tid; i < RK; i += THREADS)
-    pb[K * K + K * D + K + D + i] = s_bc[i];
+  for (int x = tid; x < R * K; x += 256) pb[o_bc + x] = sbc[x];
 }
 
-template <int K>
-int launch_bwd(const void* pre1, const void* bc, const void* w2,
-               const void* b2, const void* wh, const void* g, void* dpre1,
-               void* part, int N, int R, int D, int G, int SP, int act,
-               int from_h1, cudaStream_t stream) {
-  const size_t smem = ((size_t)K * K + (size_t)K * DP + 3 * (size_t)TP * K +
-                       (size_t)TP * DP) * 2 +
-                      ((size_t)TP * DP + (size_t)TP * K + K + DP + (size_t)R * K) * 4;
-  int err = allow_smem(mix_heads_bwd_kernel<K>, smem);
-  if (err) return err;
-  mix_heads_bwd_kernel<K><<<G, THREADS, smem, stream>>>(
-      (const __nv_bfloat16*)pre1, (const float*)bc, (const __nv_bfloat16*)w2,
+template <bool FROM_H1, bool DACT_PRE2>
+int launch(const void* src, const void* bc, const void* w2, const void* b2,
+           const void* wh, const void* g, void* dpre1, void* part, int N,
+           int R, int K, int D, int G, int chunk, int SP, int act,
+           cudaStream_t stream) {
+  const size_t smem = smem_bytes(R, K);
+  if (smem > 232448) return (int)cudaErrorInvalidValue;
+  CUtensorMap m_in, m_out;
+  const uint64_t dims[3] = {(uint64_t)K, (uint64_t)R, (uint64_t)N};
+  const uint64_t strides[2] = {(uint64_t)K * 2, (uint64_t)R * K * 2};
+  const uint32_t box[3] = {64, 1, TM};
+  int err;
+  if ((err = make_map_strided(&m_in, src, 3, dims, strides, box))) return err;
+  if ((err = make_map_strided(&m_out, dpre1, 3, dims, strides, box))) return err;
+  if ((err = allow_smem(chain_kernel<FROM_H1, DACT_PRE2>, smem))) return err;
+  chain_kernel<FROM_H1, DACT_PRE2><<<G, THREADS, smem, stream>>>(
+      m_in, m_out, (const float*)bc, (const __nv_bfloat16*)w2,
       (const float*)b2, (const __nv_bfloat16*)wh, (const float*)g,
-      (__nv_bfloat16*)dpre1, (float*)part, N, R, D, SP, act, from_h1);
+      (float*)part, N, R, K, D, chunk, SP, act);
   return (int)cudaGetLastError();
 }
+
+}  // namespace chain
 
 }  // namespace
 
 int mix_heads_bwd_run(const void* src, const void* bc, const void* w2,
                       const void* b2, const void* wh, const void* g,
                       void* dpre1, void* part, void* out, int N, int R, int K,
-                      int D, int G, int SP, int act, int from_h1,
+                      int D, int G, int chunk, int SP, int act, int from_h1,
                       cudaStream_t s) {
-  if (D > DP || G < 1 || SP % 8 ||
+  const long long items = (long long)(N + chain::TM - 1) / chain::TM * R;
+  if ((K != 16 && K != 32 && K != 64 && K != 128) || D < 1 || D > 16 ||
+      R < 1 || G < 1 || chunk < 1 || (long long)G * chunk < items ||
+      (long long)(G - 1) * chunk >= items || SP % 8 ||
       SP < K * K + K * D + K + D + R * K)
     return (int)cudaErrorInvalidValue;
-  int err;
-  switch (K) {
-    case 16:
-      err = launch_bwd<16>(src, bc, w2, b2, wh, g, dpre1, part, N, R, D, G, SP, act, from_h1, s);
-      break;
-    case 32:
-      err = launch_bwd<32>(src, bc, w2, b2, wh, g, dpre1, part, N, R, D, G, SP, act, from_h1, s);
-      break;
-    case 64:
-      err = launch_bwd<64>(src, bc, w2, b2, wh, g, dpre1, part, N, R, D, G, SP, act, from_h1, s);
-      break;
-    case 128:
-      err = launch_bwd<128>(src, bc, w2, b2, wh, g, dpre1, part, N, R, D, G, SP, act, from_h1, s);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  const int err =
+      from_h1 ? chain::launch<true, true>(src, bc, w2, b2, wh, g, dpre1, part,
+                                          N, R, K, D, G, chunk, SP, act, s)
+              : chain::launch<false, false>(src, bc, w2, b2, wh, g, dpre1,
+                                            part, N, R, K, D, G, chunk, SP,
+                                            act, s);
   if (err) return err;
   return sum_partials((const float*)part, (float*)out, 1, G, SP, s);
 }
 
 // part: (G, SP) f32 scratch; out: (SP,) f32, the first
 // K*K + K*D + K + D + R*K entries of which receive
-// [dW2 | dWh | db2 | dbh | dbc]; dpre1: (N, R*K) bf16.
+// [dW2 | dWh | db2 | dbh | dbc]; dpre1: (N, R*K) bf16. G blocks of `chunk`
+// (tile, rotation) items each (kernels/mix_heads.py::chain_schedule).
 extern "C" int tvae_mix_heads_bwd(const void* pre1, const void* bc,
                                   const void* w2, const void* b2,
                                   const void* wh, const void* g, void* dpre1,
                                   void* part, void* out, int N, int R, int K,
-                                  int D, int G, int SP, int act,
+                                  int D, int G, int chunk, int SP, int act,
                                   void* stream) {
   return mix_heads_bwd_run(pre1, bc, w2, b2, wh, g, dpre1, part, out, N, R, K,
-                           D, G, SP, act, 0, (cudaStream_t)stream);
+                           D, G, chunk, SP, act, 0, (cudaStream_t)stream);
 }
 
 extern "C" int tvae_mix_heads_fwd(const void* pre1, const void* bc,

@@ -37,8 +37,9 @@ SIGNATURES = {
     # attn, th_mu, th_ls, z_mu, z_ls, p_tr, gx, gy, offs, out,
     # B, R, M, zd, sig_r, deterministic, seed, stream
     "tvae_posterior_fwd": [_P] * 10 + [_I] * 4 + [_F, _I, _I, _P],
-    # pre1, bc, w2, b2, wh, g, dpre1, part, out, N, R, K, D, G, SP, act, stream
-    "tvae_mix_heads_bwd": [_P] * 9 + [_I] * 7 + [_P],
+    # pre1, bc, w2, b2, wh, g, dpre1, part, out, N, R, K, D, G, chunk, SP,
+    # act, stream
+    "tvae_mix_heads_bwd": [_P] * 9 + [_I] * 8 + [_P],
     # the forward's nine inputs, g, dattn, dth_mu, dth_ls, dz_mu, dz_ls,
     # B, R, M, zd, sig_r, deterministic, seed, stream
     "tvae_posterior_bwd": [_P] * 15 + [_I] * 4 + [_F, _I, _I, _P],
@@ -57,8 +58,8 @@ SIGNATURES = {
     # stream
     "tvae_lifted_encoder_fwd": [_P] * 9 + [_I] * 6 + [_P],
     # p, h1, w2, b2, wh, g, dpre1, part, out, gpart, dwc,
-    # N, CK, R, K, D, G, SP, S, act, stream
-    "tvae_lifted_encoder_bwd": [_P] * 11 + [_I] * 9 + [_P],
+    # N, CK, R, K, D, G, chunk, SP, S, C, act, stream
+    "tvae_lifted_encoder_bwd": [_P] * 11 + [_I] * 11 + [_P],
     # x, wf, bf, hz, w1, b1, wh, bh, w3, b3, y, hs_out (or null),
     # B, npx, F, H, L, n_out, act, stream
     "tvae_decoder_mlp_fwd": [_P] * 12 + [_I] * 7 + [_P],

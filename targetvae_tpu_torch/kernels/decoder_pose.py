@@ -42,6 +42,15 @@ def _act(h: torch.Tensor, kind: str) -> torch.Tensor:
     return torch.where(h >= 0, h, LEAKY_SLOPE * h)
 
 
+def _dact(pre: torch.Tensor, kind: str) -> torch.Tensor:
+    """The activation's derivative from its f32 input (targetvae_tpu/kernels/
+    decoder_mlp.py::_dact): tanh' = 1 - tanh(pre)^2, leaky by the sign."""
+    if kind == "tanh":
+        t = torch.tanh(pre)
+        return 1.0 - t * t
+    return torch.where(pre >= 0, 1.0, LEAKY_SLOPE)
+
+
 def _dact_from_h(h: torch.Tensor, kind: str) -> torch.Tensor:
     """The activation's derivative recovered from its (bf16) value h
     (targetvae_tpu/kernels/decoder_mlp.py): leaky keeps the sign of its
@@ -218,9 +227,9 @@ def mlp_chain_bwd_plain(hs, wh, w3, g, *, act_kind: str = "leakyrelu"):
 
 def _splits(m: int, n: int) -> int:
     """Pixel splits of csrc/decoder_chain.cuh's split-K weight-gradient
-    product (K10, K12) of an (m, n) output: about 1,024 blocks in all, at
-    most 64 splits. Its output tiles are 64 x 128, or 64 x 64 where n is no
-    multiple of 128."""
+    product (K10) of an (m, n) output: about 1,024 blocks in all, at most 64
+    splits. Its output tiles are 64 x 128, or 64 x 64 where n is no multiple
+    of 128."""
     tiles = (m // 64) * (n // (128 if n % 128 == 0 else 64))
     return max(1, min(64, 1024 // tiles))
 
@@ -233,13 +242,15 @@ def wgrad_schedule(rows: int, m: int, n: int, sms: int,
     """Grid of K8's split-K weight-gradient product of an (m, n) output over
     `rows` pixel rows (csrc/decoder_wgmma.cuh::launch_wgrad): output tiles of
     64 x 512 where the A operand is rebuilt features and n % 512 == 0 (each
-    feature built once for all 512 columns), else 128 x n (n <= 256) or
-    128 x 256, rows past m masked; and as many pixel splits as fill `sms`
+    feature built once for all 512 columns), else 128 x 256, 128 x 128 or
+    128 x 64, the widest that divides n (a multiple of 64), rows past m
+    masked; and as many pixel splits as fill `sms`
     SMs in one wave with the tiles. Returns (grid (x, y, splits), (tile
     rows, tile columns), chunk): split z covers pixel rows
     [z * chunk, min(rows, (z + 1) * chunk)), chunk a multiple of TILE_PX,
     and every split holds at least one row."""
-    tm, tn = (64, 512) if rebuilt and n % 512 == 0 else (128, min(n, 256))
+    tm, tn = ((64, 512) if rebuilt and n % 512 == 0 else
+              (128, next(w for w in (256, 128, 64) if n % w == 0)))
     gx, gy = -(-m // tm), n // tn
     s = max(1, sms // (gx * gy))
     chunk = -(-(-(-rows // s)) // TILE_PX) * TILE_PX

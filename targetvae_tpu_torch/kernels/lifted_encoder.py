@@ -29,7 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
-from .decoder_pose import ACT_CODES, _act, _splits, bf16_round
+from .decoder_pose import ACT_CODES, _act, bf16_round, wgrad_schedule
 from .mix_heads import (chain_grads, chain_scratch, mix_heads_bwd_from_h1,
                         mix_heads_from_h1)
 
@@ -116,11 +116,13 @@ lifted_encoder_fwd.launches = 0
 
 def lifted_encoder_bwd_plain(p, h1, w2, b2, wh, g, *, R: int, K: int,
                              act_kind: str = "leakyrelu"):
-    """Plain PyTorch version of K12, with its rounding points. g (N, R*D)
+    """Plain PyTorch version of K12, with its rounding points (act' of the
+    second layer from the f32 pre2, as the TPU kernel takes it). g (N, R*D)
     float32. Returns dwc (C*k*k, R*K), dbc (R*K,), dw2 (K, K), db2 (K,),
     dwh (K, D), dbh (D,), all float32."""
     dpre1, *rest = mix_heads_bwd_from_h1(h1, w2, b2, wh, g, R=R, K=K,
-                                         act_kind=act_kind)
+                                         act_kind=act_kind,
+                                         dact_from_pre2=True)
     return (p.float().T @ dpre1.float(), *rest)
 
 
@@ -128,8 +130,9 @@ def lifted_encoder_bwd(p, h1, w2, b2, wh, g, *, R: int, K: int,
                        act_kind: str = "leakyrelu"):
     """The backward of lifted_encoder_fwd (K12), with the outputs of
     lifted_encoder_bwd_plain. A CPU p takes the plain version; a CUDA one
-    launches csrc/lifted_encoder.cu (K2's chain from h1, the split-K dWc,
-    the in-order sums of their partials)."""
+    launches csrc/lifted_encoder.cu (the chain from h1 on wgmma, the
+    split-K dWc on the wgmma weight gradient, the in-order sums of their
+    partials)."""
     if p.device.type == "cpu":
         return lifted_encoder_bwd_plain(p, h1, w2, b2, wh, g, R=R, K=K,
                                         act_kind=act_kind)
@@ -150,18 +153,22 @@ def lifted_encoder_bwd(p, h1, w2, b2, wh, g, *, R: int, K: int,
             b2.to(f32).contiguous(), wh.to(bf).contiguous(),
             g.to(f32).contiguous())
     _build.check_cuda(*args, dtypes=(bf, bf, bf, f32, bf, f32))
+    if args[1].data_ptr() % 16 or args[2].data_ptr() % 16:
+        raise ValueError("lifted encoder backward kernel needs h1 and w2 "
+                         "16-byte aligned")
     dev = p.device
-    blocks, sp, part, out = chain_scratch(n, R, K, d, dev)
+    blocks, chunk, sp, part, out = chain_scratch(n, R, K, d, dev)
     mp = -(-pp.shape[1] // 64) * 64
-    splits = _splits(mp, R * K)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    (_, _, splits), _, rows = wgrad_schedule(max(n, 1), mp, R * K, sms)
     dpre1 = torch.empty((n, R * K), dtype=bf, device=dev)
     gpart = torch.empty((splits, mp, R * K), dtype=f32, device=dev)
     dwc = torch.empty((mp, R * K), dtype=f32, device=dev)
     if n:
         _build.launch("tvae_lifted_encoder_bwd", *(t.data_ptr() for t in args),
                       *(t.data_ptr() for t in (dpre1, part, out, gpart, dwc)),
-                      n, pp.shape[1], R, K, d, blocks, sp, splits,
-                      ACT_CODES[act_kind],
+                      n, pp.shape[1], R, K, d, blocks, chunk, sp, splits,
+                      rows, ACT_CODES[act_kind],
                       torch.cuda.current_stream(dev).cuda_stream)
         lifted_encoder_bwd.launches += 1
     return (dwc[:ck], *chain_grads(out, R, K, d))

@@ -23,11 +23,9 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .decoder_pose import ACT_CODES, _act, _dact_from_h, bf16_round
+from .decoder_pose import ACT_CODES, _act, _dact, _dact_from_h, bf16_round
 
-# the backward's grid, fixed so that its sums always run in one order: two
-# waves of one block (129 KB of shared memory) on each of the H100's 132 SMs
-_BWD_BLOCKS = 264
+TILE_POS = 64     # positions of a work item of the chain (wgmma's M)
 
 
 def mix_heads_from_h1(h1, w2, b2, wh, bh, *, R: int, K: int,
@@ -95,20 +93,27 @@ def lift_act_mix_heads_bwd_plain(pre1, bc, w2, b2, wh, g, *, R: int, K: int,
 
 
 def mix_heads_bwd_from_h1(h1, w2, b2, wh, g, *, R: int, K: int,
-                          act_kind: str = "leakyrelu"):
-    """K2's chain from the bf16-valued h1 (N, R*K), with its rounding points;
-    shared by K2's and K12's plain versions. Returns what
-    lift_act_mix_heads_bwd_plain returns."""
+                          act_kind: str = "leakyrelu",
+                          dact_from_pre2: bool = False):
+    """The chain from the bf16-valued h1 (N, R*K), with the kernels' rounding
+    points; shared by K2's and K12's plain versions. act' of the second
+    layer comes from the bf16 h2 (K2, as targetvae_tpu/kernels/mix_heads.py
+    takes it) or, with dact_from_pre2, from the f32 pre2 (K12, as
+    targetvae_tpu/kernels/lifted_encoder.py takes it); the two differ for
+    tanh. Returns what lift_act_mix_heads_bwd_plain returns."""
     n = h1.shape[0]
     d = wh.shape[1]
     h1 = h1.float().reshape(n, R, K)
     w2r = bf16_round(w2.float())
-    h2 = bf16_round(_act(h1 @ w2r + b2.float(), act_kind))
+    pre2 = h1 @ w2r + b2.float()
+    h2 = bf16_round(_act(pre2, act_kind))
     g3 = g.float().reshape(n, R, d)
     g16 = bf16_round(g3)
     dwh = torch.einsum("nrk,nrd->kd", h2, g16)
     dbh = g3.sum((0, 1))
-    dpre2 = (g16 @ bf16_round(wh.float()).T) * _dact_from_h(h2, act_kind)
+    dact2 = (_dact(pre2, act_kind) if dact_from_pre2
+             else _dact_from_h(h2, act_kind))
+    dpre2 = (g16 @ bf16_round(wh.float()).T) * dact2
     dpre2_16 = bf16_round(dpre2)
     dw2 = torch.einsum("nrk,nrj->kj", h1, dpre2_16)
     db2 = dpre2.sum((0, 1))
@@ -123,14 +128,29 @@ def _chain_sizes(R: int, K: int, d: int):
     return (K * K, K * d, K, d, R * K)
 
 
+def chain_schedule(n: int, R: int, sms: int):
+    """The persistent grid of the chain pass (csrc/mix_heads.cu): the
+    (64-position tile, rotation) work items in order, rotations inner, cut
+    into `blocks` runs of `chunk` items, about one block for each of `sms`
+    SMs. Block b takes items [b * chunk, min(total, (b + 1) * chunk)); item
+    i is tile i // R, rotation i % R. Every block holds at least one item.
+    The grid depends on the shapes and the card alone, so the sums run in
+    one order on every call. Returns (blocks, chunk)."""
+    total = -(-n // TILE_POS) * R
+    chunk = -(-total // max(1, min(sms, total)))
+    return -(-total // chunk), chunk
+
+
 def chain_scratch(n: int, R: int, K: int, d: int, device):
-    """K2's chain pass (also K12's first pass): its grid of G blocks, the
-    length SP of a partial-sum row, the (G, SP) partials and the (SP,) sums
-    they are added into."""
+    """K2's chain pass (also K12's first pass): its grid of G blocks of
+    `chunk` items (chain_schedule), the length SP of a partial-sum row, the
+    (G, SP) partials and the (SP,) sums they are added into."""
     sp = -(-sum(_chain_sizes(R, K, d)) // 64) * 64
-    blocks = max(1, min(-(-n // 64), _BWD_BLOCKS))
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    blocks, chunk = chain_schedule(max(n, 1), R, sms)
     f32 = torch.float32
-    return (blocks, sp, torch.empty((blocks, sp), dtype=f32, device=device),
+    return (blocks, chunk, sp,
+            torch.empty((blocks, sp), dtype=f32, device=device),
             torch.zeros((sp,), dtype=f32, device=device))
 
 
@@ -146,8 +166,8 @@ def mix_heads_bwd(pre1, bc, w2, b2, wh, g, *, R: int, K: int,
                   act_kind: str = "leakyrelu"):
     """The backward of mix_heads_fwd (K2), with the outputs of
     lift_act_mix_heads_bwd_plain. A CPU pre1 takes the plain version; a CUDA
-    one launches csrc/mix_heads.cu (the kernel, then the in-order sum of its
-    per-block partials)."""
+    one launches csrc/mix_heads.cu (the chain kernel on its persistent grid,
+    then the in-order sum of its per-block partials)."""
     if pre1.device.type == "cpu":
         return lift_act_mix_heads_bwd_plain(pre1, bc, w2, b2, wh, g, R=R, K=K,
                                             act_kind=act_kind)
@@ -159,8 +179,6 @@ def mix_heads_bwd(pre1, bc, w2, b2, wh, g, *, R: int, K: int,
     if K not in (16, 32, 64, 128) or d > 16:
         raise ValueError(f"mix_heads backward kernel needs K in (16, 32, 64, "
                          f"128) and D <= 16, got K={K} D={d}")
-    if pre1.data_ptr() % 16:
-        raise ValueError("mix_heads kernel needs pre1 16-byte aligned")
     bf, f32 = torch.bfloat16, torch.float32
     args = (pre1, bc.to(f32).contiguous(), w2.to(bf).contiguous(),
             b2.to(f32).contiguous(), wh.to(bf).contiguous(),
@@ -168,12 +186,15 @@ def mix_heads_bwd(pre1, bc, w2, b2, wh, g, *, R: int, K: int,
     _build.check_cuda(*args, dtypes=(bf, f32, bf, f32, bf, f32))
     if tuple(args[5].shape) != (n, R * d):
         raise ValueError(f"g: expected {(n, R * d)}, got {tuple(g.shape)}")
-    blocks, sp, part, out = chain_scratch(n, R, K, d, pre1.device)
+    if pre1.data_ptr() % 16 or args[2].data_ptr() % 16:
+        raise ValueError("mix_heads backward kernel needs pre1 and w2 "
+                         "16-byte aligned")
+    blocks, chunk, sp, part, out = chain_scratch(n, R, K, d, pre1.device)
     dpre1 = torch.empty_like(pre1)
     if n:
         _build.launch("tvae_mix_heads_bwd", *(t.data_ptr() for t in args),
                       dpre1.data_ptr(), part.data_ptr(), out.data_ptr(),
-                      n, R, K, d, blocks, sp, ACT_CODES[act_kind],
+                      n, R, K, d, blocks, chunk, sp, ACT_CODES[act_kind],
                       torch.cuda.current_stream(pre1.device).cuda_stream)
         mix_heads_bwd.launches += 1
     return (dpre1, *chain_grads(out, R, K, d))

@@ -217,23 +217,35 @@ def _rel(got, ref):
                  / ref.float().norm().clamp(min=1e-12))
 
 
-def test_mix_heads_backward_kernel_on_cuda(cuda):
-    R, K, D, N = 4, 128, 7, 700
-    args = [torch.from_numpy(a).to(cuda) for a in _mix_inputs(R=R, K=K)]
+# K2's chain kernel at shapes that together cover every K, R, N, act and D
+# the wrapper takes (K < 128 runs zero-padded to 128 channels; N = 1 and 65
+# leave most of a 64-position tile past N)
+CHAIN = [(128, 4, 700, "leakyrelu", 7), (128, 8, 65, "tanh", 16),
+         (128, 16, 1, "leakyrelu", 7), (64, 1, 700, "tanh", 7),
+         (64, 8, 65, "leakyrelu", 16), (32, 4, 1, "tanh", 16),
+         (32, 16, 700, "leakyrelu", 7), (16, 8, 700, "tanh", 7),
+         (16, 1, 65, "leakyrelu", 16), (16, 16, 65, "tanh", 7)]
+
+
+@pytest.mark.parametrize("K, R, N, act, D", CHAIN)
+def test_mix_heads_backward_kernel_on_cuda(cuda, K, R, N, act, D):
+    args = [torch.from_numpy(a).to(cuda)
+            for a in _mix_inputs(R=R, K=K, D=D, N=N)]
     args[0] = args[0].to(torch.bfloat16)
     g = torch.randn(N, R * D, generator=torch.Generator().manual_seed(4)).to(cuda)
     kernels.reset_launch_counts()
-    got = mix_heads_bwd(*args[:5], g, R=R, K=K)
-    again = mix_heads_bwd(*args[:5], g, R=R, K=K)
+    got = mix_heads_bwd(*args[:5], g, R=R, K=K, act_kind=act)
+    again = mix_heads_bwd(*args[:5], g, R=R, K=K, act_kind=act)
     torch.cuda.synchronize()
     assert kernels.launch_counts()["mix_heads_bwd"] == 2
-    ref = lift_act_mix_heads_bwd_plain(*args[:5], g, R=R, K=K)
+    ref = lift_act_mix_heads_bwd_plain(*args[:5], g, R=R, K=K, act_kind=act)
     assert got[0].dtype == torch.bfloat16
     scale = float(ref[0].float().abs().max())
     assert float((got[0].float() - ref[0].float()).abs().max()) <= 0.05 * scale
     assert _rel(got[0], ref[0]) <= 1e-2
     for i in range(1, 6):
-        assert _rel(got[i], ref[i]) < 1e-3, i
+        assert got[i].shape == ref[i].shape, i
+        assert _rel(got[i], ref[i]) < 1e-3, (i, _rel(got[i], ref[i]))
     # fixed grid and in-order sums: a rerun is bitwise the same
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
@@ -371,10 +383,14 @@ def test_pose_decoder_backward_kernel_shapes_on_cuda(cuda, layers, n, hidden,
     (250_000, 1024, 512, 132, True), (250_000, 512, 512, 132, False),
     (972, 192, 256, 132, True), (324, 64, 64, 132, True),
     (900, 1024, 512, 8, False), (64, 128, 128, 1, True),
-    (65, 1024, 512, 132, True), (1, 64, 64, 132, False)])
+    (65, 1024, 512, 132, True), (1, 64, 64, 132, False),
+    (152_100, 784, 1024, 132, False), (8_192, 12_680, 1024, 132, False),
+    (700, 832, 320, 132, False)])
 def test_wgrad_schedule_covers_each_row_and_tile_once(rows, m, n, sms,
                                                       rebuilt):
-    """K8's split-K grid: every pixel row falls in exactly one split, no
+    """The split-K grid of K8's and K12's weight gradients (K12's dWc at the
+    flagship and the galaxy encoder's shapes): every pixel row falls in
+    exactly one split, no
     split is empty, every (m, n) output entry in exactly one tile, and the
     grid fills at most one wave unless the tiles alone exceed it."""
     from targetvae_tpu_torch.kernels.decoder_pose import (
@@ -394,6 +410,26 @@ def test_wgrad_schedule_covers_each_row_and_tile_once(rows, m, n, sms,
             cover[x * tm:min(m, (x + 1) * tm), y * tn:(y + 1) * tn] += 1
     assert (cover == 1).all()
     assert gx * gy * splits <= max(sms, gx * gy)
+
+
+@pytest.mark.parametrize("n, R, sms", [
+    (152_100, 8, 132), (76_050, 8, 132), (700, 4, 132), (1, 16, 132),
+    (65, 1, 132), (700, 16, 7), (64 * 132 + 1, 1, 132), (8_192, 8, 1)])
+def test_chain_schedule_visits_each_item_once(n, R, sms):
+    """The chain pass's persistent grid: every (64-position tile, rotation)
+    item in exactly one block, no block empty, at most one block an SM, and
+    no block holding more than its even share, rounded up."""
+    from targetvae_tpu_torch.kernels.mix_heads import TILE_POS, chain_schedule
+    blocks, chunk = chain_schedule(n, R, sms)
+    total = -(-n // TILE_POS) * R
+    seen = np.zeros(total, np.int64)
+    for b in range(blocks):
+        lo, hi = b * chunk, min(total, (b + 1) * chunk)
+        assert hi > lo
+        seen[lo:hi] += 1
+    assert (seen == 1).all()
+    assert blocks <= min(sms, total)
+    assert chunk <= -(-total // min(sms, total))
 
 
 # ---- on the card: the patch encoder (K11, K12) and the decoder at arbitrary
@@ -433,19 +469,33 @@ def test_lifted_encoder_kernel_on_cuda(cuda, ck):
         h1_p.float().abs().max()) / 128
 
 
-@pytest.mark.parametrize("ck", [75, 784])
-def test_lifted_encoder_backward_kernel_on_cuda(cuda, ck):
-    R, K, D, N = 4, 128, 7, 700
-    p, wc, bc, w2, b2, wh, bh = (t.to(cuda) for t in _lifted_inputs(ck))
+# K12 at shapes covering every K, R, N, act, D and the patch widths of the
+# C = 3, k = 5 test encoder (75, no multiple of 8), the flagship (784) and
+# the galaxy encoder (12,675), within the wrapper's R*K % 64 == 0
+LIFTED_BWD = [(128, 4, 700, "leakyrelu", 7, 784),
+              (128, 4, 700, "leakyrelu", 7, 75),
+              (128, 1, 65, "tanh", 16, 12675), (64, 1, 700, "tanh", 7, 784),
+              (64, 8, 1, "leakyrelu", 16, 75), (32, 4, 65, "tanh", 7, 784),
+              (32, 16, 700, "leakyrelu", 16, 75),
+              (16, 4, 700, "tanh", 7, 784),
+              (16, 16, 65, "leakyrelu", 7, 12675),
+              (16, 8, 1, "tanh", 16, 784)]
+
+
+@pytest.mark.parametrize("K, R, N, act, D, ck", LIFTED_BWD)
+def test_lifted_encoder_backward_kernel_on_cuda(cuda, K, R, N, act, D, ck):
+    p, wc, bc, w2, b2, wh, bh = (t.to(cuda) for t in _lifted_inputs(
+        ck, R=R, K=K, D=D, N=N))
     _, h1 = lifted_encoder_plain(p, wc, bc, w2, b2, wh, bh, R=R, K=K,
-                                 save_h1=True)
+                                 act_kind=act, save_h1=True)
     g = torch.randn(N, R * D, generator=torch.Generator().manual_seed(9)).to(cuda)
     kernels.reset_launch_counts()
-    got = lifted_encoder_bwd(p, h1, w2, b2, wh, g, R=R, K=K)
-    again = lifted_encoder_bwd(p, h1, w2, b2, wh, g, R=R, K=K)
+    got = lifted_encoder_bwd(p, h1, w2, b2, wh, g, R=R, K=K, act_kind=act)
+    again = lifted_encoder_bwd(p, h1, w2, b2, wh, g, R=R, K=K, act_kind=act)
     torch.cuda.synchronize()
     assert kernels.launch_counts()["lifted_encoder_bwd"] == 2
-    ref = lifted_encoder_bwd_plain(p, h1, w2, b2, wh, g, R=R, K=K)
+    ref = lifted_encoder_bwd_plain(p, h1, w2, b2, wh, g, R=R, K=K,
+                                   act_kind=act)
     for i, (a, b) in enumerate(zip(got, ref)):
         assert a.shape == b.shape, i
         assert _rel(a, b) < 1e-3, (i, _rel(a, b))

@@ -42,9 +42,9 @@ def _rel(a, b) -> float:
     return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-12))
 
 
-def _enc_cfg(C=1):
+def _enc_cfg(C=1, activation="leakyrelu"):
     kw = dict(image_dim=N_IMG, z_dim=2, in_channels=C, kernels_num=K,
-              kernels_size=k, padding=PAD, groupconv=R)
+              kernels_size=k, padding=PAD, groupconv=R, activation=activation)
     return jcfg.EncoderConfig(**kw), EncoderConfig(**kw)
 
 
@@ -135,14 +135,18 @@ def _sin_loss(heads):
                for v in heads)
 
 
-def test_patch_encoder_gradients_match_jax(interpret_encoder):
+@pytest.mark.parametrize("activation", ["leakyrelu", "tanh"])
+def test_patch_encoder_gradients_match_jax(interpret_encoder, activation):
     """The gradients of K12's plain version through the autograd Function
     against jax.grad of EN._mode_c_kernel (the Pallas backward in interpret
     mode), per parameter leaf, loss sum(sin(head)) as tests/test_kernels.py:
-    97-120. Both take dWc from the bf16 dpre1 and dbc from its f32 values
-    and differ in f32 summation order: measured 1.2e-7 relative L2, bound
-    1e-4 (a pre2 flipped across zero, K2's finding, would show above it)."""
-    jc, tc = _enc_cfg()
+    97-120. Both take dWc from the bf16 dpre1, dbc from its f32 values and
+    act' of the second layer from the f32 pre2. Bound 5e-6 relative L2 per
+    leaf: for leaky ReLU only the f32 summation order remains (measured
+    1.2e-7); for tanh, torch's and XLA's f32 tanh may differ by an ulp and
+    flip an occasional bf16 rounding of h1 or h2 (measured 1.1e-6). Taking
+    act' from the bf16 h2 instead, as K2 does, measures 3.0e-5 for tanh."""
+    jc, tc = _enc_cfg(activation=activation)
     jp, tp = _enc_params(jc)
     y = _images()
     ref = jax.grad(lambda p: _sin_loss(EN._mode_c_kernel(p, jc, jnp.asarray(y))))(
@@ -153,7 +157,7 @@ def test_patch_encoder_gradients_match_jax(interpret_encoder):
     _sin_loss(tenc._mode_c_patch_tier(tp, tc, torch.from_numpy(y))).backward()
     for name, sub in tp.items():
         for key, t in sub.items():
-            assert _rel(t.grad.numpy(), ref[name][key]) < 1e-4, (name, key)
+            assert _rel(t.grad.numpy(), ref[name][key]) < 5e-6, (name, key)
 
 
 def test_patch_tier_encoder_apply_matches_jax(interpret_encoder, monkeypatch):
