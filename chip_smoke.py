@@ -1229,7 +1229,8 @@ def time_training(torch, cfg, k1, k3, k7, k9, k11, h1, cot, trainer, state,
     """Phase 8: each backward kernel against its plain version, K8's and
     K12's passes one by one, K7 with and without saved residuals, K11 with
     and without saving h1, cuBLAS GEMMs at K7's layer-1 shape and K12's dWc
-    shape, K2 and K12 with tanh, and the train step of each encoder tier."""
+    shape, K1, K2, K11 and K12 with tanh, and the train step of each encoder
+    tier."""
     from targetvae_tpu_torch.kernels.decoder_mlp import (
         decoder_mlp_bwd, decoder_mlp_bwd_plain)
     from targetvae_tpu_torch.kernels.decoder_pose import (
@@ -1237,7 +1238,7 @@ def time_training(torch, cfg, k1, k3, k7, k9, k11, h1, cot, trainer, state,
     from targetvae_tpu_torch.kernels.lifted_encoder import (
         lifted_encoder_bwd, lifted_encoder_bwd_plain, lifted_encoder_fwd)
     from targetvae_tpu_torch.kernels.mix_heads import (
-        lift_act_mix_heads_bwd_plain, mix_heads_bwd)
+        lift_act_mix_heads_bwd_plain, mix_heads_bwd, mix_heads_fwd)
     from targetvae_tpu_torch.kernels.posterior import (
         posterior_bwd, posterior_bwd_plain)
 
@@ -1335,16 +1336,21 @@ def time_training(torch, cfg, k1, k3, k7, k9, k11, h1, cot, trainer, state,
               f"(bf16 train_step, B={B}, {step_ms:.3f} ms/step device time "
               f"incl. Adam; {wall_ms:.3f} ms/step host clock)", flush=True)
 
-    # K2 and K12 once more with tanh, which every CLI's --activation offers:
-    # K2's loaders then take tanh of pre1, and K12's chain keeps its act'
-    # from the f32 pre2. After the train steps, so that this profiler
-    # session does not precede their timing
+    # K1, K2, K11 and K12 once more with tanh, which every CLI's
+    # --activation offers: K1 and K2 then take tanh of pre1 in their loader
+    # warps and of pre2 in their epilogues, K11 and K12 in their epilogues
+    # alone. After the train steps, so that this profiler session does not
+    # precede their timing
     with torch.inference_mode():
         k12_tanh = lambda: lifted_encoder_bwd(*bwd11, R=R, K=K,
                                               act_kind="tanh")
         for name, fn in (
+                ("mix_heads_fwd",
+                 lambda: mix_heads_fwd(*k1, R=R, K=K, act_kind="tanh")),
                 ("mix_heads_bwd",
                  lambda: mix_heads_bwd(*k1[:5], g1, R=R, K=K, act_kind="tanh")),
+                ("lifted_encoder_fwd",
+                 lambda: lifted_encoder_fwd(*k11, R=R, K=K, act_kind="tanh")),
                 ("lifted_encoder_bwd", k12_tanh)):
             t1, t2 = cuda_ms(fn), cuda_ms(fn)
             results[name]["tanh_ms"] = min(t1, t2)

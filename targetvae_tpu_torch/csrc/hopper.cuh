@@ -100,6 +100,14 @@ __device__ __forceinline__ void tma_store_3d(const CUtensorMap* m,
       " [%0, {%2, %3, %4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(m)),
       "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2) : "memory");
 }
+// shared -> global, `bytes` contiguous (a multiple of 16, both addresses
+// 16-byte aligned), in the same bulk groups as the tensor stores
+__device__ __forceinline__ void bulk_store(void* dst, const void* src,
+                                           uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
+               ::"l"(reinterpret_cast<uint64_t>(dst)), "r"(smem_u32(src)),
+               "r"(bytes) : "memory");
+}
 __device__ __forceinline__ void tma_store_commit() {
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
 }

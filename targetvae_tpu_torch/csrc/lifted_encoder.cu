@@ -1,10 +1,10 @@
 // K11: the fused patch encoder (lift GEMM + activation + mixing + heads),
 // forward.
 //
-// Replaces targetvae_tpu/kernels/lifted_encoder.py::_fwd_kernel, the Pallas
-// kernel behind fused_lifted_encoder (TARGETVAE_ENCODER_TIER=patch). Per
-// position p (a row of the im2col patch matrix P, (N, CK) bf16, built
-// outside the kernel) and rotation r:
+// Replaces targetvae_tpu/kernels/lifted_encoder.py::_fwd_kernel (pallas_call
+// at :179), the Pallas kernel behind fused_lifted_encoder
+// (TARGETVAE_ENCODER_TIER=patch). Per position p (a row of the im2col patch
+// matrix P, (N, CK) bf16, built outside the kernel) and rotation r:
 //   pre1 = P[p] @ Wc[:, r*K:(r+1)*K] + bc_r     Wc (CK, R*K) bf16, f32 sum
 //   h1   = bf16(act(pre1))                      (saved when training)
 //   h2   = bf16(act(h1 @ W2 + b2))              W2 (K, K) bf16
@@ -14,24 +14,38 @@
 // 152,100 positions, CK = 784, R = 8, K = 128, D = 7) the lift GEMM is
 // 0.244 TFLOP and mixing and heads another 0.04: ~0.29 ms at the bf16 peak,
 // against 238 MB of P read, 36 MB of output and, in save-h1 mode, 311 MB of
-// h1 written (0.08 / 0.17 ms at 3.35 TB/s).
+// h1 written (0.08 / 0.17 ms at 3.35 TB/s). One step removed, the L2 that
+// feeds the products: every item streams Wc_r, and P is read once for each
+// rotation.
 //
-// Design: one block per tile of 64 positions, 8 warps, two blocks per SM.
-// W2 and Wh stay in shared memory for the block's life. For each rotation
-// the lift GEMM streams the P tile and the matching Wc columns through two
-// shared-memory buffers in chunks of 32 columns (cp.async, the next chunk in
-// flight while the tensor cores work on the current one), so any CK works
-// (the galaxy encoder's C k^2 = 12,675; the caller pads CK to a multiple of
-// 8 so that every copy is 16 bytes). nvcuda::wmma 16x16x16 bf16 fragments
-// keep the 64 x K product in registers: warp w owns column blocks w, w + 8,
-// ... of all four row blocks. The accumulators go through an f32 staging
-// tile (which reuses the chunk buffers) where bc and the activation are
-// applied; the bf16 h1 tile then feeds K1's mixing and heads body on the
-// same fragments. Shared-memory rows are padded by 8 bf16 (4 f32) against
-// bank conflicts. The (N, R*K) lift tensor never reaches device memory
-// unless h1 is saved. Rows past N are zero and never stored. The P tile is
-// read once per rotation (from L2 after the first); keeping it resident,
-// wgmma and TMA are later work.
+// Design: a lift mainloop in front of csrc/encoder_chain.cuh's forward
+// tail, which K1 also runs:
+//  - a persistent grid of about one block per SM over the (128-position
+//    tile, rotation) items, rotations inner (kernels/mix_heads.py::
+//    chain_schedule with tile 128), so that a tile's P is read from L2
+//    after its first rotation;
+//  - one TMA thread keeps a ring of 64-column slices of the lift in
+//    flight: the tile's P columns (two 64 x 64 K-major boxes from the 2-D
+//    map (CK, N)) and the matching 64 rows of Wc's rotation-r columns (one
+//    or two 64 x 64 MN-major boxes from the 3-D map (K, R, CK)), 128-byte
+//    swizzled, zero past CK, N and K: no padding, any CK (the galaxy's
+//    12,680 streams the same way);
+//  - two consumer warpgroups, each owning 64 of the item's positions, run
+//    the lift on m64n128k16 sharing each Wc slice (so Wc crosses L2 once
+//    for every 128 positions), then bias and act from the accumulators into
+//    the warpgroup's bf16 h1 tile; in save-h1 mode a TMA store writes that
+//    tile out while pre2 runs, and thread 0 waits for it before h2
+//    overwrites it;
+//  - the tail: pre2 = h1 W2, h2 over h1, heads = h2 Wh + bh, the heads of
+//    a tile kept in shared memory across its rotations and written as one
+//    block (csrc/encoder_chain.cuh). The lift accumulators are dead before
+//    pre2's are written (64 registers a thread each). The (N, R*K) lift
+//    never reaches device memory unless h1 is saved.
+// The activation is a template constant: read at run time, it left the
+// epilogues to set the pace (a clock64 probe, tools/probe_encoder_fwd.py,
+// gave 8,561 cycles an item past the lift mainloop against 5,472 with the
+// constant; 0.757 against 0.610 ms at the flagship, H100 80GB HBM3, 700 W).
+// The mainloop's waits for the ring (L2) are now about a third of it.
 //
 // K12: the backward of K11.
 //
@@ -56,264 +70,222 @@
 // peak), against at least P + h1 + g read (~0.58 GB, 0.17 ms). dWc runs
 // near the card's GEMM rate (cuBLAS at the same shape is the yardstick);
 // the chain takes longer than its bytes need (PERF.md, section 6).
-#include <mma.h>
-
 #include "decoder_wgmma.cuh"
-
-using namespace nvcuda;
+#include "encoder_chain.cuh"
 
 namespace {
+namespace chain {
 
-constexpr int THREADS = 256;    // 8 warps (the forward)
-constexpr int WARPS = THREADS / 32;
-constexpr int TP = 64;          // positions per block
-constexpr int KC = 32;          // columns of P (rows of Wc) per chunk
-constexpr int DP = 16;          // heads padded to one fragment width
-constexpr int LDP = KC + 8;     // padded rows of the P chunk
+constexpr int L_STAGES = 4;
+constexpr int L_STAGE = 4 * TILE;        // P: two 64 x 64; Wc_r: 64 x 128
+constexpr int L_THREADS = 384;
+constexpr int L_PROD_REGS = 40;          // the TMA thread alone
+constexpr int L_CONS_REGS = (64512 - 128 * L_PROD_REGS) / 256 / 8 * 8;
+constexpr int L_W2 = 0;
+constexpr int L_WHT = L_W2 + 2 * W2T;
+constexpr int L_RING = L_WHT + WHT;      // 1,024-aligned
+constexpr int L_H = L_RING + L_STAGES * L_STAGE;   // two h tiles
+constexpr int L_B2 = L_H + 2 * HT;
+constexpr int L_BH = L_B2 + KP * 4;
+constexpr int L_BARS = L_BH + 16 * 4;
+constexpr int L_HB = L_BARS + 2 * L_STAGES * 8;    // the heads, 128 R D f32
 
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                             wmma::row_major>;
-using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                             wmma::row_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
+template <int ACT>
+__global__ void __launch_bounds__(L_THREADS, 1) lifted_fwd_kernel(
+    const __grid_constant__ CUtensorMap map_p,
+    const __grid_constant__ CUtensorMap map_wc,
+    const __grid_constant__ CUtensorMap map_h1, const float* __restrict__ bc,
+    const __nv_bfloat16* __restrict__ w2, const float* __restrict__ b2,
+    const __nv_bfloat16* __restrict__ wh, const float* __restrict__ bh,
+    float* __restrict__ out, int save, int N, int CK, int R, int K, int D,
+    int chunk, int buffered) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = align1024(smem_raw);
+  unsigned char* w2s = base + L_W2;
+  unsigned char* wht = base + L_WHT;
+  unsigned char* ring = base + L_RING;
+  float* b2s = reinterpret_cast<float*>(base + L_B2);
+  float* bhs = reinterpret_cast<float*>(base + L_BH);
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + L_BARS);
+  uint64_t* empty = full + L_STAGES;
 
-template <int K>
-struct Layout {
-  static constexpr int LDK = K + 8;                 // bf16 rows of W2, h, Wc chunk
-  static constexpr int LDS = K + 4;                 // f32 staging rows
-  static constexpr int NCB = (K / 16 + WARPS - 1) / WARPS;   // column blocks a warp
-  static constexpr size_t STAGE = (size_t)TP * LDS * 4;
-  static constexpr size_t CHUNKS = ((size_t)2 * TP * LDP + (size_t)2 * KC * LDK) * 2;
-  static constexpr size_t REGION = STAGE > CHUNKS ? STAGE : CHUNKS;
-  static constexpr size_t SMEM = ((size_t)K * LDK + (size_t)K * DP +
-                                  (size_t)TP * LDK) * 2 + REGION;
-};
-
-// The block's TP x K product in registers: acc[i][j] covers row block i and
-// column block warp + j * WARPS.
-template <int K>
-using Acc = FragC[4][Layout<K>::NCB];
-
-template <int K>
-__device__ __forceinline__ void fill_acc(Acc<K>& acc) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < Layout<K>::NCB; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-}
-
-// acc += A (TP x 16 at `at`, row stride lda) @ B (16 x K at `bt`, row
-// stride ldb), both bf16 in shared memory
-template <int K>
-__device__ __forceinline__ void mma_tile(Acc<K>& acc,
-                                         const __nv_bfloat16* at, int lda,
-                                         const __nv_bfloat16* bt, int ldb,
-                                         int warp) {
-  FragA a;
-  FragB b;
-#pragma unroll
-  for (int j = 0; j < Layout<K>::NCB; ++j) {
-    const int cb = warp + j * WARPS;
-    if (cb >= K / 16) break;
-    wmma::load_matrix_sync(b, bt + cb * 16, ldb);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      wmma::load_matrix_sync(a, at + i * 16 * lda, lda);
-      wmma::mma_sync(acc[i][j], a, b, acc[i][j]);
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int total = (N + FWD_TM - 1) / FWD_TM * R;
+  const int i0 = blockIdx.x * chunk, i1 = min(total, i0 + chunk);
+  const int nbox = K > 64 ? 2 : 1, nch = (CK + 63) / 64;
+  // the ring zero (Wc's boxes past K are never loaded), the weights
+  // zero-padded to 128 channels
+  for (int o = L_RING + tid * 16; o < L_H; o += L_THREADS * 16)
+    *reinterpret_cast<uint4*>(base + o) = make_uint4(0u, 0u, 0u, 0u);
+  stage_w2(w2s, w2, K, tid, L_THREADS);
+  stage_wht(wht, wh, K, D, tid, L_THREADS);
+  for (int c = tid; c < KP; c += L_THREADS) b2s[c] = c < K ? b2[c] : 0.f;
+  if (tid < 16) bhs[tid] = tid < D ? bh[tid] : 0.f;
+  if (tid == 0) {
+    for (int s = 0; s < L_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);
     }
+    mbar_init_fence();
   }
-}
+  fence_async_smem();
+  __syncthreads();
 
-// acc -> the f32 staging tile (TP x K, row stride LDS)
-template <int K>
-__device__ __forceinline__ void store_acc(Acc<K>& acc, float* stg, int warp) {
-#pragma unroll
-  for (int j = 0; j < Layout<K>::NCB; ++j) {
-    const int cb = warp + j * WARPS;
-    if (cb >= K / 16) break;
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      wmma::store_matrix_sync(stg + i * 16 * Layout<K>::LDS + cb * 16,
-                              acc[i][j], Layout<K>::LDS, wmma::mem_row_major);
-  }
-}
-
-template <int K>
-__global__ void __launch_bounds__(THREADS, 2) lifted_encoder_fwd_kernel(
-    const __nv_bfloat16* __restrict__ P, const __nv_bfloat16* __restrict__ wc,
-    const float* __restrict__ bc, const __nv_bfloat16* __restrict__ w2,
-    const float* __restrict__ b2, const __nv_bfloat16* __restrict__ wh,
-    const float* __restrict__ bh, float* __restrict__ out,
-    __nv_bfloat16* __restrict__ h1_out, int N, int CK, int R, int D, int act) {
-  using Ly = Layout<K>;
-  constexpr int LDK = Ly::LDK, LDS = Ly::LDS;
-  constexpr int K8 = K / 8;
-  extern __shared__ __align__(128) unsigned char smem[];
-  // [W2 K*LDK | Wh K*DP | h tile TP*LDK (bf16) | region: staging TP*LDS f32,
-  //  aliased by the chunk buffers P 2*TP*LDP, Wc 2*KC*LDK (bf16)]
-  __nv_bfloat16* w2s = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* whs = w2s + K * LDK;
-  __nv_bfloat16* hs = whs + K * DP;
-  unsigned char* region = reinterpret_cast<unsigned char*>(hs + TP * LDK);
-  float* stg = reinterpret_cast<float*>(region);
-  __nv_bfloat16* pbuf = reinterpret_cast<__nv_bfloat16*>(region);
-  __nv_bfloat16* wbuf = pbuf + 2 * TP * LDP;
-
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const int p0 = blockIdx.x * TP;
-  const int RK = R * K;
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-
-  for (int i = tid; i < K * K8; i += THREADS) {
-    const int k = i / K8, c = (i - k * K8) * 8;
-    *reinterpret_cast<uint4*>(w2s + k * LDK + c) =
-        *reinterpret_cast<const uint4*>(w2 + (size_t)k * K + c);
-  }
-  for (int i = tid; i < K * DP; i += THREADS) {
-    const int k = i / DP, d = i - k * DP;
-    whs[i] = d < D ? wh[k * D + d] : __float2bfloat16(0.f);
-  }
-
-  // starts the copy of chunk c (columns [c*KC, c*KC + KC) of the P tile and
-  // the matching rows of Wc's rotation-r columns) into buffer `slot`;
-  // what lies past N or CK is zero-filled
-  auto load_chunk = [&](int r, int c, int slot) {
-    const int k0 = c * KC;
-    __nv_bfloat16* pd = pbuf + slot * TP * LDP;
-    for (int i = tid; i < TP * (KC / 8); i += THREADS) {
-      const int p = i / (KC / 8), q = (i - p * (KC / 8)) * 8;
-      __nv_bfloat16* d = pd + p * LDP + q;
-      if (p0 + p < N && k0 + q < CK)
-        cp_async16(d, P + (size_t)(p0 + p) * CK + k0 + q);
-      else
-        *reinterpret_cast<uint4*>(d) = zero;
-    }
-    __nv_bfloat16* wd = wbuf + slot * KC * LDK;
-    for (int i = tid; i < KC * K8; i += THREADS) {
-      const int k = i / K8, q = (i - k * K8) * 8;
-      __nv_bfloat16* d = wd + k * LDK + q;
-      if (k0 + k < CK)
-        cp_async16(d, wc + (size_t)(k0 + k) * RK + r * K + q);
-      else
-        *reinterpret_cast<uint4*>(d) = zero;
-    }
-    cp_async_commit();
-  };
-
-  Acc<K> acc;
-  FragA a;
-  FragB bfr;
-  const int nch = (CK + KC - 1) / KC;
-  for (int r = 0; r < R; ++r) {
-    // ---- pre1 = P tile @ Wc_r ----
-    fill_acc<K>(acc);
-    load_chunk(r, 0, 0);
-    for (int c = 0; c < nch; ++c) {
-      if (c + 1 < nch) {
-        load_chunk(r, c + 1, (c + 1) & 1);
-        cp_async_wait<1>();
-      } else {
-        cp_async_wait<0>();
+  if (tid >= 256) {
+    // ---- the TMA thread: P's and Wc_r's 64-column slices of each item ----
+    reg_dealloc<L_PROD_REGS>();
+    if (tid == 256) {
+      int it = 0;
+      for (int i = i0; i < i1; ++i) {
+        const int r = i % R, p0 = (i / R) * FWD_TM;
+        const int nh = min(2, (N - p0 + TM - 1) / TM);   // halves below N
+        for (int c = 0; c < nch; ++c, ++it) {
+          const int s = it % L_STAGES;
+          unsigned char* st = ring + s * L_STAGE;
+          mbar_wait(&empty[s], ((it / L_STAGES) & 1) ^ 1);
+          mbar_expect_tx(&full[s], (nh + nbox) * TILE);
+          for (int h = 0; h < nh; ++h)
+            tma_load_2d(st + h * TILE, &map_p, &full[s], c * 64, p0 + h * TM);
+          for (int a = 0; a < nbox; ++a)
+            tma_load_3d(st + (2 + a) * TILE, &map_wc, &full[s], a * 64, r,
+                        c * 64);
+        }
       }
-      __syncthreads();
-      const __nv_bfloat16* pc = pbuf + (c & 1) * TP * LDP;
-      const __nv_bfloat16* wcc = wbuf + (c & 1) * KC * LDK;
-#pragma unroll
-      for (int kk = 0; kk < KC; kk += 16)
-        mma_tile<K>(acc, pc + kk, LDP, wcc + kk * LDK, LDK, warp);
-      __syncthreads();
     }
-    store_acc<K>(acc, stg, warp);
-    __syncthreads();
-
-    // ---- h1 = bf16(act(pre1 + bc_r)), eight channels (16 bytes) a thread ----
-    for (int i = tid; i < TP * K8; i += THREADS) {
-      const int p = i / K8, c = (i - p * K8) * 8;
-      const int row = p0 + p;
-      __align__(16) __nv_bfloat16 h[8];
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        h[j] = __float2bfloat16(
-            row < N ? act_fn(stg[p * LDS + c + j] + bc[r * K + c + j], act) : 0.f);
-      *reinterpret_cast<uint4*>(hs + p * LDK + c) = *reinterpret_cast<uint4*>(h);
-      if (h1_out && row < N)
-        *reinterpret_cast<uint4*>(h1_out + (size_t)row * RK + r * K + c) =
-            *reinterpret_cast<uint4*>(h);
-    }
-    __syncthreads();
-
-    // ---- pre2 = h1 @ W2 -> staging; h2 = bf16(act(pre2 + b2)) over h1 ----
-    fill_acc<K>(acc);
-#pragma unroll 2
-    for (int kk = 0; kk < K; kk += 16)
-      mma_tile<K>(acc, hs + kk, LDK, w2s + kk * LDK, LDK, warp);
-    store_acc<K>(acc, stg, warp);
-    __syncthreads();
-    for (int i = tid; i < TP * K; i += THREADS) {
-      const int p = i / K, c = i - p * K;
-      hs[p * LDK + c] = __float2bfloat16(act_fn(stg[p * LDS + c] + b2[c], act));
-    }
-    __syncthreads();
-
-    // ---- heads = h2 @ Wh -> staging as (TP, DP) ----
-    if (warp < TP / 16) {
-      FragC hacc;
-      wmma::fill_fragment(hacc, 0.f);
-      for (int kk = 0; kk < K; kk += 16) {
-        wmma::load_matrix_sync(a, hs + warp * 16 * LDK + kk, LDK);
-        wmma::load_matrix_sync(bfr, whs + kk * DP, DP);
-        wmma::mma_sync(hacc, a, bfr, hacc);
-      }
-      wmma::store_matrix_sync(stg + warp * 16 * DP, hacc, DP, wmma::mem_row_major);
-    }
-    __syncthreads();
-    for (int i = tid; i < TP * D; i += THREADS) {
-      const int p = i / D, d = i - p * D;
-      const int row = p0 + p;
-      if (row < N) out[(size_t)row * R * D + r * D + d] = stg[p * DP + d] + bh[d];
-    }
-    __syncthreads();   // the staging tile is about to take the next chunks
+    return;
   }
+
+  // ---- consumers: warpgroup w owns the item's positions [64 w, 64 w + 64) ----
+  reg_alloc<L_CONS_REGS>();
+  const int t = tid & 127, w = tid >> 7, bar = 2 + w, nk = (K + 15) / 16;
+  unsigned char* h = base + L_H + w * HT;
+  float* hb = buffered ? reinterpret_cast<float*>(base + L_HB) + w * TM * R * D
+                       : nullptr;
+  float acc[64], hd[8];
+  int ra = 0, it = 0;
+  long long seg[4] = {0, 0, 0, 0};     // the probe's tail segments
+  PROBE(long long pw = 0, pm = 0, pr = 0;)
+  for (int i = i0; i < i1; ++i) {
+    const int r = i % R, p0w = (i / R) * FWD_TM + w * TM;
+    PROBE(const long long c0 = clock64();)
+    if (i == i0 || r == 0) {
+      ra = r;
+      if (hb && i > i0) reuse_heads(t, bar);
+    }
+    // pre1 = P[rows] Wc_r over the ring, one slice behind the TMA thread
+    for (int c = 0; c < nch; ++c, ++it) {
+      const int s = it % L_STAGES;
+      const unsigned char* st = ring + s * L_STAGE;
+      PROBE(const long long cw = clock64();)
+      mbar_wait(&full[s], (it / L_STAGES) & 1);
+      PROBE(pw += clock64() - cw;)
+      acc_fence<64>(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma<128, 0, 1>(acc, gmma_desc(st + w * TILE + kk * 32, 16, 1024),
+                         gmma_desc(st + 2 * TILE + kk * 2048, TILE, 1024),
+                         c > 0 || kk > 0);
+      wgmma_commit();
+      wgmma_wait<1>();
+      acc_fence<64>(acc);
+      if (c > 0 && lane == 0) mbar_arrive(&empty[(it - 1) % L_STAGES]);
+    }
+    wgmma_wait<0>();
+    acc_fence<64>(acc);
+    if (lane == 0) mbar_arrive(&empty[(it - 1) % L_STAGES]);
+    PROBE(const long long c1 = clock64(); pm += c1 - c0;)
+
+    // h1 = bf16(act(pre1 + bc_r)) into this warpgroup's tile (the last
+    // reader of the tile, the previous item's heads product, has finished)
+    const float* bcr = bc + r * K;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int n = 8 * j + 2 * (t & 3);
+      const float2 bb = n < K ? __ldg(reinterpret_cast<const float2*>(bcr + n))
+                              : make_float2(0.f, 0.f);
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int x = 4 * j + 2 * hh;
+        *reinterpret_cast<uint32_t*>(h + (n >> 6) * TILE + at(acc_row(t, x), n & 63)) =
+            pack2(act_fn(acc[x] + bb.x, ACT), act_fn(acc[x + 1] + bb.y, ACT));
+      }
+    }
+    fence_async_smem();
+    bar_sync(bar, 128);
+    if (save && t == 0 && p0w < N) {
+      for (int a = 0; a < nbox; ++a) tma_store_3d(&map_h1, h + a * TILE, a * 64, r, p0w);
+      tma_store_commit();
+    }
+    fwd_tail(acc, hd, h, w2s, wht, b2s, nk, t, ACT, save != 0, bar, seg);
+    PROBE(const long long c2 = clock64();)
+    put_heads(hd, hb, out, bhs, p0w, r, N, R, D, t);
+    if (hb && (i + 1 == i1 || r == R - 1))
+      flush_heads(hb, out, p0w, ra, r, N, R, D, t, bar);
+    PROBE(pr += clock64() - c1; seg[3] += clock64() - c2;)
+  }
+  if (t == 0) tma_store_wait_all();
+  PROBE(probe_add(t, w, pw, pm, pr, i1 - i0, seg);)
 }
 
-template <int K>
-int launch_fwd_k(const void* P, const void* wc, const void* bc,
-                 const void* w2, const void* b2, const void* wh,
-                 const void* bh, void* out, void* h1_out, int N, int CK,
-                 int R, int D, int act, cudaStream_t stream) {
-  const size_t smem = Layout<K>::SMEM;
-  int err = allow_smem(lifted_encoder_fwd_kernel<K>, smem);
-  if (err) return err;
-  lifted_encoder_fwd_kernel<K><<<(N + TP - 1) / TP, THREADS, smem, stream>>>(
-      (const __nv_bfloat16*)P, (const __nv_bfloat16*)wc, (const float*)bc,
-      (const __nv_bfloat16*)w2, (const float*)b2, (const __nv_bfloat16*)wh,
-      (const float*)bh, (float*)out, (__nv_bfloat16*)h1_out, N, CK, R, D, act);
+template <int ACT>
+int launch_lifted_fwd(const void* P, const void* wc, const void* bc,
+                      const void* w2, const void* b2, const void* wh,
+                      const void* bh, void* out, void* h1_out, int N, int CK,
+                      int R, int K, int D, int G, int chunk,
+                      cudaStream_t stream) {
+  CUtensorMap m_p, m_wc, m_h1;
+  const uint64_t d_p[2] = {(uint64_t)CK, (uint64_t)N}, s_p[1] = {(uint64_t)CK * 2};
+  const uint32_t box_p[2] = {64, TM};
+  const uint64_t d_wc[3] = {(uint64_t)K, (uint64_t)R, (uint64_t)CK};
+  const uint64_t d_h1[3] = {(uint64_t)K, (uint64_t)R, (uint64_t)N};
+  const uint64_t s_k[2] = {(uint64_t)K * 2, (uint64_t)R * K * 2};
+  const uint32_t box_k[3] = {64, 1, TM};
+  int err;
+  if ((err = make_map_strided(&m_p, P, 2, d_p, s_p, box_p))) return err;
+  if ((err = make_map_strided(&m_wc, wc, 3, d_wc, s_k, box_k))) return err;
+  m_h1 = m_wc;
+  if (h1_out && (err = make_map_strided(&m_h1, h1_out, 3, d_h1, s_k, box_k)))
+    return err;
+  const size_t fixed = 1024 + L_HB, heads = (size_t)FWD_TM * R * D * 4;
+  const int buffered = fixed + heads <= 232448;
+  const size_t smem = fixed + (buffered ? heads : 0);
+  if ((err = allow_smem(lifted_fwd_kernel<ACT>, smem))) return err;
+  lifted_fwd_kernel<ACT><<<G, L_THREADS, smem, stream>>>(
+      m_p, m_wc, m_h1, (const float*)bc, (const __nv_bfloat16*)w2,
+      (const float*)b2, (const __nv_bfloat16*)wh, (const float*)bh,
+      (float*)out, h1_out != nullptr, N, CK, R, K, D, chunk, buffered);
   return (int)cudaGetLastError();
 }
 
+}  // namespace chain
 }  // namespace
+
+TVAE_PROBE_READER(tvae_probe_lifted_encoder_fwd)
 
 // K11. P (N, CK) bf16 with CK % 8 == 0; wc (CK, R*K) bf16; bc (R*K,) f32;
 // w2 (K, K), wh (K, D) bf16; b2 (K,), bh (D,) f32; out (N, R*D) f32; h1_out
-// (N, R*K) bf16, or null when serving.
+// (N, R*K) bf16, or null when serving. G blocks of `chunk` (128-position
+// tile, rotation) items each (kernels/mix_heads.py::chain_schedule with
+// tile 128).
 extern "C" int tvae_lifted_encoder_fwd(const void* P, const void* wc,
                                        const void* bc, const void* w2,
                                        const void* b2, const void* wh,
                                        const void* bh, void* out,
                                        void* h1_out, int N, int CK, int R,
-                                       int K, int D, int act, void* stream) {
-  if (CK % 8 || D > DP) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (K) {
-    case 32:
-      return launch_fwd_k<32>(P, wc, bc, w2, b2, wh, bh, out, h1_out, N, CK, R, D, act, s);
-    case 64:
-      return launch_fwd_k<64>(P, wc, bc, w2, b2, wh, bh, out, h1_out, N, CK, R, D, act, s);
-    case 128:
-      return launch_fwd_k<128>(P, wc, bc, w2, b2, wh, bh, out, h1_out, N, CK, R, D, act, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+                                       int K, int D, int G, int chunk,
+                                       int act, void* stream) {
+  const long long items =
+      (long long)(N + chain::FWD_TM - 1) / chain::FWD_TM * R;
+  if (CK % 8 || CK < 8 || (K != 16 && K != 32 && K != 64 && K != 128) ||
+      D < 1 || D > 16 || R < 1 || G < 1 || chunk < 1 ||
+      (long long)G * chunk < items || (long long)(G - 1) * chunk >= items)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  return act ? chain::launch_lifted_fwd<1>(P, wc, bc, w2, b2, wh, bh, out,
+                                           h1_out, N, CK, R, K, D, G, chunk, s)
+             : chain::launch_lifted_fwd<0>(P, wc, bc, w2, b2, wh, bh, out,
+                                           h1_out, N, CK, R, K, D, G, chunk, s);
 }
 
 // K12. P (N, CK) and h1 (N, R*K) bf16 from the forward; w2, wh bf16; b2

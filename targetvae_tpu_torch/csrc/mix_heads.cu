@@ -1,137 +1,46 @@
 // K1: fused lift-activation + mixing + heads, forward.
 //
 // Replaces targetvae_tpu/kernels/mix_heads.py::_fwd_kernel (lift=True), the
-// Pallas kernel behind fused_lift_act_mix_heads. Per position p and rotation
-// r, with pre1 the raw lift-conv output (N, R*K) bf16, r-major channels:
+// Pallas kernel behind fused_lift_act_mix_heads (pallas_call at :232). Per
+// position p and rotation r, with pre1 the raw lift-conv output (N, R*K)
+// bf16, r-major channels:
 //   h1 = bf16(act(pre1[p, r*K:(r+1)*K] + bc[r*K:(r+1)*K]))
 //   h2 = bf16(act(h1 @ W2 + b2))           W2 (K, K) bf16, f32 accumulation
 //   out[p, r*D:(r+1)*D] = h2 @ Wh + bh     Wh (K, D) bf16, f32 accumulation
 //
-// What bounds it on the H100: at the flagship shape (N = 100*39*39 = 152,100
-// positions, R = 8, K = 128, D = 7) it does about 0.04 TFLOP and reads
-// 311 MB of pre1, so it sits near the ridge: ~0.09 ms of HBM time at
-// 3.35 TB/s against ~0.04 ms of bf16 tensor-core time at peak.
+// What bounds it on the H100: the bytes. At the flagship shape (N =
+// 100*39*39 = 152,100 positions, R = 8, K = 128, D = 7) it reads 311 MB of
+// pre1 and writes 36 MB of heads, 0.103 ms at 3.35 TB/s, against ~0.04 TFLOP
+// of products (~0.04 ms at the bf16 peak).
 //
-// Design: one block per tile of 64 positions, 8 warps. W2 (32 KB at K=128)
-// and Wh (zero-padded to 16 columns) stay in shared memory for the block's
-// life. For each rotation the block loads its 64 x K slice of pre1 16 bytes a
-// thread, applies bias and activation and stages h1 in shared memory as bf16
-// (pre1 is read once; h1 and h2 never reach device memory). The mixing and
-// the heads both run on the tensor cores with nvcuda::wmma 16x16x16 bf16
-// fragments, through an f32 staging tile where bias and activation are
-// applied; h2 overwrites h1 in place. N need not divide by 64: rows past N
-// are zero in shared memory and never stored. wgmma/TMA pipelining is later
-// work.
-#include <mma.h>
-
-#include "common.cuh"
-#include "hopper.cuh"
-
-using namespace nvcuda;
+// Design: the producer side of K2's chain kernel below, with the forward
+// tail of csrc/encoder_chain.cuh as its consumers:
+//  - a persistent grid of about one block per SM over the (128-position
+//    tile, rotation) items, rotations inner (kernels/mix_heads.py::
+//    chain_schedule with tile 128);
+//  - the chain's TMA thread keeps a ring of items in flight, each the two
+//    64 x K slices of pre1 of the tile's halves from the 3-D map (K, R, N),
+//    128-byte swizzled, zero past K and N; its loader warps turn pre1 into
+//    h1 = bf16(act(pre1 + bc)) in place, seven of them here (a second
+//    producer warpgroup: with K2's three they set K1's pace);
+//  - consumer warpgroup w takes the item's positions [64 w, 64 w + 64):
+//    pre2 = h1 W2 on wgmma (W2 resident), bias and act from the
+//    accumulators into a bf16 h2 over h1, heads = h2 Wh (m64n16, Wh^T
+//    resident and zero-padded to 16 heads), + bh;
+//  - a tile's heads are one contiguous run of 64 R D f32 of out for each
+//    warpgroup: they stay in shared memory across the tile's R rotations
+//    and leave as one bulk copy (plain stores for a tile split between two
+//    blocks or a ragged last tile whose bytes are no multiple of 16). Where
+//    that buffer does not fit beside the ring (128 R D f32), the heads go
+//    straight to out.
+// The activation is a template constant of the kernel, so that the
+// epilogues and the loaders' conversion compile to straight-line code: with
+// it read at run time, a clock64 probe (tools/probe_encoder_fwd.py) showed
+// the epilogues setting the pace of K11. What sets K1's pace now is the
+// consumers' tail (the same probe, PERF.md section 6), not the loads.
+#include "encoder_chain.cuh"
 
 namespace {
-
-constexpr int TP = 64;          // positions per block
-constexpr int THREADS = 256;    // 8 warps
-constexpr int WARPS = THREADS / 32;
-constexpr int DP = 16;          // heads padded to one fragment width
-
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                             wmma::row_major>;
-using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                             wmma::row_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-
-__global__ void __launch_bounds__(THREADS) mix_heads_fwd_kernel(
-    const __nv_bfloat16* __restrict__ pre1, const float* __restrict__ bc,
-    const __nv_bfloat16* __restrict__ w2, const float* __restrict__ b2,
-    const __nv_bfloat16* __restrict__ wh, const float* __restrict__ bh,
-    float* __restrict__ out, int N, int R, int K, int D, int act) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  // [W2 K*K bf16 | Wh K*DP bf16 | h1/h2 TP*K bf16 | staging TP*K f32]
-  __nv_bfloat16* w2s = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* whs = w2s + K * K;
-  __nv_bfloat16* hs = whs + K * DP;
-  float* stg = reinterpret_cast<float*>(hs + TP * K);
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int p0 = blockIdx.x * TP;
-  const int RK = R * K;
-  const int K8 = K / 8;
-
-  for (int i = tid; i < K * K; i += THREADS) w2s[i] = w2[i];
-  for (int i = tid; i < K * DP; i += THREADS) {
-    const int k = i / DP, d = i - k * DP;
-    whs[i] = d < D ? wh[k * D + d] : __float2bfloat16(0.f);
-  }
-
-  const int kb = K / 16;
-  for (int r = 0; r < R; ++r) {
-    // h1 = bf16(act(pre1 + bc)), eight channels (16 bytes) a thread
-    for (int i = tid; i < TP * K8; i += THREADS) {
-      const int p = i / K8, c = (i - p * K8) * 8;
-      const int row = p0 + p;
-      uint4 raw = make_uint4(0u, 0u, 0u, 0u);
-      if (row < N)
-        raw = *reinterpret_cast<const uint4*>(pre1 + (size_t)row * RK + r * K + c);
-      const __nv_bfloat16* x = reinterpret_cast<const __nv_bfloat16*>(&raw);
-      __align__(16) __nv_bfloat16 h[8];
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        h[j] = __float2bfloat16(
-            row < N ? act_fn(__bfloat162float(x[j]) + bc[r * K + c + j], act)
-                    : 0.f);
-      *reinterpret_cast<uint4*>(hs + p * K + c) = *reinterpret_cast<uint4*>(h);
-    }
-    __syncthreads();
-
-    // pre2 = h1 @ W2 -> staging
-    for (int f = warp; f < (TP / 16) * kb; f += WARPS) {
-      const int fr = f / kb, fc = f - fr * kb;
-      FragC acc;
-      wmma::fill_fragment(acc, 0.f);
-      for (int kk = 0; kk < K; kk += 16) {
-        FragA a;
-        FragB b;
-        wmma::load_matrix_sync(a, hs + fr * 16 * K + kk, K);
-        wmma::load_matrix_sync(b, w2s + kk * K + fc * 16, K);
-        wmma::mma_sync(acc, a, b, acc);
-      }
-      wmma::store_matrix_sync(stg + fr * 16 * K + fc * 16, acc, K,
-                              wmma::mem_row_major);
-    }
-    __syncthreads();
-
-    // h2 = bf16(act(pre2 + b2)), over h1
-    for (int i = tid; i < TP * K; i += THREADS)
-      hs[i] = __float2bfloat16(act_fn(stg[i] + b2[i % K], act));
-    __syncthreads();
-
-    // heads = h2 @ Wh -> staging as (TP, DP)
-    if (warp < TP / 16) {
-      FragC acc;
-      wmma::fill_fragment(acc, 0.f);
-      for (int kk = 0; kk < K; kk += 16) {
-        FragA a;
-        FragB b;
-        wmma::load_matrix_sync(a, hs + warp * 16 * K + kk, K);
-        wmma::load_matrix_sync(b, whs + kk * DP, DP);
-        wmma::mma_sync(acc, a, b, acc);
-      }
-      wmma::store_matrix_sync(stg + warp * 16 * DP, acc, DP,
-                              wmma::mem_row_major);
-    }
-    __syncthreads();
-
-    for (int i = tid; i < TP * D; i += THREADS) {
-      const int p = i / D, d = i - p * D;
-      const int row = p0 + p;
-      if (row < N) out[(size_t)row * R * D + r * D + d] = stg[p * DP + d] + bh[d];
-    }
-    __syncthreads();
-  }
-}
 
 // K2: the backward of K1, and the first pass of K12 (csrc/lifted_encoder.cu).
 //
@@ -187,11 +96,6 @@ __global__ void __launch_bounds__(THREADS) mix_heads_fwd_kernel(
 //    bitwise equal.
 namespace chain {
 
-constexpr int TM = 64;                 // positions a tile: wgmma's M
-constexpr int KP = 128;                // channels, zero-padded past K
-constexpr int TILE = TM * 128;         // 64 rows x 64 bf16, swizzled: 8 KB
-constexpr int W2T = 2 * TILE;          // 128 rows x 64 columns: 16 KB
-constexpr int HT = 2 * TILE;           // 64 positions x 128 channels
 constexpr int GT = 16 * 128;           // g16^T: 16 heads x 64 positions
 constexpr int STAGE = HT + GT;         // one item's h1 (or pre1) and g16^T
 constexpr int STAGES = 4;
@@ -223,18 +127,6 @@ inline size_t smem_bytes(int R, int K) {
   return 1024 + O_BC + (size_t)R * K * 4;
 }
 
-__device__ __forceinline__ uint32_t pack2(float a, float b) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-// byte offset of element (r, n) of a swizzled tile of 64 bf16 columns
-__device__ __forceinline__ int at(int r, int n) {
-  return swz(r, n >> 3) + (n & 7) * 2;
-}
-__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
-  const uint32_t a = smem_u32(p);
-  return p + (((a + 1023) & ~1023u) - a);
-}
 // act' from the f32 input v and a = act(v)
 __device__ __forceinline__ float dact_pre(float v, float a, int act) {
   return act == 1 ? 1.f - a * a : (v >= 0.f ? 1.f : 0.01f);
@@ -244,6 +136,105 @@ template <int R_>
 __device__ __forceinline__ void zero(float* d) {
 #pragma unroll
   for (int i = 0; i < R_; ++i) d[i] = 0.f;
+}
+
+// The producers of the chain kernels (the threads from 256 on). The TMA
+// thread (256)
+// keeps a ring of STAGES items (`stage` bytes each) in flight: for each of
+// the item's HALVES 64-position slices with positions below N, one or two
+// 64-channel boxes of pre1 or h1 from the 3-D map (K, R, N), what lies past
+// K or N reading as zero. The NLOAD loader threads (from 288 on: three
+// warps in the backward, seven in K1) turn pre1 into h1 = bf16(act(pre1 +
+// bc)) in place without FROM_H1, rows past N and channels past K zero; with
+// WITH_G (the backward) they also write g16 transposed after the slice (16 heads x 64 positions, one 2 KB
+// tile) with dbh's sums on the way, into pbh.
+template <bool FROM_H1, bool WITH_G, int HALVES, int NLOAD>
+__device__ __forceinline__ void produce(
+    const CUtensorMap* map_in, unsigned char* ring, int stage,
+    uint64_t* tfull, uint64_t* full, uint64_t* empty,
+    const float* __restrict__ bc, const float* __restrict__ g, float* gred,
+    float* pbh, int i0, int i1, int N, int R, int K, int D, int act,
+    int tid) {
+  static_assert(!WITH_G || NLOAD == LOADERS, "g's loads assume 96 loaders");
+  const int lane = tid & 31;
+  const int nbox = K > 64 ? 2 : 1;       // 64-channel boxes a slice holds
+  if (tid == 256) {
+    for (int i = i0, it = 0; i < i1; ++i, ++it) {
+      const int s = it % STAGES, p0 = (i / R) * TM * HALVES;
+      const int nh = HALVES == 1 ? 1 : min(HALVES, (N - p0 + TM - 1) / TM);
+      mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
+      mbar_expect_tx(&tfull[s], nh * nbox * TILE);
+      for (int h = 0; h < nh; ++h)
+        for (int a = 0; a < nbox; ++a)
+          tma_load_3d(ring + s * stage + h * HT + a * TILE, map_in, &tfull[s],
+                      a * 64, i % R, p0 + h * TM);
+    }
+  } else if (tid >= 288) {
+    const int lt = tid - 288, G = NLOAD / D, grp = lt / D, d = lt - grp * D;
+    const int RD = R * D;
+    float gs = 0.f;
+    for (int i = i0, it = 0; i < i1; ++i, ++it) {
+      const int s = it % STAGES, ph = (it / STAGES) & 1;
+      const int p0 = (i / R) * TM * HALVES, r = i % R;
+      unsigned char* st = ring + s * stage;
+      mbar_wait(&empty[s], ph ^ 1);
+      // g16^T: row d holds head d of the 64 positions (rows past D zero);
+      // a thread's loads are all issued before the first is used
+      if (WITH_G && grp < G) {
+        float v[GPER];
+#pragma unroll
+        for (int k = 0; k < GPER; ++k) {
+          const int p = grp + k * G;
+          v[k] = p < TM && p0 + p < N ? g[(size_t)(p0 + p) * RD + r * D + d] : 0.f;
+        }
+#pragma unroll
+        for (int k = 0; k < GPER; ++k) {
+          const int p = grp + k * G;
+          if (p < TM) {
+            gs += v[k];
+            *reinterpret_cast<__nv_bfloat16*>(st + HT + at(d, p)) =
+                __float2bfloat16(v[k]);
+          }
+        }
+      }
+      if (!FROM_H1) {
+        // h1 = bf16(act(pre1 + bc)) in place; rows past N and channels
+        // past K zero (K % 8 == 0: a 16-byte chunk is in or out whole)
+        mbar_wait(&tfull[s], ph);
+        for (int idx = lt; idx < HALVES * nbox * TM * 8; idx += NLOAD) {
+          const int q = idx >> 9, p = (idx >> 3) & 63, cc = idx & 7;
+          const int hh = HALVES == 1 ? 0 : q >> (nbox - 1), a = q - hh * nbox;
+          const int c0 = a * 64 + cc * 8, row = p0 + hh * TM + p;
+          uint4* qp = reinterpret_cast<uint4*>(st + hh * HT + a * TILE + swz(p, cc));
+          uint4 o = make_uint4(0u, 0u, 0u, 0u);
+          if (row < N && c0 < K) {
+            const uint4 raw = *qp;
+            const __nv_bfloat162* x = reinterpret_cast<const __nv_bfloat162*>(&raw);
+            const float* bcr = bc + r * K + c0;
+            uint32_t* ov = reinterpret_cast<uint32_t*>(&o);
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              ov[e] = pack2(act_fn(__low2float(x[e]) + __ldg(bcr + 2 * e), act),
+                            act_fn(__high2float(x[e]) + __ldg(bcr + 2 * e + 1), act));
+          }
+          *qp = o;
+        }
+      }
+      fence_async_smem();
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&full[s]);
+    }
+    if (WITH_G) {
+      // dbh: the groups' sums added in order
+      gred[lt] = gs;
+      bar_sync(4, LOADERS);
+      if (lt < D) {
+        float v = 0.f;
+        for (int k = 0; k < G; ++k) v += gred[k * D + lt];
+        pbh[lt] = v;
+      }
+    }
+  }
 }
 
 template <bool FROM_H1, bool DACT_PRE2>
@@ -283,13 +274,7 @@ __global__ void __launch_bounds__(THREADS, 1) chain_kernel(
   // zero-padded to 128 channels
   for (int o = O_RING + tid * 16; o < O_B2; o += THREADS * 16)
     *reinterpret_cast<uint4*>(base + o) = make_uint4(0u, 0u, 0u, 0u);
-  for (int idx = tid; idx < KP * 16; idx += THREADS) {
-    const int i = idx >> 4, cc = idx & 15;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (i < K && cc * 8 < K)
-      v = *reinterpret_cast<const uint4*>(w2 + (size_t)i * K + cc * 8);
-    *reinterpret_cast<uint4*>(w2s + (cc >> 3) * W2T + swz(i, cc & 7)) = v;
-  }
+  stage_w2(w2s, w2, K, tid, THREADS);
   for (int idx = tid; idx < KP * 8; idx += THREADS) {
     const int i = idx >> 3, cc = idx & 7;
     __align__(16) __nv_bfloat16 h[8];
@@ -316,78 +301,9 @@ __global__ void __launch_bounds__(THREADS, 1) chain_kernel(
   if (tid >= 256) {
     // ---- producers: the TMA thread, then three loader warps ----
     reg_dealloc<PROD_REGS>();
-    if (tid == 256) {
-      for (int i = i0, it = 0; i < i1; ++i, ++it) {
-        const int s = it % STAGES;
-        mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
-        mbar_expect_tx(&tfull[s], nbox * TILE);
-        for (int a = 0; a < nbox; ++a)
-          tma_load_3d(ring + s * STAGE + a * TILE, &map_in, &tfull[s], a * 64,
-                      i % R, (i / R) * TM);
-      }
-    } else if (tid >= 288) {
-      const int lt = tid - 288, G = LOADERS / D, grp = lt / D, d = lt - grp * D;
-      const int RD = R * D;
-      float gs = 0.f;
-      for (int i = i0, it = 0; i < i1; ++i, ++it) {
-        const int s = it % STAGES, ph = (it / STAGES) & 1;
-        const int p0 = (i / R) * TM, r = i % R;
-        unsigned char* st = ring + s * STAGE;
-        mbar_wait(&empty[s], ph ^ 1);
-        // g16^T: row d holds head d of the 64 positions (rows past D zero);
-        // a thread's loads are all issued before the first is used
-        if (grp < G) {
-          float v[GPER];
-#pragma unroll
-          for (int k = 0; k < GPER; ++k) {
-            const int p = grp + k * G;
-            v[k] = p < TM && p0 + p < N ? g[(size_t)(p0 + p) * RD + r * D + d] : 0.f;
-          }
-#pragma unroll
-          for (int k = 0; k < GPER; ++k) {
-            const int p = grp + k * G;
-            if (p < TM) {
-              gs += v[k];
-              *reinterpret_cast<__nv_bfloat16*>(st + HT + at(d, p)) =
-                  __float2bfloat16(v[k]);
-            }
-          }
-        }
-        if (!FROM_H1) {
-          // h1 = bf16(act(pre1 + bc)) in place; rows past N and channels
-          // past K zero (K % 8 == 0: a 16-byte chunk is in or out whole)
-          mbar_wait(&tfull[s], ph);
-          for (int idx = lt; idx < nbox * TM * 8; idx += LOADERS) {
-            const int a = idx >> 9, p = (idx >> 3) & 63, cc = idx & 7;
-            const int c0 = a * 64 + cc * 8;
-            uint4* q = reinterpret_cast<uint4*>(st + a * TILE + swz(p, cc));
-            uint4 o = make_uint4(0u, 0u, 0u, 0u);
-            if (p0 + p < N && c0 < K) {
-              const uint4 raw = *q;
-              const __nv_bfloat162* x = reinterpret_cast<const __nv_bfloat162*>(&raw);
-              const float* bcr = bc + r * K + c0;
-              uint32_t* ov = reinterpret_cast<uint32_t*>(&o);
-#pragma unroll
-              for (int e = 0; e < 4; ++e)
-                ov[e] = pack2(act_fn(__low2float(x[e]) + __ldg(bcr + 2 * e), act),
-                              act_fn(__high2float(x[e]) + __ldg(bcr + 2 * e + 1), act));
-            }
-            *q = o;
-          }
-        }
-        fence_async_smem();
-        __syncwarp();
-        if (lane == 0) mbar_arrive(&full[s]);
-      }
-      // dbh: the groups' sums added in order
-      gred[lt] = gs;
-      bar_sync(4, LOADERS);
-      if (lt < D) {
-        float v = 0.f;
-        for (int k = 0; k < G; ++k) v += gred[k * D + lt];
-        pb[o_bh + lt] = v;
-      }
-    }
+    produce<FROM_H1, true, 1, LOADERS>(&map_in, ring, STAGE, tfull, full,
+                                       empty, bc, g, gred, pb + o_bh, i0, i1,
+                                       N, R, K, D, act, tid);
     return;
   }
 
@@ -593,6 +509,124 @@ int launch(const void* src, const void* bc, const void* w2, const void* b2,
   return (int)cudaGetLastError();
 }
 
+// ---- K1: the forward of the chain (csrc/encoder_chain.cuh's tail) ----
+constexpr int FSTAGE = 2 * HT;           // an item: two 64-position slices
+// With K2's three loader warps K1 took 0.455 ms at the flagship, with seven
+// 0.262 (H100 80GB HBM3, 700 W, chip_smoke.py), so its block has a second
+// producer warpgroup: 512 threads, the TMA thread's warp and seven loader
+// warps beside the two consumer warpgroups, 128 registers each (no
+// reallocation)
+constexpr int F_THREADS = 512;
+constexpr int F_LOADERS = F_THREADS - 288;
+constexpr int F_W2 = 0;
+constexpr int F_WHT = F_W2 + 2 * W2T;
+constexpr int F_RING = F_WHT + WHT;      // 1,024-aligned
+constexpr int F_B2 = F_RING + STAGES * FSTAGE;
+constexpr int F_BH = F_B2 + KP * 4;
+constexpr int F_BARS = F_BH + 16 * 4;
+constexpr int F_HB = F_BARS + 3 * STAGES * 8;   // the heads, 128 R D f32
+
+template <int ACT>
+__global__ void __launch_bounds__(F_THREADS, 1) fwd_kernel(
+    const __grid_constant__ CUtensorMap map_in, const float* __restrict__ bc,
+    const __nv_bfloat16* __restrict__ w2, const float* __restrict__ b2,
+    const __nv_bfloat16* __restrict__ wh, const float* __restrict__ bh,
+    float* __restrict__ out, int N, int R, int K, int D, int chunk,
+    int buffered) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = align1024(smem_raw);
+  unsigned char* w2s = base + F_W2;
+  unsigned char* wht = base + F_WHT;
+  unsigned char* ring = base + F_RING;
+  float* b2s = reinterpret_cast<float*>(base + F_B2);
+  float* bhs = reinterpret_cast<float*>(base + F_BH);
+  uint64_t* tfull = reinterpret_cast<uint64_t*>(base + F_BARS);
+  uint64_t* full = tfull + STAGES;
+  uint64_t* empty = full + STAGES;
+
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int total = (N + FWD_TM - 1) / FWD_TM * R;
+  const int i0 = blockIdx.x * chunk, i1 = min(total, i0 + chunk);
+  // the ring zero (boxes past K are never loaded), the weights zero-padded
+  for (int o = F_RING + tid * 16; o < F_B2; o += F_THREADS * 16)
+    *reinterpret_cast<uint4*>(base + o) = make_uint4(0u, 0u, 0u, 0u);
+  stage_w2(w2s, w2, K, tid, F_THREADS);
+  stage_wht(wht, wh, K, D, tid, F_THREADS);
+  for (int c = tid; c < KP; c += F_THREADS) b2s[c] = c < K ? b2[c] : 0.f;
+  if (tid < 16) bhs[tid] = tid < D ? bh[tid] : 0.f;
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&tfull[s], 1);
+      mbar_init(&full[s], F_LOADERS / 32);
+      mbar_init(&empty[s], 8);
+    }
+    mbar_init_fence();
+  }
+  fence_async_smem();
+  __syncthreads();
+
+  if (tid >= 256) {
+    produce<false, false, 2, F_LOADERS>(&map_in, ring, FSTAGE, tfull, full,
+                                        empty, bc, nullptr, nullptr, nullptr,
+                                        i0, i1, N, R, K, D, ACT, tid);
+    return;
+  }
+
+  // ---- consumers: warpgroup w owns the item's positions [64 w, 64 w + 64) ----
+  const int t = tid & 127, w = tid >> 7, bar = 2 + w, nk = (K + 15) / 16;
+  float* hb = buffered ? reinterpret_cast<float*>(base + F_HB) + w * TM * R * D
+                       : nullptr;
+  float acc[64], hd[8];
+  int ra = 0;                            // the first rotation of this tile here
+  long long seg[4] = {0, 0, 0, 0};     // the probe's tail segments
+  PROBE(long long pw = 0, pr = 0;)
+  for (int i = i0, it = 0; i < i1; ++i, ++it) {
+    const int s = it % STAGES, ph = (it / STAGES) & 1;
+    const int r = i % R, p0w = (i / R) * FWD_TM + w * TM;
+    PROBE(const long long c0 = clock64();)
+    if (i == i0 || r == 0) {
+      ra = r;
+      if (hb && i > i0) reuse_heads(t, bar);
+    }
+    mbar_wait(&tfull[s], ph);
+    mbar_wait(&full[s], ph);
+    PROBE(const long long c1 = clock64(); pw += c1 - c0;)
+    fwd_tail(acc, hd, ring + s * FSTAGE + w * HT, w2s, wht, b2s, nk, t, ACT,
+             false, bar, seg);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
+    PROBE(const long long c2 = clock64();)
+    put_heads(hd, hb, out, bhs, p0w, r, N, R, D, t);
+    if (hb && (i + 1 == i1 || r == R - 1))
+      flush_heads(hb, out, p0w, ra, r, N, R, D, t, bar);
+    PROBE(pr += clock64() - c1; seg[3] += clock64() - c2;)
+  }
+  if (t == 0) tma_store_wait_all();
+  PROBE(probe_add(t, w, pw, 0, pr, i1 - i0, seg);)
+}
+
+template <int ACT>
+int launch_fwd(const void* pre1, const void* bc, const void* w2,
+               const void* b2, const void* wh, const void* bh, void* out,
+               int N, int R, int K, int D, int G, int chunk,
+               cudaStream_t stream) {
+  CUtensorMap m_in;
+  const uint64_t dims[3] = {(uint64_t)K, (uint64_t)R, (uint64_t)N};
+  const uint64_t strides[2] = {(uint64_t)K * 2, (uint64_t)R * K * 2};
+  const uint32_t box[3] = {64, 1, TM};
+  int err;
+  if ((err = make_map_strided(&m_in, pre1, 3, dims, strides, box))) return err;
+  const size_t fixed = 1024 + F_HB, heads = (size_t)FWD_TM * R * D * 4;
+  const int buffered = fixed + heads <= 232448;
+  const size_t smem = fixed + (buffered ? heads : 0);
+  if ((err = allow_smem(fwd_kernel<ACT>, smem))) return err;
+  fwd_kernel<ACT><<<G, F_THREADS, smem, stream>>>(
+      m_in, (const float*)bc, (const __nv_bfloat16*)w2, (const float*)b2,
+      (const __nv_bfloat16*)wh, (const float*)bh, (float*)out, N, R, K, D,
+      chunk, buffered);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace chain
 
 }  // namespace
@@ -632,20 +666,25 @@ extern "C" int tvae_mix_heads_bwd(const void* pre1, const void* bc,
                            D, G, chunk, SP, act, 0, (cudaStream_t)stream);
 }
 
+TVAE_PROBE_READER(tvae_probe_mix_heads_fwd)
+
+// pre1 (N, R*K) bf16; bc (R*K,), b2 (K,), bh (D,) f32; w2 (K, K), wh (K, D)
+// bf16; out (N, R*D) f32. G blocks of `chunk` (128-position tile, rotation)
+// items each (kernels/mix_heads.py::chain_schedule with tile 128).
 extern "C" int tvae_mix_heads_fwd(const void* pre1, const void* bc,
                                   const void* w2, const void* b2,
                                   const void* wh, const void* bh, void* out,
-                                  int N, int R, int K, int D, int act,
-                                  void* stream) {
-  if (K % 16 || D > DP) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)K * K * 2 + (size_t)K * DP * 2 +
-                      (size_t)TP * K * 2 + (size_t)TP * K * 4;
-  int err = allow_smem(mix_heads_fwd_kernel, smem);
-  if (err) return err;
-  const int grid = (N + TP - 1) / TP;
-  mix_heads_fwd_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)pre1, (const float*)bc, (const __nv_bfloat16*)w2,
-      (const float*)b2, (const __nv_bfloat16*)wh, (const float*)bh,
-      (float*)out, N, R, K, D, act);
-  return (int)cudaGetLastError();
+                                  int N, int R, int K, int D, int G, int chunk,
+                                  int act, void* stream) {
+  const long long items =
+      (long long)(N + chain::FWD_TM - 1) / chain::FWD_TM * R;
+  if (K % 16 || K < 16 || K > chain::KP || D < 1 || D > 16 || R < 1 ||
+      G < 1 || chunk < 1 || (long long)G * chunk < items ||
+      (long long)(G - 1) * chunk >= items)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  return act ? chain::launch_fwd<1>(pre1, bc, w2, b2, wh, bh, out, N, R, K, D,
+                                    G, chunk, s)
+             : chain::launch_fwd<0>(pre1, bc, w2, b2, wh, bh, out, N, R, K, D,
+                                    G, chunk, s);
 }

@@ -32,8 +32,8 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures: name -> argtypes (all return int, a cudaError_t)
 SIGNATURES = {
-    # pre1, bc, w2, b2, wh, bh, out, N, R, K, D, act, stream
-    "tvae_mix_heads_fwd": [_P] * 7 + [_I] * 5 + [_P],
+    # pre1, bc, w2, b2, wh, bh, out, N, R, K, D, G, chunk, act, stream
+    "tvae_mix_heads_fwd": [_P] * 7 + [_I] * 7 + [_P],
     # attn, th_mu, th_ls, z_mu, z_ls, p_tr, gx, gy, offs, out,
     # B, R, M, zd, sig_r, deterministic, seed, stream
     "tvae_posterior_fwd": [_P] * 10 + [_I] * 4 + [_F, _I, _I, _P],
@@ -54,9 +54,9 @@ SIGNATURES = {
     # u, v, p, q, w1, wh, w3, g, hs, gx, gy, dP, part, cols_img, cols, gpart,
     # dpart, df, dw1, dwh, B, n, F, H, L, n_out, S1, C1, S2, C2, act, stream
     "tvae_pose_decoder_bwd": [_P] * 20 + [_I] * 11 + [_P],
-    # p, wc, bc, w2, b2, wh, bh, out, h1_out (or null), N, CK, R, K, D, act,
-    # stream
-    "tvae_lifted_encoder_fwd": [_P] * 9 + [_I] * 6 + [_P],
+    # p, wc, bc, w2, b2, wh, bh, out, h1_out (or null), N, CK, R, K, D, G,
+    # chunk, act, stream
+    "tvae_lifted_encoder_fwd": [_P] * 9 + [_I] * 8 + [_P],
     # p, h1, w2, b2, wh, g, dpre1, part, out, gpart, dwc,
     # N, CK, R, K, D, G, chunk, SP, S, C, act, stream
     "tvae_lifted_encoder_bwd": [_P] * 11 + [_I] * 11 + [_P],
@@ -84,19 +84,21 @@ def _nvcc() -> str:
                        "CUDA toolkit is installed")
 
 
-def library_path() -> Path:
+def library_path(defines: tuple = ()) -> Path:
     h = hashlib.sha256()
     for src in _sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    h.update(" ".join(ARCH_FLAGS).encode())
+    h.update(" ".join(ARCH_FLAGS + list(defines)).encode())
     return BUILD_DIR / f"libtvae_kernels_{h.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
+def build(defines: tuple = ()) -> Path:
     """Compile csrc/*.cu into the shared library unless it is already built.
-    Returns its path; nvcc's -Xptxas -v reports are kept beside it (.log)."""
-    lib = library_path()
+    Returns its path; nvcc's -Xptxas -v reports are kept beside it (.log).
+    `defines` (nvcc -D flags) build a variant beside it, such as the clock64
+    probe of tools/probe_encoder_fwd.py (-DTVAE_PROBE)."""
+    lib = library_path(defines)
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -108,7 +110,7 @@ def build() -> Path:
         if src.suffix != ".cu":
             continue
         obj = work / f"{src.stem}.o"
-        cmd = ([nvcc] + ARCH_FLAGS
+        cmd = ([nvcc] + ARCH_FLAGS + list(defines)
                + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
                   "-c", "-o", str(obj), str(src)])
         jobs.append((obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,

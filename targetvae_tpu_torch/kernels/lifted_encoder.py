@@ -30,8 +30,8 @@ import torch.nn.functional as F
 
 from . import _build
 from .decoder_pose import ACT_CODES, _act, bf16_round, wgrad_schedule
-from .mix_heads import (chain_grads, chain_scratch, mix_heads_bwd_from_h1,
-                        mix_heads_from_h1)
+from .mix_heads import (chain_grads, chain_scratch, fwd_schedule,
+                        mix_heads_bwd_from_h1, mix_heads_from_h1)
 
 
 def build_patches(xp: torch.Tensor, k: int, hp: int, wp: int) -> torch.Tensor:
@@ -56,7 +56,8 @@ def build_patches(xp: torch.Tensor, k: int, hp: int, wp: int) -> torch.Tensor:
 
 def _pad_columns(p: torch.Tensor, wc: Optional[torch.Tensor] = None):
     """P's columns (and Wc's rows) zero-padded to a multiple of 8, so that
-    the kernels copy 16 bytes at a time; the flagship's 784 needs none."""
+    P's rows are whole 16-byte units, as a tensor map needs; the
+    flagship's 784 needs none."""
     pad = -p.shape[1] % 8
     if pad:
         p = F.pad(p, (0, pad))
@@ -90,22 +91,27 @@ def lifted_encoder_fwd(p, wc, bc, w2, b2, wh, bh, *, R: int, K: int,
         raise ValueError(f"shape mismatch: p {tuple(p.shape)}, wc "
                          f"{tuple(wc.shape)}, w2 {tuple(w2.shape)}, wh "
                          f"{tuple(wh.shape)}, R={R} K={K}")
-    if K not in (32, 64, 128) or d > 16:
-        raise ValueError(f"lifted encoder kernel needs K in (32, 64, 128) and "
-                         f"D <= 16, got K={K} D={d}")
+    if K not in (16, 32, 64, 128) or not 1 <= d <= 16:
+        raise ValueError(f"lifted encoder kernel needs K in (16, 32, 64, 128)"
+                         f" and 1 <= D <= 16, got K={K} D={d}")
     bf, f32 = torch.bfloat16, torch.float32
     pp, wcp = _pad_columns(p.to(bf).contiguous(), wc.to(bf))
     args = (pp, wcp.contiguous(), bc.to(f32).contiguous(),
             w2.to(bf).contiguous(), b2.to(f32).contiguous(),
             wh.to(bf).contiguous(), bh.to(f32).contiguous())
     _build.check_cuda(*args, dtypes=(bf, bf, f32, bf, f32, bf, f32))
+    if args[0].data_ptr() % 16 or args[1].data_ptr() % 16:
+        raise ValueError("lifted encoder kernel needs p and wc 16-byte "
+                         "aligned")
     out = torch.empty((n, R * d), dtype=f32, device=p.device)
     h1 = (torch.empty((n, R * K), dtype=bf, device=p.device) if save_h1
           else None)
     if n:
+        blocks, chunk = fwd_schedule(n, R, p.device)
         _build.launch("tvae_lifted_encoder_fwd", *(t.data_ptr() for t in args),
                       out.data_ptr(), None if h1 is None else h1.data_ptr(),
-                      n, pp.shape[1], R, K, d, ACT_CODES[act_kind],
+                      n, pp.shape[1], R, K, d, blocks, chunk,
+                      ACT_CODES[act_kind],
                       torch.cuda.current_stream(p.device).cuda_stream)
         lifted_encoder_fwd.launches += 1
     return (out, h1) if save_h1 else out

@@ -26,6 +26,7 @@ from . import _build
 from .decoder_pose import ACT_CODES, _act, _dact, _dact_from_h, bf16_round
 
 TILE_POS = 64     # positions of a work item of the chain (wgmma's M)
+FWD_TILE_POS = 128  # of a forward item: one 64-row tile a consumer warpgroup
 
 
 def mix_heads_from_h1(h1, w2, b2, wh, bh, *, R: int, K: int,
@@ -59,9 +60,9 @@ def mix_heads_fwd(pre1, bc, w2, b2, wh, bh, *, R: int, K: int,
     if rk != R * K or tuple(w2.shape) != (K, K) or wh.shape[0] != K:
         raise ValueError(f"shape mismatch: pre1 {tuple(pre1.shape)}, w2 "
                          f"{tuple(w2.shape)}, wh {tuple(wh.shape)}, R={R} K={K}")
-    if K % 16 or K > 256 or d > 16:
-        raise ValueError(f"mix_heads kernel needs K % 16 == 0, K <= 256 and "
-                         f"D <= 16, got K={K} D={d}")
+    if K % 16 or not 16 <= K <= 128 or not 1 <= d <= 16:
+        raise ValueError(f"mix_heads kernel needs K % 16 == 0, 16 <= K <= 128"
+                         f" and 1 <= D <= 16, got K={K} D={d}")
     if pre1.data_ptr() % 16:
         raise ValueError("mix_heads kernel needs pre1 16-byte aligned")
     bf, f32 = torch.bfloat16, torch.float32
@@ -71,9 +72,10 @@ def mix_heads_fwd(pre1, bc, w2, b2, wh, bh, *, R: int, K: int,
     _build.check_cuda(*args, dtypes=(bf, f32, bf, f32, bf, f32))
     out = torch.empty((n, R * d), dtype=f32, device=pre1.device)
     if n:
+        blocks, chunk = fwd_schedule(n, R, pre1.device)
         _build.launch("tvae_mix_heads_fwd",
                       *(t.data_ptr() for t in args), out.data_ptr(),
-                      n, R, K, d, ACT_CODES[act_kind],
+                      n, R, K, d, blocks, chunk, ACT_CODES[act_kind],
                       torch.cuda.current_stream(pre1.device).cuda_stream)
         mix_heads_fwd.launches += 1
     return out
@@ -128,17 +130,25 @@ def _chain_sizes(R: int, K: int, d: int):
     return (K * K, K * d, K, d, R * K)
 
 
-def chain_schedule(n: int, R: int, sms: int):
-    """The persistent grid of the chain pass (csrc/mix_heads.cu): the
-    (64-position tile, rotation) work items in order, rotations inner, cut
-    into `blocks` runs of `chunk` items, about one block for each of `sms`
-    SMs. Block b takes items [b * chunk, min(total, (b + 1) * chunk)); item
-    i is tile i // R, rotation i % R. Every block holds at least one item.
-    The grid depends on the shapes and the card alone, so the sums run in
-    one order on every call. Returns (blocks, chunk)."""
-    total = -(-n // TILE_POS) * R
+def chain_schedule(n: int, R: int, sms: int, tile: int = TILE_POS):
+    """The persistent grid of the chain kernels (csrc/mix_heads.cu,
+    csrc/lifted_encoder.cu): the (tile of `tile` positions, rotation) work
+    items in order, rotations inner, cut into `blocks` runs of `chunk`
+    items, about one block for each of `sms` SMs. Block b takes items
+    [b * chunk, min(total, (b + 1) * chunk)); item i is tile i // R,
+    rotation i % R. Every block holds at least one item. The grid depends
+    on the shapes and the card alone, so the sums run in one order on every
+    call. Returns (blocks, chunk)."""
+    total = -(-n // tile) * R
     chunk = -(-total // max(1, min(sms, total)))
     return -(-total // chunk), chunk
+
+
+def fwd_schedule(n: int, R: int, device):
+    """The grid of K1's and K11's forward chain: chain_schedule over
+    128-position tiles on the card's SMs."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return chain_schedule(max(n, 1), R, sms, tile=FWD_TILE_POS)
 
 
 def chain_scratch(n: int, R: int, K: int, d: int, device):

@@ -93,22 +93,29 @@ def _pose_inputs(B=3, zd=2):
     return theta, dx, z
 
 
-def test_mix_heads_plain_matches_jax_kernel(jx):
-    R, K = 4, 128
+@pytest.mark.parametrize("K, R, act", [
+    (K, R, act) for K in (16, 128) for R in (1, 8)
+    for act in ("leakyrelu", "tanh")])
+def test_mix_heads_plain_matches_jax_kernel(jx, K, R, act):
+    """K1's plain version against the Pallas kernel (interpret mode) at
+    the narrowest and widest K the kernels take, one and eight rotations,
+    both activations: the heads within 5e-3 (tests/test_kernels.py:94's
+    bound; both round h1 and h2 to bf16 at the same points and differ in
+    f32 summation order only)."""
     args = _mix_inputs(R=R, K=K)
     jargs = [jx.jnp.asarray(a) for a in args]
     jargs[0] = jargs[0].astype(jx.jnp.bfloat16)
-    ref = np.asarray(jx.mix(*jargs, R=R, K=K, act_kind="leakyrelu",
-                            interpret=True))
+    ref = np.asarray(jx.mix(*jargs, R=R, K=K, act_kind=act, interpret=True))
     targs = [torch.from_numpy(a) for a in args]
     targs[0] = targs[0].to(torch.bfloat16)
-    got = lift_act_mix_heads_plain(*targs, R=R, K=K)
+    got = lift_act_mix_heads_plain(*targs, R=R, K=K, act_kind=act)
     assert got.shape == ref.shape == (700, R * 7)
     assert float(np.abs(got.numpy() - ref).max()) < 5e-3
     # the wrapper on a CPU tensor is the plain version, and counts nothing
     kernels.reset_launch_counts()
     np.testing.assert_array_equal(
-        fused_lift_act_mix_heads(*targs, R=R, K=K).numpy(), got.numpy())
+        fused_lift_act_mix_heads(*targs, R=R, K=K, act_kind=act).numpy(),
+        got.numpy())
     assert kernels.launch_counts()["mix_heads_fwd"] == 0
 
 
@@ -159,16 +166,37 @@ def test_pose_decoder_plain_matches_jax_kernel(jx, num_layers):
 
 # ---- on the card: each kernel against its plain version ----
 
-def test_mix_heads_kernel_on_cuda(cuda):
-    R, K = 4, 128
-    args = [torch.from_numpy(a).to(cuda) for a in _mix_inputs(R=R, K=K)]
+# K1's forward chain at shapes that together cover every K, R, N, act and
+# D the kernel is checked at: K < 128 runs zero-padded to 128 channels; N =
+# 1, 65 and 700 leave a 128-position tile's second half partly or wholly
+# past N; N = 20,000 gives each block several tiles, some split between two
+# blocks (their heads leave by plain stores, whole tiles by a bulk copy);
+# R = 16, D = 16 leaves no room for the heads buffer (heads stored
+# directly)
+FWD = [(128, 4, 700, "leakyrelu", 7), (128, 8, 65, "tanh", 16),
+       (128, 16, 1, "leakyrelu", 7), (128, 1, 700, "tanh", 16),
+       (128, 8, 20_000, "leakyrelu", 7), (64, 1, 700, "tanh", 7),
+       (64, 8, 65, "leakyrelu", 16), (64, 16, 700, "tanh", 16),
+       (32, 4, 1, "tanh", 16), (32, 16, 700, "leakyrelu", 7),
+       (32, 8, 20_000, "tanh", 7), (16, 8, 700, "tanh", 7),
+       (16, 1, 65, "leakyrelu", 16), (16, 16, 65, "tanh", 7),
+       (16, 4, 700, "leakyrelu", 16)]
+
+
+@pytest.mark.parametrize("K, R, N, act, D", FWD)
+def test_mix_heads_kernel_on_cuda(cuda, K, R, N, act, D):
+    args = [torch.from_numpy(a).to(cuda)
+            for a in _mix_inputs(R=R, K=K, D=D, N=N)]
     args[0] = args[0].to(torch.bfloat16)
     kernels.reset_launch_counts()
-    got = fused_lift_act_mix_heads(*args, R=R, K=K)
+    got = fused_lift_act_mix_heads(*args, R=R, K=K, act_kind=act)
+    again = fused_lift_act_mix_heads(*args, R=R, K=K, act_kind=act)
     torch.cuda.synchronize()
-    assert kernels.launch_counts()["mix_heads_fwd"] == 1
-    ref = lift_act_mix_heads_plain(*args, R=R, K=K)
+    assert kernels.launch_counts()["mix_heads_fwd"] == 2
+    ref = lift_act_mix_heads_plain(*args, R=R, K=K, act_kind=act)
+    assert got.shape == ref.shape == (N, R * D)
     assert float((got - ref).abs().max()) < 5e-3
+    assert torch.equal(got, again)
 
 
 def test_posterior_kernel_on_cuda(cuda):
@@ -412,16 +440,23 @@ def test_wgrad_schedule_covers_each_row_and_tile_once(rows, m, n, sms,
     assert gx * gy * splits <= max(sms, gx * gy)
 
 
-@pytest.mark.parametrize("n, R, sms", [
-    (152_100, 8, 132), (76_050, 8, 132), (700, 4, 132), (1, 16, 132),
-    (65, 1, 132), (700, 16, 7), (64 * 132 + 1, 1, 132), (8_192, 8, 1)])
-def test_chain_schedule_visits_each_item_once(n, R, sms):
-    """The chain pass's persistent grid: every (64-position tile, rotation)
-    item in exactly one block, no block empty, at most one block an SM, and
-    no block holding more than its even share, rounded up."""
-    from targetvae_tpu_torch.kernels.mix_heads import TILE_POS, chain_schedule
-    blocks, chunk = chain_schedule(n, R, sms)
-    total = -(-n // TILE_POS) * R
+SCHEDULES = [(152_100, 8, 132), (76_050, 8, 132), (700, 4, 132),
+             (1, 16, 132), (65, 1, 132), (700, 16, 7), (64 * 132 + 1, 1, 132),
+             (8_192, 8, 1)]
+
+
+@pytest.mark.parametrize("n, R, sms, tile", [
+    pytest.param(*c, tile, id="-".join(map(str, c)) + ("" if tile == 64
+                                                         else "-fwd"))
+    for tile in (64, 128) for c in SCHEDULES])
+def test_chain_schedule_visits_each_item_once(n, R, sms, tile):
+    """The chain kernels' persistent grid, over the backward's 64-position
+    and the forward's 128-position tiles: every (tile, rotation) item in
+    exactly one block, no block empty, at most one block an SM, and no
+    block holding more than its even share, rounded up."""
+    from targetvae_tpu_torch.kernels.mix_heads import chain_schedule
+    blocks, chunk = chain_schedule(n, R, sms, tile=tile)
+    total = -(-n // tile) * R
     seen = np.zeros(total, np.int64)
     for b in range(blocks):
         lo, hi = b * chunk, min(total, (b + 1) * chunk)
@@ -453,18 +488,37 @@ def _lifted_inputs(ck, R=4, K=128, D=7, N=700):
             f(K, K) * 0.05, f(K) * 0.1, f(K, D) * 0.1, f(D) * 0.1)
 
 
-@pytest.mark.parametrize("ck", [75, 784])
-def test_lifted_encoder_kernel_on_cuda(cuda, ck):
-    R, K = 4, 128
-    args = [t.to(cuda) for t in _lifted_inputs(ck)]
+# K11 at shapes covering every K, R, N, act and D, and the patch widths of
+# the C = 3, k = 5 test encoder (75, no multiple of 8), the flagship (784)
+# and the galaxy encoder (12,675); N = 20,000 as in FWD above
+LIFTED_FWD = [(128, 4, 700, "leakyrelu", 7, 784),
+              (128, 4, 700, "leakyrelu", 7, 75),
+              (128, 1, 65, "tanh", 16, 12675),
+              (128, 8, 20_000, "tanh", 7, 784),
+              (64, 1, 700, "tanh", 7, 784), (64, 8, 1, "leakyrelu", 16, 75),
+              (64, 16, 700, "tanh", 16, 784),
+              (32, 4, 65, "tanh", 7, 784), (32, 16, 700, "leakyrelu", 16, 75),
+              (16, 4, 700, "tanh", 7, 784),
+              (16, 16, 65, "leakyrelu", 7, 12675),
+              (16, 8, 1, "tanh", 16, 784),
+              (16, 1, 700, "leakyrelu", 7, 12675)]
+
+
+@pytest.mark.parametrize("K, R, N, act, D, ck", LIFTED_FWD)
+def test_lifted_encoder_kernel_on_cuda(cuda, K, R, N, act, D, ck):
+    args = [t.to(cuda) for t in _lifted_inputs(ck, R=R, K=K, D=D, N=N)]
     kernels.reset_launch_counts()
-    got = lifted_encoder_fwd(*args, R=R, K=K)
-    got_s, h1 = lifted_encoder_fwd(*args, R=R, K=K, save_h1=True)
+    got = lifted_encoder_fwd(*args, R=R, K=K, act_kind=act)
+    got_s, h1 = lifted_encoder_fwd(*args, R=R, K=K, act_kind=act,
+                                   save_h1=True)
+    again = lifted_encoder_fwd(*args, R=R, K=K, act_kind=act)
     torch.cuda.synchronize()
-    assert kernels.launch_counts()["lifted_encoder_fwd"] == 2
-    ref, h1_p = lifted_encoder_plain(*args, R=R, K=K, save_h1=True)
+    assert kernels.launch_counts()["lifted_encoder_fwd"] == 3
+    ref, h1_p = lifted_encoder_plain(*args, R=R, K=K, act_kind=act,
+                                     save_h1=True)
+    assert got.shape == ref.shape == (N, R * D)
     assert float((got - ref).abs().max()) < 5e-3
-    assert torch.equal(got, got_s)
+    assert torch.equal(got, got_s) and torch.equal(got, again)
     assert float((h1.float() - h1_p.float()).abs().max()) <= float(
         h1_p.float().abs().max()) / 128
 

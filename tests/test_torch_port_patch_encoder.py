@@ -42,7 +42,7 @@ def _rel(a, b) -> float:
     return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-12))
 
 
-def _enc_cfg(C=1, activation="leakyrelu"):
+def _enc_cfg(C=1, activation="leakyrelu", R=R, K=K):
     kw = dict(image_dim=N_IMG, z_dim=2, in_channels=C, kernels_num=K,
               kernels_size=k, padding=PAD, groupconv=R, activation=activation)
     return jcfg.EncoderConfig(**kw), EncoderConfig(**kw)
@@ -91,15 +91,22 @@ def test_build_patches_matches_jax(C):
             build_patches(torch.from_numpy(xp[..., 0]), k, HP, HP), got)
 
 
-@pytest.mark.parametrize("C", [1, 3])
-def test_patch_encoder_plain_matches_jax_kernel(C):
+@pytest.mark.parametrize("C, K_, R_, act", [
+    pytest.param(C, K_, R_, act, id=str(C) if (K_, R_, act) == (
+        K, R, "leakyrelu") else None)
+    for C in (1, 3) for K_ in (16, 128) for R_ in (4, 16)
+    for act in ("leakyrelu", "tanh")])
+def test_patch_encoder_plain_matches_jax_kernel(C, K_, R_, act):
     """K11's plain version against the Pallas kernel (interpret mode),
-    serving and with the saved h1. Both round h1 and h2 to bf16 at the same
-    points and differ only in f32 summation order: the heads within K1's
+    serving and with the saved h1, at the narrowest and widest K the
+    kernels take, the fewest and most rotations mode C takes (4, 16), both
+    activations. Both round h1
+    and h2 to bf16 at the same points and differ only in f32 summation
+    order: the heads within K1's
     5e-3 (tests/test_kernels.py:94's bound), h1 within one bf16 step of its
     largest magnitude. The rotated filter matrix is float32 model code on
     both sides: 1e-6."""
-    jc, tc = _enc_cfg(C)
+    jc, tc = _enc_cfg(C, act, R=R_, K=K_)
     jp, tp = _enc_params(jc)
     xp = np.pad(_images(3, C), ((0, 0), (PAD, PAD), (PAD, PAD), (0, 0)))
     jwc, jbc, jwh, jbh = EN._mode_c_matrices(jax.tree.map(jnp.asarray, jp), jc)
@@ -108,15 +115,15 @@ def test_patch_encoder_plain_matches_jax_kernel(C):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=0, atol=1e-6)
     patches = LE.build_patches(jnp.asarray(xp), k, HP, HP, 1, HP)
     ref, ref_h1 = LE._fwd(patches, jwc, jbc, jnp.asarray(jp["conv2"]["w"]),
-                          jnp.asarray(jp["conv2"]["b"]), jwh, jbh, R=R, K=K,
-                          D=7, act_kind="leakyrelu", interpret=True,
+                          jnp.asarray(jp["conv2"]["b"]), jwh, jbh, R=R_, K=K_,
+                          D=7, act_kind=act, interpret=True,
                           save_res=True)
-    ref = np.asarray(ref).reshape(-1, R * 7)
-    ref_h1 = np.asarray(ref_h1.astype(jnp.float32)).reshape(-1, R * K)
+    ref = np.asarray(ref).reshape(-1, R_ * 7)
+    ref_h1 = np.asarray(ref_h1.astype(jnp.float32)).reshape(-1, R_ * K_)
     p = build_patches(torch.from_numpy(xp), k, HP, HP)
     w2, b2 = tp["conv2"]["w"], tp["conv2"]["b"]
-    got, h1 = lifted_encoder_plain(p, wc, bc, w2, b2, wh, bh, R=R, K=K,
-                                   save_h1=True)
+    got, h1 = lifted_encoder_plain(p, wc, bc, w2, b2, wh, bh, R=R_, K=K_,
+                                   act_kind=act, save_h1=True)
     assert got.shape == ref.shape and h1.dtype == torch.bfloat16
     assert float(np.abs(got.numpy() - ref).max()) < 5e-3
     assert (np.abs(h1.float().numpy() - ref_h1).max()
@@ -124,7 +131,8 @@ def test_patch_encoder_plain_matches_jax_kernel(C):
     # on CPU tensors the wrapper is the plain version and counts nothing
     kernels.reset_launch_counts()
     torch.testing.assert_close(
-        lifted_encoder_fwd(p, wc, bc, w2, b2, wh, bh, R=R, K=K), got,
+        lifted_encoder_fwd(p, wc, bc, w2, b2, wh, bh, R=R_, K=K_,
+                           act_kind=act), got,
         rtol=0, atol=0)
     assert kernels.launch_counts()["lifted_encoder_fwd"] == 0
 
