@@ -23,12 +23,13 @@ from a seed):
   7. trains: ~30 bf16 Trainer.train_step calls on fixed synthetic batches
      (finite, rising ELBO; every kernel launched), and one deterministic
      step's gradients on the bf16 kernel tier against the float32 tier;
-  8. times each backward kernel against its plain version, K8's and K12's
-     passes one by one (profiler), K7 with and without saved residuals, one
-     cuBLAS bf16 GEMM at K7's layer-1 shape and one at K12's dWc shape as
-     yardsticks, and the train step's img/s;
+  8. times each backward kernel against its plain version, K8's, K10's and
+     K12's passes one by one (profiler), K7 with and without saved
+     residuals, one cuBLAS bf16 GEMM at the decoders' layer-1 shape and one
+     at K12's dWc shape as yardsticks, and the train step's img/s;
   9. decodes at posed coordinates in bf16 (K9) against float32, and takes
-     a gradient through it (K10);
+     a gradient through it (K10); times bf16 decode of the batch (img/s,
+     device ms) with and without the gradient;
  10. the grid-sharded (sequence-parallel) posterior: K5/K6 against their
      plain versions at the two-rank shard shape (B=100, 6,144 of the
      12,288 padded cells), then the SP bf16 Trainer (tp=2, sp=True) as two
@@ -815,7 +816,10 @@ def run(torch, dev) -> int:
                                                          dev)
     trainer_p, state_p, patch_counts["train"] = patch_train_path(
         torch, kernels, cfg, dev, data, g32)
-    decode_counts = decode_path(torch, kernels, model, params, k9, z9)
+    decode_counts, decode_ms = decode_path(torch, kernels, model, params, k9,
+                                           z9)
+    results["decoder_mlp_fwd"]["decode_ms"] = decode_ms["decode_ms"]
+    results["decoder_mlp_bwd"]["decode_grad_ms"] = decode_ms["decode_grad_ms"]
     time_training(torch, cfg, k1, k3, k7, k9, k11, h1, cot, trainer, state,
                   trainer_p, state_p, data, results)
     del trainer, state, trainer_p, state_p
@@ -1147,7 +1151,8 @@ def patch_train_path(torch, kernels, cfg, dev, data, g32):
 def decode_path(torch, kernels, model, params, k9, z):
     """Phase 9: TargetVAE.decode in bf16 (K9) at the posed 50x50 grids
     against float32 decode, then a gradient through it (K10), held against
-    float32 decode's. Returns the launch counts of the two bf16 calls."""
+    float32 decode's; then the device ms of each. Returns the launch counts
+    of the two bf16 calls and the times."""
     x = k9[0]
     g = torch.randn(x.shape[:2] + (1,),
                     generator=torch.Generator(device=x.device).manual_seed(17),
@@ -1189,14 +1194,33 @@ def decode_path(torch, kernels, model, params, k9, z):
           f"float32 {({n: float(f'{r:.2e}') for n, r in rels.items()})} <= "
           f"{TOL_DECODE_GRAD} (x, z {TOL_DECODE_GRAD_IN}); launches {counts} "
           f"(K9 twice, K10 once)")
-    return counts
+    # serving decode, and decode with the gradient (K9, K10 and autograd's
+    # sums into the leaves), device time, each the smaller of two runs
+    with torch.inference_mode():
+        serve = lambda: model.decode(params, x, z, torch.bfloat16)
+        fwd_ms = min(cuda_ms(serve), cuda_ms(serve))
+    grad_ms = min(cuda_ms(lambda: grads(torch.bfloat16)),
+                  cuda_ms(lambda: grads(torch.bfloat16)))
+    model.zero_grad(set_to_none=True)
+    n = x.shape[1]
+    print(f"phase 9: bf16 decode of {x.shape[0]} posed grids of {n} pixels: "
+          f"{x.shape[0] / fwd_ms * 1e3:.1f} img/s ({fwd_ms:.3f} ms/batch "
+          f"device time); with the gradient {x.shape[0] / grad_ms * 1e3:.1f} "
+          f"img/s ({grad_ms:.3f} ms/batch)", flush=True)
+    return counts, {"decode_ms": fwd_ms, "decode_grad_ms": grad_ms}
 
 
-# K8's and K12's passes by the kernel names the profiler reports
-# (csrc/decoder_pose_bwd.cu, csrc/lifted_encoder.cu)
+# K8's, K10's and K12's passes by the kernel names the profiler reports
+# (csrc/decoder_pose_bwd.cu, csrc/decoder_mlp.cu, csrc/lifted_encoder.cu;
+# the template's first argument is the feature source: 0 a stored matrix,
+# 1 the pose tables, 2 the coordinates)
 K8_PASSES = (("chain", "chain_kernel"), ("ordered sums", "sum_partials_kernel"),
              ("dW1", "wgrad_kernel<1"), ("dWh", "wgrad_kernel<0"),
-             ("pose", "pose_kernel"))
+             ("pose", "phase_kernel"))
+K10_PASSES = (("recompute", "fwd_kernel"), ("chain", "chain_kernel"),
+              ("ordered sums", "sum_partials_kernel"),
+              ("dW1", "wgrad_kernel<2"), ("dWh", "wgrad_kernel<0"),
+              ("dx", "phase_kernel"))
 K12_PASSES = (("chain", "chain_kernel"), ("dWc", "wgrad_kernel"),
               ("ordered sums", "sum_partials_kernel"))
 
@@ -1226,11 +1250,11 @@ def pass_times(torch, fn, passes, label: str, reps: int = 5) -> dict:
 
 def time_training(torch, cfg, k1, k3, k7, k9, k11, h1, cot, trainer, state,
                   trainer_p, state_p, data, results):
-    """Phase 8: each backward kernel against its plain version, K8's and
-    K12's passes one by one, K7 with and without saved residuals, K11 with
-    and without saving h1, cuBLAS GEMMs at K7's layer-1 shape and K12's dWc
-    shape, K1, K2, K11 and K12 with tanh, and the train step of each encoder
-    tier."""
+    """Phase 8: each backward kernel against its plain version, K8's, K10's
+    and K12's passes one by one, K7 with and without saved residuals, K11
+    with and without saving h1, cuBLAS GEMMs at the decoders' layer-1 shape
+    and K12's dWc shape, K1, K2, K11 and K12 with tanh, and the train step
+    of each encoder tier."""
     from targetvae_tpu_torch.kernels.decoder_mlp import (
         decoder_mlp_bwd, decoder_mlp_bwd_plain)
     from targetvae_tpu_torch.kernels.decoder_pose import (
@@ -1284,6 +1308,8 @@ def time_training(torch, cfg, k1, k3, k7, k9, k11, h1, cot, trainer, state,
         for name, label, fn, table in (
                 ("pose_decoder_bwd", "K8", lambda: pose_decoder_bwd(*bwd7),
                  K8_PASSES),
+                ("decoder_mlp_bwd", "K10", lambda: decoder_mlp_bwd(*k9, g9),
+                 K10_PASSES),
                 ("lifted_encoder_bwd", "K12",
                  lambda: lifted_encoder_bwd(*bwd11, R=R, K=K), K12_PASSES)):
             passes = pass_times(torch, fn, table, label)
@@ -1304,9 +1330,10 @@ def time_training(torch, cfg, k1, k3, k7, k9, k11, h1, cot, trainer, state,
               f"K12's dWc pass {passes['dWc']:.4f} ms "
               f"({dwc_ops / passes['dWc'] / 1e9:.1f} TFLOP/s)", flush=True)
         del dpre1
-        # yardstick: one cuBLAS bf16 GEMM at K7's layer-1 shape (all pixels
-        # x F) x (F x H); no single library call computes K7 or K8, so it
-        # stays out of library_ms, and the port never calls it
+        # yardstick: one cuBLAS bf16 GEMM at the decoders' layer-1 shape
+        # (all pixels x F) x (F x H), K7's and K9's alike; no single library
+        # call computes K7-K10, so it stays out of library_ms, and the port
+        # never calls it
         u = k7[0]
         npx_all, F, H = u.shape[0] * u.shape[1] ** 2, u.shape[2], k7[5].shape[1]
         gen = torch.Generator(device=u.device).manual_seed(11)
@@ -1315,7 +1342,8 @@ def time_training(torch, cfg, k1, k3, k7, k9, k11, h1, cot, trainer, state,
         w16 = k7[5].to(torch.bfloat16)
         gemm = min(cuda_ms(lambda: a16 @ w16), cuda_ms(lambda: a16 @ w16))
         del a16
-        for name in ("pose_decoder_fwd", "pose_decoder_bwd"):
+        for name in ("pose_decoder_fwd", "pose_decoder_bwd",
+                     "decoder_mlp_fwd", "decoder_mlp_bwd"):
             results[name]["layer1_gemm_cublas_ms"] = gemm
         print(f"phase 8: yardstick cuBLAS bf16 ({npx_all} x {F}) @ ({F} x {H}) "
               f"{gemm:.4f} ms ({2 * npx_all * F * H / gemm / 1e9:.1f} "

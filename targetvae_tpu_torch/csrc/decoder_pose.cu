@@ -37,6 +37,8 @@
 // is bitwise the same in both modes.
 #include "decoder_wgmma.cuh"
 
+TVAE_WG_PROBE_READER(tvae_probe_pose_decoder_fwd)
+
 extern "C" int tvae_pose_decoder_fwd(const void* u, const void* v,
                                      const void* p, const void* q,
                                      const void* hz, const void* w1,

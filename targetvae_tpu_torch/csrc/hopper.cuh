@@ -72,6 +72,19 @@ __device__ __forceinline__ void fence_async_smem() {
 __device__ __forceinline__ void bar_sync(int id, int n) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }
+// named barrier `id` over `n` threads that returns the OR of their p
+__device__ __forceinline__ bool bar_or(int id, int n, bool p) {
+  uint32_t r;
+  asm volatile(
+      "{\n"
+      ".reg .pred a, o;\n"
+      "setp.ne.u32 a, %1, 0;\n"
+      "barrier.red.or.pred o, %2, %3, a;\n"
+      "selp.u32 %0, 1, 0, o;\n"
+      "}\n"
+      : "=r"(r) : "r"((uint32_t)p), "r"(id), "r"(n) : "memory");
+  return r != 0;
+}
 
 // ---- TMA ----
 __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* m,

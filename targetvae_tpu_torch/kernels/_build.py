@@ -60,12 +60,12 @@ SIGNATURES = {
     # p, h1, w2, b2, wh, g, dpre1, part, out, gpart, dwc,
     # N, CK, R, K, D, G, chunk, SP, S, C, act, stream
     "tvae_lifted_encoder_bwd": [_P] * 11 + [_I] * 11 + [_P],
-    # x, wf, bf, hz, w1, b1, wh, bh, w3, b3, y, hs_out (or null),
+    # x, wf, bf, wmax, hz, w1, b1, wh, bh, w3, b3, y, hs_out (or null),
     # B, npx, F, H, L, n_out, act, stream
-    "tvae_decoder_mlp_fwd": [_P] * 12 + [_I] * 7 + [_P],
-    # the forward's ten inputs, g, y, hs, dP, part, cols_img, cols, gpart, dx,
-    # dw1, dwh, B, npx, F, H, L, n_out, S1, S2, act, stream
-    "tvae_decoder_mlp_bwd": [_P] * 21 + [_I] * 9 + [_P],
+    "tvae_decoder_mlp_fwd": [_P] * 13 + [_I] * 7 + [_P],
+    # the forward's eleven inputs, g, y, hs, dP, part, cols_img, cols, gpart,
+    # dx, dw1, dwh, B, npx, F, H, L, n_out, S1, C1, S2, C2, act, stream
+    "tvae_decoder_mlp_bwd": [_P] * 22 + [_I] * 11 + [_P],
 }
 
 

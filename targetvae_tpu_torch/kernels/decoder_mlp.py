@@ -9,9 +9,10 @@ For every pixel of every image, with x the per-image coordinates:
     y = h @ W3 + b3                             (f32 accumulation)
 
 wf is the Fourier weight already divided by sigma; wf and bf are buffers
-and get no gradient. The kernels are csrc/decoder_mlp.cu (K7's chain with
-its own feature source); the plain versions below round at the same points.
-Like the TPU kernel the backward saves nothing and recomputes the forward;
+and get no gradient. The kernels are csrc/decoder_mlp.cu, the pose
+decoder's wgmma kernels (csrc/decoder_wgmma.cuh) with the FEAT_COORD
+feature source; the plain versions below round at the same points. Like
+the TPU kernel the backward saves nothing and recomputes the forward;
 _DecoderMLP joins the two as one autograd Function with gradients for x, hz
 and every weight.
 """
@@ -21,8 +22,8 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .decoder_pose import (ACT_CODES, _splits, bf16_round, mlp_chain_bwd_plain,
-                           mlp_chain_plain)
+from .decoder_pose import (ACT_CODES, TILE_PX, bf16_round, mlp_chain_bwd_plain,
+                           mlp_chain_plain, wgrad_schedule)
 
 
 def decoder_kernel_supported(cfg) -> bool:
@@ -63,11 +64,17 @@ def _check_shapes(x, wf, hz, w1, wh, bh, w3):
 
 
 def _cuda_args(x, wf, bf, hz, w1, b1, wh, bh, w3, b3):
+    """The kernels' arguments, with wmax = (max |wf[0]|, max |wf[1]|,
+    max |bf|) after bf: the kernels bound each tile's phases by it, so that
+    a tile whose phases all lie in their straight-line cosine's range
+    carries no check."""
     bf16, f32 = torch.bfloat16, torch.float32
     c = lambda t, dt: t.to(dt).contiguous()
-    args = (c(x, f32), c(wf, f32), c(bf, f32), c(hz, f32), c(w1, bf16),
-            c(b1, f32), c(wh, bf16), c(bh, f32), c(w3, bf16), c(b3, f32))
-    _build.check_cuda(*args, dtypes=(f32,) * 4 + (bf16, f32) * 3)
+    wf, bf = c(wf, f32), c(bf, f32)
+    wmax = torch.cat([wf.abs().amax(1), bf.abs().amax()[None]])
+    args = (c(x, f32), wf, bf, wmax, c(hz, f32), c(w1, bf16), c(b1, f32),
+            c(wh, bf16), c(bh, f32), c(w3, bf16), c(b3, f32))
+    _build.check_cuda(*args, dtypes=(f32,) * 5 + (bf16, f32) * 3)
     return args
 
 
@@ -76,8 +83,9 @@ def decoder_mlp_fwd(x, wf, bf, hz, w1, b1, wh, bh, w3, b3, *,
     """x (B, P, 2) f32; wf (2, F) divided by sigma; bf (F,); hz (B, H) f32;
     w1 (F, H); b1 (H,); wh (L-1, H, H); bh (L-1, H); w3 (H, n_out);
     b3 (n_out,). Returns (B, P, n_out) float32, with save_res also the bf16
-    h tiles (L, B, P, H), as the pose decoder's wrapper. A CPU x takes the
-    plain version; a CUDA one launches csrc/decoder_mlp.cu."""
+    h tiles (L, B, P, H), as the pose decoder's wrapper. Any n_out: the
+    kernel forms the heads 16 at a time. A CPU x takes the plain version;
+    a CUDA one launches csrc/decoder_mlp.cu."""
     if x.device.type == "cpu":
         return decoder_mlp_plain(x, wf, bf, hz, w1, b1, wh, bh, w3, b3,
                                  act_kind=act_kind, save_res=save_res)
@@ -144,17 +152,21 @@ def decoder_mlp_bwd(x, wf, bf, hz, w1, b1, wh, bh, w3, b3, g, *,
     e = lambda *shape, dt=torch.float32: torch.empty(shape, dtype=dt,
                                                      device=dev)
     x_cols = L * h + h * n_out + n_out
-    s1, s2 = _splits(f, h), _splits(h, h)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    (_, _, s1), _, c1 = wgrad_schedule(b * npx, f, h, sms, rebuilt=True)
+    (_, _, s2), _, c2 = wgrad_schedule(b * npx, h, h, sms)
     y, hs, dP = e(b, npx, n_out), e(L, b, npx, h, dt=torch.bfloat16), e(
         L, b, npx, h, dt=torch.bfloat16)
-    part, cols_img, cols = e(b * -(-npx // 32), x_cols), e(b, x_cols), e(x_cols)
+    part, cols_img, cols = (e(b * -(-npx // TILE_PX), x_cols), e(b, x_cols),
+                            e(x_cols))
     gpart = e(max(s1 * f * h, s2 * h * h))
     dx, dw1, dwh = e(b, npx, 2), e(f, h), e(L - 1, h, h)
     if b and npx:
         _build.launch("tvae_decoder_mlp_bwd", *(t.data_ptr() for t in args),
                       *(t.data_ptr() for t in (gc, y, hs, dP, part, cols_img,
                                                cols, gpart, dx, dw1, dwh)),
-                      b, npx, f, h, L, n_out, s1, s2, ACT_CODES[act_kind],
+                      b, npx, f, h, L, n_out, s1, c1, s2, c2,
+                      ACT_CODES[act_kind],
                       torch.cuda.current_stream(dev).cuda_stream)
         decoder_mlp_bwd.launches += 1
     return (dx, cols_img[:, :h], dw1, cols[:h], dwh,

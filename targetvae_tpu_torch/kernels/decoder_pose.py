@@ -225,27 +225,18 @@ def mlp_chain_bwd_plain(hs, wh, w3, g, *, act_kind: str = "leakyrelu"):
     return dpre1, torch.stack(dwh), torch.stack(dbh), dw3, db3
 
 
-def _splits(m: int, n: int) -> int:
-    """Pixel splits of csrc/decoder_chain.cuh's split-K weight-gradient
-    product (K10) of an (m, n) output: about 1,024 blocks in all, at most 64
-    splits. Its output tiles are 64 x 128, or 64 x 64 where n is no multiple
-    of 128."""
-    tiles = (m // 64) * (n // (128 if n % 128 == 0 else 64))
-    return max(1, min(64, 1024 // tiles))
-
-
 TILE_PX = 64      # pixel rows of a tile of the wgmma kernels (wgmma's M)
 
 
 def wgrad_schedule(rows: int, m: int, n: int, sms: int,
                    rebuilt: bool = False):
-    """Grid of K8's split-K weight-gradient product of an (m, n) output over
-    `rows` pixel rows (csrc/decoder_wgmma.cuh::launch_wgrad): output tiles of
-    64 x 512 where the A operand is rebuilt features and n % 512 == 0 (each
-    feature built once for all 512 columns), else 128 x 256, 128 x 128 or
-    128 x 64, the widest that divides n (a multiple of 64), rows past m
-    masked; and as many pixel splits as fill `sms`
-    SMs in one wave with the tiles. Returns (grid (x, y, splits), (tile
+    """Grid of K8's and K10's split-K weight-gradient product of an (m, n)
+    output over `rows` pixel rows (csrc/decoder_wgmma.cuh::launch_wgrad):
+    output tiles of 64 x 512 where the A operand is rebuilt features and
+    n % 512 == 0 (each feature built once for all 512 columns), else
+    128 x 256, 128 x 128 or 128 x 64, the widest that divides n (a multiple
+    of 64), rows past m masked; and as many pixel splits as fill `sms` SMs
+    in one wave with the tiles. Returns (grid (x, y, splits), (tile
     rows, tile columns), chunk): split z covers pixel rows
     [z * chunk, min(rows, (z + 1) * chunk)), chunk a multiple of TILE_PX,
     and every split holds at least one row."""

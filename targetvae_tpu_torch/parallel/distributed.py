@@ -48,6 +48,11 @@ def _rank_main(fn, rank: int, world_size: int, backend: str, init: str,
     out = Path(workdir) / f"rank{rank}"
     try:
         initialize(backend, init, rank, world_size, timeout)
+        # No rank leaves before every rank has joined: init_process_group
+        # may return on one rank while a peer is still connecting, and a
+        # rank that then finishes fn and tears its group down fails that
+        # peer's connect ("Connection closed by peer").
+        dist.barrier()
         torch.save(fn(rank, world_size, *args), out.with_suffix(".pt"))
     except BaseException:
         # written before the group goes down, which fails the peers

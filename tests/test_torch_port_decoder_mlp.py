@@ -49,29 +49,33 @@ def _mlp_inputs(B=3, N=70, F=256, H=128, n_out=2):
                 b2=f(H) * 0.1, w3=f(H, n_out) * 0.1, b3=f(n_out) * 0.1)
 
 
-def test_decoder_mlp_plain_matches_jax_kernel():
+@pytest.mark.parametrize("act", ["leakyrelu", "tanh"])
+@pytest.mark.parametrize("N", [70, 135])
+def test_decoder_mlp_plain_matches_jax_kernel(act, N):
     """K9's and K10's plain versions (through the autograd Function on the
     CPU) against fused_decoder_mlp in interpret mode, forward and gradient
-    in x, hz and every weight. Both round the features and each h to bf16 at
-    the same points; their cos and f32 sums may differ by an ulp, which can
+    in x, hz and every weight, with each activation and two pixel counts
+    that leave a ragged tail in the JAX kernel's 64-row tile (70 = 64 + 6,
+    135 = 2 x 64 + 7). Both round the features and each h to bf16 at the
+    same points; their cos and f32 sums may differ by an ulp, which can
     move a bf16 value by one step: the output within 1e-2 absolute (K7's
     bound), each gradient within 1e-2 relative L2 (K8's against JAX,
     tests/test_torch_port_train.py)."""
-    a = _mlp_inputs()
-    g = np.random.default_rng(12).normal(size=(3, 70, 2)).astype(np.float32)
+    a = _mlp_inputs(N=N)
+    g = np.random.default_rng(12).normal(size=(3, N, 2)).astype(np.float32)
     order = ("x", "hz", "w1", "b1", "w2", "b2", "w3", "b3")
 
     def jfn(x, hz, w1, b1, w2, b2, w3, b3):
         return jax_mlp(x, hz, jnp.asarray(a["wf"]), jnp.asarray(a["bf"]), w1,
-                       b1, w2, b2, w3, b3, "leakyrelu", 64, True)
+                       b1, w2, b2, w3, b3, act, 64, True)
 
     ref, vjp = jax.vjp(jfn, *(jnp.asarray(a[n]) for n in order))
     ref_g = vjp(jnp.asarray(g))
     t = {n: torch.from_numpy(v).requires_grad_() for n, v in a.items()}
     wh, bh = t["w2"][None], t["b2"][None]
     y = _DecoderMLP.apply(t["x"], t["wf"], t["bf"], t["hz"], t["w1"], t["b1"],
-                          wh, bh, t["w3"], t["b3"], "leakyrelu")
-    assert y.shape == (3, 70, 2)
+                          wh, bh, t["w3"], t["b3"], act)
+    assert y.shape == (3, N, 2)
     assert float(np.abs(y.detach().numpy() - np.asarray(ref)).max()) < 1e-2
     y.backward(torch.from_numpy(g))
     for name, r in zip(order, ref_g):
@@ -82,7 +86,8 @@ def test_decoder_mlp_plain_matches_jax_kernel():
     kernels.reset_launch_counts()
     with torch.no_grad():
         again = decoder_mlp_fwd(t["x"], t["wf"], t["bf"], t["hz"], t["w1"],
-                                t["b1"], wh, bh, t["w3"], t["b3"])
+                                t["b1"], wh, bh, t["w3"], t["b3"],
+                                act_kind=act)
     assert torch.equal(again, y.detach())
     assert kernels.launch_counts()["decoder_mlp_fwd"] == 0
 

@@ -597,6 +597,83 @@ def test_decoder_mlp_backward_kernel_on_cuda(cuda):
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
+# K9's and K10's edges on the wgmma kernels, as WIDE's for the pose decoder:
+# pixel counts that leave a ragged tail in the 64-pixel tile (n = 13: 169,
+# n = 18: 324, n = 30: 900), each hidden width's consumer layout (64, 128:
+# one warpgroup; 256, 512: two), L = 2 and 3, both activations, n_out 1 to
+# 8 (the chain pass's limit), F = 64 (one feature slice; dW1 a single
+# 128-row tile) and 1,024.
+MLP_WIDE = [  # (layers, n, hidden, act, n_out, F)
+    (2, 18, 512, "leakyrelu", 1, 1024),
+    (3, 30, 256, "tanh", 3, 64),
+    (3, 18, 64, "tanh", 8, 1024),
+    (2, 30, 128, "leakyrelu", 8, 64),
+    (2, 13, 256, "leakyrelu", 3, 1024),
+    (3, 13, 512, "tanh", 1, 64),
+    (2, 18, 64, "leakyrelu", 1, 64),
+    (2, 30, 128, "tanh", 3, 1024),
+]
+
+
+def _mlp_wide_args(dev, layers, n, hidden, act, n_out, F):
+    """K9's inputs for three images' posed n x n grids of a generator of
+    the given widths."""
+    cfg = GeneratorConfig(z_dim=2, hidden_dim=hidden, num_layers=layers,
+                          n_out=n_out, activation=act, fourier_expansion=True,
+                          fourier_sigma=2 / (n - 1), embedding_dim=F)
+    tp = generator_init(torch.Generator().manual_seed(0), cfg, device=dev)
+    th, d, zz = (torch.from_numpy(a).to(dev) for a in _pose_inputs())
+    x = transform_coords(torch.from_numpy(image_grid(n)).to(dev), d, th)
+    return (x.contiguous(), tp["fourier"]["w"] / cfg.fourier_sigma,
+            tp["fourier"]["b"], zz @ tp["latent_linear"]["w"],
+            tp["coord_linear"]["w"], tp["coord_linear"]["b"],
+            torch.stack([h["w"] for h in tp["hidden"]]),
+            torch.stack([h["b"] for h in tp["hidden"]]),
+            tp["out"]["w"], tp["out"]["b"])
+
+
+# the forward forms the heads 16 at a time, so it takes any n_out (17: two
+# chunks)
+@pytest.mark.parametrize("layers, n, hidden, act, n_out, F",
+                         MLP_WIDE + [(2, 18, 128, "leakyrelu", 11, 64),
+                                     (3, 13, 512, "tanh", 17, 1024)])
+def test_decoder_mlp_kernel_shapes_on_cuda(cuda, layers, n, hidden, act,
+                                           n_out, F):
+    """K9 against its plain version (1e-2 absolute, as K7), its saved h
+    tiles within one bf16 step of the largest magnitude, saving leaving
+    the output bitwise as serving gives it, reruns bitwise equal."""
+    args = _mlp_wide_args(cuda, layers, n, hidden, act, n_out, F)
+    got = decoder_mlp_fwd(*args, act_kind=act)
+    again = decoder_mlp_fwd(*args, act_kind=act)
+    y, hs = decoder_mlp_fwd(*args, act_kind=act, save_res=True)
+    ref, hs_p = decoder_mlp_plain(*args, act_kind=act, save_res=True)
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape == (3, n * n, n_out)
+    assert float((got - ref).abs().max()) < 1e-2
+    assert torch.equal(got, again) and torch.equal(y, got)
+    assert float((hs.float() - hs_p.float()).abs().max()) <= float(
+        hs_p.float().abs().max()) / 128
+
+
+@pytest.mark.parametrize("layers, n, hidden, act, n_out, F", MLP_WIDE)
+def test_decoder_mlp_backward_kernel_shapes_on_cuda(cuda, layers, n, hidden,
+                                                    act, n_out, F):
+    """K10 against its plain version, 5e-3 relative L2 per output
+    (chip_smoke.py's TOL_K10_REL: the recomputed h may sit one bf16 step
+    from the plain one), reruns bitwise equal."""
+    args = _mlp_wide_args(cuda, layers, n, hidden, act, n_out, F)
+    g = torch.randn((3, n * n, n_out),
+                    generator=torch.Generator().manual_seed(7)).to(cuda)
+    got = decoder_mlp_bwd(*args, g, act_kind=act)
+    again = decoder_mlp_bwd(*args, g, act_kind=act)
+    ref = decoder_mlp_bwd_plain(*args, g, act_kind=act)
+    torch.cuda.synchronize()
+    for i, (a, b) in enumerate(zip(got, ref)):
+        assert a.shape == b.shape, i
+        assert _rel(a, b) < 5e-3, (i, _rel(a, b))
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
 # ---- on the card: the grid-sharded posterior partials (K5, K6) against
 # their plain versions ----
 #
@@ -654,3 +731,29 @@ def test_posterior_shard_kernels_on_cuda(cuda, noise, pad):
         dead = slice(args[1].shape[1] - pad, None)
         for t in (dq, dth, dz):
             assert not bool(t[..., dead].any())
+
+
+@pytest.mark.parametrize("hidden", [128, 512])
+def test_decoder_mlp_far_phases_on_cuda(cuda, hidden):
+    """K9 and K10 where many phases lie past the kernels' straight-line
+    cosine (|phase| > 105,615, the coordinates scaled up): those features
+    and sines come from the library's functions, so the kernels still agree
+    with their plain versions (1e-2 absolute forward, 5e-3 relative L2 per
+    output backward) and reruns are bitwise equal. Hidden 512 takes dW1's
+    shared-A tiles, whose consumers build part of each tile."""
+    args = list(_mlp_wide_args(cuda, 2, 18, hidden, "leakyrelu", 3, 1024))
+    args[0] = args[0] * 3e4
+    from targetvae_tpu_torch.kernels.decoder_mlp import _phase
+    assert float((_phase(*args[:3]).abs() > 105_615).float().mean()) > 0.1
+    got = decoder_mlp_fwd(*args)
+    ref = decoder_mlp_plain(*args)
+    assert float((got - ref).abs().max()) < 1e-2
+    g = torch.randn((3, 18 * 18, 3),
+                    generator=torch.Generator().manual_seed(8)).to(cuda)
+    got = decoder_mlp_bwd(*args, g)
+    again = decoder_mlp_bwd(*args, g)
+    ref = decoder_mlp_bwd_plain(*args, g)
+    torch.cuda.synchronize()
+    for i, (a, b) in enumerate(zip(got, ref)):
+        assert _rel(a, b) < 5e-3, (i, _rel(a, b))
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
