@@ -10,23 +10,30 @@ from a seed):
 
   1. prints the card (nvidia-smi name and power limit) and the versions;
   2. holds each forward kernel against its plain PyTorch version at flagship
-     shapes, and the sampled posterior by seed, batch split and distribution;
+     shapes, the sampled posterior (K3) against its plain version fed the
+     kernel's own Philox noise, by seed, batch split and distribution;
   3. embeds ~1,000 synthetic images with embed_dataset (bf16 serving tier);
   4. evaluates the held-out ELBO over a few batches in bf16, and against the
      float32 tier with deterministic noise;
-  5. times each forward kernel against its plain version, embed and eval
-     img/s;
+  5. times each forward kernel against its plain version (device_ms: CUDA
+     graph replays, inputs cold in L2; the wrapper's host-inclusive time
+     beside it), embed and eval img/s;
   6. holds each backward kernel (K2, K4, K8, K10, K12) and K7's
      save-residuals mode against its plain version at flagship shapes (K12
-     also at the galaxy encoder's C = 3 shape), and the sampled K4 against
-     a central difference of K3's own forward;
+     also at the galaxy encoder's C = 3 shape), the sampled K4 against its
+     plain version fed the kernel's noise and against a central difference
+     of K3's own forward, and K3 and K4 (not timed) at P16, at dSprites'
+     H' = 65 (also streamed through a cluster of 4 CTAs) and at z = 8;
   7. trains: ~30 bf16 Trainer.train_step calls on fixed synthetic batches
      (finite, rising ELBO; every kernel launched), and one deterministic
      step's gradients on the bf16 kernel tier against the float32 tier;
   8. times each backward kernel against its plain version, K8's, K10's and
      K12's passes one by one (profiler), K7 with and without saved
      residuals, one cuBLAS bf16 GEMM at the decoders' layer-1 shape and one
-     at K12's dWc shape as yardsticks, and the train step's img/s;
+     at K12's dWc shape as yardsticks, the train step's img/s, and the
+     posterior stage (profiler: the device ops between the encoder kernel
+     and K7, and between K8 and K2 or K12) of the train step and the eval
+     batch on each tier;
   9. decodes at posed coordinates in bf16 (K9) against float32, and takes
      a gradient through it (K10); times bf16 decode of the batch (img/s,
      device ms) with and without the gradient;
@@ -109,6 +116,23 @@ TOL_K10_REL = 5e-3
 K2_MAX_FLIPS = 4
 TOL_DPRE1_REL = 1e-2
 TOL_K4 = 1e-4       # abs per unit of max(1, |value|), as K3: same f32 formulas
+# K4's cotangents each scale with their cell's softmax weight (a typical
+# cell's is ~1e-5 at the flagship), so TOL_K4 alone compares only the few
+# dominant cells. Each element is also held to its own magnitude: |got - ref|
+# <= TOL_K4_SCALED (|ref| + K4_FLOOR max |ref|), the max over its image's
+# cells in its channel (scaled_err). The limit lies between what rounding
+# alone moves (the float32 plain version against a float64 one) and what
+# two planted faults move (the e^q S2 term dropped in the cells below 1e-3
+# of their image's largest weight; one CTA's noise counters shifted by
+# one), each read at every shape K4 is checked at (planted_k4_faults; the
+# card's readings in PERF.md).
+K4_FLOOR = 1e-3
+TOL_K4_SCALED = 1e-2
+# the sampled K3 and K4 against their plain versions fed the kernels' own
+# noise (philox_gumbel): the same formulas on the same uniforms, whose two
+# logs (the card's logf, torch.log) may differ by an ulp: as deterministic
+TOL_K3_SAMPLED = TOL_K3
+TOL_K4_SAMPLED = TOL_K4
 TOL_K4_FD = 2e-2    # rel, central difference of K3 (step 1e-2) vs <grad, dir>
 # bf16 kernel tier vs float32 tier, gradients of one deterministic step, per
 # parameter leaf, relative L2: the bound the JAX kernels' gradients were held
@@ -132,6 +156,14 @@ SP_RANKS = 2        # ranks of phase 10, sharing cuda:0 over gloo
 SP_STEPS = 20       # sampled SP train steps a rank takes in phase 10
 SP_PROFILE_STEPS = 3  # further steps profiled on rank 0
 SP_TIMEOUT = 600    # seconds for phase 10's ranks, all included
+# device_ms, the kernel timer: windows of at least 2 ms of replayed calls,
+# the median of 5; calls rotate over copies of their inputs so that 60 MB
+# (more than the H100's 50 MB L2) lie between two uses of one copy, at most
+# 32 copies
+TIMER_WINDOW_MS = 2.0
+TIMER_WINDOWS = 5
+TIMER_COLD_BYTES = 60_000_000
+TIMER_MAX_COPIES = 32
 # The H100 SXM's published peaks (NVIDIA H100 datasheet), for bound_ms
 HBM_BPS = 3.35e12
 PEAK_BF16 = 989e12
@@ -202,7 +234,10 @@ def synthetic_images(n: int, d: int, seed: int) -> np.ndarray:
 
 
 def cuda_ms(fn, reps: int = 10) -> float:
-    """Mean device time of fn() in ms over `reps` calls, after one warm-up."""
+    """Mean time of fn() in ms over `reps` calls, after one warm-up, CUDA
+    events around the calls: host-inclusive, since the events also time
+    whatever host work keeps the card waiting between the launches (a
+    kernel of ~0.1 ms behind a Python wrapper is timed by its host)."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -213,6 +248,175 @@ def cuda_ms(fn, reps: int = 10) -> float:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def device_ms(fn, args, windows: int = TIMER_WINDOWS) -> float:
+    """Device time of one fn(*args) in ms, the host taken out: the calls
+    are captured in a CUDA graph and the graph is replayed between two CUDA
+    events, so only the kernels' own time and the gaps between them on the
+    card are counted. The calls rotate over enough copies of args' tensors
+    that TIMER_COLD_BYTES of other data are touched between two uses of
+    one copy, so each call finds its inputs cold in the 50 MB L2, as after
+    an unrelated kernel. One replay is a window of at least TIMER_WINDOW_MS;
+    returns the median per-call time of `windows` windows."""
+    import torch
+    size = sum(a.numel() * a.element_size() for a in args
+               if isinstance(a, torch.Tensor))
+    n = min(TIMER_MAX_COPIES, 1 + -(-TIMER_COLD_BYTES // max(size, 1)))
+    copies = [tuple(args)] + [
+        tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args)
+        for _ in range(n - 1)]
+    fn(*args)
+    torch.cuda.synchronize()
+
+    def capture(reps):
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g, capture_error_mode="relaxed"):
+            for i in range(reps):
+                fn(*copies[i % n])
+        return g
+
+    def replay(g, reps):
+        t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0.record()
+        g.replay()
+        t1.record()
+        torch.cuda.synchronize()
+        return t0.elapsed_time(t1) / reps
+
+    g = capture(n)
+    g.replay()
+    one = replay(g, n)
+    reps = n * max(1, -(-int(TIMER_WINDOW_MS / max(one, 1e-4)) // n))
+    g = capture(reps)
+    g.replay()
+    times = sorted(replay(g, reps) for _ in range(windows))
+    del g
+    return times[len(times) // 2]
+
+
+def time_kernel(results, name: str, phase: str, kfn, kargs, pfn, pargs,
+                yardstick=None) -> None:
+    """A kernel's row of the kernels line: its device time and its plain
+    version's (device_ms, in turns: plain, kernel, kernel, plain; the
+    smaller of each pair), the host-inclusive time of its wrapper
+    (cuda_ms), and the yardstick (fn, args) given, timed by device_ms."""
+    p1, k1, k2, p2 = (device_ms(pfn, pargs), device_ms(kfn, kargs),
+                      device_ms(kfn, kargs), device_ms(pfn, pargs))
+    row = {"ms": min(k1, k2), "plain_ms": min(p1, p2),
+           "host_ms": cuda_ms(lambda: kfn(*kargs))}
+    if yardstick is not None:
+        row["yardstick_ms"] = device_ms(*yardstick)
+    results[name].update(row)
+    print(f"phase {phase}: {name}: kernel {k1:.4f} / {k2:.4f} ms, plain "
+          f"{p1:.4f} / {p2:.4f} ms (device time, plain, kernel, kernel, "
+          f"plain); host-inclusive {row['host_ms']:.4f} ms"
+          + (f"; yardstick {row['yardstick_ms']:.4f} ms" if yardstick
+             else ""), flush=True)
+
+
+def posterior_inputs(torch, ecfg, b: int, dev, seed: int = 3):
+    """K3's inputs for b images of encoder config ecfg: seeded raw heads
+    (b, M, R, D) as the encoder leaves them (attention logit x 2, theta
+    mean, theta log-std x 0.3, z means, z log-stds x 0.3), the rotation
+    prior and offsets of the config, a seeded joint log-prior p_tr (M, R),
+    the attention grid (M, 2) and sig_r, in posterior_fwd's order after the
+    seed."""
+    from targetvae_tpu_torch.models.encoders import (
+        attn_dim_for, group_offsets, rotation_log_prior)
+    from targetvae_tpu_torch.ops.coords import attention_grid
+    R, zd, hp = ecfg.groupconv, ecfg.z_dim, attn_dim_for(ecfg)
+    M = hp * hp
+    g = torch.Generator(device=dev).manual_seed(seed)
+    scale = torch.tensor([2.0, 1.0, 0.3] + [1.0] * zd + [0.3] * zd,
+                         device=dev)
+    heads = torch.randn((b, M, R, 3 + 2 * zd), generator=g,
+                        device=dev) * scale
+    p_tr = torch.log_softmax(torch.randn(M * R, generator=g, device=dev),
+                             dim=0).reshape(M, R)
+    as_t = lambda a: torch.as_tensor(a, device=dev)
+    return (heads, as_t(rotation_log_prior(ecfg, R)),
+            as_t(group_offsets(R) if ecfg.rot_refinement
+                 else np.zeros(R, np.float32)),
+            p_tr, as_t(attention_grid(hp, ecfg.image_dim)), float(np.pi / R))
+
+
+def device_ops(torch, fn, calls: int = 3) -> list:
+    """The device operations (kernels, copies, fills) of `calls` calls of
+    fn after two warm-ups, from the profiler's trace: (name, start us,
+    duration us), in order of their start on the card."""
+    import tempfile
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    ops = [(e["name"], float(e["ts"]), float(e.get("dur", 0.0)))
+           for e in events if e.get("ph") == "X"
+           and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    return sorted(ops, key=lambda o: o[1])
+
+
+def _named(name: str, base: str, wg: bool = False) -> bool:
+    """Is `name` (a demangled kernel name) the kernel `base` of
+    csrc/decoder_wgmma.cuh's namespace wg (wg=True) or of another source?"""
+    import re
+    if not re.search(r"(?:^|[\s:])" + base + r"\b", name):
+        return False
+    return ("wg::" + base in name) == wg
+
+
+def posterior_stage(ops: list) -> dict:
+    """The posterior stage of each call in a device_ops list: forward, the
+    ops after the encoder kernel (K1 or K11) ends and before K7 starts;
+    backward, the ops after K8 ends (the ordered sum that follows its pose
+    pass) and before K2's or K12's chain starts. Returns the device ms a
+    call of each (summed durations) and each window's ops by name (ms a
+    call, count a call)."""
+    is_enc = lambda n: _named(n, "fwd_kernel") or _named(n, "lifted_fwd_kernel")
+    is_k7 = lambda n: _named(n, "fwd_kernel", wg=True)
+    is_chain = lambda n: _named(n, "chain_kernel")
+    wins = {"fwd": [], "bwd": []}
+    i = 0
+    while True:
+        e = next((j for j in range(i, len(ops)) if is_enc(ops[j][0])), None)
+        k7 = None if e is None else next(
+            (j for j in range(e + 1, len(ops)) if is_k7(ops[j][0])), None)
+        if k7 is None:
+            break
+        wins["fwd"].append(ops[e + 1:k7])
+        nxt = next((j for j in range(k7 + 1, len(ops))
+                    if is_chain(ops[j][0]) or is_enc(ops[j][0])), len(ops))
+        if nxt < len(ops) and is_chain(ops[nxt][0]):
+            ph = [j for j in range(k7 + 1, nxt)
+                  if _named(ops[j][0], "phase_kernel", wg=True)]
+            s = next((j for j in range(ph[-1] + 1, nxt)
+                      if "sum_partials" in ops[j][0]), None) if ph else None
+            if s is not None:
+                wins["bwd"].append(ops[s + 1:nxt])
+        i = nxt
+    out = {}
+    for key, ws in wins.items():
+        if not ws:
+            continue
+        by = {}
+        for w in ws:
+            for name, _, dur in w:
+                ms, cnt = by.get(name, (0.0, 0))
+                by[name] = (ms + dur / 1e3, cnt + 1)
+        out[key + "_ms"] = sum(d for w in ws for _, _, d in w) / 1e3 / len(ws)
+        out[key + "_ops"] = sorted(
+            ([n[:80], round(ms / len(ws), 4), cnt / len(ws)]
+             for n, (ms, cnt) in by.items()), key=lambda o: -o[1])
+    return out
 
 
 def patch_inputs(pe, ecfg, y):
@@ -230,8 +434,8 @@ def patch_inputs(pe, ecfg, y):
 
 def kernel_inputs(params, cfg, dev):
     """Flagship-shape inputs for each kernel: K1 and K11 from the real lift
-    of synthetic images, K3, K7 and K9 seeded like tests/test_kernels.py
-    (K9 at the posed 50x50 grids K7 decodes)."""
+    of synthetic images, K3 from posterior_inputs, K7 and K9 seeded like
+    tests/test_kernels.py (K9 at the posed 50x50 grids K7 decodes)."""
     import torch
     from targetvae_tpu_torch.models.encoders import head_weights, lift_rows
     from targetvae_tpu_torch.kernels.decoder_pose import pose_tables
@@ -246,17 +450,9 @@ def kernel_inputs(params, cfg, dev):
     k1 = (rows, pe["conv1"]["b"].repeat(R), pe["conv2"]["w"], pe["conv2"]["b"],
           wh, bh)
 
-    M = hp * hp
-    g = torch.Generator(device=dev).manual_seed(3)
+    k3 = posterior_inputs(torch, ecfg, B, dev)
+    g = torch.Generator(device=dev).manual_seed(4)
     rn = lambda *s: torch.randn(s, generator=g, device=dev)
-    from targetvae_tpu_torch.ops.coords import attention_grid
-    p_tr = torch.log_softmax(rn(R * M), dim=0).reshape(R, M)
-    grid = torch.as_tensor(attention_grid(hp, ecfg.image_dim), device=dev)
-    offs = torch.as_tensor([2 * np.pi * r / R for r in range(R)],
-                           dtype=torch.float32, device=dev)
-    offs = torch.where(offs > np.pi, offs - 2 * np.pi, offs)
-    k3 = (rn(B, R, M) * 2, rn(B, R, M), rn(B, R, M) * 0.3, rn(B, zd, R, M),
-          rn(B, zd, R, M) * 0.3, p_tr, grid, offs, float(np.pi / R))
 
     theta, dx, z = rn(B), rn(B, 2) * 0.2, rn(B, zd)
     wf = pg["fourier"]["w"] / gcfg.fourier_sigma
@@ -524,6 +720,191 @@ def check_k11(torch, k11, R, K, label):
     return err, h1
 
 
+def per_unit(a, b) -> float:
+    """max |a - b| / max(1, |b|)."""
+    return float(((a.float() - b.float()).abs()
+                  / b.float().abs().clamp(min=1.0)).max())
+
+
+def scaled_err(a, b, cell_dims=(1, 2)) -> float:
+    """max |a - b| / (|b| + K4_FLOOR s), s the max of |b| over cell_dims (an
+    image's cells, in each channel): every element against its own
+    magnitude, down to a thousandth of its image's largest."""
+    a, b = a.double(), b.double()
+    den = b.abs() + K4_FLOOR * b.abs().amax(dim=cell_dims, keepdim=True)
+    return float(((a - b).abs() / den.clamp(min=1e-300)).max())
+
+
+def planted_k4_faults(torch, k3, g3, ref, ref_s, noise, chunk) -> dict:
+    """The plain K4's cotangents with two faults planted, read by
+    scaled_err against the sound ones (ref, deterministic; ref_s, sampled
+    with `noise`): "low-weight S2", the logit's -e^q S2 term dropped in the
+    cells whose e^q is below 1e-3 of their image's largest; "shifted noise",
+    the sampled gradient with CTA 1's cells (those of [chunk, 2 chunk))
+    drawing the noise of counter + 1. Also "float64": the float64 plain
+    version read against ref, what rounding alone moves."""
+    from targetvae_tpu_torch.kernels.posterior import (
+        _kl_terms, _posterior_core, posterior_bwd_plain, split_heads)
+    heads, p_r, offs, p_tr, grid, sig_r = k3
+    b, m, r, _ = heads.shape
+    attn, thm, thls, zm, zls = split_heads(heads, p_r, offs)
+    q, eq, _ = _posterior_core(attn, None)
+    kl_th, kl_z = _kl_terms(eq, thm, torch.exp(thls) + 1e-6, zm,
+                            torch.exp(zls) + 1e-6, offs.reshape(1, -1, 1),
+                            sig_r)
+    d_q = g3[:, -1, None, None] * eq * ((q - p_tr.T) + 1.0 + kl_th + kl_z)
+    s2 = eq * d_q.sum(dim=(1, 2), keepdim=True)                 # (B, R, M)
+    low = eq < 1e-3 * eq.amax(dim=(1, 2), keepdim=True)
+    f1 = ref.clone()
+    f1[..., 0] += torch.where(low, s2, 0.0).transpose(1, 2)
+    cell = torch.arange(m * r, device=heads.device).reshape(m, r).T
+    cta1 = (cell >= chunk) & (cell < 2 * chunk)                  # (R, M)
+    shifted = torch.roll(noise.reshape(b, r * m), -1, dims=1).reshape(noise.shape)
+    f2 = posterior_bwd_plain(g3, *k3, noise=torch.where(cta1, shifted, noise))
+    f64 = posterior_bwd_plain(g3.double(), *(
+        t.double() if torch.is_tensor(t) else t for t in k3))
+    return {"low-weight S2": scaled_err(f1, ref),
+            "shifted noise": scaled_err(f2, ref_s),
+            "float64": scaled_err(ref, f64)}
+
+
+def check_posterior_fwd(torch, k3, results, label, schedule=None):
+    """K3 on k3 (posterior_inputs' arguments; on `schedule`'s grid, a
+    k3_schedule, if given)
+    against its plain version: deterministic, and sampled against the plain
+    version fed the kernel's own noise (philox_gumbel); the same seed gives
+    the same output; the rows of B images equal two calls on B / 2 with
+    the seed offset; the sampled kl equals the deterministic one."""
+    from targetvae_tpu_torch.kernels.posterior import (
+        philox_gumbel, posterior_fwd, posterior_plain)
+    heads, rest = k3[0], k3[1:]
+    b, m, r, _ = heads.shape
+    plain = lambda noise: torch.cat(
+        [v if v.dim() == 2 else v[:, None]
+         for v in posterior_plain(*k3, noise=noise).values()], dim=1)
+    fwd = lambda seed, h, det=False: posterior_fwd(
+        seed, h, *rest, deterministic=det, schedule=schedule)
+    det_k = fwd(7, heads, True)
+    err = per_unit(det_k, plain(None))
+    abs3 = float((det_k - plain(None)).abs().max())
+    check(bool(torch.isfinite(det_k).all()) and err <= TOL_K3,
+          f"phase 2: K3 posterior_fwd deterministic {label} heads "
+          f"{tuple(heads.shape)}: max err {err:.3e} (abs {abs3:.3e}) <= "
+          f"{TOL_K3} * max(1, |ref|)")
+    s1, s2 = fwd(11, heads), fwd(11, heads)
+    err_s = per_unit(s1, plain(philox_gumbel(11, b, r, m, heads.device)))
+    check(err_s <= TOL_K3_SAMPLED,
+          f"phase 2: K3 sampled {label} vs plain fed the kernel's Philox "
+          f"noise: max err {err_s:.3e} <= {TOL_K3_SAMPLED} * max(1, |ref|)")
+    half = [fwd(11 + i, heads[i:i + b // 2]) for i in (0, b // 2)]
+    check(torch.equal(s1, s2) and torch.equal(s1, torch.cat(half)),
+          f"phase 2: K3 sampled {label}: same seed gives identical output; "
+          f"rows identical for batch {b} vs 2 x {b // 2}")
+    kl_err = float((s1[:, -1] - det_k[:, -1]).abs().max())
+    check(kl_err <= 1e-6 * float(det_k[:, -1].abs().max().clamp(min=1.0)),
+          f"phase 2: K3 sampled {label}: kl equals deterministic kl (max "
+          f"diff {kl_err:.3e})")
+    if label == "flagship":
+        results["posterior_fwd"] = {"max_abs_err": abs3,
+                                    "max_err_sampled": err_s}
+
+
+def check_posterior_bwd(torch, k3, g3, results, label, schedule=None,
+                        schedule3=None):
+    """K4 on k3 with the packed cotangent g3 (on `schedule`'s grid, a
+    k4_schedule, and K3 on `schedule3`'s, if given)
+    against its plain version, deterministic and sampled (fed the kernel's
+    own noise), per unit of max(1, |ref|) and by scaled_err; planted
+    faults must read above scaled_err's limit; the same seed gives the
+    same gradients; the rows of B images equal two calls on B / 2; the
+    sampled gradient against a central difference of K3's own forward at
+    the same seed."""
+    from targetvae_tpu_torch.kernels.posterior import (
+        k4_schedule, philox_gumbel, posterior_bwd, posterior_bwd_plain,
+        posterior_fwd)
+    heads, rest = k3[0], k3[1:]
+    b, m, r, d = heads.shape
+    bwd = lambda seed, g, h, det=False: posterior_bwd(
+        seed, g, h, *rest, deterministic=det, schedule=schedule)
+    got = bwd(7, g3, heads, True)
+    ref = posterior_bwd_plain(g3, *k3)
+    err, sc = per_unit(got, ref), scaled_err(got, ref)
+    abs4 = float((got - ref).abs().max())
+    check(bool(torch.isfinite(got).all()) and got.shape == heads.shape
+          and err <= TOL_K4 and sc <= TOL_K4_SCALED,
+          f"phase 6: K4 posterior_bwd deterministic {label} heads "
+          f"{tuple(heads.shape)}: max err {err:.3e} (abs {abs4:.3e}) <= "
+          f"{TOL_K4} * max(1, |ref|); each element {sc:.3e} <= "
+          f"{TOL_K4_SCALED} * (|ref| + {K4_FLOOR} * max |ref|)")
+    s1 = bwd(11, g3, heads)
+    noise = philox_gumbel(11, b, r, m, heads.device)
+    ref_s = posterior_bwd_plain(g3, *k3, noise=noise)
+    err_s, sc_s = per_unit(s1, ref_s), scaled_err(s1, ref_s)
+    check(err_s <= TOL_K4_SAMPLED and sc_s <= TOL_K4_SCALED,
+          f"phase 6: K4 sampled {label} vs plain fed the kernel's Philox "
+          f"noise: max err {err_s:.3e} <= {TOL_K4_SAMPLED} * max(1, |ref|); "
+          f"each element {sc_s:.3e} <= {TOL_K4_SCALED} * (|ref| + "
+          f"{K4_FLOOR} * max |ref|)")
+    chunk = (schedule or k4_schedule(m, r, d))[1]
+    reads = planted_k4_faults(torch, k3, g3, ref, ref_s, noise, chunk)
+    f64 = reads.pop("float64")
+    check(min(reads.values()) > TOL_K4_SCALED,
+          f"phase 6: K4 {label}: planted faults read "
+          f"{({n: float(f'{v:.3e}') for n, v in reads.items()})} > "
+          f"{TOL_K4_SCALED}; the sound kernel {max(sc, sc_s):.3e}, the "
+          f"float32 plain version against float64 {f64:.3e}")
+    h = b // 2
+    halves = [bwd(11 + i, g3[i:i + h], heads[i:i + h]) for i in (0, h)]
+    check(torch.equal(s1, bwd(11, g3, heads))
+          and torch.equal(s1, torch.cat(halves)),
+          f"phase 6: K4 sampled {label}: same seed gives identical "
+          f"gradients; rows identical for batch {b} vs 2 x {h} with the "
+          f"seed offset")
+    d = torch.randn(heads.shape, generator=torch.Generator(
+        device=heads.device).manual_seed(14), device=heads.device)
+    step = 1e-2
+    fwd = lambda eps: posterior_fwd(11, heads + eps * d, *rest,
+                                    schedule=schedule3).double()
+    fd = float(((fwd(step) - fwd(-step)) * g3.double()).sum()) / (2 * step)
+    an = float((s1.double() * d.double()).sum())
+    check(abs(fd - an) <= TOL_K4_FD * max(abs(an), 1.0),
+          f"phase 6: K4 sampled {label}: <grad, dir> {an:.6g} vs central "
+          f"difference of K3 at the same seed {fd:.6g} (step {step}): rel "
+          f"{abs(fd - an) / max(abs(an), 1.0):.3e} <= {TOL_K4_FD}")
+    if label == "flagship":
+        results["posterior_bwd"] = {"max_abs_err": abs4,
+                                    "max_err_sampled": err_s,
+                                    "scaled_err": max(sc, sc_s)}
+
+
+def check_posterior_shapes(torch, cfg, dev):
+    """Phase 6: K3 and K4 (not timed) at the shapes past the flagship's the
+    port takes: P16 (R = 16), dSprites' 64 x 64 images with k = 64 and
+    padding 32 (H' = 65: 33,800 cells an image), on its own grid and
+    streamed through a cluster of 4 CTAs, and z = 8 (D = 19)."""
+    import dataclasses
+    from targetvae_tpu_torch.kernels.posterior import k3_schedule, k4_schedule
+    e = cfg.encoder
+    dsprites = dataclasses.replace(e, image_dim=64, kernels_size=64,
+                                   padding=32)
+    g = torch.Generator(device=dev).manual_seed(15)
+    for label, ecfg, cluster in (
+            ("P16", dataclasses.replace(e, groupconv=16), None),
+            ("dSprites H'=65", dsprites, None),
+            ("dSprites H'=65, 4 CTAs streamed", dsprites, 4),
+            ("z=8", dataclasses.replace(e, z_dim=8), None)):
+        k3 = posterior_inputs(torch, ecfg, B, dev, seed=16)
+        m, r, d = k3[0].shape[1:]
+        s3, s4 = k3_schedule(m, r, cluster), k4_schedule(m, r, d, cluster)
+        print(f"phase 6: K3/K4 at {label}: heads {tuple(k3[0].shape)}, "
+              f"grids: K3 (cluster, chunk) {s3}, K4 (cluster, chunk, sub) "
+              f"{s4}", flush=True)
+        check_posterior_fwd(torch, k3, None, label, s3)
+        g3 = torch.randn((B, 2 * ecfg.z_dim + 5), generator=g, device=dev)
+        check_posterior_bwd(torch, k3, g3, None, label, s4, s3)
+        del k3
+
+
 def check_k9_features(torch, k9):
     """Phase 2: the features K9 builds on chip, read through its saved first
     h tile with W1 = [I; 0] (then [0; I]), b1 = hz = 0: h = bf16(act(f))
@@ -580,9 +961,10 @@ def run(torch, dev) -> int:
     from targetvae_tpu_torch.kernels.decoder_pose import (
         fused_pose_decoder_tables, pose_decoder_plain)
     from targetvae_tpu_torch.kernels.mix_heads import (
-        fused_lift_act_mix_heads, lift_act_mix_heads_plain)
+        fused_lift_act_mix_heads, lift_act_mix_heads_plain, mix_heads_fwd)
     from targetvae_tpu_torch.kernels.posterior import (
-        fused_posterior, per_image_gumbel, posterior_plain)
+        fused_posterior, per_image_gumbel, philox_gumbel, posterior_fwd,
+        posterior_plain)
     from targetvae_tpu_torch.kernels.decoder_mlp import (
         decoder_mlp_fwd, decoder_mlp_plain)
     from targetvae_tpu_torch.kernels.lifted_encoder import (
@@ -633,33 +1015,7 @@ def run(torch, dev) -> int:
               f"{tuple(o_k.shape)}: max_abs_err {err1:.3e} <= {TOL_K1}")
         results["mix_heads_fwd"] = {"max_abs_err": err1}
 
-        det_k = fused_posterior(7, *k3, deterministic=True)
-        det_p = posterior_plain(*k3)
-        torch.cuda.synchronize()
-        err3 = 0.0
-        for name in det_p:
-            e = float(((det_k[name] - det_p[name]).abs()
-                       / det_p[name].abs().clamp(min=1.0)).max())
-            err3 = max(err3, e)
-        abs3 = max(float((det_k[n] - det_p[n]).abs().max()) for n in det_p)
-        check(err3 <= TOL_K3,
-              f"phase 2: K3 posterior_fwd deterministic {tuple(k3[0].shape)}: "
-              f"max err {err3:.3e} (abs {abs3:.3e}) <= {TOL_K3} * max(1, |ref|)")
-        results["posterior_fwd"] = {"max_abs_err": abs3}
-
-        s1 = fused_posterior(11, *k3)
-        s2 = fused_posterior(11, *k3)
-        check(all(torch.equal(s1[n], s2[n]) for n in s1),
-              "phase 2: K3 sampled: same seed gives identical output")
-        half = [fused_posterior(11 + i, *(t[i:i + B // 2] for t in k3[:5]),
-                                *k3[5:]) for i in (0, B // 2)]
-        check(all(torch.equal(s1[n], torch.cat([h[n] for h in half]))
-                  for n in s1),
-              "phase 2: K3 sampled: rows identical for batch 100 vs 2 x 50")
-        kl_err = float((s1["kl"] - det_k["kl"]).abs().max())
-        check(kl_err <= 1e-6 * float(det_k["kl"].abs().max().clamp(min=1.0)),
-              f"phase 2: K3 sampled kl equals deterministic kl (max diff "
-              f"{kl_err:.3e})")
+        check_posterior_fwd(torch, k3, results, "flagship")
         keys = [("dx", 0), ("dx", 1), ("z_mu_e", 0), ("z_mu_e", 1),
                 ("theta_mu_e", None)]
         pick = lambda o, k, i: (o[k] if i is None else o[k][:, i]).mean()
@@ -667,7 +1023,7 @@ def run(torch, dev) -> int:
         mp = np.zeros((SEEDS, len(keys)))
         for s in range(SEEDS):
             ok_ = fused_posterior(1000 + s * B, *k3)
-            noise = per_image_gumbel(1000 + s * B, k3[0].shape, dev)
+            noise = per_image_gumbel(1000 + s * B, (B, R, k3[0].shape[1]), dev)
             op_ = posterior_plain(*k3, noise=noise)
             mk[s] = [float(pick(ok_, k, i)) for k, i in keys]
             mp[s] = [float(pick(op_, k, i)) for k, i in keys]
@@ -675,8 +1031,8 @@ def run(torch, dev) -> int:
         z = np.abs(mk.mean(0) - mp.mean(0)) / np.maximum(se, 1e-12)
         check(bool((z <= 4.0).all()),
               f"phase 2: K3 sampled: means over {SEEDS} seeds of dx, z_mu_e, "
-              f"theta_mu_e within 4 standard errors of plain "
-              f"(|diff|/se = {np.round(z, 2).tolist()})")
+              f"theta_mu_e within 4 standard errors of the CPU tier's noise "
+              f"(per_image_gumbel) (|diff|/se = {np.round(z, 2).tolist()})")
 
         y7k = fused_pose_decoder_tables(*k7)
         y7p = pose_decoder_plain(*k7)
@@ -752,28 +1108,30 @@ def run(torch, dev) -> int:
                                         x_coord, gen, e32[0])
 
         # ---- phase 5: timings ----
-        for name, kfn, pfn in (
+        heads = k3[0]
+        ysum = (lambda x: x.view(x.shape[0], -1).sum(1), (heads,))
+        noise3 = philox_gumbel(9, B, R, heads.shape[1], dev)
+        for name, kfn, kargs, pfn, pargs, yard in (
                 ("mix_heads_fwd",
-                 lambda: fused_lift_act_mix_heads(*k1, R=R, K=K),
-                 lambda: lift_act_mix_heads_plain(*k1, R=R, K=K)),
+                 lambda *a: mix_heads_fwd(*a, R=R, K=K), k1,
+                 lambda *a: lift_act_mix_heads_plain(*a, R=R, K=K), k1, None),
                 ("posterior_fwd",
-                 lambda: fused_posterior(9, *k3),
-                 lambda: posterior_plain(*k3, noise=k3[0])),
-                ("pose_decoder_fwd",
-                 lambda: fused_pose_decoder_tables(*k7),
-                 lambda: pose_decoder_plain(*k7)),
+                 lambda *a: posterior_fwd(9, *a), k3,
+                 lambda *a: posterior_plain(*a, noise=noise3), k3, ysum),
+                ("pose_decoder_fwd", fused_pose_decoder_tables, k7,
+                 pose_decoder_plain, k7, None),
                 ("lifted_encoder_fwd",
-                 lambda: lifted_encoder_fwd(*k11, R=R, K=K),
-                 lambda: lifted_encoder_plain(*k11, R=R, K=K)),
-                ("decoder_mlp_fwd",
-                 lambda: decoder_mlp_fwd(*k9),
-                 lambda: decoder_mlp_plain(*k9))):
-            p1, k1_, k2_, p2 = (cuda_ms(pfn), cuda_ms(kfn), cuda_ms(kfn),
-                                cuda_ms(pfn))
-            results[name].update(ms=min(k1_, k2_), plain_ms=min(p1, p2))
-            print(f"phase 5: {name}: kernel {k1_:.4f} / {k2_:.4f} ms, plain "
-                  f"{p1:.4f} / {p2:.4f} ms (plain, kernel, kernel, plain)",
-                  flush=True)
+                 lambda *a: lifted_encoder_fwd(*a, R=R, K=K), k11,
+                 lambda *a: lifted_encoder_plain(*a, R=R, K=K), k11, None),
+                ("decoder_mlp_fwd", decoder_mlp_fwd, k9,
+                 decoder_mlp_plain, k9, None)):
+            time_kernel(results, name, "5", kfn, kargs, pfn, pargs, yard)
+        det3 = lambda *a: posterior_fwd(9, *a, deterministic=True)
+        results["posterior_fwd"]["det_ms"] = min(device_ms(det3, k3),
+                                                 device_ms(det3, k3))
+        print(f"phase 5: posterior_fwd deterministic: kernel "
+              f"{results['posterior_fwd']['det_ms']:.4f} ms (device time)",
+              flush=True)
         # the lift's yardsticks: the patch build, one cuBLAS bf16 GEMM P Wc
         # (what K11 computes in its body, without the epilogue), and the
         # conv tier's cuDNN lift conv with its copy into K1's rows
@@ -882,8 +1240,6 @@ def check_backward_kernels(torch, cfg, dev, k1, k3, k7, pose, k9, k11, h1,
         pose_decoder_bwd_plain, pose_decoder_plain)
     from targetvae_tpu_torch.kernels.mix_heads import (
         lift_act_mix_heads_bwd_plain, mix_heads_bwd)
-    from targetvae_tpu_torch.kernels.posterior import (
-        posterior_bwd, posterior_bwd_plain, posterior_fwd)
 
     R, K, zd = cfg.encoder.groupconv, cfg.encoder.kernels_num, cfg.encoder.z_dim
     gen = torch.Generator(device=dev).manual_seed(13)
@@ -918,41 +1274,10 @@ def check_backward_kernels(torch, cfg, dev, k1, k3, k7, pose, k9, k11, h1,
           f"rerun bitwise identical")
     results["mix_heads_bwd"] = {"max_abs_err": max_abs(got, ref)}
 
-    # K4 deterministic
+    # K4, then K3 and K4 at the other shapes the port takes
     g3 = rn(B, 2 * zd + 5)
-    got = posterior_bwd(7, g3, *k3, deterministic=True)
-    ref = posterior_bwd_plain(g3, *k3)
-    torch.cuda.synchronize()
-    err = max(float(((a - b).abs() / b.abs().clamp(min=1.0)).max())
-              for a, b in zip(got, ref))
-    abs4 = max_abs(got, ref)
-    check(finite(got) and err <= TOL_K4,
-          f"phase 6: K4 posterior_bwd deterministic {tuple(k3[0].shape)}: "
-          f"max err {err:.3e} (abs {abs4:.3e}) <= {TOL_K4} * max(1, |ref|)")
-    results["posterior_bwd"] = {"max_abs_err": abs4}
-
-    # K4 sampled: deterministic in the seed, split-invariant, and the
-    # derivative of K3's own forward at that seed
-    s1 = posterior_bwd(11, g3, *k3)
-    check(same(s1, posterior_bwd(11, g3, *k3)),
-          "phase 6: K4 sampled: same seed gives identical gradients")
-    h = B // 2
-    halves = [posterior_bwd(11 + i, g3[i:i + h], *(t[i:i + h] for t in k3[:5]),
-                            *k3[5:]) for i in (0, h)]
-    check(all(torch.equal(a, torch.cat([x[j] for x in halves]))
-              for j, a in enumerate(s1)),
-          "phase 6: K4 sampled: gradient rows identical for batch 100 vs "
-          "2 x 50 with the seed offset")
-    dirs = [rn(*t.shape) for t in k3[:5]]
-    step = 1e-2
-    fwd = lambda eps: posterior_fwd(
-        11, *[t + eps * d for t, d in zip(k3[:5], dirs)], *k3[5:]).double()
-    fd = float(((fwd(step) - fwd(-step)) * g3.double()).sum()) / (2 * step)
-    an = sum(float((a.double() * d.double()).sum()) for a, d in zip(s1, dirs))
-    check(abs(fd - an) <= TOL_K4_FD * max(abs(an), 1.0),
-          f"phase 6: K4 sampled: <grad, dir> {an:.6g} vs central difference "
-          f"of K3 at the same seed {fd:.6g} (step {step}): rel "
-          f"{abs(fd - an) / max(abs(an), 1.0):.3e} <= {TOL_K4_FD}")
+    check_posterior_bwd(torch, k3, g3, results, "flagship")
+    check_posterior_shapes(torch, cfg, dev)
 
     # K7 save-residuals mode, then K8 and the pose closure
     y, hs = fused_pose_decoder_tables(*k7, save_res=True)
@@ -1264,43 +1589,47 @@ def time_training(torch, cfg, k1, k3, k7, k9, k11, h1, cot, trainer, state,
     from targetvae_tpu_torch.kernels.mix_heads import (
         lift_act_mix_heads_bwd_plain, mix_heads_bwd, mix_heads_fwd)
     from targetvae_tpu_torch.kernels.posterior import (
-        posterior_bwd, posterior_bwd_plain)
+        philox_gumbel, posterior_bwd, posterior_bwd_plain)
 
     R, K = cfg.encoder.groupconv, cfg.encoder.kernels_num
     g1, g3, g7, hs, g11, g9 = cot
     bwd7 = (*k7[:4], hs, k7[5], k7[7], k7[9], g7)
     bwd11 = (k11[0], h1, *k11[3:6], g11)
     with torch.inference_mode():
-        for name, kfn, pfn in (
+        noise3 = philox_gumbel(9, B, R, k3[0].shape[1], k3[0].device)
+        for name, kfn, kargs, pfn, pargs, yard in (
                 ("mix_heads_bwd",
-                 lambda: mix_heads_bwd(*k1[:5], g1, R=R, K=K),
-                 lambda: lift_act_mix_heads_bwd_plain(*k1[:5], g1, R=R, K=K)),
+                 lambda *a: mix_heads_bwd(*a, R=R, K=K), (*k1[:5], g1),
+                 lambda *a: lift_act_mix_heads_bwd_plain(*a, R=R, K=K),
+                 (*k1[:5], g1), None),
                 ("posterior_bwd",
-                 lambda: posterior_bwd(9, g3, *k3),
-                 lambda: posterior_bwd_plain(g3, *k3, noise=k3[0])),
-                ("pose_decoder_bwd",
-                 lambda: pose_decoder_bwd(*bwd7),
-                 lambda: pose_decoder_bwd_plain(*bwd7)),
+                 lambda *a: posterior_bwd(9, g3, *a), k3,
+                 lambda *a: posterior_bwd_plain(g3, *a, noise=noise3), k3,
+                 (torch.neg, (k3[0],))),
+                ("pose_decoder_bwd", pose_decoder_bwd, bwd7,
+                 pose_decoder_bwd_plain, bwd7, None),
                 ("lifted_encoder_bwd",
-                 lambda: lifted_encoder_bwd(*bwd11, R=R, K=K),
-                 lambda: lifted_encoder_bwd_plain(*bwd11, R=R, K=K)),
-                ("decoder_mlp_bwd",
-                 lambda: decoder_mlp_bwd(*k9, g9),
-                 lambda: decoder_mlp_bwd_plain(*k9, g9))):
-            p1, k1_, k2_, p2 = (cuda_ms(pfn), cuda_ms(kfn), cuda_ms(kfn),
-                                cuda_ms(pfn))
-            results[name].update(ms=min(k1_, k2_), plain_ms=min(p1, p2))
-            print(f"phase 8: {name}: kernel {k1_:.4f} / {k2_:.4f} ms, plain "
-                  f"{p1:.4f} / {p2:.4f} ms (plain, kernel, kernel, plain)",
-                  flush=True)
-        for name, serve, save in (
-                ("pose_decoder_fwd", lambda: fused_pose_decoder_tables(*k7),
-                 lambda: fused_pose_decoder_tables(*k7, save_res=True)),
+                 lambda *a: lifted_encoder_bwd(*a, R=R, K=K), bwd11,
+                 lambda *a: lifted_encoder_bwd_plain(*a, R=R, K=K), bwd11,
+                 None),
+                ("decoder_mlp_bwd", decoder_mlp_bwd, (*k9, g9),
+                 decoder_mlp_bwd_plain, (*k9, g9), None)):
+            time_kernel(results, name, "8", kfn, kargs, pfn, pargs, yard)
+        det4 = lambda *a: posterior_bwd(9, g3, *a, deterministic=True)
+        results["posterior_bwd"]["det_ms"] = min(device_ms(det4, k3),
+                                                 device_ms(det4, k3))
+        print(f"phase 8: posterior_bwd deterministic: kernel "
+              f"{results['posterior_bwd']['det_ms']:.4f} ms (device time)",
+              flush=True)
+        for name, serve, save, args in (
+                ("pose_decoder_fwd", fused_pose_decoder_tables,
+                 lambda *a: fused_pose_decoder_tables(*a, save_res=True), k7),
                 ("lifted_encoder_fwd",
-                 lambda: lifted_encoder_fwd(*k11, R=R, K=K),
-                 lambda: lifted_encoder_fwd(*k11, R=R, K=K, save_h1=True))):
-            a1, b1, b2, a2 = (cuda_ms(serve), cuda_ms(save), cuda_ms(save),
-                              cuda_ms(serve))
+                 lambda *a: lifted_encoder_fwd(*a, R=R, K=K),
+                 lambda *a: lifted_encoder_fwd(*a, R=R, K=K, save_h1=True),
+                 k11)):
+            a1, b1, b2, a2 = (device_ms(serve, args), device_ms(save, args),
+                              device_ms(save, args), device_ms(serve, args))
             results[name]["save_ms"] = min(b1, b2)
             print(f"phase 8: {name} saving for the backward {b1:.4f} / "
                   f"{b2:.4f} ms vs serving {a1:.4f} / {a2:.4f} ms (serving, "
@@ -1321,7 +1650,8 @@ def time_training(torch, cfg, k1, k3, k7, k9, k11, h1, cot, trainer, state,
         # N) @ dpre1 (N x R K), beside K12's dWc pass
         dpre1 = mix_heads_bwd(*k1[:5], g1, R=R, K=K)[0]
         pt = k11[0]
-        dwc_ms = min(cuda_ms(lambda: pt.T @ dpre1), cuda_ms(lambda: pt.T @ dpre1))
+        mm = lambda a, b: a.T @ b
+        dwc_ms = min(device_ms(mm, (pt, dpre1)), device_ms(mm, (pt, dpre1)))
         results["lifted_encoder_bwd"]["dwc_gemm_cublas_ms"] = dwc_ms
         dwc_ops = 2 * pt.shape[0] * pt.shape[1] * dpre1.shape[1]
         print(f"phase 8: yardstick cuBLAS bf16 P^T ({pt.shape[1]} x "
@@ -1340,7 +1670,8 @@ def time_training(torch, cfg, k1, k3, k7, k9, k11, h1, cot, trainer, state,
         a16 = torch.randn((npx_all, F), generator=gen, device=u.device,
                           dtype=torch.bfloat16)
         w16 = k7[5].to(torch.bfloat16)
-        gemm = min(cuda_ms(lambda: a16 @ w16), cuda_ms(lambda: a16 @ w16))
+        gemm = min(device_ms(torch.matmul, (a16, w16)),
+                   device_ms(torch.matmul, (a16, w16)))
         del a16
         for name in ("pose_decoder_fwd", "pose_decoder_bwd",
                      "decoder_mlp_fwd", "decoder_mlp_bwd"):
@@ -1364,6 +1695,38 @@ def time_training(torch, cfg, k1, k3, k7, k9, k11, h1, cot, trainer, state,
               f"(bf16 train_step, B={B}, {step_ms:.3f} ms/step device time "
               f"incl. Adam; {wall_ms:.3f} ms/step host clock)", flush=True)
 
+    # the posterior stage: the device ops between the encoder kernel and K7,
+    # and between K8 and K2's or K12's chain, of the train step and of the
+    # eval batch (sampled), each tier
+    gen = torch.Generator().manual_seed(5)
+    stage = {}
+    for tier, tr, st in (("conv", trainer, state), ("patch", trainer_p,
+                                                     state_p)):
+        x_coord = tr.model.base_grid()
+        with encoder_tier(tier):
+            stage[tier + " train"] = posterior_stage(device_ops(
+                torch, lambda: tr.train_step(st, yb)))
+            with torch.inference_mode():
+                stage[tier + " eval"] = posterior_stage(device_ops(
+                    torch, lambda: tr.model.elbo(tr.model.params(), x_coord,
+                                                 yb, gen, torch.bfloat16)))
+    results["posterior_fwd"]["stage_ms"] = {
+        k: {n: v for n, v in st_.items() if n.endswith("_ms")}
+        for k, st_ in stage.items()}
+    check(all("fwd_ms" in v for v in stage.values())
+          and all("bwd_ms" in stage[t + " train"] for t in ("conv", "patch")),
+          "phase 8: posterior stage found in every profile (device ms a "
+          "call, forward: encoder kernel to K7; backward: K8 to K2/K12): "
+          + json.dumps({k: {n: round(v, 4) for n, v in st_.items()}
+                        for k, st_ in results["posterior_fwd"]["stage_ms"]
+                        .items()}))
+    for key in ("conv train", "patch eval"):
+        for part in ("fwd", "bwd"):
+            if part + "_ops" in stage[key]:
+                print(f"phase 8: posterior stage, {key}, {part} ops (name, "
+                      f"device ms a call, count a call): "
+                      + json.dumps(stage[key][part + "_ops"]), flush=True)
+
     # K1, K2, K11 and K12 once more with tanh, which every CLI's
     # --activation offers: K1 and K2 then take tanh of pre1 in their loader
     # warps and of pre2 in their epilogues, K11 and K12 in their epilogues
@@ -1372,15 +1735,13 @@ def time_training(torch, cfg, k1, k3, k7, k9, k11, h1, cot, trainer, state,
     with torch.inference_mode():
         k12_tanh = lambda: lifted_encoder_bwd(*bwd11, R=R, K=K,
                                               act_kind="tanh")
-        for name, fn in (
-                ("mix_heads_fwd",
-                 lambda: mix_heads_fwd(*k1, R=R, K=K, act_kind="tanh")),
-                ("mix_heads_bwd",
-                 lambda: mix_heads_bwd(*k1[:5], g1, R=R, K=K, act_kind="tanh")),
-                ("lifted_encoder_fwd",
-                 lambda: lifted_encoder_fwd(*k11, R=R, K=K, act_kind="tanh")),
-                ("lifted_encoder_bwd", k12_tanh)):
-            t1, t2 = cuda_ms(fn), cuda_ms(fn)
+        tanh = lambda f: lambda *a: f(*a, R=R, K=K, act_kind="tanh")
+        for name, fn, args in (
+                ("mix_heads_fwd", tanh(mix_heads_fwd), k1),
+                ("mix_heads_bwd", tanh(mix_heads_bwd), (*k1[:5], g1)),
+                ("lifted_encoder_fwd", tanh(lifted_encoder_fwd), k11),
+                ("lifted_encoder_bwd", tanh(lifted_encoder_bwd), bwd11)):
+            t1, t2 = device_ms(fn, args), device_ms(fn, args)
             results[name]["tanh_ms"] = min(t1, t2)
             print(f"phase 8: {name} tanh: kernel {t1:.4f} / {t2:.4f} ms",
                   flush=True)
@@ -1463,6 +1824,9 @@ def sp_kernel_checks(torch, cfg, dev, results) -> int:
                 torch.cuda.synchronize()
                 ef = per_unit(out, ref)
                 eb = max(per_unit(a, b) for a, b in zip(got, refb))
+                # the per-cell cotangents, each element to its own magnitude
+                sb = max(scaled_err(a, b, (-1,))
+                         for a, b in zip(got[:4], refb[:4]))
                 errs["fwd"] = max(errs["fwd"], float((out - ref).abs().max()))
                 errs["bwd"] = max(errs["bwd"], max(float((a - b).abs().max())
                                                    for a, b in zip(got, refb)))
@@ -1481,28 +1845,32 @@ def sp_kernel_checks(torch, cfg, dev, results) -> int:
                           f"theta, z and d_attn exactly 0 on its {pad} pads")
                     dead = f"{pad} pads"
                 check(bool(torch.isfinite(out).all()) and ef <= TOL_K5
-                      and eb <= TOL_K5 and torch.equal(out, again)
+                      and eb <= TOL_K5 and sb <= TOL_K4_SCALED
+                      and torch.equal(out, again)
                       and all(torch.equal(a, b) for a, b in zip(got, got2)),
                       f"phase 10: K5/K6 posterior_shard shard {i} "
                       f"{tuple(args[1].shape)} ({dead}, "
                       f"{'seeded noise' if noise else 'no noise'}): fwd max "
                       f"err {ef:.3e}, bwd {eb:.3e} <= {TOL_K5} * max(1, |ref|);"
-                      f" reruns bitwise identical")
+                      f" bwd's per-cell cotangents, each element {sb:.3e} <= "
+                      f"{TOL_K4_SCALED} * (|ref| + {K4_FLOOR} * max |ref|); "
+                      f"reruns bitwise identical")
         args = shards[0]
-        for name, kfn, pfn in (
+        # yardstick: one pass over as many bytes as the shard's inputs, a
+        # sum for K5, a negation (read and written) for K6
+        flat = torch.randn((B, sum(a.numel() for a in args) // B), device=dev)
+        for name, kfn, pfn, yard in (
                 ("posterior_shard_fwd",
-                 lambda: posterior_shard_fwd(*args, sig_r),
-                 lambda: posterior_shard_plain(*args, sig_r)),
+                 lambda *a: posterior_shard_fwd(*a, sig_r),
+                 lambda *a: posterior_shard_plain(*a, sig_r),
+                 (lambda x: x.sum(1), (flat,))),
                 ("posterior_shard_bwd",
-                 lambda: posterior_shard_bwd(*args, sig_r, g),
-                 lambda: posterior_shard_bwd_plain(*args, sig_r, g))):
-            p1, k1_, k2_, p2 = (cuda_ms(pfn), cuda_ms(kfn), cuda_ms(kfn),
-                                cuda_ms(pfn))
-            results[name] = {"max_abs_err": errs[name[-3:]],
-                             "ms": min(k1_, k2_), "plain_ms": min(p1, p2)}
-            print(f"phase 10: {name}: kernel {k1_:.4f} / {k2_:.4f} ms, plain "
-                  f"{p1:.4f} / {p2:.4f} ms (plain, kernel, kernel, plain)",
-                  flush=True)
+                 lambda *a: posterior_shard_bwd(*a, sig_r, g),
+                 lambda *a: posterior_shard_bwd_plain(*a, sig_r, g),
+                 (torch.neg, (flat,)))):
+            results[name] = {"max_abs_err": errs[name[-3:]]}
+            time_kernel(results, name, "10", kfn, args, pfn, args, yard)
+        del flat
     return args[1].shape[1]
 
 

@@ -63,6 +63,15 @@ __device__ __forceinline__ void mbar_wait(uint64_t* b, uint32_t parity) {
   } while (!done);
 }
 
+// ---- the cluster barrier, split: arrive early, wait where another CTA's
+// arrival (that it has started, or what it wrote before) is needed ----
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
 // ---- ordering between the threads' stores and the async proxy ----
 // after shared-memory stores that wgmma or a TMA store will read
 __device__ __forceinline__ void fence_async_smem() {
@@ -103,6 +112,16 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* m,
       " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(m)), "r"(smem_u32(bar)), "r"(c0), "r"(c1),
       "r"(c2) : "memory");
+}
+// global -> shared, `bytes` contiguous (a multiple of 16, both addresses
+// 16-byte aligned), completing on `bar` as transaction bytes
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
 }
 // shared -> global; rows outside the tensor are not written
 __device__ __forceinline__ void tma_store_3d(const CUtensorMap* m,

@@ -6,34 +6,64 @@
 //
 // Replaces the forward of targetvae_tpu/kernels/posterior.py::_call
 // (_fwd_kernel / _posterior_core), the Pallas kernel behind fused_posterior.
-// For each image, over its C = R*M cells (float32 throughout):
+// It reads the encoder's raw heads where K1 and K11 leave them: (B, M, R, D)
+// float32, D = 3 + 2 zd channels [attn, theta_mu, theta_logstd, z_mu (zd),
+// z_logstd (zd)], cell c = m R + r of image b (m-major, r-minor, the JAX
+// package's flatten). It adds the rotation prior p_r[r] to the logit and
+// the offset offs[r] to theta_mu itself, and takes the joint log-prior p_tr
+// (M, R) and the attention grid (M, 2). For each image, over its C = R M
+// cells (float32 throughout):
 //   q  = log_softmax(attn);  a = softmax(attn + Gumbel) or e^q (deterministic)
 //   dx = E_a[grid];  E_a[z_mu], E_a[z_std], E_a[theta_mu], E_a[theta_std]
 //   kl = sum e^q (q - p_tr) + sum e^q (KL_theta + sum_d KL_z)   [e^q == 0 guarded]
 // and writes 2*zd + 5 scalars per image:
 //   [z_mu_e (zd), z_std_e (zd), theta_mu_e, theta_std_e, dx0, dx1, kl].
 //
-// What bounds it on the H100: memory and latency. At the flagship shape
-// (B = 100, R = 8, M = 39*39, zd = 2) the inputs are ~34 MB, read in three
-// passes of which the later ones hit L2, and the arithmetic is a few hundred
-// flops per cell; one image's reductions are a chain of block-wide syncs.
+// What bounds it on the H100: memory. At the flagship shape (B = 100,
+// R = 8, M = 39*39, zd = 2) the heads are 34 MB (>= 0.010 ms at 3.35
+// TB/s); the arithmetic, one Philox draw and ~60 float32 operations a cell,
+// takes a few microseconds over the card.
 //
-// Design: one block of 512 threads per image, strided over its cells; block
-// reductions (warp shuffles, then shared memory) give the max, the two
-// normalisers and the 2*zd + 6 weighted sums, so only per-image scalars
-// leave the chip. The Gumbel noise comes from a hand-written Philox4x32-10
-// keyed by (seed + image index, 0) with the cell index as counter, and is
-// recomputed in each pass instead of stored, so a row depends only on its
-// image's inputs and seed: splitting a batch and offsetting the seed gives
-// the same rows. The uniform takes the top 23 bits as a [1, 2) mantissa
-// minus 1 and is clipped to [1e-20, 1 - 1e-7], as the TPU kernel does.
+// Design: one thread-block cluster an image (Hopper's clusters and
+// distributed shared memory). The image's cells are cut into chunks of a
+// multiple of 4 cells, one a CTA (4 CTAs of 3,044 cells at the flagship).
+// Each CTA streams its chunk, with the chunk's p_tr, through a ring of 4
+// stages of 256 cells in shared memory, each stage one pair of 1-D bulk
+// copies completing on an mbarrier (the wrapper hands it 16-byte aligned
+// heads), so every byte is read from device memory once. Each
+// thread takes one cell a stage, draws its Gumbel noise once, and keeps a
+// running sum of it in one pass, flash-attention style: q's and the
+// sample's largest logit so far, the two normalisers and the 2 zd + 6
+// weighted sums, rescaled whenever a larger logit arrives. A cell counts as
+// dead (its moments guarded) when its weight under the thread's running
+// maximum underflows; under the image's maximum its weight is then smaller
+// still, so such a cell adds nothing either way. The warps' and then the
+// CTA's sums merge by xor butterflies of rescaled sums, every CTA writes
+// its sums into rank 0's shared memory, and rank 0 merges the ranks' in
+// rank order and writes the image's scalars: one cluster barrier an image,
+// and no pass waits on another CTA. (Holding whole chunks in shared memory
+// instead, as K4 does, takes 34 MB of the card's 30 MB at B = 100: two
+// waves of CTAs that each load, compute and meet in turn.) The noise is a
+// hand-written Philox4x32-10 keyed by (seed + image index, 0) with counter
+// r M + m, so a row depends only on its image's inputs and seed: splitting
+// a batch and offsetting the seed gives the same rows. The uniform takes
+// the top 23 bits as a [1, 2) mantissa minus 1 and is clipped to
+// [1e-20, 1 - 1e-7], as the TPU kernel does. No atomics: a rerun is
+// bitwise equal.
+#include <cooperative_groups.h>
+
 #include "common.cuh"
+#include "hopper.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int THREADS = 512;
+constexpr int THREADS = 512;     // a K5/K6 block
 constexpr int WARPS = THREADS / 32;
+constexpr int PT = 256;          // a K3/K4 CTA
 constexpr int MAXZD = 8;
+constexpr int MAXR = 16;
 constexpr int NACC = 2 * MAXZD + 6;
 constexpr float EPS = 1e-6f;
 
@@ -61,20 +91,10 @@ __device__ __forceinline__ float gumbel(uint32_t cell, uint32_t seed) {
   return -logf(-logf(u));
 }
 
-// max over the block of one value per thread; red holds >= WARPS floats
-__device__ float block_max(float v, float* red) {
-  for (int o = 16; o; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  float r = red[0];
-  for (int w = 1; w < WARPS; ++w) r = fmaxf(r, red[w]);
-  __syncthreads();
-  return r;
-}
-
-// sums over the block of n values per thread; result in out[0..n)
-__device__ __forceinline__ void block_sum(float* v, int n, float* red,
+// sums over the block (NT threads) of n values per thread; result in
+// out[0..n); red holds >= NT / 32 * NACC floats
+template <int NT>
+__device__ __forceinline__ void block_sum(const float* v, int n, float* red,
                                           float* out) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 #pragma unroll
@@ -88,7 +108,7 @@ __device__ __forceinline__ void block_sum(float* v, int n, float* red,
   __syncthreads();
   if ((int)threadIdx.x < n) {
     float s = 0.f;
-    for (int w = 0; w < WARPS; ++w) s += red[w * NACC + threadIdx.x];
+    for (int w = 0; w < NT / 32; ++w) s += red[w * NACC + threadIdx.x];
     out[threadIdx.x] = s;
   }
   __syncthreads();
@@ -134,92 +154,550 @@ __device__ __forceinline__ void z_grads(float g_mu, float g_std, float a,
   *d_ls = d_std * (std - EPS);
 }
 
-__global__ void __launch_bounds__(THREADS) posterior_fwd_kernel(
-    const float* __restrict__ attn, const float* __restrict__ th_mu,
-    const float* __restrict__ th_ls, const float* __restrict__ z_mu,
-    const float* __restrict__ z_ls, const float* __restrict__ p_tr,
-    const float* __restrict__ gx, const float* __restrict__ gy,
-    const float* __restrict__ offs, float* __restrict__ out, int R, int M,
-    int zd, float sig_r, int deterministic, uint32_t seed) {
-  __shared__ float red[WARPS * NACC];
-  __shared__ float tot[NACC];
-  const int b = blockIdx.x;
-  const int C = R * M;
-  const float* at = attn + (size_t)b * C;
-  const float* tm = th_mu + (size_t)b * C;
-  const float* tl = th_ls + (size_t)b * C;
-  const float* zm = z_mu + (size_t)b * zd * C;
-  const float* zl = z_ls + (size_t)b * zd * C;
-  const uint32_t key = seed + (uint32_t)b;
+// ---- K3 / K4 ----
 
-  // pass 1: maxima of the logits and of the perturbed logits
-  float m = -INFINITY, ma = -INFINITY;
-  for (int c = threadIdx.x; c < C; c += THREADS) {
-    m = fmaxf(m, at[c]);
-    if (!deterministic) ma = fmaxf(ma, at[c] + gumbel(c, key));
+constexpr int NPIECE = 4;        // bulk copies a chunk arrives in
+
+// The float32 math of K3/K4's cells on the SFU's approximations (__expf,
+// __logf; reciprocals instead of divisions): within a few ulps of the
+// plain version's, far inside TOL_K3. The Gumbel noise keeps logf, so that
+// it matches philox_gumbel's torch.log to an ulp.
+// KL(N(mu, std) || N(off, sig_r)); log_sig_r = log sig_r,
+// inv2s2 = 1 / (2 sig_r^2)
+__device__ __forceinline__ float kl_theta_f(float mu, float std, float off,
+                                            float log_sig_r, float inv2s2,
+                                            bool live) {
+  const float m = live ? mu : 0.f;
+  const float s = live ? std : 1.f;
+  const float dm = m - off;
+  return log_sig_r - __logf(s) + (s * s + dm * dm) * inv2s2 - 0.5f;
+}
+
+// KL(N(mu, std) || N(0, 1))
+__device__ __forceinline__ float kl_unit_f(float mu, float std, bool live) {
+  const float m = live ? mu : 0.f;
+  const float s = live ? std : 1.f;
+  return -__logf(s) + 0.5f * (s * s + m * m) - 0.5f;
+}
+
+// theta_grads with inv_s2 = 1 / sig_r^2
+__device__ __forceinline__ void theta_grads_f(float g_mu, float g_std,
+                                              float a, float scale, bool live,
+                                              float mu, float std, float off,
+                                              float inv_s2, float* d_mu,
+                                              float* d_ls) {
+  *d_mu = g_mu * a + (live ? scale * (mu - off) * inv_s2 : 0.f);
+  const float d_std =
+      g_std * a + (live ? scale * (std * inv_s2 - __frcp_rn(std)) : 0.f);
+  *d_ls = d_std * (std - EPS);
+}
+
+// z_grads
+__device__ __forceinline__ void z_grads_f(float g_mu, float g_std, float a,
+                                          float scale, bool live, float mu,
+                                          float std, float* d_mu,
+                                          float* d_ls) {
+  *d_mu = g_mu * a + (live ? scale * mu : 0.f);
+  const float d_std =
+      g_std * a + (live ? scale * (std - __frcp_rn(std)) : 0.f);
+  *d_ls = d_std * (std - EPS);
+}
+
+// One launch of K3 or K4: CTA `rank` of image b's cluster takes the cells
+// [rank chunk, min(C, (rank + 1) chunk)), at most `sub` of them in shared
+// memory at a time. The heads, p_tr and K4's output are 16-byte aligned
+// and every chunk and sub-chunk holds a multiple of 4 cells (post_args), so
+// each piece of cells is a whole number of 16-byte bulk copies.
+struct PostArgs {
+  const float* heads;   // (B, M, R, D)
+  const float* p_r;     // (R,)
+  const float* offs;    // (R,)
+  const float* p_tr;    // (M, R)
+  const float* grid;    // (M, 2)
+  const float* g;       // K4: (B, 2 zd + 5)
+  float* out;           // K3: (B, 2 zd + 5); K4: (B, M, R, D)
+  int R, log2r, M, zd, chunk, sub;
+  float sig_r;
+  uint32_t seed;
+};
+
+// This CTA's share of its image's cells.
+struct Chunk {
+  int b, rank, c0, n, nsub;
+  const float* src;     // the heads of cell c0
+  uint32_t key;
+};
+
+__device__ __forceinline__ Chunk make_chunk(const PostArgs& p,
+                                            const cg::cluster_group& cl) {
+  const int C = p.R * p.M, D = 3 + 2 * p.zd;
+  Chunk k;
+  k.rank = (int)cl.block_rank();
+  k.b = blockIdx.x / cl.num_blocks();
+  k.c0 = k.rank * p.chunk;
+  k.n = max(0, min(C, k.c0 + p.chunk) - k.c0);
+  k.nsub = (k.n + p.sub - 1) / p.sub;
+  k.src = p.heads + ((size_t)k.b * C + k.c0) * D;
+  k.key = p.seed + (uint32_t)k.b;
+  return k;
+}
+
+// The rotation prior and offsets into shared memory, the mbarriers ready.
+__device__ __forceinline__ void setup(const PostArgs& p, float* prs,
+                                      float* ofs, uint64_t* bar) {
+  if ((int)threadIdx.x < p.R) {
+    prs[threadIdx.x] = p.p_r[threadIdx.x];
+    ofs[threadIdx.x] = p.offs[threadIdx.x];
   }
-  m = block_max(m, red);
-  if (!deterministic) ma = block_max(ma, red);
-
-  // pass 2: the two normalisers
-  float v[NACC];
-  v[0] = 0.f;
-  v[1] = 0.f;
-  for (int c = threadIdx.x; c < C; c += THREADS) {
-    v[0] += expf(at[c] - m);
-    if (!deterministic) v[1] += expf(at[c] + gumbel(c, key) - ma);
+  if (threadIdx.x == 0) {
+    for (int j = 0; j < NPIECE; ++j) mbar_init(&bar[j], 1);
+    mbar_init_fence();
   }
-  block_sum(v, 2, red, tot);
-  const float s = tot[0], sa = tot[1];
-  const float log_s = logf(s);
-  const float inv2s2 = 1.f / (2.f * sig_r * sig_r);
+  __syncthreads();
+}
 
-  // pass 3: expectations under a, KL under e^q
-  // v: [z_mu_e (MAXZD) | z_std_e (MAXZD) | th_mu_e, th_std_e, dx0, dx1, val1, val2]
-#pragma unroll
-  for (int j = 0; j < NACC; ++j) v[j] = 0.f;
-  for (int c = threadIdx.x; c < C; c += THREADS) {
-    const int r = c / M, mm = c - r * M;
-    const float sh = at[c] - m;
-    const float eq = expf(sh) / s;
-    const float q = sh - log_s;
-    const float a =
-        deterministic ? eq : expf(at[c] + gumbel(c, key) - ma) / sa;
-    const bool live = !(eq == 0.f);
-    const float thm = tm[c];
-    const float ths = expf(tl[c]) + EPS;
-    v[2 * MAXZD + 0] += a * thm;
-    v[2 * MAXZD + 1] += a * ths;
-    v[2 * MAXZD + 2] += a * gx[mm];
-    v[2 * MAXZD + 3] += a * gy[mm];
-    const float kl_th = kl_theta(thm, ths, offs[r], sig_r, inv2s2, live);
-    float kl_z = 0.f;
-#pragma unroll
-    for (int d = 0; d < MAXZD; ++d) {
-      if (d < zd) {
-        const float zmv = zm[(size_t)d * C + c];
-        const float zs = expf(zl[(size_t)d * C + c]) + EPS;
-        v[d] += a * zmv;
-        v[MAXZD + d] += a * zs;
-        kl_z += kl_unit(zmv, zs, live);
+// The Gumbel noise of cell c (m-major, r-minor) of the image keyed `key`:
+// counter r M + m.
+__device__ __forceinline__ float cell_noise(const PostArgs& p, int c,
+                                            uint32_t key) {
+  return gumbel((uint32_t)((c & (p.R - 1)) * p.M + (c >> p.log2r)), key);
+}
+
+// The cells of each of a load's NPIECE pieces: a multiple of PT (and so
+// of 4), so that each piece's cells fall evenly on the threads.
+__device__ __forceinline__ int piece_cells(int n) {
+  return ((n + NPIECE - 1) / NPIECE + PT - 1) / PT * PT;
+}
+
+// Starts the copy of n cells (D floats each) from src into sm: NPIECE bulk
+// copies, piece j (cells [j q, (j + 1) q), q = piece_cells(n)) completing
+// on bar[j] (an empty piece arrives at once).
+__device__ __forceinline__ void start_load(const float* src, float* sm, int n,
+                                           int D, uint64_t* bar) {
+  if (threadIdx.x == 0) {
+    const int q = piece_cells(n);
+    for (int j = 0; j < NPIECE; ++j) {
+      const int lo = min(n, j * q), hi = min(n, lo + q);
+      const uint32_t bytes = (uint32_t)(hi - lo) * D * 4u;
+      if (bytes) {
+        mbar_expect_tx(&bar[j], bytes);
+        bulk_load(sm + (size_t)lo * D, src + (size_t)lo * D, bytes, &bar[j]);
+      } else {
+        mbar_arrive(&bar[j]);
       }
     }
-    v[2 * MAXZD + 4] += eq * (q - p_tr[c]);
-    v[2 * MAXZD + 5] += eq * (kl_th + kl_z);
   }
-  block_sum(v, NACC, red, tot);
+}
 
-  if (threadIdx.x == 0) {
-    float* o = out + (size_t)b * (2 * zd + 5);
-    for (int d = 0; d < zd; ++d) {
-      o[d] = tot[d];
-      o[zd + d] = tot[MAXZD + d];
+// start_load, then waits for all of it.
+__device__ __forceinline__ void load_all(const float* src, float* sm, int n,
+                                         int D, uint64_t* bar, uint32_t* ph) {
+  start_load(src, sm, n, D, bar);
+  for (int j = 0; j < NPIECE; ++j) mbar_wait(&bar[j], *ph);
+  *ph ^= 1u;
+}
+
+// nf floats (a multiple of 4) from sm to the 16-byte aligned dst in
+// coalesced 16-byte stores.
+__device__ __forceinline__ void store_cells(float* dst, const float* sm,
+                                            int nf) {
+  float4* d4 = reinterpret_cast<float4*>(dst);
+  const float4* s4 = reinterpret_cast<const float4*>(sm);
+  for (int i = threadIdx.x; i < nf / 4; i += PT) d4[i] = s4[i];
+}
+
+// An online log-sum-exp: the largest logit m and the sum s of exp(x - m).
+struct Lse {
+  float m, s;
+};
+
+__device__ __forceinline__ void lse_add(Lse& l, float x) {
+  if (x > l.m) {
+    l.s = l.s * __expf(l.m - x) + 1.f;
+    l.m = x;
+  } else {
+    l.s += __expf(x - l.m);
+  }
+}
+
+// The warp's pairs merged: the largest m, then every lane's s rescaled to
+// it and summed, by xor butterflies, so that every lane holds bitwise the
+// same pair and a rerun gives the same bits.
+__device__ __forceinline__ Lse warp_lse(Lse l) {
+  float m = l.m;
+  for (int o = 16; o; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+  float s = l.m == -INFINITY ? 0.f : l.s * expf(l.m - m);
+  for (int o = 16; o; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+  return Lse{m, s};
+}
+
+// The CTA's pairs (q's and the sample's) from every thread's: each warp's,
+// then warp 0 merges the warps'; valid in every thread on return. red
+// holds >= PT / 8 floats.
+__device__ void block_lse(Lse* lq, Lse* la, float* red) {
+  const Lse q = warp_lse(*lq), a = warp_lse(*la);
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (lane == 0) {
+    red[4 * w] = q.m;
+    red[4 * w + 1] = q.s;
+    red[4 * w + 2] = a.m;
+    red[4 * w + 3] = a.s;
+  }
+  __syncthreads();
+  if (w == 0) {
+    const bool in = lane < PT / 32;
+    const Lse bq = warp_lse(in ? Lse{red[4 * lane], red[4 * lane + 1]}
+                               : Lse{-INFINITY, 0.f});
+    const Lse ba = warp_lse(in ? Lse{red[4 * lane + 2], red[4 * lane + 3]}
+                               : Lse{-INFINITY, 0.f});
+    if (lane == 0) {
+      red[0] = bq.m;
+      red[1] = bq.s;
+      red[2] = ba.m;
+      red[3] = ba.s;
     }
-    o[2 * zd + 0] = tot[2 * MAXZD + 0];
-    o[2 * zd + 1] = tot[2 * MAXZD + 1];
-    o[2 * zd + 2] = tot[2 * MAXZD + 2];
-    o[2 * zd + 3] = tot[2 * MAXZD + 3];
-    o[2 * zd + 4] = tot[2 * MAXZD + 4] + tot[2 * MAXZD + 5];
+  }
+  __syncthreads();
+  *lq = Lse{red[0], red[1]};
+  *la = Lse{red[2], red[3]};
+  __syncthreads();
+}
+
+// Loads the CTA's cells (each sub-chunk in turn, its pieces as they land),
+// draws their noise into nz (only the last sub-chunk's stays), and returns
+// the CTA's pairs of q's and the sample's logits.
+template <bool DET>
+__device__ void chunk_stats(const PostArgs& p, const Chunk& k, float* sm,
+                            float* nz, const float* prs, uint64_t* bar,
+                            uint32_t* ph, float* red, Lse* oq, Lse* oa) {
+  const int D = 3 + 2 * p.zd;
+  Lse lq{-INFINITY, 0.f}, la{-INFINITY, 0.f};
+  for (int j = 0; j < k.nsub; ++j) {
+    const int cj = j * p.sub, nj = min(p.sub, k.n - cj);
+    if (j) __syncthreads();
+    start_load(k.src + (size_t)cj * D, sm, nj, D, bar);
+    const int q = piece_cells(nj);
+    for (int pc = 0; pc < NPIECE; ++pc) {
+      mbar_wait(&bar[pc], *ph);
+      const int hi = min(nj, (pc + 1) * q);
+      for (int i = pc * q + threadIdx.x; i < hi; i += PT) {
+        const int c = k.c0 + cj + i;
+        const float x = sm[i * D] + prs[c & (p.R - 1)];
+        lse_add(lq, x);
+        if (!DET) {
+          const float gn = cell_noise(p, c, k.key);
+          nz[i] = gn;
+          lse_add(la, x + gn);
+        }
+      }
+    }
+    *ph ^= 1u;
+  }
+  block_lse(&lq, &la, red);
+  *oq = lq;
+  *oa = la;
+}
+
+// The image's normalisers from every CTA's pairs: each CTA publishes its
+// pairs, the cluster meets, and warp 0 of every CTA reads all ranks' at
+// once and merges them as block_lse does, so that every CTA holds bitwise
+// the same nrm = [m_q, s_q, m_a, s_a]. After it every CTA of the cluster has
+// started, so that another's shared memory may be written.
+__device__ void exchange_norms(const cg::cluster_group& cl, Lse q, Lse a,
+                               float* xch, float* nrm) {
+  if (threadIdx.x == 0) {
+    xch[0] = q.m;
+    xch[1] = q.s;
+    xch[2] = a.m;
+    xch[3] = a.s;
+  }
+  cl.sync();
+  if (threadIdx.x < 32) {
+    const int lane = threadIdx.x;
+    Lse rq{-INFINITY, 0.f}, ra{-INFINITY, 0.f};
+    if (lane < (int)cl.num_blocks()) {
+      const float* x = cl.map_shared_rank(xch, lane);
+      rq = Lse{x[0], x[1]};
+      ra = Lse{x[2], x[3]};
+    }
+    rq = warp_lse(rq);
+    ra = warp_lse(ra);
+    if (lane == 0) {
+      nrm[0] = rq.m;
+      nrm[1] = rq.s;
+      nrm[2] = ra.m;
+      nrm[3] = ra.s;
+    }
+  }
+  __syncthreads();
+}
+
+// Sends v[0..n) (thread j holding v[j]) of this CTA, rank `rank`, into
+// gather[rank n + j] of every CTA of the cluster, and meets the cluster; on
+// return every CTA's gather holds every rank's values. Needs every CTA
+// started (exchange_norms).
+__device__ __forceinline__ void push_partials(const cg::cluster_group& cl,
+                                              const float* v, int n, int rank,
+                                              float* gather) {
+  if ((int)threadIdx.x < n) {
+    for (int r = 0; r < (int)cl.num_blocks(); ++r)
+      cl.map_shared_rank(gather, r)[rank * n + threadIdx.x] = v[threadIdx.x];
+  }
+  cl.sync();
+}
+
+// tot[j] = the sum in rank order of the cs ranks' gather[r n + j], j < n.
+__device__ __forceinline__ void sum_gathered(const float* gather, int cs,
+                                             int n, float* tot) {
+  if ((int)threadIdx.x < n) {
+    float t = 0.f;
+    for (int r = 0; r < cs; ++r) t += gather[r * n + threadIdx.x];
+    tot[threadIdx.x] = t;
+  }
+  __syncthreads();
+}
+
+// K3's running sums over some cells (of a thread, a CTA, a cluster): q's
+// largest logit mq and sq = sum e^(x - mq), P = sum e^(x - mq) (x - p_tr)
+// and K = sum e^(x - mq) (KL_theta + sum_d KL_z); the sample's largest
+// logit ma, sa = sum e^(x + g - ma) and f = sum e^(x + g - ma) [z_mu (ZD) |
+// z_std (ZD) | theta_mu, theta_std, gx, gy] (deterministic: the sample is
+// q, f takes q's weights, ma and sa stay unused).
+template <int ZD>
+struct Run {
+  static constexpr int NF = 2 * ZD + 4;
+  static constexpr int N = 6 + NF;   // floats, as run_store writes them
+  float mq, sq, P, K, ma, sa, f[NF];
+};
+
+template <int ZD>
+__device__ __forceinline__ Run<ZD> run_empty() {
+  Run<ZD> u;
+  u.mq = u.ma = -INFINITY;
+  u.sq = u.P = u.K = u.sa = 0.f;
+#pragma unroll
+  for (int j = 0; j < Run<ZD>::NF; ++j) u.f[j] = 0.f;
+  return u;
+}
+
+// Scales the sums under the sample's weights (DET: q's) to the largest
+// logit m; then run_rescale_q moves q's. e^(old - m), 0 while empty.
+template <int ZD, bool DET>
+__device__ __forceinline__ void run_rescale_a(Run<ZD>& u, float m) {
+  const float old = DET ? u.mq : u.ma;
+  const float t = old == -INFINITY ? 0.f : expf(old - m);
+  if (!DET) {
+    u.sa *= t;
+    u.ma = m;
+  }
+#pragma unroll
+  for (int j = 0; j < Run<ZD>::NF; ++j) u.f[j] *= t;
+}
+
+template <int ZD>
+__device__ __forceinline__ void run_rescale_q(Run<ZD>& u, float m) {
+  const float t = u.mq == -INFINITY ? 0.f : expf(u.mq - m);
+  u.sq *= t;
+  u.P *= t;
+  u.K *= t;
+  u.mq = m;
+}
+
+// Rescales u to the logits mq and ma (both at least u's).
+template <int ZD, bool DET>
+__device__ __forceinline__ void run_rescale(Run<ZD>& u, float mq, float ma) {
+  run_rescale_a<ZD, DET>(u, DET ? mq : ma);
+  run_rescale_q(u, mq);
+}
+
+// u += v, both rescaled to the larger logits first.
+template <int ZD, bool DET>
+__device__ __forceinline__ void run_merge(Run<ZD>& u, Run<ZD> v) {
+  const float mq = fmaxf(u.mq, v.mq), ma = fmaxf(u.ma, v.ma);
+  if (mq == -INFINITY) return;
+  run_rescale<ZD, DET>(u, mq, ma);
+  run_rescale<ZD, DET>(v, mq, ma);
+  u.sq += v.sq;
+  u.P += v.P;
+  u.K += v.K;
+  u.sa += v.sa;
+#pragma unroll
+  for (int j = 0; j < Run<ZD>::NF; ++j) u.f[j] += v.f[j];
+}
+
+// The warp's runs merged: the largest logits by a max butterfly, every
+// lane's sums rescaled to them and added by xor butterflies, so that every
+// lane holds bitwise the same run.
+template <int ZD, bool DET>
+__device__ __forceinline__ Run<ZD> warp_run(Run<ZD> u) {
+  float mq = u.mq, ma = u.ma;
+  for (int o = 16; o; o >>= 1) {
+    mq = fmaxf(mq, __shfl_xor_sync(0xffffffffu, mq, o));
+    ma = fmaxf(ma, __shfl_xor_sync(0xffffffffu, ma, o));
+  }
+  run_rescale<ZD, DET>(u, mq, ma);
+  for (int o = 16; o; o >>= 1) {
+    u.sq += __shfl_xor_sync(0xffffffffu, u.sq, o);
+    u.P += __shfl_xor_sync(0xffffffffu, u.P, o);
+    u.K += __shfl_xor_sync(0xffffffffu, u.K, o);
+    u.sa += __shfl_xor_sync(0xffffffffu, u.sa, o);
+#pragma unroll
+    for (int j = 0; j < Run<ZD>::NF; ++j)
+      u.f[j] += __shfl_xor_sync(0xffffffffu, u.f[j], o);
+  }
+  return u;
+}
+
+template <int ZD>
+__device__ __forceinline__ void run_store(const Run<ZD>& u, float* dst) {
+  dst[0] = u.mq;
+  dst[1] = u.sq;
+  dst[2] = u.P;
+  dst[3] = u.K;
+  dst[4] = u.ma;
+  dst[5] = u.sa;
+#pragma unroll
+  for (int j = 0; j < Run<ZD>::NF; ++j) dst[6 + j] = u.f[j];
+}
+
+template <int ZD>
+__device__ __forceinline__ Run<ZD> run_load(const float* src) {
+  Run<ZD> u;
+  u.mq = src[0];
+  u.sq = src[1];
+  u.P = src[2];
+  u.K = src[3];
+  u.ma = src[4];
+  u.sa = src[5];
+#pragma unroll
+  for (int j = 0; j < Run<ZD>::NF; ++j) u.f[j] = src[6 + j];
+  return u;
+}
+
+constexpr int NST = 4;            // K3's ring: stages of PT cells, one a thread
+constexpr int MAXRUN = 6 + 2 * MAXZD + 4;
+
+// K3's ring stage s: PT cells of heads, then their PT p_tr values.
+__device__ __forceinline__ float* stage_at(float* ring, int s, int D) {
+  return ring + (size_t)s * PT * (D + 1);
+}
+
+// Starts the copy of piece j (cells [j PT, min(n, (j + 1) PT)) of the
+// CTA's chunk: heads and p_tr) into its ring stage, completing on
+// full[j % NST].
+__device__ __forceinline__ void k3_fetch(const PostArgs& p, const Chunk& k,
+                                         int j, float* ring, uint64_t* full,
+                                         int D) {
+  if (threadIdx.x != 0) return;
+  const int lo = j * PT, nc = min(PT, k.n - lo);
+  float* st = stage_at(ring, j % NST, D);
+  const uint32_t hb = (uint32_t)nc * D * 4u, pb = (uint32_t)nc * 4u;
+  mbar_expect_tx(&full[j % NST], hb + pb);
+  bulk_load(st, k.src + (size_t)lo * D, hb, &full[j % NST]);
+  bulk_load(st + PT * D, p.p_tr + k.c0 + lo, pb, &full[j % NST]);
+}
+
+// K3 (the design in this file's first comment): each thread keeps a Run
+// over its cells, one a ring stage, as the CTA streams its chunk through
+// the ring; the CTA's Run goes into rank 0's shared memory, and rank 0
+// merges the ranks' in rank order and writes the image's 2 zd + 5 scalars.
+template <int ZD, bool DET>
+__global__ void __launch_bounds__(PT, 4) posterior_fwd_kernel(const PostArgs p) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ uint64_t full[NST];
+  __shared__ float red[PT / 32 * MAXRUN], gather[16 * MAXRUN], prs[MAXR],
+      ofs[MAXR];
+  constexpr int D = 3 + 2 * ZD, NR = Run<ZD>::N;
+  const cg::cluster_group cl = cg::this_cluster();
+  cluster_arrive_relaxed();   // this CTA has started
+  const Chunk k = make_chunk(p, cl);
+  const int npieces = (k.n + PT - 1) / PT;
+  if ((int)threadIdx.x < p.R) {
+    prs[threadIdx.x] = p.p_r[threadIdx.x];
+    ofs[threadIdx.x] = p.offs[threadIdx.x];
+  }
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < NST; ++s) mbar_init(&full[s], 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  for (int j = 0; j < min(NST, npieces); ++j)
+    k3_fetch(p, k, j, smem, full, D);
+  const float log_sig_r = logf(p.sig_r);
+  const float inv2s2 = 1.f / (2.f * p.sig_r * p.sig_r);
+
+  Run<ZD> u = run_empty<ZD>();
+  for (int j = 0; j < npieces; ++j) {
+    mbar_wait(&full[j % NST], (uint32_t)(j / NST) & 1u);
+    const int i = threadIdx.x;
+    if (j * PT + i < k.n) {
+      const float* st = stage_at(smem, j % NST, D);
+      const float* h = st + i * D;
+      const int c = k.c0 + j * PT + i, r = c & (p.R - 1), mm = c >> p.log2r;
+      const float x = h[0] + prs[r];
+      if (x > u.mq) {
+        if (DET) run_rescale_a<ZD, true>(u, x);
+        run_rescale_q(u, x);
+      }
+      const float w = __expf(x - u.mq);
+      const bool live = !(w == 0.f);
+      const float thm = h[1] + ofs[r];
+      const float ths = __expf(h[2]) + EPS;
+      float kl = kl_theta_f(thm, ths, ofs[r], log_sig_r, inv2s2, live);
+      float zs[ZD];
+#pragma unroll
+      for (int d = 0; d < ZD; ++d) {
+        zs[d] = __expf(h[3 + ZD + d]) + EPS;
+        kl += kl_unit_f(h[3 + d], zs[d], live);
+      }
+      u.sq += w;
+      u.P += w * (x - st[PT * D + i]);
+      u.K += w * kl;
+      float wa = w;
+      if (!DET) {
+        const float xa = x + cell_noise(p, c, k.key);
+        if (xa > u.ma) run_rescale_a<ZD, false>(u, xa);
+        wa = __expf(xa - u.ma);
+        u.sa += wa;
+      }
+#pragma unroll
+      for (int d = 0; d < ZD; ++d) {
+        u.f[d] += wa * h[3 + d];
+        u.f[ZD + d] += wa * zs[d];
+      }
+      u.f[2 * ZD + 0] += wa * thm;
+      u.f[2 * ZD + 1] += wa * ths;
+      u.f[2 * ZD + 2] += wa * __ldg(p.grid + 2 * mm);
+      u.f[2 * ZD + 3] += wa * __ldg(p.grid + 2 * mm + 1);
+    }
+    __syncthreads();   // every thread is done with the stage
+    if (j + NST < npieces) k3_fetch(p, k, j + NST, smem, full, D);
+  }
+
+  // the CTA's run: the warps', then warp 0 merges them and, once every CTA
+  // of the cluster has started, writes it into rank 0's shared memory
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  Run<ZD> t = warp_run<ZD, DET>(u);
+  if (lane == 0) run_store(t, red + w * NR);
+  __syncthreads();
+  if (w == 0) {
+    t = warp_run<ZD, DET>(lane < PT / 32 ? run_load<ZD>(red + lane * NR)
+                                         : run_empty<ZD>());
+    cluster_wait();
+    if (lane == 0) run_store(t, cl.map_shared_rank(gather, 0) + k.rank * NR);
+  } else {
+    cluster_wait();
+  }
+  cl.sync();
+  if (k.rank == 0 && threadIdx.x == 0) {
+    Run<ZD> a = run_load<ZD>(gather);
+    for (int r = 1; r < (int)cl.num_blocks(); ++r)
+      run_merge<ZD, DET>(a, run_load<ZD>(gather + r * NR));
+    const float inv_sa = 1.f / (DET ? a.sq : a.sa);
+    float* o = p.out + (size_t)k.b * (2 * ZD + 5);
+#pragma unroll
+    for (int j = 0; j < 2 * ZD + 4; ++j) o[j] = a.f[j] * inv_sa;
+    o[2 * ZD + 4] = (a.P / a.sq - (a.mq + logf(a.sq))) + a.K / a.sq;
   }
 }
 
@@ -228,123 +706,145 @@ __global__ void __launch_bounds__(THREADS) posterior_fwd_kernel(
 // Replaces the backward of targetvae_tpu/kernels/posterior.py::_call
 // (_bwd_kernel / _bwd_one). It recomputes the forward of its image with the
 // SAME noise: the Philox bits are regenerated from the seed the forward was
-// given (seed + image index, cell index as counter), so nothing but the
-// inputs and the seed is kept between the two. With the packed cotangent
+// given, so nothing but the inputs and the seed is kept between the two.
+// With the packed cotangent
 // g = [g_zmu (zd), g_zstd (zd), g_thmu, g_thstd, g_dx0, g_dx1, g_kl]:
 //   d_a    = g_thmu th_mu + g_thstd th_std + g_dx . grid + sum_d g_z . z
 //   d_q    = g_kl e^q (q - p_tr + 1 + KL_theta + sum_d KL_z)
 //   dth, dz = g . a + g_kl e^q dKL/d(moment)  [the KL part where e^q > 0],
-//            chained through exp for the log-std planes
-//   dattn  = a (d_a - sum d_a a) + d_q - e^q sum d_q
+//            chained through exp for the log-std channels
+//   dattn  = a (d_a - S1) + d_q - e^q S2,  S1 = sum d_a a, S2 = sum d_q
+// written as the cotangent of the raw heads, (B, M, R, D) float32 in the
+// heads' layout (p_r and the offsets are constants), which is the g K2
+// and K12 take.
 //
-// What bounds it on the H100: memory and latency, like K3. At the flagship
-// shape it reads 7 planes of 4.9 MB and writes 7 (~68 MB: >= 0.02 ms).
+// What bounds it on the H100: memory. At the flagship shape it reads the
+// 34 MB of heads and writes 34 MB (>= 0.020 ms).
 //
-// Design: one block of 512 threads per image, as K3. Passes 1-2 give the
-// maxima and normalisers; pass 3 writes the theta and z gradients and
-// a d_a + d_q into the dattn plane while summing d_a a and d_q; pass 4
-// finishes dattn -= a sum(d_a a) + e^q sum(d_q), each thread on its own
-// cells. No atomics: a rerun gives bitwise the same gradients.
-__global__ void __launch_bounds__(THREADS) posterior_bwd_kernel(
-    const float* __restrict__ attn, const float* __restrict__ th_mu,
-    const float* __restrict__ th_ls, const float* __restrict__ z_mu,
-    const float* __restrict__ z_ls, const float* __restrict__ p_tr,
-    const float* __restrict__ gx, const float* __restrict__ gy,
-    const float* __restrict__ offs, const float* __restrict__ g,
-    float* __restrict__ dattn, float* __restrict__ dth_mu,
-    float* __restrict__ dth_ls, float* __restrict__ dz_mu,
-    float* __restrict__ dz_ls, int R, int M, int zd, float sig_r,
-    int deterministic, uint32_t seed) {
-  __shared__ float red[WARPS * NACC];
-  __shared__ float tot[NACC];
-  const int b = blockIdx.x;
-  const int C = R * M;
-  const size_t o1 = (size_t)b * C, oz = (size_t)b * zd * C;
-  const float* at = attn + o1;
-  const float* tm = th_mu + o1;
-  const float* tl = th_ls + o1;
-  const float* zm = z_mu + oz;
-  const float* zl = z_ls + oz;
-  float* da = dattn + o1;
-  const uint32_t key = seed + (uint32_t)b;
+// Design: one thread-block cluster an image, as K3, but each CTA holds its
+// whole chunk in shared memory (8 CTAs of 1,524 cells, 42.7 KB, at the
+// flagship), since every output needs the image's normalisers and dattn
+// also the image's sums S1, S2. The chunk arrives once, in four bulk copies
+// completing on mbarriers; the pass over each piece as it lands draws each
+// cell's noise once into shared memory and takes the CTA's online maximum
+// and sum of q's and the sample's logits. The CTAs exchange these pairs
+// through distributed shared memory, each merging all ranks' in one fixed
+// order, so all hold bitwise the same normalisers. One pass over shared
+// memory computes each cell's a, e^q, d_a, d_q and its theta and z
+// cotangents, writes the cotangents over the cell's inputs and a d_a + d_q
+// in the logit's place, keeps a and e^q beside, and sums S1, S2; every CTA
+// writes its two sums into every CTA's shared memory and each adds them
+// in rank order; a last pass finishes dattn in shared memory, and the
+// chunk leaves in coalesced 16-byte stores, each output byte written once.
+// Two cluster barriers an image. A chunk past the shared memory allowed
+// streams in sub-chunks, read twice, and finishes dattn in device memory.
+// No atomics: a rerun gives bitwise the same gradients.
+template <int ZD, bool DET>
+__global__ void __launch_bounds__(PT, 4) posterior_bwd_kernel(const PostArgs p) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ uint64_t bar[NPIECE];
+  __shared__ float red[PT / 32 * NACC];
+  __shared__ float xch[4], nrm[4], xs[2], tot[2], prs[MAXR], ofs[MAXR];
+  __shared__ float gs[2 * ZD + 5], gather[16 * 2];
+  const cg::cluster_group cl = cg::this_cluster();
+  const Chunk k = make_chunk(p, cl);
+  constexpr int zd = ZD, D = 3 + 2 * ZD;
+  const int C = p.R * p.M;
+  float* sm = smem;
+  float* aa = smem + (size_t)p.sub * D;   // the noise, then a
+  float* ee = aa + p.sub;                  // e^q
+  if ((int)threadIdx.x < 2 * zd + 5)
+    gs[threadIdx.x] = p.g[(size_t)k.b * (2 * zd + 5) + threadIdx.x];
+  setup(p, prs, ofs, bar);
+  uint32_t ph = 0;
+  Lse lq, la;
+  chunk_stats<DET>(p, k, sm, aa, prs, bar, &ph, red, &lq, &la);
+  exchange_norms(cl, lq, la, xch, nrm);
+  const float m = nrm[0], ma = nrm[2];
+  const float inv_s = 1.f / nrm[1], inv_sa = 1.f / nrm[3];
+  const float log_s = logf(nrm[1]);
+  const float log_sig_r = logf(p.sig_r);
+  const float inv_s2 = 1.f / (p.sig_r * p.sig_r);
+  const float inv2s2 = 0.5f * inv_s2;
+  const float g_thmu = gs[2 * zd], g_thstd = gs[2 * zd + 1];
+  const float g_dx0 = gs[2 * zd + 2], g_dx1 = gs[2 * zd + 3];
+  const float g_kl = gs[2 * zd + 4];
+  float* dst = p.out + ((size_t)k.b * C + k.c0) * D;
 
-  // passes 1-2: as the forward
-  float m = -INFINITY, ma = -INFINITY;
-  for (int c = threadIdx.x; c < C; c += THREADS) {
-    m = fmaxf(m, at[c]);
-    if (!deterministic) ma = fmaxf(ma, at[c] + gumbel(c, key));
-  }
-  m = block_max(m, red);
-  if (!deterministic) ma = block_max(ma, red);
-  float v[NACC];
-  v[0] = 0.f;
-  v[1] = 0.f;
-  for (int c = threadIdx.x; c < C; c += THREADS) {
-    v[0] += expf(at[c] - m);
-    if (!deterministic) v[1] += expf(at[c] + gumbel(c, key) - ma);
-  }
-  block_sum(v, 2, red, tot);
-  const float s = tot[0], sa = tot[1];
-  const float log_s = logf(s);
-  const float s2 = sig_r * sig_r;
-  const float inv2s2 = 1.f / (2.f * s2);
-
-  const float* gb = g + (size_t)b * (2 * zd + 5);
-  float g_zmu[MAXZD], g_zstd[MAXZD];
-#pragma unroll
-  for (int d = 0; d < MAXZD; ++d) {
-    g_zmu[d] = d < zd ? gb[d] : 0.f;
-    g_zstd[d] = d < zd ? gb[zd + d] : 0.f;
-  }
-  const float g_thmu = gb[2 * zd], g_thstd = gb[2 * zd + 1];
-  const float g_dx0 = gb[2 * zd + 2], g_dx1 = gb[2 * zd + 3];
-  const float g_kl = gb[2 * zd + 4];
-
-  // pass 3: theta and z gradients; a d_a + d_q into dattn; sum d_a a, sum d_q
-  v[0] = 0.f;
-  v[1] = 0.f;
-  for (int c = threadIdx.x; c < C; c += THREADS) {
-    const int r = c / M, mm = c - r * M;
-    const float sh = at[c] - m;
-    const float eq = expf(sh) / s;
-    const float q = sh - log_s;
-    const float a =
-        deterministic ? eq : expf(at[c] + gumbel(c, key) - ma) / sa;
-    const bool live = !(eq == 0.f);
-    const float scale = g_kl * eq;
-    const float thm = tm[c];
-    const float ths = expf(tl[c]) + EPS;
-    float d_a = g_thmu * thm + g_thstd * ths + (g_dx0 * gx[mm] + g_dx1 * gy[mm]);
-    const float kl_th = kl_theta(thm, ths, offs[r], sig_r, inv2s2, live);
-    float kl_z = 0.f;
-#pragma unroll
-    for (int d = 0; d < MAXZD; ++d) {
-      if (d < zd) {
-        const size_t ic = (size_t)d * C + c;
-        const float zmv = zm[ic];
-        const float zs = expf(zl[ic]) + EPS;
-        d_a += g_zmu[d] * zmv + g_zstd[d] * zs;
-        kl_z += kl_unit(zmv, zs, live);
-        z_grads(g_zmu[d], g_zstd[d], a, scale, live, zmv, zs, dz_mu + oz + ic,
-                dz_ls + oz + ic);
-      }
+  // per cell: the theta and z cotangents over the inputs, a d_a + d_q in
+  // the logit's place, a and e^q beside; sum d_a a, sum d_q
+  float v[NACC] = {};
+  for (int j = 0; j < k.nsub; ++j) {
+    const int cj = j * p.sub, nj = min(p.sub, k.n - cj);
+    if (k.nsub > 1) {
+      __syncthreads();
+      load_all(k.src + (size_t)cj * D, sm, nj, D, bar, &ph);
     }
-    const float d_q = g_kl * eq * ((q - p_tr[c]) + 1.f + (kl_th + kl_z));
-    theta_grads(g_thmu, g_thstd, a, scale, live, thm, ths, offs[r], s2,
-                dth_mu + o1 + c, dth_ls + o1 + c);
-    v[0] += d_a * a;
-    v[1] += d_q;
-    da[c] = a * d_a + d_q;
+    for (int i = threadIdx.x; i < nj; i += PT) {
+      const int c = k.c0 + cj + i, r = c & (p.R - 1), mm = c >> p.log2r;
+      float* h = sm + i * D;
+      const float x = h[0] + prs[r];
+      const float sh = x - m;
+      const float eq = __expf(sh) * inv_s;
+      const float q = sh - log_s;
+      float a = eq;
+      if (!DET)
+        a = __expf(x + (k.nsub > 1 ? cell_noise(p, c, k.key) : aa[i]) - ma) *
+            inv_sa;
+      const bool live = !(eq == 0.f);
+      const float scale = g_kl * eq;
+      const float off = ofs[r];
+      const float thm = h[1] + off;
+      const float ths = __expf(h[2]) + EPS;
+      float d_a = g_thmu * thm + g_thstd * ths +
+                  (g_dx0 * __ldg(p.grid + 2 * mm) +
+                   g_dx1 * __ldg(p.grid + 2 * mm + 1));
+      const float kl_th = kl_theta_f(thm, ths, off, log_sig_r, inv2s2, live);
+      float kl_z = 0.f;
+#pragma unroll
+      for (int d = 0; d < zd; ++d) {
+        const float zmv = h[3 + d];
+        const float zs = __expf(h[3 + zd + d]) + EPS;
+        const float gm = gs[d], gsd = gs[zd + d];
+        d_a += gm * zmv + gsd * zs;
+        kl_z += kl_unit_f(zmv, zs, live);
+        z_grads_f(gm, gsd, a, scale, live, zmv, zs, h + 3 + d, h + 3 + zd + d);
+      }
+      const float d_q =
+          g_kl * eq * ((q - __ldg(p.p_tr + c)) + 1.f + (kl_th + kl_z));
+      theta_grads_f(g_thmu, g_thstd, a, scale, live, thm, ths, off, inv_s2,
+                    h + 1, h + 2);
+      v[0] += d_a * a;
+      v[1] += d_q;
+      h[0] = a * d_a + d_q;
+      aa[i] = a;
+      ee[i] = eq;
+    }
+    if (k.nsub > 1) {
+      __syncthreads();
+      store_cells(dst + (size_t)cj * D, sm, nj * D);
+    }
   }
-  block_sum(v, 2, red, tot);
+  block_sum<PT>(v, 2, red, xs);
+  push_partials(cl, xs, 2, k.rank, gather);
+  sum_gathered(gather, (int)cl.num_blocks(), 2, tot);
   const float s_da = tot[0], s_dq = tot[1];
 
-  // pass 4: the two softmax VJPs' normalising terms
-  for (int c = threadIdx.x; c < C; c += THREADS) {
-    const float eq = expf(at[c] - m) / s;
-    const float a =
-        deterministic ? eq : expf(at[c] + gumbel(c, key) - ma) / sa;
-    da[c] = da[c] - a * s_da - eq * s_dq;
+  // the two softmax VJPs' normalising terms
+  if (k.nsub == 1) {
+    for (int i = threadIdx.x; i < k.n; i += PT)
+      sm[i * D] = sm[i * D] - aa[i] * s_da - ee[i] * s_dq;
+    __syncthreads();
+    store_cells(dst, sm, k.n * D);
+  } else {
+    for (int i = threadIdx.x; i < k.n; i += PT) {
+      const int c = k.c0 + i;
+      const float x = __ldg(k.src + (size_t)i * D) + prs[c & (p.R - 1)];
+      const float eq = __expf(x - m) * inv_s;
+      const float a =
+          DET ? eq : __expf(x + cell_noise(p, c, k.key) - ma) * inv_sa;
+      dst[(size_t)i * D] = dst[(size_t)i * D] - a * s_da - eq * s_dq;
+    }
   }
 }
 
@@ -423,7 +923,7 @@ __global__ void __launch_bounds__(THREADS) posterior_shard_fwd_kernel(
     v[2 * MAXZD + 4] += eq * (q - p[c]);
     v[2 * MAXZD + 5] += eq * (kl_th + kl_z);
   }
-  block_sum(v, NACC, red, tot);
+  block_sum<THREADS>(v, NACC, red, tot);
 
   if (threadIdx.x == 0) {
     float* o = out + (size_t)b * (2 * zd + 5);
@@ -527,50 +1027,134 @@ __global__ void __launch_bounds__(THREADS) posterior_shard_bwd_kernel(
     v[0] += d_a * a;
     v[1] += d_q;
   }
-  block_sum(v, 2, red, tot);
+  block_sum<THREADS>(v, 2, red, tot);
   if (threadIdx.x == 0) {
     spart[2 * b] = tot[0];
     spart[2 * b + 1] = tot[1];
   }
 }
 
-}  // namespace
 
-// Gradients of K3's packed output; dattn, dth_* (B, R, M), dz_* (B, zd, R, M).
-extern "C" int tvae_posterior_bwd(const void* attn, const void* th_mu,
-                                  const void* th_ls, const void* z_mu,
-                                  const void* z_ls, const void* p_tr,
-                                  const void* gx, const void* gy,
-                                  const void* offs, const void* g,
-                                  void* dattn, void* dth_mu, void* dth_ls,
-                                  void* dz_mu, void* dz_ls, int B, int R,
-                                  int M, int zd, float sig_r,
-                                  int deterministic, int seed, void* stream) {
-  if (zd > MAXZD) return (int)cudaErrorInvalidValue;
-  posterior_bwd_kernel<<<B, THREADS, 0, (cudaStream_t)stream>>>(
-      (const float*)attn, (const float*)th_mu, (const float*)th_ls,
-      (const float*)z_mu, (const float*)z_ls, (const float*)p_tr,
-      (const float*)gx, (const float*)gy, (const float*)offs,
-      (const float*)g, (float*)dattn, (float*)dth_mu, (float*)dth_ls,
-      (float*)dz_mu, (float*)dz_ls, R, M, zd, sig_r, deterministic,
-      (uint32_t)seed);
+// Launches a K3/K4 kernel as B clusters of cs CTAs (cs > 8 with the
+// non-portable cluster size) with `smem` bytes of dynamic shared memory.
+template <typename Kernel>
+int launch_clusters(Kernel kernel, const PostArgs& p, int B, int cs,
+                    size_t smem, cudaStream_t stream) {
+  int err;
+  if (cs > 8 && (err = (int)cudaFuncSetAttribute(
+                     kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1)))
+    return err;
+  if ((err = allow_smem(kernel, smem))) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(B * cs));
+  cfg.blockDim = dim3(PT);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute at[1];
+  at[0].id = cudaLaunchAttributeClusterDimension;
+  at[0].val.clusterDim.x = (unsigned)cs;
+  at[0].val.clusterDim.y = 1;
+  at[0].val.clusterDim.z = 1;
+  cfg.attrs = at;
+  cfg.numAttrs = 1;
+  if ((err = (int)cudaLaunchKernelEx(&cfg, kernel, p))) return err;
   return (int)cudaGetLastError();
 }
 
-extern "C" int tvae_posterior_fwd(const void* attn, const void* th_mu,
-                                  const void* th_ls, const void* z_mu,
-                                  const void* z_ls, const void* p_tr,
-                                  const void* gx, const void* gy,
-                                  const void* offs, void* out, int B, int R,
+// K3/K4's arguments, checked: R a power of two from 4 to MAXR,
+// 1 <= zd <= MAXZD, 1 <= cs <= 16 CTAs of `chunk` cells covering the
+// image's R M cells, chunk and sub multiples of 4, the heads, p_tr and out
+// 16-byte aligned (the bulk copies' units). Returns the CUDA error code of
+// a refusal, else 0.
+int post_args(PostArgs* p, const void* heads, const void* p_r,
+              const void* offs, const void* p_tr, const void* grid,
+              const void* g, void* out, int R, int M, int zd, float sig_r,
+              int seed, int cs, int chunk, int sub) {
+  if (R < 4 || R > MAXR || (R & (R - 1)) || zd < 1 || zd > MAXZD || M < 1 ||
+      cs < 1 || cs > 16 || chunk < 4 || chunk % 4 || sub < 4 || sub % 4 ||
+      (long)cs * chunk < (long)R * M || (uintptr_t)heads % 16 ||
+      (uintptr_t)p_tr % 16 || (uintptr_t)out % 16)
+    return (int)cudaErrorInvalidValue;
+  p->heads = (const float*)heads;
+  p->p_r = (const float*)p_r;
+  p->offs = (const float*)offs;
+  p->p_tr = (const float*)p_tr;
+  p->grid = (const float*)grid;
+  p->g = (const float*)g;
+  p->out = (float*)out;
+  p->R = R;
+  p->log2r = __builtin_ctz((unsigned)R);
+  p->M = M;
+  p->zd = zd;
+  p->chunk = chunk;
+  p->sub = sub;
+  p->sig_r = sig_r;
+  p->seed = (uint32_t)seed;
+  return 0;
+}
+
+}  // namespace
+
+// K3: heads (B, M, R, D) f32, p_r, offs (R,), p_tr (M, R), grid (M, 2) ->
+// out (B, 2*zd + 5); B clusters of `cluster` CTAs of `chunk` cells
+// (kernels/posterior.py::k3_schedule).
+extern "C" int tvae_posterior_fwd(const void* heads, const void* p_r,
+                                  const void* offs, const void* p_tr,
+                                  const void* grid, void* out, int B, int R,
                                   int M, int zd, float sig_r,
-                                  int deterministic, int seed, void* stream) {
-  if (zd > MAXZD) return (int)cudaErrorInvalidValue;
-  posterior_fwd_kernel<<<B, THREADS, 0, (cudaStream_t)stream>>>(
-      (const float*)attn, (const float*)th_mu, (const float*)th_ls,
-      (const float*)z_mu, (const float*)z_ls, (const float*)p_tr,
-      (const float*)gx, (const float*)gy, (const float*)offs, (float*)out, R,
-      M, zd, sig_r, deterministic, (uint32_t)seed);
-  return (int)cudaGetLastError();
+                                  int deterministic, int seed, int cluster,
+                                  int chunk, void* stream) {
+  PostArgs p;
+  int err = post_args(&p, heads, p_r, offs, p_tr, grid, nullptr, out, R, M,
+                      zd, sig_r, seed, cluster, chunk, chunk);
+  if (err) return err;
+  const size_t smem = (size_t)NST * PT * (3 + 2 * zd + 1) * 4;
+  const cudaStream_t s = (cudaStream_t)stream;
+#define TVAE_K3(ZD)                                                          \
+  case ZD:                                                                   \
+    return deterministic                                                     \
+               ? launch_clusters(posterior_fwd_kernel<ZD, true>, p, B,      \
+                                 cluster, smem, s)                           \
+               : launch_clusters(posterior_fwd_kernel<ZD, false>, p, B,     \
+                                 cluster, smem, s);
+  switch (zd) {
+    TVAE_K3(1) TVAE_K3(2) TVAE_K3(3) TVAE_K3(4)
+    TVAE_K3(5) TVAE_K3(6) TVAE_K3(7) TVAE_K3(8)
+  }
+#undef TVAE_K3
+  return (int)cudaErrorInvalidValue;
+}
+
+// K4: K3's inputs and the packed cotangent g (B, 2*zd + 5) -> dheads
+// (B, M, R, D), the cotangent of the raw heads; B clusters of `cluster` CTAs
+// of `chunk` cells, at most `sub` of them in shared memory at a time
+// (kernels/posterior.py::k4_schedule).
+extern "C" int tvae_posterior_bwd(const void* heads, const void* p_r,
+                                  const void* offs, const void* p_tr,
+                                  const void* grid, const void* g,
+                                  void* dheads, int B, int R, int M, int zd,
+                                  float sig_r, int deterministic, int seed,
+                                  int cluster, int chunk, int sub,
+                                  void* stream) {
+  PostArgs p;
+  int err = post_args(&p, heads, p_r, offs, p_tr, grid, g, dheads, R, M, zd,
+                      sig_r, seed, cluster, chunk, sub);
+  if (err) return err;
+  const size_t smem = (size_t)sub * (3 + 2 * zd + 2) * 4;
+  const cudaStream_t s = (cudaStream_t)stream;
+#define TVAE_K4(ZD)                                                          \
+  case ZD:                                                                   \
+    return deterministic                                                     \
+               ? launch_clusters(posterior_bwd_kernel<ZD, true>, p, B,      \
+                                 cluster, smem, s)                           \
+               : launch_clusters(posterior_bwd_kernel<ZD, false>, p, B,     \
+                                 cluster, smem, s);
+  switch (zd) {
+    TVAE_K4(1) TVAE_K4(2) TVAE_K4(3) TVAE_K4(4)
+    TVAE_K4(5) TVAE_K4(6) TVAE_K4(7) TVAE_K4(8)
+  }
+#undef TVAE_K4
+  return (int)cudaErrorInvalidValue;
 }
 
 // K5: the shard's (B, 2*zd + 5) partial sums; norms (B, 4), attn and noise

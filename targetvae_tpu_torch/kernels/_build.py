@@ -34,15 +34,15 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     # pre1, bc, w2, b2, wh, bh, out, N, R, K, D, G, chunk, act, stream
     "tvae_mix_heads_fwd": [_P] * 7 + [_I] * 7 + [_P],
-    # attn, th_mu, th_ls, z_mu, z_ls, p_tr, gx, gy, offs, out,
-    # B, R, M, zd, sig_r, deterministic, seed, stream
-    "tvae_posterior_fwd": [_P] * 10 + [_I] * 4 + [_F, _I, _I, _P],
+    # heads, p_r, offs, p_tr, grid, out, B, R, M, zd, sig_r, deterministic,
+    # seed, cluster, chunk, stream
+    "tvae_posterior_fwd": [_P] * 6 + [_I] * 4 + [_F] + [_I] * 4 + [_P],
     # pre1, bc, w2, b2, wh, g, dpre1, part, out, N, R, K, D, G, chunk, SP,
     # act, stream
     "tvae_mix_heads_bwd": [_P] * 9 + [_I] * 8 + [_P],
-    # the forward's nine inputs, g, dattn, dth_mu, dth_ls, dz_mu, dz_ls,
-    # B, R, M, zd, sig_r, deterministic, seed, stream
-    "tvae_posterior_bwd": [_P] * 15 + [_I] * 4 + [_F, _I, _I, _P],
+    # the forward's five inputs, g, dheads, B, R, M, zd, sig_r,
+    # deterministic, seed, cluster, chunk, sub, stream
+    "tvae_posterior_bwd": [_P] * 7 + [_I] * 4 + [_F] + [_I] * 5 + [_P],
     # norms, attn, noise, th, z, p, gx, gy, offs, out, B, C, zd, sig_r, stream
     "tvae_posterior_shard_fwd": [_P] * 10 + [_I] * 3 + [_F, _P],
     # the forward's nine inputs, g, da, dq, dth, dz, spart,

@@ -2,8 +2,12 @@
 variant (K5 forward, K6 backward).
 
 K3/K4 port targetvae_tpu/kernels/posterior.py::fused_posterior (its `_call`,
-forward and backward). For each image, over its (R, M) cell planes, in
-float32:
+forward and backward). They take the encoder's raw heads where the encoder
+kernels leave them: (B, M, R, D) float32, D = 3 + 2*zd channels [attention
+logit, theta mean, theta log-std, z means (zd), z log-stds (zd)] over the
+cells m-major, r-minor (the JAX package's flatten), and add the rotation
+prior log p(r) to the logit and the offsets to theta's mean themselves. For
+each image, over its R*M cells, in float32:
 
   q        = log_softmax(attn)                       (joint posterior)
   a        = softmax(attn + Gumbel noise), or e^q when deterministic
@@ -13,13 +17,17 @@ float32:
            + sum e^q (KL(q(theta|t,r) || N(offset_r, sig_r))
                       + sum_d KL(q(z_d|t,r) || N(0,1)))     [guarded where e^q == 0]
 
-Only per-image scalars leave the kernel (csrc/posterior.cu), packed as
-(B, 2*zd + 5). Its Gumbel noise comes from an in-kernel Philox4x32-10 keyed
-by seed + image index, so a row does not depend on how the batch is split:
-the rows of images i0.. of a batch equal a call on that slice with seed + i0.
-It cannot reproduce the TPU's bits; the plain version draws its noise from a
-torch.Generator seeded the same way per image, so the sampled modes agree in
-distribution only.
+Only per-image scalars leave K3 (csrc/posterior.cu), packed as
+(B, 2*zd + 5); K4 returns the cotangent of the raw heads in their own
+layout, the g the encoder's backward kernels (K2, K12) take. The kernels'
+Gumbel noise comes from an in-kernel Philox4x32-10 keyed by seed + image
+index with counter r*M + m, so a row does not depend on how the batch is
+split: the rows of images i0.. of a batch equal a call on that slice with
+seed + i0. philox_gumbel draws the same noise in plain PyTorch, so the card
+can hold the sampled kernels against the plain version exactly. It cannot
+reproduce the TPU's bits; the CPU tier draws its noise from a
+torch.Generator seeded the same way per image (per_image_gumbel), so the
+sampled modes of the two tiers agree in distribution only.
 
 The backward (K4) recomputes the forward, noise included, from the seed the
 forward was given: _Posterior saves the seed, not the noise, and returns the
@@ -41,23 +49,44 @@ from . import _build
 from ..ops.gumbel import gumbel_noise
 
 _EPS = 1e-6
+# K3: the cells a CTA streams at most (k3_schedule); K4: the bytes of heads
+# a CTA holds in shared memory at most, a larger chunk streaming through it
+# (k4_schedule)
+K3_CELLS = 3072
+HEADS_SMEM_BYTES = 64 * 1024
+_M32 = 0xFFFFFFFF
 
 
 def _unpack(out: torch.Tensor, zd: int) -> dict:
-    return {
-        "z_mu_e": out[:, :zd],
-        "z_std_e": out[:, zd:2 * zd],
-        "theta_mu_e": out[:, 2 * zd],
-        "theta_std_e": out[:, 2 * zd + 1],
-        "dx": out[:, 2 * zd + 2:2 * zd + 4],
-        "kl": out[:, 2 * zd + 4],
-    }
+    # one split, whose backward is one concatenation of the cotangents
+    z_mu_e, z_std_e, th_mu, th_std, dx, kl = out.split(
+        [zd, zd, 1, 1, 2, 1], dim=1)
+    return {"z_mu_e": z_mu_e, "z_std_e": z_std_e,
+            "theta_mu_e": th_mu.squeeze(1), "theta_std_e": th_std.squeeze(1),
+            "dx": dx, "kl": kl.squeeze(1)}
 
 
 def _pack(d: dict) -> torch.Tensor:
     return torch.cat([d["z_mu_e"], d["z_std_e"], d["theta_mu_e"][:, None],
                       d["theta_std_e"][:, None], d["dx"], d["kl"][:, None]],
                      dim=1)
+
+
+def split_heads(heads, p_r, offsets):
+    """The (B, R, M) planes of the raw heads (B, M, R, D), the rotation
+    prior added to the logit and the offsets to theta's mean: attn,
+    theta_mu, theta_logstd (B, R, M) and z_mu, z_logstd (B, zd, R, M)."""
+    zd = (heads.shape[-1] - 3) // 2
+    hp = heads.permute(0, 3, 2, 1)                               # (B, D, R, M)
+    return (hp[:, 0] + p_r[:, None], hp[:, 1] + offsets[:, None], hp[:, 2],
+            hp[:, 3:3 + zd], hp[:, 3 + zd:])
+
+
+def join_heads(d_attn, d_thmu, d_thls, d_zmu, d_zls) -> torch.Tensor:
+    """split_heads' planes' cotangents as the cotangent of the raw heads,
+    (B, M, R, D) (p_r and the offsets are constants)."""
+    return torch.cat([d_attn[:, None], d_thmu[:, None], d_thls[:, None],
+                      d_zmu, d_zls], dim=1).permute(0, 3, 2, 1).contiguous()
 
 
 def _kl_terms(eq, theta_mu, th_std, z_mu, z_std, offs, sig_r):
@@ -97,28 +126,29 @@ def _moment_grads(g_thmu, g_thstd, g_zmu, g_zstd, g_kl, eq, a, theta_mu,
 
 
 def _posterior_core(attn, noise):
-    b = attn.shape[0]
-    flat = attn.reshape(b, -1)
+    flat = attn.flatten(1)
     q = torch.log_softmax(flat, dim=1).reshape(attn.shape)
     eq = torch.softmax(flat, dim=1).reshape(attn.shape)
     if noise is None:
         return q, eq, eq
-    a = torch.softmax((attn + noise).reshape(b, -1), dim=1).reshape(attn.shape)
+    a = torch.softmax((attn + noise).flatten(1), dim=1).reshape(attn.shape)
     return q, eq, a
 
 
-def posterior_plain(attn, theta_mu, theta_logstd, z_mu, z_logstd, p_tr, grid,
-                    offsets, sig_r: float,
+def posterior_plain(heads, p_r, offsets, p_tr, grid, sig_r: float,
                     noise: Optional[torch.Tensor] = None) -> dict:
-    """Plain PyTorch version. noise: (B, R, M) Gumbel noise for the sample,
-    or None for the deterministic a = e^q."""
+    """Plain PyTorch version of K3: split_heads, then the planes' formulas.
+    p_tr (M, R); noise: (B, R, M) Gumbel noise for the sample, or None for
+    the deterministic a = e^q."""
+    attn, theta_mu, theta_logstd, z_mu, z_logstd = split_heads(heads, p_r,
+                                                               offsets)
     q, eq, a = _posterior_core(attn, noise)
     dx = a.sum(dim=1) @ grid                                     # (B, 2)
     th_std = torch.exp(theta_logstd) + _EPS
     z_std = torch.exp(z_logstd) + _EPS
     kl_th, kl_z = _kl_terms(eq, theta_mu, th_std, z_mu, z_std,
                             offsets.reshape(1, -1, 1), sig_r)
-    kl = ((eq * (q - p_tr)).sum(dim=(1, 2))
+    kl = ((eq * (q - p_tr.T)).sum(dim=(1, 2))
           + (eq * (kl_th + kl_z)).sum(dim=(1, 2)))
     return {
         "z_mu_e": torch.einsum("brm,bdrm->bd", a, z_mu),
@@ -131,11 +161,53 @@ def posterior_plain(attn, theta_mu, theta_logstd, z_mu, z_logstd, p_tr, grid,
 
 def per_image_gumbel(seed: int, shape, device=None) -> torch.Tensor:
     """(B, *shape) Gumbel noise, image i from a generator seeded seed + i —
-    the plain version's counterpart of the kernel's per-image Philox keys."""
-    b = shape[0]
-    return torch.stack([
-        gumbel_noise(tuple(shape[1:]), torch.Generator().manual_seed(seed + i))
-        for i in range(b)]).to(device)
+    the CPU tier's counterpart of the kernel's per-image Philox keys."""
+    rows = [gumbel_noise(tuple(shape[1:]),
+                         torch.Generator().manual_seed(seed + i))
+            for i in range(shape[0])]
+    return (torch.stack(rows) if rows else torch.empty(tuple(shape))).to(device)
+
+
+def _mulhilo(a: int, b: torch.Tensor):
+    """The high and low 32-bit words of the constant a (32 bits) times the
+    32-bit values b (an int64 tensor), exact in int64: b times each 16-bit
+    half of a stays below 2^48."""
+    p1 = b * (a & 0xFFFF)
+    p2 = b * (a >> 16)
+    s = p1 + ((p2 & 0xFFFF) << 16)
+    return (s >> 32) + (p2 >> 16), s & _M32
+
+
+def philox4x32(counter, key):
+    """Philox4x32-10 (Random123's philox4x32, csrc/posterior.cu's philox_x)
+    in PyTorch integer operations: counter a tuple of four and key a tuple
+    of two 32-bit words, each an int64 tensor (they broadcast). Returns the
+    four output words."""
+    c0, c1, c2, c3 = counter
+    k0, k1 = key
+    for _ in range(10):
+        hi0, lo0 = _mulhilo(0xD2511F53, c0)
+        hi1, lo1 = _mulhilo(0xCD9E8D57, c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+        k0 = (k0 + 0x9E3779B9) & _M32
+        k1 = (k1 + 0xBB67AE85) & _M32
+    return c0, c1, c2, c3
+
+
+def philox_gumbel(seed: int, b: int, R: int, M: int,
+                  device=None) -> torch.Tensor:
+    """(b, R, M) Gumbel noise exactly as K3 and K4 draw it for images 0..b-1
+    of a call with this seed: image i keyed by (seed & 0x7FFFFFFF) + i,
+    cell (r, m) countered r*M + m; the uniform takes the first word's top 23
+    bits as a [1, 2) mantissa minus 1, clipped to [1e-20, 1 - 1e-7]."""
+    key = ((int(seed) & 0x7FFFFFFF)
+           + torch.arange(b, dtype=torch.int64, device=device))[:, None] & _M32
+    ctr = torch.arange(R * M, dtype=torch.int64, device=device)[None]
+    zero = torch.zeros((), dtype=torch.int64, device=device)
+    bits = philox4x32((ctr, zero, zero, zero), (key, zero))[0]
+    u = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+    u = u.clamp(1e-20, 1.0 - 1e-7)
+    return (-torch.log(-torch.log(u))).reshape(b, R, M)
 
 
 def _check_shapes(named) -> None:
@@ -150,47 +222,83 @@ def _check_zd(zd: int) -> None:
         raise ValueError(f"posterior kernels support z_dim <= 8, got {zd}")
 
 
-def _cuda_args(attn, theta_mu, theta_logstd, z_mu, z_logstd, p_tr, grid,
-               offsets):
-    b, r, m = attn.shape
-    zd = z_mu.shape[1]
+def k3_schedule(m: int, r: int, cluster: Optional[int] = None):
+    """K3's grid for images of r*m cells: (cluster, chunk). An image is a
+    cluster of `cluster` CTAs, by default the smallest of 1, 2, 4, 8, 16
+    whose chunks hold at most K3_CELLS cells, else 16; each CTA streams
+    `chunk` cells (a multiple of 4). The grid depends on the image's shape
+    alone, so a row of a batch does not depend on the batch's size."""
+    c = r * m
+    ceil4 = lambda n: -(-n // 4) * 4
+    if cluster is None:
+        cluster = next((k for k in (1, 2, 4, 8, 16)
+                        if ceil4(-(-c // k)) <= K3_CELLS), 16)
+    return cluster, ceil4(-(-c // cluster))
+
+
+def k4_schedule(m: int, r: int, d: int, cluster: Optional[int] = None,
+                budget: int = HEADS_SMEM_BYTES):
+    """K4's grid for images of r*m cells of d heads: (cluster, chunk, sub).
+    An image is a cluster of `cluster` CTAs, by default the smallest of 1,
+    2, 4, 8, 16 whose chunks fit `budget` bytes of heads, else 16; each CTA
+    takes `chunk` cells (a multiple of 4), at most `sub` of them in shared
+    memory at a time (budget bytes' worth, a multiple of 4; a chunk past it
+    streams in sub-chunks). The grid depends on the image's shape alone, so
+    a row of a batch does not depend on the batch's size."""
+    c, row = r * m, 4 * d
+    ceil4 = lambda n: -(-n // 4) * 4
+    if cluster is None:
+        cluster = next((k for k in (1, 2, 4, 8, 16)
+                        if ceil4(-(-c // k)) * row <= budget), 16)
+    chunk = ceil4(-(-c // cluster))
+    return cluster, chunk, min(chunk, max(4, budget // row // 4 * 4))
+
+
+def _cuda_args(heads, p_r, offsets, p_tr, grid):
+    """The wrappers' checks; returns the float32 tensors, the heads and p_tr
+    16-byte aligned for the kernels' bulk copies (a copy of one that is
+    not), and (B, M, R, zd)."""
+    if heads.dim() != 4 or heads.shape[-1] < 5 or heads.shape[-1] % 2 == 0:
+        raise ValueError(f"heads: expected (B, M, R, 3 + 2 zd), got "
+                         f"{tuple(heads.shape)}")
+    b, m, r, d = heads.shape
+    zd = (d - 3) // 2
     _check_zd(zd)
+    if r not in (4, 8, 16):
+        raise ValueError(f"posterior kernels take R in (4, 8, 16), got {r}")
     f32 = torch.float32
-    c = lambda t: t.to(f32).contiguous()
-    args = (c(attn), c(theta_mu), c(theta_logstd), c(z_mu), c(z_logstd),
-            c(p_tr), c(grid[:, 0]), c(grid[:, 1]), c(offsets))
+    args = tuple(t.to(f32).contiguous()
+                 for t in (heads, p_r, offsets, p_tr, grid))
+    args = tuple(t.clone() if i in (0, 3) and t.data_ptr() % 16 else t
+                 for i, t in enumerate(args))
     _build.check_cuda(*args, dtypes=(f32,) * len(args))
-    _check_shapes((("theta_mu", args[1], (b, r, m)),
-                   ("theta_logstd", args[2], (b, r, m)),
-                   ("z_mu", args[3], (b, zd, r, m)),
-                   ("z_logstd", args[4], (b, zd, r, m)),
-                   ("p_tr", args[5], (r, m)), ("grid x", args[6], (m,)),
-                   ("offsets", args[8], (r,))))
-    return args
+    _check_shapes((("p_r", args[1], (r,)), ("offsets", args[2], (r,)),
+                   ("p_tr", args[3], (m, r)), ("grid", args[4], (m, 2))))
+    return args, (b, m, r, zd)
 
 
-def posterior_fwd(seed: int, attn, theta_mu, theta_logstd, z_mu, z_logstd,
-                  p_tr, grid, offsets, sig_r: float, *,
-                  deterministic: bool = False) -> torch.Tensor:
+def posterior_fwd(seed: int, heads, p_r, offsets, p_tr, grid, sig_r: float,
+                  *, deterministic: bool = False,
+                  schedule: Optional[tuple] = None) -> torch.Tensor:
     """The packed forward (B, 2*zd + 5): [z_mu_e, z_std_e, theta_mu_e,
-    theta_std_e, dx, kl]. A CPU attn takes the plain version; a CUDA one
-    launches csrc/posterior.cu."""
-    if attn.device.type == "cpu":
+    theta_std_e, dx, kl]. A CPU heads takes the plain version; a CUDA one
+    launches csrc/posterior.cu on k3_schedule's grid (or `schedule`, a
+    (cluster, chunk) of it)."""
+    if heads.device.type == "cpu":
+        b, m, r, _ = heads.shape
         noise = (None if deterministic
-                 else per_image_gumbel(seed, attn.shape, attn.device))
-        return _pack(posterior_plain(attn, theta_mu, theta_logstd, z_mu,
-                                     z_logstd, p_tr, grid, offsets, sig_r,
+                 else per_image_gumbel(seed, (b, r, m), heads.device))
+        return _pack(posterior_plain(heads, p_r, offsets, p_tr, grid, sig_r,
                                      noise=noise))
-    args = _cuda_args(attn, theta_mu, theta_logstd, z_mu, z_logstd, p_tr,
-                      grid, offsets)
-    b, r, m = attn.shape
-    zd = z_mu.shape[1]
-    out = torch.empty((b, 2 * zd + 5), dtype=torch.float32, device=attn.device)
+    args, (b, m, r, zd) = _cuda_args(heads, p_r, offsets, p_tr, grid)
+    cluster, chunk = schedule or k3_schedule(m, r)
+    out = torch.empty((b, 2 * zd + 5), dtype=torch.float32,
+                      device=heads.device)
     if b:
         _build.launch("tvae_posterior_fwd", *(t.data_ptr() for t in args),
                       out.data_ptr(), b, r, m, zd, float(sig_r),
-                      int(deterministic), int(seed) & 0x7FFFFFFF,
-                      torch.cuda.current_stream(attn.device).cuda_stream)
+                      int(deterministic), int(seed) & 0x7FFFFFFF, cluster,
+                      chunk, torch.cuda.current_stream(heads.device).cuda_stream)
         posterior_fwd.launches += 1
     return out
 
@@ -198,13 +306,14 @@ def posterior_fwd(seed: int, attn, theta_mu, theta_logstd, z_mu, z_logstd,
 posterior_fwd.launches = 0
 
 
-def posterior_bwd_plain(g, attn, theta_mu, theta_logstd, z_mu, z_logstd,
-                        p_tr, grid, offsets, sig_r: float,
-                        noise: Optional[torch.Tensor] = None):
-    """Plain PyTorch version of the backward (the hand-derived VJP of
-    targetvae_tpu/kernels/posterior.py::_bwd_one). g (B, 2*zd + 5) is the
-    packed cotangent. Returns dattn, dtheta_mu, dtheta_logstd (B, R, M) and
-    dz_mu, dz_logstd (B, zd, R, M)."""
+def posterior_bwd_plain(g, heads, p_r, offsets, p_tr, grid, sig_r: float,
+                        noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain PyTorch version of K4 (the hand-derived VJP of
+    targetvae_tpu/kernels/posterior.py::_bwd_one on split_heads' planes).
+    g (B, 2*zd + 5) is the packed cotangent. Returns the cotangent of the
+    raw heads, (B, M, R, D)."""
+    attn, theta_mu, theta_logstd, z_mu, z_logstd = split_heads(heads, p_r,
+                                                               offsets)
     zd = z_mu.shape[1]
     q, eq, a = _posterior_core(attn, noise)
     th_std = torch.exp(theta_logstd) + _EPS
@@ -217,84 +326,83 @@ def posterior_bwd_plain(g, attn, theta_mu, theta_logstd, z_mu, z_logstd,
            + (g_zmu * z_mu + g_zstd * z_std).sum(dim=1))
     offs = offsets.reshape(1, -1, 1)
     kl_th, kl_z = _kl_terms(eq, theta_mu, th_std, z_mu, z_std, offs, sig_r)
-    d_q = g_kl * eq * ((q - p_tr) + 1.0 + (kl_th + kl_z))
+    d_q = g_kl * eq * ((q - p_tr.T) + 1.0 + (kl_th + kl_z))
     d_attn = (a * (d_a - (d_a * a).sum(dim=(1, 2), keepdim=True))
               + d_q - eq * d_q.sum(dim=(1, 2), keepdim=True))
-    return (d_attn, *_moment_grads(g_thmu, g_thstd, g_zmu, g_zstd, g_kl, eq,
-                                   a, theta_mu, th_std, z_mu, z_std, offs,
-                                   sig_r))
+    return join_heads(d_attn, *_moment_grads(
+        g_thmu, g_thstd, g_zmu, g_zstd, g_kl, eq, a, theta_mu, th_std, z_mu,
+        z_std, offs, sig_r))
 
 
-def posterior_bwd(seed: int, g, attn, theta_mu, theta_logstd, z_mu, z_logstd,
-                  p_tr, grid, offsets, sig_r: float, *,
-                  deterministic: bool = False):
-    """The backward of posterior_fwd (K4) at the same seed, with the outputs
-    of posterior_bwd_plain. A CPU attn takes the plain version (its noise
-    regenerated by per_image_gumbel from the seed); a CUDA one launches
-    csrc/posterior.cu, which regenerates the forward's Philox bits."""
-    if attn.device.type == "cpu":
+def posterior_bwd(seed: int, g, heads, p_r, offsets, p_tr, grid,
+                  sig_r: float, *, deterministic: bool = False,
+                  schedule: Optional[tuple] = None) -> torch.Tensor:
+    """The backward of posterior_fwd (K4) at the same seed: the cotangent of
+    the raw heads (B, M, R, D), as posterior_bwd_plain. A CPU heads takes
+    the plain version (its noise regenerated by per_image_gumbel from the
+    seed); a CUDA one launches csrc/posterior.cu, which regenerates the
+    forward's Philox bits, on k4_schedule's grid (or `schedule`, a
+    (cluster, chunk, sub) of it)."""
+    if heads.device.type == "cpu":
+        b, m, r, _ = heads.shape
         noise = (None if deterministic
-                 else per_image_gumbel(seed, attn.shape, attn.device))
-        return posterior_bwd_plain(g, attn, theta_mu, theta_logstd, z_mu,
-                                   z_logstd, p_tr, grid, offsets, sig_r,
+                 else per_image_gumbel(seed, (b, r, m), heads.device))
+        return posterior_bwd_plain(g, heads, p_r, offsets, p_tr, grid, sig_r,
                                    noise=noise)
-    args = _cuda_args(attn, theta_mu, theta_logstd, z_mu, z_logstd, p_tr,
-                      grid, offsets)
-    b, r, m = attn.shape
-    zd = z_mu.shape[1]
+    args, (b, m, r, zd) = _cuda_args(heads, p_r, offsets, p_tr, grid)
     g = g.to(torch.float32).contiguous()
     _build.check_cuda(args[0], g, dtypes=(torch.float32,) * 2)
     _check_shapes((("g", g, (b, 2 * zd + 5)),))
-    grads = tuple(torch.empty_like(t) for t in args[:5])
+    cluster, chunk, sub = schedule or k4_schedule(m, r, 3 + 2 * zd)
+    dheads = torch.empty_like(args[0])
     if b:
         _build.launch("tvae_posterior_bwd", *(t.data_ptr() for t in args),
-                      g.data_ptr(), *(t.data_ptr() for t in grads),
-                      b, r, m, zd, float(sig_r), int(deterministic),
-                      int(seed) & 0x7FFFFFFF,
-                      torch.cuda.current_stream(attn.device).cuda_stream)
+                      g.data_ptr(), dheads.data_ptr(), b, r, m, zd,
+                      float(sig_r), int(deterministic),
+                      int(seed) & 0x7FFFFFFF, cluster, chunk, sub,
+                      torch.cuda.current_stream(heads.device).cuda_stream)
         posterior_bwd.launches += 1
-    return grads
+    return dheads
 
 
 posterior_bwd.launches = 0
 
 
 class _Posterior(torch.autograd.Function):
-    """K3 forward, K4 backward at the saved seed. Gradients for attn and the
-    theta and z planes; p_tr, grid and offsets are constants."""
+    """K3 forward, K4 backward at the saved seed. A gradient for the raw
+    heads only; p_r, offsets, p_tr and the grid are constants."""
 
     @staticmethod
-    def forward(ctx, attn, theta_mu, theta_logstd, z_mu, z_logstd, p_tr, grid,
-                offsets, sig_r, seed, deterministic):
-        ctx.save_for_backward(attn, theta_mu, theta_logstd, z_mu, z_logstd,
-                              p_tr, grid, offsets)
+    def forward(ctx, heads, p_r, offsets, p_tr, grid, sig_r, seed,
+                deterministic):
+        ctx.save_for_backward(heads)
+        ctx.consts = (p_r, offsets, p_tr, grid)
         ctx.cfg = (sig_r, seed, deterministic)
-        return posterior_fwd(seed, attn, theta_mu, theta_logstd, z_mu,
-                             z_logstd, p_tr, grid, offsets, sig_r,
+        return posterior_fwd(seed, heads, p_r, offsets, p_tr, grid, sig_r,
                              deterministic=deterministic)
 
     @staticmethod
     def backward(ctx, g):
         sig_r, seed, deterministic = ctx.cfg
-        grads = posterior_bwd(seed, g, *ctx.saved_tensors, sig_r,
-                              deterministic=deterministic)
-        return (*grads, None, None, None, None, None, None)
+        (heads,) = ctx.saved_tensors
+        dheads = posterior_bwd(seed, g, heads, *ctx.consts, sig_r,
+                               deterministic=deterministic)
+        return (dheads,) + (None,) * 7
 
 
-def fused_posterior(seed: int, attn, theta_mu, theta_logstd, z_mu, z_logstd,
-                    p_tr, grid, offsets, sig_r: float, *,
-                    deterministic: bool = False) -> dict:
-    """attn (B, R, M) logits incl. log p(r); theta_* (B, R, M) (mu incl.
-    offsets); z_* (B, zd, R, M); p_tr (R, M) log p(t, r); grid (M, 2);
-    offsets (R,); sig_r the conditional prior std; seed an int.
+def fused_posterior(seed: int, heads, p_r, offsets, p_tr, grid, sig_r: float,
+                    *, deterministic: bool = False) -> dict:
+    """heads (B, M, R, D) the encoder's raw heads, D = 3 + 2*zd; p_r (R,)
+    log p(r); offsets (R,); p_tr (M, R) log p(t, r); grid (M, 2); sig_r the
+    conditional prior std; seed an int.
 
     Returns z_mu_e/z_std_e (B, zd), theta_mu_e/theta_std_e (B,), dx (B, 2),
-    kl (B,); differentiable in attn and the theta and z planes through K4.
-    The Function keeps only references to its inputs and the seed, so the
-    serving path (no gradient) pays nothing for it."""
-    out = _Posterior.apply(attn, theta_mu, theta_logstd, z_mu, z_logstd, p_tr,
-                           grid, offsets, sig_r, seed, deterministic)
-    return _unpack(out, z_mu.shape[1])
+    kl (B,); differentiable in the heads through K4. The Function keeps
+    only references to its inputs and the seed, so the serving path (no
+    gradient) pays nothing for it."""
+    out = _Posterior.apply(heads, p_r, offsets, p_tr, grid, sig_r, seed,
+                           deterministic)
+    return _unpack(out, (heads.shape[-1] - 3) // 2)
 
 
 # ---------------------------------------------------------------------------

@@ -17,6 +17,7 @@ reparameterisation noise is zero (deterministic evaluation).
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import numpy as np
@@ -25,7 +26,8 @@ import torch
 from ..kernels import kernel_tier
 from ..kernels.decoder_pose import fused_pose_decoder, pose_decoder_supported
 from ..kernels.posterior import fused_posterior
-from ..models.encoders import attn_dim_for, encoder_apply
+from ..models.encoders import (attn_dim_for, encoder_apply, encoder_heads,
+                               rotation_constants)
 from ..models.generator import generator_apply
 from ..ops.coords import attention_grid, transform_coords
 from ..ops.kl import guarded_moments, normal_kl
@@ -100,6 +102,24 @@ def reconstruct_log_prob(params: dict, cfg: ModelConfig, x_coord: torch.Tensor,
     return reconstruction_log_prob(y_hat, y, cfg.likelihood.kind)
 
 
+@functools.lru_cache(maxsize=32)
+def posterior_constants(ecfg, device: torch.device):
+    """The joint posterior's constants for an encoder config on `device`,
+    made once (outside inference mode, so that autograd may use them): the
+    attention grid (M, 2), log p(r) and the offsets (R,), and the joint
+    prior log p(t, r) = log_softmax(log p(t) + log p(r)) over
+    the cells, (M, R) m-major as the heads' cells."""
+    ad = attn_dim_for(ecfg)
+    grid_np = attention_grid(ad, ecfg.image_dim)
+    p_r, offsets = rotation_constants(ecfg, device)
+    with torch.inference_mode(False):
+        grid = torch.as_tensor(grid_np, device=device)
+        p_t = torch.as_tensor(_translation_log_prior(grid_np), device=device)
+        p_tr = torch.log_softmax((p_t[:, None] + p_r).reshape(-1), dim=0)
+    return {"grid": grid, "p_r": p_r, "offsets": offsets,
+            "p_tr": p_tr.reshape(ad * ad, ecfg.groupconv)}
+
+
 def compute_elbo(params: dict, cfg: ModelConfig, x_coord: torch.Tensor,
                  y: torch.Tensor, generator: Optional[torch.Generator] = None,
                  compute_dtype: Optional[torch.dtype] = None,
@@ -110,27 +130,22 @@ def compute_elbo(params: dict, cfg: ModelConfig, x_coord: torch.Tensor,
     b = y.shape[0]
     zd = ecfg.z_dim
     R = ecfg.groupconv
-    ad = attn_dim_for(ecfg)
-    M = ad * ad
+    M = attn_dim_for(ecfg) ** 2
     dev = y.device
-    grid_np = attention_grid(ad, ecfg.image_dim)
-    grid = torch.as_tensor(grid_np, device=dev)
-    p_t = torch.as_tensor(_translation_log_prior(grid_np), device=dev)
+    const = posterior_constants(ecfg, dev)
+    grid = const["grid"]
     sig_r = np.pi / R
 
     if kernel_tier(compute_dtype):
-        enc = encoder_apply(params["encoder"], ecfg, y, None, compute_dtype)
-        p_tr = torch.log_softmax((p_t[:, None] + enc["p_r"]).reshape(-1), dim=0)
-        p_tr = p_tr.reshape(M, R).T.contiguous()                 # (R, M)
-        to_rm = lambda v: v.permute(0, 3, 1, 2).reshape(b, R, M)
-        z_rm = lambda v: v.permute(0, 4, 3, 1, 2).reshape(b, zd, R, M)
+        # the encoder's raw heads go to the posterior kernels as they lie
+        # (B, M, R, D); K3 adds log p(r) and the offsets itself, and K4
+        # returns their cotangent in the same layout
+        heads = encoder_heads(params["encoder"], ecfg, y, compute_dtype)
         seed = (0 if generator is None else int(torch.randint(
             0, 2 ** 31 - 1, (1,), generator=generator, device=generator.device)))
         post = fused_posterior(
-            seed, to_rm(enc["attn"]), to_rm(enc["theta_mu"]),
-            to_rm(enc["theta_logstd"]), z_rm(enc["z_mu"]),
-            z_rm(enc["z_logstd"]), p_tr, grid, enc["offsets"], sig_r,
-            deterministic=generator is None)
+            seed, heads.reshape(b, M, R, -1), const["p_r"], const["offsets"],
+            const["p_tr"], grid, sig_r, deterministic=generator is None)
         z_mu_e, z_std_e = post["z_mu_e"], post["z_std_e"]
         th_mu_e, th_std_e = post["theta_mu_e"], post["theta_std_e"]
         dx = post["dx"]
@@ -155,8 +170,7 @@ def compute_elbo(params: dict, cfg: ModelConfig, x_coord: torch.Tensor,
         th_std_e = (th_std * a_s).sum(dim=1)
 
         # joint prior p(t, r) = log_softmax(p_t + p_r) over (H', W', R) cells
-        p_tr_flat = torch.log_softmax((p_t[:, None] + enc["p_r"]).reshape(-1),
-                                      dim=0)
+        p_tr_flat = const["p_tr"].reshape(-1)
         qf = q.reshape(b, -1)
         val1 = (torch.exp(qf) * (qf - p_tr_flat)).sum(dim=1)
         zq_mu, zq_std = guarded_moments(qf[..., None], z_mu, z_std)

@@ -15,12 +15,19 @@ Two tiers, chosen by kernels.kernel_tier(compute_dtype):
       cotangent;
       "patch" (TARGETVAE_ENCODER_TIER=patch): the fused patch encoder, the
       lift one im2col GEMM inside the kernel (kernels/lifted_encoder.py);
+    where the tier has no kernel for the config's widths in the direction
+    asked (encoder_kernel_supported) the JAX package's XLA bf16 recipe in
+    plain PyTorch;
   - float32 (compute_dtype=None): plain PyTorch model code.
+encoder_heads returns the raw heads, which the kernel-tier ELBO hands to
+the posterior kernels as they lie; encoder_apply splits them and adds the
+rotation prior and the offsets.
 Modes A and B are not ported yet (ROADMAP.md, queue 1, slice 5).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import numpy as np
@@ -31,7 +38,8 @@ import torch.nn.functional as F
 from ..kernels import encoder_tier, kernel_tier
 from ..kernels.decoder_pose import _act
 from ..kernels.lifted_encoder import build_patches, fused_lifted_encoder
-from ..kernels.mix_heads import fused_lift_act_mix_heads
+from ..kernels.mix_heads import (fused_lift_act_mix_heads,
+                                 lift_act_mix_heads_plain)
 from ..ops.groupconv import lifted_conv2d, lifted_weight
 from ..ops.gumbel import gumbel_softmax
 from ..ops.rotate import rotate_filter_bank
@@ -129,15 +137,28 @@ def lift_rows(params: dict, cfg: EncoderConfig, y: torch.Tensor):
 
 
 def _mode_c_kernel_tier(params: dict, cfg: EncoderConfig, y: torch.Tensor):
-    """bf16 lift conv, then the fused lift-act + mixing + heads kernel."""
+    """bf16 lift conv, then the fused lift-act + mixing + heads kernel:
+    (B*H'*W', R*D) heads."""
     R, K = cfg.groupconv, cfg.kernels_num
-    rows, hp = lift_rows(params, cfg, y)
-    b, wp = y.shape[0], hp
+    rows, _ = lift_rows(params, cfg, y)
     wh, bh = head_weights(params)
-    out = fused_lift_act_mix_heads(
+    return fused_lift_act_mix_heads(
         rows, params["conv1"]["b"].repeat(R), params["conv2"]["w"],
         params["conv2"]["b"], wh, bh, R=R, K=K, act_kind=cfg.activation)
-    return _split_heads(out.reshape(b, hp, wp, R, -1), cfg.z_dim)
+
+
+def _mode_c_bf16_recipe(params: dict, cfg: EncoderConfig, y: torch.Tensor):
+    """The bf16 tier where the encoder kernels do not reach
+    (encoder_kernel_supported): the JAX package's XLA bf16 recipe
+    (targetvae_tpu/models/encoders.py::_mode_c_xla_matmul without its
+    kernel) in plain PyTorch, the same function K1 computes, rounded at its
+    points, differentiated by autograd: (B*H'*W', R*D) heads."""
+    R, K = cfg.groupconv, cfg.kernels_num
+    rows, _ = lift_rows(params, cfg, y)
+    wh, bh = head_weights(params)
+    return lift_act_mix_heads_plain(
+        rows, params["conv1"]["b"].repeat(R), params["conv2"]["w"],
+        params["conv2"]["b"], wh, bh, R=R, K=K, act_kind=cfg.activation)
 
 
 def mode_c_matrices(params: dict, cfg: EncoderConfig):
@@ -154,16 +175,16 @@ def mode_c_matrices(params: dict, cfg: EncoderConfig):
 
 def _mode_c_patch_tier(params: dict, cfg: EncoderConfig, y: torch.Tensor):
     """The fused patch encoder (targetvae_tpu/models/encoders.py::
-    _mode_c_kernel): im2col patches of the padded images, then K11."""
+    _mode_c_kernel): im2col patches of the padded images, then K11:
+    (B*H'*W', R*D) heads."""
     R, K, pad = cfg.groupconv, cfg.kernels_num, cfg.padding
     hp = attn_dim_for(cfg)
     wc, bc, wh, bh = mode_c_matrices(params, cfg)
     xp = F.pad(y, (0, 0, pad, pad, pad, pad))
-    out = fused_lifted_encoder(
+    return fused_lifted_encoder(
         build_patches(xp, cfg.kernels_size, hp, hp), wc, bc,
         params["conv2"]["w"], params["conv2"]["b"], wh, bh, R=R, K=K,
         act_kind=cfg.activation)
-    return _split_heads(out.reshape(y.shape[0], hp, hp, R, -1), cfg.z_dim)
 
 
 def _mode_c_f32(params: dict, cfg: EncoderConfig, y: torch.Tensor):
@@ -172,38 +193,90 @@ def _mode_c_f32(params: dict, cfg: EncoderConfig, y: torch.Tensor):
                               R=cfg.groupconv, padding=cfg.padding), kind)
     h = _act(lift @ params["conv2"]["w"] + params["conv2"]["b"], kind)
     wh, bh = head_weights(params)
-    return _split_heads(h @ wh + bh, cfg.z_dim)
+    return h @ wh + bh
+
+
+def encoder_kernel_supported(cfg: EncoderConfig, tier: str,
+                             grad: bool) -> bool:
+    """Whether encoder tier `tier` ("conv" or "patch") has kernels for this
+    config's K: its forward (K1 takes K % 16 == 0 up to 128, K11 K in 16,
+    32, 64, 128) and, with `grad`, its backward (K2 and K12: K in 16, 32,
+    64, 128). The bf16 tier runs the plain recipe (_mode_c_bf16_recipe)
+    otherwise; the route is chosen from the shapes alone, before any
+    launch. (All four kernels take at most 16 heads, z_dim <= 6, and raise
+    past it.)"""
+    K = cfg.kernels_num
+    fwd = (K % 16 == 0 and 16 <= K <= 128) if tier == "conv" else (
+        K in (16, 32, 64, 128))
+    return fwd and (not grad or K in (16, 32, 64, 128))
+
+
+def _needs_grad(params: dict, y: torch.Tensor) -> bool:
+    """Whether autograd will differentiate the encoder's output."""
+    if not torch.is_grad_enabled():
+        return False
+    leaves, todo = [y], [params]
+    while todo:
+        for v in todo.pop().values():
+            (todo if isinstance(v, dict) else leaves).append(v)
+    return any(torch.is_tensor(t) and t.requires_grad for t in leaves)
+
+
+def encoder_heads(params: dict, cfg: EncoderConfig, y: torch.Tensor,
+                  compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """The mode-C encoder's raw heads, (B, H', W', R, D) float32 with
+    D = 3 + 2*z_dim channels [attention logit, theta mean, theta log-std,
+    z means, z log-stds], before the rotation prior and the offsets. On the
+    kernel tier this is a view of K1's or K11's output as they write it,
+    which the posterior kernels read where it lies."""
+    _require_mode_c(cfg)
+    if kernel_tier(compute_dtype):
+        tier = encoder_tier()
+        if not encoder_kernel_supported(cfg, tier, _needs_grad(params, y)):
+            out = _mode_c_bf16_recipe(params, cfg, y)
+        elif tier == "patch":
+            out = _mode_c_patch_tier(params, cfg, y)
+        else:
+            out = _mode_c_kernel_tier(params, cfg, y)
+    elif compute_dtype is None:
+        out = _mode_c_f32(params, cfg, y)
+    else:
+        raise ValueError(f"unsupported compute_dtype {compute_dtype}")
+    hp = attn_dim_for(cfg)
+    return out.reshape(y.shape[0], hp, hp, cfg.groupconv, -1)
+
+
+@functools.lru_cache(maxsize=32)
+def rotation_constants(cfg: EncoderConfig, device: torch.device):
+    """log p(r) and the offsets (zeros without rotation refinement), (R,)
+    float32 on `device`, made once for each config and device (outside
+    inference mode, so that autograd may use them)."""
+    R = cfg.groupconv
+    offs = (group_offsets(R) if cfg.rot_refinement
+            else np.zeros((R,), np.float32))
+    with torch.inference_mode(False):
+        return (torch.as_tensor(rotation_log_prior(cfg, R), device=device),
+                torch.as_tensor(offs, device=device))
 
 
 def encoder_apply(params: dict, cfg: EncoderConfig, y: torch.Tensor,
                   generator: Optional[torch.Generator] = None,
                   compute_dtype: Optional[torch.dtype] = None) -> dict:
     """y: (B, H, W, C) channels-last images. generator: draws the Gumbel
-    sample `a_sampled`; None skips sampling (embedding, the kernel-tier ELBO).
+    sample `a_sampled`; None skips sampling (embedding).
 
     Returns attn (logits incl. log p(r)), q (joint log posterior), p_r,
-    offsets, theta_mu (incl. offsets), theta_logstd, z_mu, z_logstd."""
-    _require_mode_c(cfg)
-    R = cfg.groupconv
-    if kernel_tier(compute_dtype):
-        heads = (_mode_c_patch_tier(params, cfg, y) if encoder_tier() == "patch"
-                 else _mode_c_kernel_tier(params, cfg, y))
-    elif compute_dtype is None:
-        heads = _mode_c_f32(params, cfg, y)
-    else:
-        raise ValueError(f"unsupported compute_dtype {compute_dtype}")
-    attn, theta_mu, theta_logstd, z_mu, z_logstd = heads
+    offsets, theta_mu (incl. offsets), theta_logstd, z_mu, z_logstd: the
+    heads of encoder_heads, split, with the rotation prior and the offsets
+    added."""
+    attn, theta_mu, theta_logstd, z_mu, z_logstd = _split_heads(
+        encoder_heads(params, cfg, y, compute_dtype), cfg.z_dim)
     b = y.shape[0]
-    dev = y.device
-    p_r = torch.as_tensor(rotation_log_prior(cfg, R), device=dev)
-    attn = attn.float() + p_r
+    p_r, offsets = rotation_constants(cfg, y.device)
+    attn = attn + p_r
     flat = attn.reshape(b, -1)
     q = torch.log_softmax(flat, dim=-1).reshape(attn.shape)
-    if cfg.rot_refinement:
-        offsets = torch.as_tensor(group_offsets(R), device=dev)
-        theta_mu = theta_mu + offsets
-    else:
-        offsets = torch.zeros((R,), dtype=torch.float32, device=dev)
+    theta_mu = theta_mu + offsets
     out = {"attn": attn, "q": q, "p_r": p_r, "offsets": offsets,
            "theta_mu": theta_mu, "theta_logstd": theta_logstd,
            "z_mu": z_mu, "z_logstd": z_logstd}

@@ -28,9 +28,10 @@ from targetvae_tpu_torch.kernels.mix_heads import (
     fused_lift_act_mix_heads, lift_act_mix_heads_bwd_plain,
     lift_act_mix_heads_plain, mix_heads_bwd)
 from targetvae_tpu_torch.kernels.posterior import (
-    fused_posterior, posterior_bwd, posterior_bwd_plain, posterior_plain,
-    posterior_shard_bwd, posterior_shard_bwd_plain, posterior_shard_fwd,
-    posterior_shard_plain)
+    HEADS_SMEM_BYTES, K3_CELLS, fused_posterior, k3_schedule, k4_schedule,
+    philox4x32, philox_gumbel, posterior_bwd, posterior_bwd_plain,
+    posterior_fwd, posterior_plain, posterior_shard_bwd,
+    posterior_shard_bwd_plain, posterior_shard_fwd, posterior_shard_plain)
 from targetvae_tpu_torch.models.generator import generator_init
 from targetvae_tpu_torch.ops.coords import image_grid, transform_coords
 from targetvae_tpu_torch.utils.config import GeneratorConfig
@@ -68,15 +69,34 @@ def _mix_inputs(R=4, K=128, D=7, N=700):
             f(K, D) * 0.1, f(D) * 0.1)
 
 
-def _posterior_inputs(B=3, R=4, M=25, zd=2):
-    rng = np.random.default_rng(1)
+def _posterior_inputs(B=3, R=4, M=25, zd=2, seed=1):
+    """K3's inputs under the heads contract, numpy: the raw heads
+    (B, M, R, D) (logit x 2, theta mean, theta log-std x 0.3, z means, z
+    log-stds x 0.3), log p(r) (R,) (not uniform, so that its add shows),
+    the offsets (R,), p_tr (M, R), the grid (M, 2) and sig_r; at
+    tests/test_kernels.py:218's shapes by default."""
+    rng = np.random.default_rng(seed)
     f = lambda *s: rng.normal(size=s).astype(np.float32)
-    p = f(R * M)
-    p_tr = (p - np.log(np.exp(p - p.max()).sum()) - p.max()).reshape(R, M)
-    return (f(B, R, M) * 2, f(B, R, M), f(B, R, M) * 0.3, f(B, zd, R, M),
-            f(B, zd, R, M) * 0.3, p_tr.astype(np.float32), f(M, 2),
-            np.asarray([0, np.pi / 2, np.pi, -np.pi / 2], np.float32),
-            float(np.pi / 4))
+    scale = np.asarray([2.0, 1.0, 0.3] + [1.0] * zd + [0.3] * zd, np.float32)
+    heads = f(B, M, R, 3 + 2 * zd) * scale
+    p = f(M * R)
+    p_tr = (p - np.log(np.exp(p - p.max()).sum()) - p.max()).reshape(M, R)
+    offs = 2 * np.pi * np.arange(R) / R
+    offs = np.where(offs > np.pi + 1e-9, offs - 2 * np.pi, offs)
+    return (heads, f(R) * 0.5 - np.log(4 * np.pi).astype(np.float32),
+            offs.astype(np.float32), p_tr.astype(np.float32), f(M, 2),
+            float(np.pi / R))
+
+
+def _jax_planes(heads, p_r, offs, p_tr):
+    """The JAX kernel's (B, R, M) planes of heads-contract inputs, as the
+    JAX package's ELBO forms them: attn and theta_mu with log p(r) and the
+    offsets added, z (B, zd, R, M), p_tr (R, M)."""
+    zd = (heads.shape[-1] - 3) // 2
+    hp = heads.transpose(0, 3, 2, 1)                              # (B, D, R, M)
+    c = np.ascontiguousarray
+    return (c(hp[:, 0] + p_r[:, None]), c(hp[:, 1] + offs[:, None]),
+            c(hp[:, 2]), c(hp[:, 3:3 + zd]), c(hp[:, 3 + zd:]), c(p_tr.T))
 
 
 def _pose_config(num_layers, n=18, zd=2):
@@ -120,30 +140,110 @@ def test_mix_heads_plain_matches_jax_kernel(jx, K, R, act):
 
 
 def test_posterior_plain_matches_jax_kernel_deterministic(jx):
-    args = _posterior_inputs()
-    ref = jx.post(jx.jax.random.key(9), *[jx.jnp.asarray(a) for a in args[:8]],
-                  args[8], deterministic=True, interpret=True)
-    targs = [torch.from_numpy(a) for a in args[:8]] + [args[8]]
-    for got in (posterior_plain(*targs),
-                fused_posterior(9, *targs, deterministic=True)):
+    """The heads contract's plain version and the CPU wrapper against the
+    Pallas kernel (interpret mode) fed the planes the JAX package's ELBO
+    forms from the same heads: float32 on both sides, 1e-4."""
+    heads, p_r, offs, p_tr, grid, sig_r = _posterior_inputs()
+    planes = [jx.jnp.asarray(a) for a in _jax_planes(heads, p_r, offs, p_tr)]
+    ref = jx.post(jx.jax.random.key(9), *planes, jx.jnp.asarray(grid),
+                  jx.jnp.asarray(offs), sig_r, deterministic=True,
+                  interpret=True)
+    targs = [torch.from_numpy(a) for a in (heads, p_r, offs, p_tr, grid)]
+    for got in (posterior_plain(*targs, sig_r),
+                fused_posterior(9, *targs, sig_r, deterministic=True)):
         for name in ref:
             assert float(np.abs(got[name].numpy()
                                 - np.asarray(ref[name])).max()) < 1e-4, name
 
 
 def test_posterior_sampled_cpu_is_split_invariant():
-    args = _posterior_inputs(B=4)
-    targs = [torch.from_numpy(a) for a in args[:8]] + [args[8]]
-    full = fused_posterior(5, *targs)
-    halves = [fused_posterior(5 + i, *[t[i:i + 2] for t in targs[:5]],
-                              *targs[5:]) for i in (0, 2)]
-    det = fused_posterior(5, *targs, deterministic=True)
+    heads, *consts = _posterior_inputs(B=4)
+    targs = [torch.from_numpy(a) for a in consts[:4]] + [consts[4]]
+    h = torch.from_numpy(heads)
+    full = fused_posterior(5, h, *targs)
+    halves = [fused_posterior(5 + i, h[i:i + 2], *targs) for i in (0, 2)]
+    det = fused_posterior(5, h, *targs, deterministic=True)
     for name in full:
         torch.testing.assert_close(
-            full[name], torch.cat([h[name] for h in halves]), rtol=0, atol=0)
+            full[name], torch.cat([h_[name] for h_ in halves]), rtol=0, atol=0)
     # the KL does not depend on the sample
     torch.testing.assert_close(full["kl"], det["kl"], rtol=1e-6, atol=1e-6)
     assert not torch.equal(full["dx"], det["dx"])
+
+
+def test_philox_matches_random123_known_answers():
+    """philox4x32 (PyTorch integer operations) against Random123's known
+    answers for Philox4x32-10 (its kat_vectors): counter and key all zeros,
+    all ones, and the digits of pi."""
+    w = lambda *v: tuple(torch.tensor(x, dtype=torch.int64) for x in v)
+    cases = [
+        (w(0, 0, 0, 0), w(0, 0),
+         (0x6627e8d5, 0xe169c58d, 0xbc57ac4c, 0x9b00dbd8)),
+        (w(*[0xFFFFFFFF] * 4), w(0xFFFFFFFF, 0xFFFFFFFF),
+         (0x408f276d, 0x41c83b0e, 0xa20bc7c6, 0x6d5451fd)),
+        (w(0x243f6a88, 0x85a308d3, 0x13198a2e, 0x03707344),
+         w(0xa4093822, 0x299f31d0),
+         (0xd16cfe09, 0x94fdcceb, 0x5001e420, 0x24126ea1))]
+    for counter, key, want in cases:
+        assert tuple(int(x) for x in philox4x32(counter, key)) == want
+
+
+def test_philox_gumbel_is_the_kernels_draw():
+    """philox_gumbel against a scalar reading of csrc/posterior.cu's gumbel:
+    key (seed & 0x7FFFFFFF) + image, counter r M + m, the first output
+    word's top 23 bits as a [1, 2) mantissa minus 1, clipped to
+    [1e-20, 1 - 1e-7], then -log(-log(u)). The uniform is exact; the two
+    logs in float32 within 1e-6 relative."""
+    seed, b, R, M = 0x7FFFFFF0 + 2 ** 31, 3, 4, 7
+    got = philox_gumbel(seed, b, R, M)
+    assert got.shape == (b, R, M) and got.dtype == torch.float32
+    for i, r, m in ((0, 0, 0), (2, 3, 6), (1, 2, 5), (2, 0, 3)):
+        key = ((seed & 0x7FFFFFFF) + i) & 0xFFFFFFFF
+        t = lambda x: torch.tensor(x, dtype=torch.int64)
+        bits = int(philox4x32((t(r * M + m), t(0), t(0), t(0)),
+                              (t(key), t(0)))[0])
+        u = np.array([(bits >> 9) | 0x3F800000], np.uint32).view(
+            np.float32)[0] - np.float32(1)
+        u = min(max(u, np.float32(1e-20)), np.float32(1 - 1e-7))
+        want = -np.log(-np.log(np.float64(u)))
+        assert abs(float(got[i, r, m]) - want) <= 1e-6 * max(1.0, abs(want))
+
+
+@pytest.mark.parametrize("M, R, D, cluster, budget", [
+    (1521, 8, 7, None, HEADS_SMEM_BYTES), (1521, 16, 7, None, HEADS_SMEM_BYTES),
+    (4225, 8, 7, None, HEADS_SMEM_BYTES), (1521, 8, 19, None, HEADS_SMEM_BYTES),
+    (4225, 8, 7, 4, HEADS_SMEM_BYTES), (25, 4, 5, None, HEADS_SMEM_BYTES),
+    (25, 4, 7, 16, 256), (49, 8, 9, 2, 512)])
+def test_posterior_schedule_covers_each_cell_once(M, R, D, cluster, budget):
+    """K3's and K4's grids: `cluster` CTAs of `chunk` cells (a multiple of
+    4) cover the image's R M cells, each cell in one CTA. K3 streams at
+    most K3_CELLS a CTA by default (the flagship: 4 CTAs of 3,044 cells);
+    K4 holds at most `sub` cells at a time, a multiple of 4 within the
+    shared-memory budget, by default on the smallest cluster whose chunks
+    fit it (the flagship: 8 CTAs of 1,524 cells)."""
+    c = R * M
+    ceil4 = lambda n: -(-n // 4) * 4
+    cs, chunk = k3_schedule(M, R, cluster)
+    assert chunk % 4 == 0 and cs * chunk >= c
+    if cluster is None:
+        assert cs in (1, 2, 4, 8, 16)
+        assert chunk <= K3_CELLS or cs == 16
+        assert cs == 1 or ceil4(-(-c // (cs // 2))) > K3_CELLS
+    else:
+        assert cs == cluster
+    cs, chunk, sub = k4_schedule(M, R, D, cluster, budget)
+    assert chunk % 4 == 0 and sub % 4 == 0 and 4 <= sub <= chunk
+    assert cs * chunk >= c
+    assert sub * 4 * D <= budget or sub == 4
+    if cluster is None:
+        assert cs in (1, 2, 4, 8, 16)
+        assert chunk * 4 * D <= budget or cs == 16
+        assert cs == 1 or ceil4(-(-c // (cs // 2))) * 4 * D > budget
+    else:
+        assert cs == cluster
+    if (M, R, D, cluster) == (1521, 8, 7, None):
+        assert k3_schedule(M, R) == (4, 3044)
+        assert (cs, chunk, sub) == (8, 1524, 1524)
 
 
 @pytest.mark.parametrize("num_layers", [2, 4])
@@ -199,9 +299,28 @@ def test_mix_heads_kernel_on_cuda(cuda, K, R, N, act, D):
     assert torch.equal(got, again)
 
 
+def _cuda_posterior(cuda, **kw):
+    heads, *consts = _posterior_inputs(**kw)
+    return ([torch.from_numpy(a).to(cuda) for a in (heads, *consts[:4])]
+            + [consts[4]])
+
+
+def _close_per_unit(a, b) -> float:
+    return float(((a - b).abs() / b.abs().clamp(min=1.0)).max())
+
+
+def _scaled_err(a, b, cell_dims=(1, 2)) -> float:
+    """max |a - b| / (|b| + 1e-3 s), s the max of |b| over an image's cells
+    in each channel (chip_smoke.scaled_err): the posterior cotangents scale
+    with their cells' softmax weights, so each element is held to its own
+    magnitude, down to a thousandth of its image's largest."""
+    a, b = a.double(), b.double()
+    den = b.abs() + 1e-3 * b.abs().amax(dim=cell_dims, keepdim=True)
+    return float(((a - b).abs() / den.clamp(min=1e-300)).max())
+
+
 def test_posterior_kernel_on_cuda(cuda):
-    args = _posterior_inputs()
-    targs = [torch.from_numpy(a).to(cuda) for a in args[:8]] + [args[8]]
+    targs = _cuda_posterior(cuda)
     got = fused_posterior(9, *targs, deterministic=True)
     ref = posterior_plain(*targs)
     for name in ref:
@@ -279,17 +398,16 @@ def test_mix_heads_backward_kernel_on_cuda(cuda, K, R, N, act, D):
 
 
 def test_posterior_backward_kernel_on_cuda(cuda):
-    args = _posterior_inputs()
-    targs = [torch.from_numpy(a).to(cuda) for a in args[:8]] + [args[8]]
+    targs = _cuda_posterior(cuda)
     g = torch.randn(3, 9, generator=torch.Generator().manual_seed(5)).to(cuda)
     got = posterior_bwd(9, g, *targs, deterministic=True)
     ref = posterior_bwd_plain(g, *targs)
-    for a, b in zip(got, ref):
-        err = float(((a - b).abs() / b.abs().clamp(min=1.0)).max())
-        assert err < 1e-4, err
+    assert got.shape == ref.shape == targs[0].shape
+    assert _close_per_unit(got, ref) < 1e-4
+    assert _scaled_err(got, ref) < 1e-2
     s1 = posterior_bwd(3, g, *targs)
     s2 = posterior_bwd(3, g, *targs)
-    assert all(torch.equal(a, b) for a, b in zip(s1, s2))
+    assert torch.equal(s1, s2)
 
 
 def test_posterior_sampled_backward_is_its_forwards_derivative_on_cuda(cuda):
@@ -297,18 +415,84 @@ def test_posterior_sampled_backward_is_its_forwards_derivative_on_cuda(cuda):
     matches a central difference of the kernel's own forward at the same
     seed, along a seeded direction (float32 differences of O(1) values at
     step 1e-2: relative tolerance 2e-2)."""
-    args = _posterior_inputs()
-    targs = [torch.from_numpy(a).to(cuda) for a in args[:8]] + [args[8]]
+    targs = _cuda_posterior(cuda)
     gen = torch.Generator().manual_seed(6)
     g = torch.randn(3, 9, generator=gen).to(cuda)
-    dirs = [torch.randn(t.shape, generator=gen).to(cuda) for t in targs[:5]]
+    d = torch.randn(targs[0].shape, generator=gen).to(cuda)
     grads = posterior_bwd(21, g, *targs)
-    fwd = lambda eps: kernels.posterior_fwd(
-        21, *[t + eps * d for t, d in zip(targs[:5], dirs)], *targs[5:])
+    fwd = lambda eps: kernels.posterior_fwd(21, targs[0] + eps * d,
+                                            *targs[1:])
     h = 1e-2
     fd = float(((fwd(h) - fwd(-h)) * g).sum()) / (2 * h)
-    an = sum(float((gr * d).sum()) for gr, d in zip(grads, dirs))
+    an = float((grads * d).sum())
     assert abs(fd - an) <= 2e-2 * max(abs(an), 1.0), (fd, an)
+
+
+# K3 and K4 over the shapes the wrappers take: odd and even M, R = 4, 8
+# and 16, zd = 1, 2, 3 and 8, B = 0, 1, 2 and 3, on the default grids and
+# on forced ones: clusters of 2 to 16 CTAs (16 needs the non-portable
+# cluster size), CTAs left without cells, K4's chunks streamed through a
+# small shared-memory budget, K3's through several rounds of its ring, and
+# heads 4 bytes off 16-byte alignment (which the wrappers copy to an
+# aligned tensor for the bulk copies). (B, M, R, zd, cluster, budget,
+# offset)
+POSTERIOR_CUDA = [
+    (3, 25, 4, 2, None, None, 0), (3, 36, 16, 1, None, None, 0),
+    (1, 49, 8, 8, None, None, 0), (0, 25, 4, 2, None, None, 0),
+    (3, 100, 4, 2, 4, None, 0), (3, 25, 4, 3, 8, None, 0),
+    (3, 64, 16, 8, 16, 1024, 0), (2, 81, 8, 2, 2, 2048, 0),
+    (3, 25, 4, 2, 2, None, 1), (2, 81, 8, 8, 4, 1024, 1)]
+
+
+@pytest.mark.parametrize("B, M, R, zd, cluster, budget, offset",
+                         POSTERIOR_CUDA)
+def test_posterior_kernels_over_shapes_on_cuda(cuda, B, M, R, zd, cluster,
+                                               budget, offset):
+    """K3 and K4, deterministic and sampled, against their plain versions
+    fed the kernels' own noise (philox_gumbel): float32 formulas on both
+    sides, sums in other orders, 1e-4 per unit of max(1, |value|) (two
+    logs of the noise may differ by an ulp between the card's logf and
+    torch.log), and K4's cotangents each within 1e-2 of their own
+    magnitude (_scaled_err). Reruns bitwise equal; one launch counted
+    each."""
+    heads, *consts = _cuda_posterior(cuda, B=max(B, 1), M=M, R=R, zd=zd)
+    heads = heads[:B]
+    if offset:
+        flat = torch.empty(heads.numel() + offset, device=cuda)
+        flat[offset:] = heads.reshape(-1)
+        heads = flat[offset:].view(heads.shape)
+    sched3 = k3_schedule(M, R, cluster)
+    sched4 = k4_schedule(M, R, 3 + 2 * zd, cluster,
+                         budget or HEADS_SMEM_BYTES)
+    g = torch.randn(B, 2 * zd + 5,
+                    generator=torch.Generator().manual_seed(8)).to(cuda)
+    noise = philox_gumbel(11, B, R, M, cuda)
+    for det in (True, False):
+        kernels.reset_launch_counts()
+        out = posterior_fwd(11, heads, *consts, deterministic=det,
+                            schedule=sched3)
+        again = posterior_fwd(11, heads, *consts, deterministic=det,
+                              schedule=sched3)
+        dh = posterior_bwd(11, g, heads, *consts, deterministic=det,
+                           schedule=sched4)
+        dh2 = posterior_bwd(11, g, heads, *consts, deterministic=det,
+                            schedule=sched4)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        assert counts["posterior_fwd"] == counts["posterior_bwd"] == (
+            2 if B else 0)
+        nz = None if det else noise
+        ref = torch.cat([v if v.dim() == 2 else v[:, None]
+                         for v in posterior_plain(heads, *consts,
+                                                  noise=nz).values()], dim=1)
+        assert out.shape == ref.shape == (B, 2 * zd + 5)
+        assert torch.equal(out, again) and torch.equal(dh, dh2)
+        if B:
+            assert _close_per_unit(out, ref) < 1e-4, det
+            refb = posterior_bwd_plain(g, heads, *consts, noise=nz)
+            assert dh.shape == heads.shape
+            assert _close_per_unit(dh, refb) < 1e-4, det
+            assert _scaled_err(dh, refb) < 1e-2, det
 
 
 @pytest.mark.parametrize("num_layers", [2, 4])
@@ -725,6 +909,8 @@ def test_posterior_shard_kernels_on_cuda(cuda, noise, pad):
     for a, b in zip(grads, ref):
         assert a.shape == b.shape and bool(torch.isfinite(a).all())
         assert _close_per_unit(a, b) < 1e-4
+    for a, b in zip(grads[:4], ref[:4]):
+        assert _scaled_err(a, b, (-1,)) < 1e-2
     assert all(torch.equal(a, b) for a, b in zip(grads, again))
     if pad:
         da, dq, dth, dz, _ = grads

@@ -138,7 +138,8 @@ def test_patch_encoder_plain_matches_jax_kernel(C, K_, R_, act):
 
 
 def _sin_loss(heads):
-    """sum(sin(head)) over the five heads, of torch tensors or JAX arrays."""
+    """sum(sin(head)) over the heads, of torch tensors or JAX arrays: the
+    JAX encoder's five split heads, or the port's one tensor of them."""
     return sum((v.sin() if torch.is_tensor(v) else jnp.sin(v)).sum()
                for v in heads)
 
@@ -162,7 +163,7 @@ def test_patch_encoder_gradients_match_jax(interpret_encoder, activation):
     for sub in tp.values():
         for t in sub.values():
             t.requires_grad_()
-    _sin_loss(tenc._mode_c_patch_tier(tp, tc, torch.from_numpy(y))).backward()
+    _sin_loss((tenc._mode_c_patch_tier(tp, tc, torch.from_numpy(y)),)).backward()
     for name, sub in tp.items():
         for key, t in sub.items():
             assert _rel(t.grad.numpy(), ref[name][key]) < 5e-6, (name, key)

@@ -35,11 +35,14 @@ from targetvae_tpu_torch.kernels.mix_heads import (
     fused_lift_act_mix_heads, lift_act_mix_heads_bwd_plain)
 from targetvae_tpu_torch.kernels.posterior import (
     fused_posterior, per_image_gumbel, posterior_bwd_plain, posterior_plain)
+import targetvae_tpu_torch.losses.elbo as port_elbo
+import targetvae_tpu_torch.models.encoders as port_enc
 from targetvae_tpu_torch.losses.elbo import compute_elbo
 from targetvae_tpu_torch.train import (
     Trainer, create_train_state, get_learning_rate, make_optimizer,
     set_learning_rate)
-from targetvae_tpu_torch.utils.config import GeneratorConfig, TrainConfig
+from targetvae_tpu_torch.utils.config import (EncoderConfig, GeneratorConfig,
+                                              TrainConfig)
 from targetvae_tpu_torch.utils.jax_params import params_from_jax, params_to_jax
 
 LR = 2e-4
@@ -170,15 +173,17 @@ def test_mix_heads_backward_plain_matches_jax_kernel():
 
 
 def _posterior_inputs(B=3, R=4, M=25, zd=2):
-    """tests/test_kernels.py:218's shapes."""
+    """tests/test_kernels.py:218's shapes, under the heads contract: raw
+    heads (B, M, R, D), log p(r), offsets (R,), p_tr (M, R), grid (M, 2),
+    sig_r (numpy)."""
     rng = np.random.default_rng(1)
     f = lambda *s: rng.normal(size=s).astype(np.float32)
-    p = f(R * M)
-    p_tr = (p - np.log(np.exp(p - p.max()).sum()) - p.max()).reshape(R, M)
-    return (f(B, R, M) * 2, f(B, R, M), f(B, R, M) * 0.3, f(B, zd, R, M),
-            f(B, zd, R, M) * 0.3, p_tr.astype(np.float32), f(M, 2),
+    scale = np.asarray([2.0, 1.0, 0.3] + [1.0] * zd + [0.3] * zd, np.float32)
+    p = f(M * R)
+    p_tr = (p - np.log(np.exp(p - p.max()).sum()) - p.max()).reshape(M, R)
+    return (f(B, M, R, 3 + 2 * zd) * scale, f(R) * 0.5 - np.float32(2.5),
             np.asarray([0, np.pi / 2, np.pi, -np.pi / 2], np.float32),
-            float(np.pi / 4))
+            p_tr.astype(np.float32), f(M, 2), float(np.pi / 4))
 
 
 _POST_KEYS = ("z_mu_e", "z_std_e", "theta_mu_e", "theta_std_e", "dx", "kl")
@@ -191,46 +196,91 @@ def _packed_cotangent(g, zd):
 
 
 def test_posterior_backward_plain_matches_jax_kernel():
-    """K4, deterministic, against the JAX kernel's hand-derived VJP: both
-    float32 with the same formulas, so 1e-4 relative per element (floored
-    at 1)."""
-    args = _posterior_inputs()
+    """K4's plain version, deterministic, against the JAX kernel's
+    hand-derived VJP taken at the planes the JAX package's ELBO forms from
+    the same heads (log p(r) added to the logit, the offsets to theta's
+    mean): the cotangent of the raw heads is the planes' cotangents in the
+    heads' layout. Both float32 with the same formulas, so 1e-4 relative
+    per element (floored at 1)."""
+    heads, p_r, offs, p_tr, grid, sig_r = _posterior_inputs()
+    zd = 2
+    hp = heads.transpose(0, 3, 2, 1)                              # (B, D, R, M)
+    planes = (hp[:, 0] + p_r[:, None], hp[:, 1] + offs[:, None], hp[:, 2],
+              hp[:, 3:3 + zd], hp[:, 3 + zd:])
     g = np.random.default_rng(2).normal(size=(3, 9)).astype(np.float32)
     _, vjp = jax.vjp(
-        lambda *a: jax_posterior(jax.random.key(9), *a, *map(jnp.asarray,
-                                                             args[5:8]),
-                                 args[8], deterministic=True, interpret=True),
-        *map(jnp.asarray, args[:5]))
-    ref = vjp({k: jnp.asarray(v) for k, v in _packed_cotangent(g, 2).items()})
+        lambda *a: jax_posterior(jax.random.key(9), *a, jnp.asarray(p_tr.T),
+                                 jnp.asarray(grid), jnp.asarray(offs), sig_r,
+                                 deterministic=True, interpret=True),
+        *map(jnp.asarray, planes))
+    ref = [np.asarray(r) for r in vjp(
+        {k: jnp.asarray(v) for k, v in _packed_cotangent(g, zd).items()})]
+    ref = np.concatenate([ref[0][:, None], ref[1][:, None], ref[2][:, None],
+                          ref[3], ref[4]], axis=1).transpose(0, 3, 2, 1)
     got = posterior_bwd_plain(torch.from_numpy(g),
-                              *map(torch.from_numpy, args[:8]), args[8])
-    for a, b in zip(got, ref):
-        b = np.asarray(b)
-        assert (np.abs(a.numpy() - b) / np.maximum(np.abs(b), 1.0)).max() < 1e-4
+                              *map(torch.from_numpy, (heads, p_r, offs, p_tr,
+                                                      grid)), sig_r)
+    assert got.shape == heads.shape
+    assert (np.abs(got.numpy() - ref) / np.maximum(np.abs(ref), 1.0)).max() < 1e-4
 
 
 def test_posterior_sampled_cpu_backward_is_autograd_of_plain():
     """The CPU Function's sampled backward regenerates the forward's noise
-    from the seed: it equals torch.autograd of posterior_plain fed the same
-    per_image_gumbel noise (float32, two formulas of one derivative:
-    1e-5 relative per element, floored at 1)."""
-    args = _posterior_inputs()
+    from the seed: its heads cotangent equals torch.autograd of
+    posterior_plain fed the same per_image_gumbel noise (float32, two
+    formulas of one derivative: 1e-5 relative per element, floored at 1)."""
+    heads, *consts = _posterior_inputs()
     g = torch.from_numpy(
         np.random.default_rng(3).normal(size=(3, 9)).astype(np.float32))
     cot = _packed_cotangent(g, 2)
-    consts = [torch.from_numpy(a) for a in args[5:8]] + [args[8]]
+    consts = [torch.from_numpy(a) for a in consts[:4]] + [consts[4]]
 
     def grads(fn):
-        leaves = [torch.from_numpy(a).requires_grad_() for a in args[:5]]
-        out = fn(leaves)
+        leaf = torch.from_numpy(heads).requires_grad_()
+        out = fn(leaf)
         sum((out[k] * cot[k]).sum() for k in _POST_KEYS).backward()
-        return [t.grad for t in leaves]
+        return leaf.grad
 
-    got = grads(lambda t: fused_posterior(17, *t, *consts))
-    noise = per_image_gumbel(17, args[0].shape)
-    ref = grads(lambda t: posterior_plain(*t, *consts, noise=noise))
-    for a, b in zip(got, ref):
-        assert float(((a - b).abs() / b.abs().clamp(min=1.0)).max()) < 1e-5
+    got = grads(lambda h: fused_posterior(17, h, *consts))
+    noise = per_image_gumbel(17, (3, 4, 25))
+    ref = grads(lambda h: posterior_plain(h, *consts, noise=noise))
+    assert float(((got - ref).abs() / ref.abs().clamp(min=1.0)).max()) < 1e-5
+
+
+def test_kernel_tier_elbo_heads_gradient_equals_the_plane_route(pair,
+                                                               monkeypatch):
+    """The bf16 tier's ELBO hands the encoder's raw heads to the posterior
+    (K3/K4, their plain versions on the CPU) as they lie. Its gradient with
+    respect to those heads equals autograd through the float32 tier's plane
+    route from the same heads: encoder_apply's split with log p(r) and the
+    offsets added, then the posterior in plain model code. No noise, and
+    the decoder replaced on both sides by one smooth function of (theta,
+    dx, z), so that only the posterior's wiring (cell order, the (M, R)
+    prior, the offsets) is compared: float32 on both sides, 1e-5 relative
+    L2; the ELBOs within 1e-6 relative."""
+    jm, jp, images = pair
+    tm = _port_model(jm, jp)
+    params, y = tm.params(), torch.from_numpy(images)
+    with torch.no_grad():
+        heads = port_enc.encoder_heads(params["encoder"], tm.cfg.encoder, y)
+    heads = heads + 0.3 * torch.randn(heads.shape, generator=torch.Generator(
+        ).manual_seed(4))
+    monkeypatch.setattr(
+        port_elbo, "reconstruct_log_prob",
+        lambda params, cfg, x, y, theta, dx, z, compute_dtype=None:
+        (torch.sin(theta).sum() + torch.cos(3 * dx).sum()
+         + (z * z).sum()) / y.shape[0])
+    grads, elbos = [], []
+    for dt, module in ((torch.bfloat16, port_elbo), (None, port_enc)):
+        leaf = heads.clone().requires_grad_()
+        with monkeypatch.context() as m:
+            m.setattr(module, "encoder_heads", lambda *a, **k: leaf)
+            elbo = compute_elbo(params, tm.cfg, tm.base_grid(), y, None, dt)[0]
+        elbo.backward()
+        grads.append(leaf.grad.numpy())
+        elbos.append(float(elbo.detach()))
+    assert abs(elbos[0] - elbos[1]) <= 1e-6 * abs(elbos[1])
+    assert _rel(*grads) < 1e-5
 
 
 @pytest.mark.parametrize("num_layers", [2, 4])
@@ -393,6 +443,78 @@ def test_bf16_tier_gradients_track_f32_tier(pair):
     g16 = _port_grads(_port_model(jm, jp), images, torch.bfloat16)
     assert all(np.isfinite(a).all() for a in jax.tree.leaves(g16))
     _assert_grads_close(g16, g32, 0.15, tol_theta=0.2)
+
+
+def test_bf16_encoder_past_the_kernels_widths_tracks_jax():
+    """At K = 160, a width the encoder kernels do not take, the bf16 tier
+    runs the JAX package's XLA bf16 recipe in plain PyTorch, chosen from the
+    config before any launch: its heads track the JAX package's bf16 path
+    on the CPU (encoder_apply in bf16: the conv in bf16, the rest in
+    float32), which the recipe's bf16 h1, W2, h2 and Wh move by up to
+    4.4e-3 relative L2 here (theta's log-std): within 1e-2. The bf16 ELBO
+    trains: its gradients are finite and track the float32 tier's within
+    the bf16 tier's bounds (0.15, the theta heads 0.2)."""
+    jc = _model_config()
+    jc = jcfg.ModelConfig(generator=jc.generator, likelihood=jc.likelihood,
+                          encoder=jcfg.EncoderConfig(
+                              **{**jc.encoder.__dict__, "kernels_num": 160}))
+    jm = JaxTargetVAE(jc)
+    jp = jax.tree.map(np.asarray, jm.init(jax.random.key(0)))
+    y = np.random.default_rng(0).uniform(0, 1, (3, 14, 14, 1)).astype(
+        np.float32)
+    tm = _port_model(jm, jp)
+    assert not any(port_enc.encoder_kernel_supported(tm.cfg.encoder, tier,
+                                                     grad)
+                   for tier in ("conv", "patch") for grad in (False, True))
+    ref = jax_enc.encoder_apply(jax.tree.map(jnp.asarray, jp["encoder"]),
+                                jc.encoder, jnp.asarray(y), None,
+                                compute_dtype=jnp.bfloat16)
+    with torch.no_grad():
+        got = port_enc.encoder_apply(tm.params()["encoder"], tm.cfg.encoder,
+                                     torch.from_numpy(y), None,
+                                     torch.bfloat16)
+    for name in ("attn", "theta_mu", "theta_logstd", "z_mu", "z_logstd"):
+        assert _rel(got[name].numpy(), np.asarray(ref[name])) < 1e-2, name
+    g32 = _port_grads(_port_model(jm, jp), y)
+    g16 = _port_grads(_port_model(jm, jp), y, torch.bfloat16)
+    assert all(np.isfinite(a).all() for a in jax.tree.leaves(g16))
+    _assert_grads_close(g16, g32, 0.15, tol_theta=0.2)
+
+
+# (K, tier, grad, kernels): K1 takes K % 16 == 0 up to 128, K2, K11 and
+# K12 K in 16, 32, 64, 128
+ENCODER_ROUTES = [
+    (64, "conv", False, True), (64, "conv", True, True),
+    (64, "patch", False, True), (64, "patch", True, True),
+    (48, "conv", False, True), (48, "conv", True, False),
+    (48, "patch", False, False), (112, "conv", False, True),
+    (160, "conv", False, False), (160, "patch", True, False)]
+
+
+@pytest.mark.parametrize("K, tier, grad, kernels", ENCODER_ROUTES)
+def test_encoder_routes_to_the_kernels_where_they_take_the_shape(
+        monkeypatch, K, tier, grad, kernels):
+    """The bf16 encoder runs a tier's kernels wherever they take the
+    config's widths in the direction asked, and the plain recipe only
+    where they do not: conv-tier eval and embed at K = 48 keep K1, its
+    training (K2 takes no K = 48) runs plain. Read from the route the
+    model takes on the CPU: the recipe is the only caller of
+    lift_act_mix_heads_plain outside the kernels' wrappers."""
+    cfg = EncoderConfig(image_dim=14, z_dim=2, kernels_num=K, kernels_size=8,
+                        padding=3, groupconv=4)
+    assert port_enc.encoder_kernel_supported(cfg, tier, grad) is kernels
+    monkeypatch.setenv("TARGETVAE_ENCODER_TIER", tier)
+    calls = []
+    real = port_enc._mode_c_bf16_recipe
+    monkeypatch.setattr(port_enc, "_mode_c_bf16_recipe",
+                        lambda *a: calls.append(1) or real(*a))
+    params = port_enc.encoder_init(torch.Generator().manual_seed(0), cfg)
+    for leaf in jax.tree.leaves(params):
+        leaf.requires_grad_(grad)
+    y = torch.rand((2, 14, 14, 1), generator=torch.Generator().manual_seed(1))
+    heads = port_enc.encoder_heads(params, cfg, y, torch.bfloat16)
+    assert heads.shape == (2, 13, 13, 4, 7)
+    assert bool(calls) is not kernels
 
 
 def test_entry_points_default_to_cuda():
