@@ -16,14 +16,15 @@ from a seed):
   4. evaluates the held-out ELBO over a few batches in bf16, and against the
      float32 tier with deterministic noise;
   5. times each forward kernel against its plain version (device_ms: CUDA
-     graph replays, inputs cold in L2; the wrapper's host-inclusive time
-     beside it), embed and eval img/s;
+     graph replays, inputs cold in L2), embed and eval img/s;
   6. holds each backward kernel (K2, K4, K8, K10, K12) and K7's
      save-residuals mode against its plain version at flagship shapes (K12
      also at the galaxy encoder's C = 3 shape), the sampled K4 against its
      plain version fed the kernel's noise and against a central difference
      of K3's own forward, and K3 and K4 (not timed) at P16, at dSprites'
      H' = 65 (also streamed through a cluster of 4 CTAs) and at z = 8;
+     and the bf16 ELBO at z_dim 8 and 10, past the encoder kernels' 16
+     heads (and at 10 past K3/K4's z <= 8), against the float32 tier;
   7. trains: ~30 bf16 Trainer.train_step calls on fixed synthetic batches
      (finite, rising ELBO; every kernel launched), and one deterministic
      step's gradients on the bf16 kernel tier against the float32 tier;
@@ -39,19 +40,25 @@ from a seed):
      device ms) with and without the gradient;
  10. the grid-sharded (sequence-parallel) posterior: K5/K6 against their
      plain versions at the two-rank shard shape (B=100, 6,144 of the
-     12,288 padded cells), then the SP bf16 Trainer (tp=2, sp=True) as two
-     ranks sharing cuda:0 over gloo (run_local): one deterministic step
-     against the unsharded step (loss and gradients), SP_STEPS sampled
-     steps (finite, rising ELBO, K5/K6 launched every step, K3/K4 never,
-     parameters bitwise equal across ranks), and a profile of rank 0.
+     12,288 padded cells; z_dim 2, 8 and 10; a shard that is no multiple
+     of the CTA's chunk; B=100 against two batches of 50), then the SP
+     bf16 Trainer (tp=2, sp=True) as two ranks sharing cuda:0 over gloo
+     (run_local): one deterministic step against the unsharded step (loss
+     and gradients), SP_STEPS sampled steps (finite, rising ELBO, K5/K6
+     launched every step, K3/K4 never, parameters bitwise equal across
+     ranks), a profile of rank 0 and its posterior stage;
+ 11. the bf16 tier at a generator width no decoder kernel takes (hidden
+     384): eval, three train steps and decode, the generator on the XLA
+     bf16 recipe, no decoder kernel launched.
 
 Phases 2-8 cover both mode-C encoder tiers: the default "conv" tier (the
 cuDNN lift conv, K1/K2) and the fused patch encoder (K11/K12) that
 TARGETVAE_ENCODER_TIER=patch selects (phases 3, 4 and 7 drive each tier's
 embed, eval and train path; phases 2 and 6 also check K11 and K12 at the
-galaxy encoder's C = 3 shape). Each of phases 3, 4, 7, 9 and 10 sets the
-launch counts to 0 just before it drives its path and reads them just after
-(phase 10 in each rank). Every failed check exits non-zero. With no CUDA device, or outside a checkout, it fails without
+galaxy encoder's C = 3 shape). Each of phases 3, 4, 6 (the z_dim routes),
+7, 9, 10 and 11 sets the launch counts to 0 just before it drives its path
+and reads them just after (phase 10 in each rank). Every failed check exits
+non-zero. With no CUDA device, or outside a checkout, it fails without
 printing a result. Its last line is {"ok": true, "device": {...}}; the line
 before it is the kernels' JSON.
 """
@@ -156,6 +163,10 @@ SP_RANKS = 2        # ranks of phase 10, sharing cuda:0 over gloo
 SP_STEPS = 20       # sampled SP train steps a rank takes in phase 10
 SP_PROFILE_STEPS = 3  # further steps profiled on rank 0
 SP_TIMEOUT = 600    # seconds for phase 10's ranks, all included
+SP_EXCHANGE_US = 50.0  # the exchange's copies through host memory take longer
+SP_PLANE_BLOCKS = 64   # grid blocks of a copy kernel that moves a plane
+ROUTED_HIDDEN = 384  # phase 11's generator width, which no decoder kernel takes
+ROUTED_STEPS = 3     # its train steps
 # device_ms, the kernel timer: windows of at least 2 ms of replayed calls,
 # the median of 5; calls rotate over copies of their inputs so that 60 MB
 # (more than the H100's 50 MB L2) lie between two uses of one copy, at most
@@ -299,20 +310,18 @@ def time_kernel(results, name: str, phase: str, kfn, kargs, pfn, pargs,
                 yardstick=None) -> None:
     """A kernel's row of the kernels line: its device time and its plain
     version's (device_ms, in turns: plain, kernel, kernel, plain; the
-    smaller of each pair), the host-inclusive time of its wrapper
-    (cuda_ms), and the yardstick (fn, args) given, timed by device_ms."""
+    smaller of each pair), and the yardstick (fn, args) given, timed by
+    device_ms."""
     p1, k1, k2, p2 = (device_ms(pfn, pargs), device_ms(kfn, kargs),
                       device_ms(kfn, kargs), device_ms(pfn, pargs))
-    row = {"ms": min(k1, k2), "plain_ms": min(p1, p2),
-           "host_ms": cuda_ms(lambda: kfn(*kargs))}
+    row = {"ms": min(k1, k2), "plain_ms": min(p1, p2)}
     if yardstick is not None:
         row["yardstick_ms"] = device_ms(*yardstick)
     results[name].update(row)
     print(f"phase {phase}: {name}: kernel {k1:.4f} / {k2:.4f} ms, plain "
           f"{p1:.4f} / {p2:.4f} ms (device time, plain, kernel, kernel, "
-          f"plain); host-inclusive {row['host_ms']:.4f} ms"
-          + (f"; yardstick {row['yardstick_ms']:.4f} ms" if yardstick
-             else ""), flush=True)
+          f"plain)" + (f"; yardstick {row['yardstick_ms']:.4f} ms"
+                       if yardstick else ""), flush=True)
 
 
 def posterior_inputs(torch, ecfg, b: int, dev, seed: int = 3):
@@ -344,7 +353,8 @@ def posterior_inputs(torch, ecfg, b: int, dev, seed: int = 3):
 def device_ops(torch, fn, calls: int = 3) -> list:
     """The device operations (kernels, copies, fills) of `calls` calls of
     fn after two warm-ups, from the profiler's trace: (name, start us,
-    duration us), in order of their start on the card."""
+    duration us, blocks of its grid, 0 where the trace gives none), in
+    order of their start on the card."""
     import tempfile
     from torch.profiler import ProfilerActivity, profile
     for _ in range(2):
@@ -359,7 +369,8 @@ def device_ops(torch, fn, calls: int = 3) -> list:
         prof.export_chrome_trace(path)
         with open(path) as f:
             events = json.load(f)["traceEvents"]
-    ops = [(e["name"], float(e["ts"]), float(e.get("dur", 0.0)))
+    blocks = lambda e: int(np.prod(e.get("args", {}).get("grid", [0])))
+    ops = [(e["name"], float(e["ts"]), float(e.get("dur", 0.0)), blocks(e))
            for e in events if e.get("ph") == "X"
            and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
     return sorted(ops, key=lambda o: o[1])
@@ -409,13 +420,62 @@ def posterior_stage(ops: list) -> dict:
             continue
         by = {}
         for w in ws:
-            for name, _, dur in w:
+            for name, _, dur, _ in w:
                 ms, cnt = by.get(name, (0.0, 0))
                 by[name] = (ms + dur / 1e3, cnt + 1)
-        out[key + "_ms"] = sum(d for w in ws for _, _, d in w) / 1e3 / len(ws)
+        out[key + "_ms"] = sum(o[2] for w in ws for o in w) / 1e3 / len(ws)
         out[key + "_ops"] = sorted(
-            ([n[:80], round(ms / len(ws), 4), cnt / len(ws)]
+            ([op_label(n), round(ms / len(ws), 4), cnt / len(ws)]
              for n, (ms, cnt) in by.items()), key=lambda o: -o[1])
+    return out
+
+
+def op_label(name: str) -> str:
+    """A device op's name for the stage's lists: PyTorch's kernels by the
+    at::native names in their template (so that a copy, direct_copy_kernel,
+    reads apart from an add or an exp), others by their first 80 chars."""
+    import re
+    parts = re.findall(r"at::native::(?:\(anonymous namespace\)::)?(\w+)", name)
+    return "/".join(dict.fromkeys(parts))[:120] if parts else name[:80]
+
+
+def sp_posterior_stage(ops: list) -> dict:
+    """posterior_stage of the SP step's trace on one rank, gloo's copies
+    through host memory (the collectives: the exchange, the all-reduces)
+    left out: forward, the device ops between the encoder kernel and K7,
+    backward, between K8 and K2's chain. Besides, the two spans around the
+    planes, a step: from the batch-to-cell exchange (its last copy through
+    host memory of SP_EXCHANGE_US or more) to K5, and from K6 to the
+    exchange's backward (its first such copy): their ops by label, and
+    "plane_copies", the copy kernels there of SP_PLANE_BLOCKS blocks or
+    more (or of a grid the trace does not give): a copy of a plane of
+    B x 6,144 cells takes over a thousand, one of the (B, 2) normalisers
+    one or two."""
+    out = posterior_stage([o for o in ops if not o[0].startswith("Memcpy")])
+    big = lambda o: o[0].startswith("Memcpy") and o[2] >= SP_EXCHANGE_US
+    spans = {"exchange_to_k5": [], "k6_to_exchange": []}
+    for i, op in enumerate(ops):
+        if "posterior_shard_fwd_kernel" in op[0]:
+            j = max((j for j in range(i) if big(ops[j])), default=None)
+            if j is not None:
+                spans["exchange_to_k5"].append(ops[j + 1:i])
+        elif "posterior_shard_bwd_kernel" in op[0]:
+            j = next((j for j in range(i + 1, len(ops)) if big(ops[j])),
+                     None)
+            if j is not None:
+                spans["k6_to_exchange"].append(ops[i + 1:j])
+    out["plane_copies"] = 0
+    for key, ws in spans.items():
+        by = {}
+        for w in ws:
+            for name, _, _, blocks in w:
+                if name.startswith("Memcpy"):
+                    continue
+                label = op_label(name)
+                by[label] = by.get(label, 0) + 1 / len(ws)
+                if "copy" in label.lower() and not 0 < blocks < SP_PLANE_BLOCKS:
+                    out["plane_copies"] += 1 / len(ws)
+        out[key + "_ops"] = by
     return out
 
 
@@ -1172,6 +1232,7 @@ def run(torch, dev) -> int:
                                      k11, h1, results)
     trainer, state, data, train_counts, g32 = train_path(torch, kernels, cfg,
                                                          dev)
+    wide_latent_routes(torch, kernels, cfg, dev, data)
     trainer_p, state_p, patch_counts["train"] = patch_train_path(
         torch, kernels, cfg, dev, data, g32)
     decode_counts, decode_ms = decode_path(torch, kernels, model, params, k9,
@@ -1185,6 +1246,9 @@ def run(torch, dev) -> int:
     # ---- phase 10: the grid-sharded posterior and the SP train step ----
     shard_cells = sp_kernel_checks(torch, cfg, dev, results)
     sp_counts = sp_train_path(torch, cfg, dev, data)
+
+    # ---- phase 11: the bf16 tier past the decoder kernels' widths ----
+    routed_generator_path(torch, kernels, cfg, dev, data)
 
     sources = {
         "mix_heads_fwd": ("mix_heads.cu", "mix_heads.py:232"),
@@ -1753,19 +1817,116 @@ def time_training(torch, cfg, k1, k3, k7, k9, k11, h1, cot, trainer, state,
               flush=True)
 
 
-def sp_shard_inputs(torch, cfg, dev, noise: bool):
-    """K5/K6's inputs at phase 10's shapes: the flagship's 12,168 cells per
-    image padded to a multiple of SP_RANKS * 1,024 (the SP step's padding,
-    -1e30 logits and log-prior), seeded planes like kernel_inputs' K3
-    planes, the cell constants of the r-minor flatten, and the normalisers
-    over the whole padded grid. Returns the shards' argument tuples (the
-    last shard holds the pads) and the number of pads."""
+def wide_latent_routes(torch, kernels, cfg, dev, data) -> None:
+    """Phase 6: the bf16 ELBO at z_dim 8 and 10, past the encoder kernels'
+    16 heads (the XLA bf16 recipe) and, at 10, past K3/K4's z <= 8 (the
+    posterior's model code): the deterministic ELBO of B images within
+    TOL_ELBO of the float32 tier's, finite gradients, and the launches of
+    the route (K7/K8 always; K3/K4 at z_dim 8 only; never K1/K2)."""
+    import dataclasses
+    from targetvae_tpu_torch import TargetVAE
+    from targetvae_tpu_torch.losses.elbo import compute_elbo
+    for zd in (8, 10):
+        c = dataclasses.replace(
+            cfg, encoder=dataclasses.replace(cfg.encoder, z_dim=zd),
+            generator=dataclasses.replace(cfg.generator, z_dim=zd))
+        model = TargetVAE(c, device=dev)
+        params = model.init(torch.Generator().manual_seed(0))
+        kernels.reset_launch_counts()
+        e16 = compute_elbo(params, c, model.base_grid(), data[:B], None,
+                           torch.bfloat16)[0]
+        (-e16).backward()
+        counts = kernels.launch_counts()
+        with torch.no_grad():
+            e32 = compute_elbo(params, c, model.base_grid(), data[:B], None,
+                               None)[0]
+        e16 = e16.detach()
+        rel = abs(float(e16) - float(e32)) / abs(float(e32))
+        finite = all(bool(torch.isfinite(p.grad).all())
+                     for p in model.parameters())
+        used = {"pose_decoder_fwd", "pose_decoder_bwd"} | (
+            {"posterior_fwd", "posterior_bwd"} if zd <= 8 else set())
+        check(rel <= TOL_ELBO and finite
+              and all(counts[k] > 0 for k in used)
+              and not any(counts[k] for k in counts if k not in used),
+              f"phase 6: z_dim {zd}: encoder on the XLA bf16 recipe, "
+              f"posterior on {'K3/K4' if zd <= 8 else 'model code'}: "
+              f"deterministic ELBO bf16 {float(e16):.4f} vs float32 "
+              f"{float(e32):.4f} (rel {rel:.3e} <= {TOL_ELBO}), gradients "
+              f"finite, launches {counts}")
+        del model, params
+
+
+def routed_generator_path(torch, kernels, cfg, dev, data) -> None:
+    """Phase 11: the bf16 tier at a generator width no decoder kernel takes
+    (hidden 384), otherwise the flagship: its generator runs the XLA bf16
+    recipe. One eval batch (within TOL_ELBO of the float32 tier's,
+    deterministic), ROUTED_STEPS train steps and decode with and without a
+    gradient, all finite; the encoder and posterior kernels launched, the
+    decoder kernels (K7-K10) never."""
+    import dataclasses
+    from targetvae_tpu_torch.ops.coords import transform_coords
+    from targetvae_tpu_torch.train import Trainer
+    from targetvae_tpu_torch.utils.config import TrainConfig
+    c = dataclasses.replace(cfg, generator=dataclasses.replace(
+        cfg.generator, hidden_dim=ROUTED_HIDDEN))
+    trainer = Trainer(c, TrainConfig(compute_dtype="bfloat16"), device=dev)
+    state = trainer.init_state(0)
+    model = trainer.model
+    x0 = model.base_grid()
+    g = torch.Generator(device=dev).manual_seed(23)
+    theta, dx = (torch.randn(s, generator=g, device=dev) * 0.3
+                 for s in ((B,), (B, 2)))
+    z = torch.randn((B, c.generator.z_dim), generator=g, device=dev)
+    x = transform_coords(x0, dx, theta).contiguous()
+    kernels.reset_launch_counts()
+    with torch.inference_mode():
+        e16 = model.elbo(model.params(), x0, data[:B], None, torch.bfloat16)
+        e32 = model.elbo(model.params(), x0, data[:B], None, None)
+        y16 = model.decode(model.params(), x, z, torch.bfloat16)
+    metrics = []
+    for i in range(ROUTED_STEPS):
+        state, m = trainer.train_step(state, data[i * B:(i + 1) * B])
+        metrics.append(m)
+    xg = x.clone().requires_grad_()
+    yg = model.decode(model.params(), xg, z, torch.bfloat16)
+    yg.square().mean().backward()
+    counts = kernels.launch_counts()
+    metrics = torch.stack(metrics).cpu().numpy()
+    rel = abs(float(e16[0]) - float(e32[0])) / abs(float(e32[0]))
+    decoders = ("pose_decoder_fwd", "pose_decoder_bwd", "decoder_mlp_fwd",
+                "decoder_mlp_bwd")
+    used = ("mix_heads_fwd", "mix_heads_bwd", "posterior_fwd",
+            "posterior_bwd")
+    check(rel <= TOL_ELBO and bool(np.isfinite(metrics).all())
+          and bool(torch.isfinite(y16).all())
+          and bool(torch.isfinite(xg.grad).all())
+          and all(counts[k] > 0 for k in used)
+          and not any(counts[k] for k in decoders),
+          f"phase 11: generator hidden {ROUTED_HIDDEN} (no decoder kernel "
+          f"takes it: the XLA bf16 recipe): deterministic ELBO bf16 "
+          f"{float(e16[0]):.4f} vs float32 {float(e32[0]):.4f} (rel "
+          f"{rel:.3e} <= {TOL_ELBO}); {ROUTED_STEPS} train steps (elbo "
+          f"{np.round(metrics[:, 0], 3).tolist()}), decode {tuple(y16.shape)}"
+          f" and its gradient finite; launches {counts} (K1-K4, no K7-K10)")
+
+
+def sp_shard_inputs(torch, cfg, dev, noise: bool, zd=None):
+    """K5/K6's inputs at phase 10's shapes, in the JAX package's contract:
+    the flagship's 12,168 cells per image padded to a multiple of SP_RANKS
+    * 1,024 (the SP step's padding, -1e30 logits and log-prior), seeded
+    planes like kernel_inputs' K3 planes (z_dim zd, the config's by
+    default), the cell constants of the r-minor flatten, and the
+    normalisers over the whole padded grid, for B images. Returns the
+    shards' argument tuples (the last shard holds the pads) and the number
+    of pads."""
     from targetvae_tpu_torch.models.encoders import attn_dim_for, group_offsets
     from targetvae_tpu_torch.ops.coords import attention_grid
     from targetvae_tpu_torch.ops.gumbel import gumbel_noise
     from targetvae_tpu_torch.train.loop import SP_CELL_UNIT
     e = cfg.encoder
-    R, zd, hp = e.groupconv, e.z_dim, attn_dim_for(e)
+    R, hp = e.groupconv, attn_dim_for(e)
+    zd = zd or e.z_dim
     cells = hp * hp * R
     unit = SP_RANKS * SP_CELL_UNIT
     total = -(-cells // unit) * unit
@@ -1794,70 +1955,123 @@ def sp_shard_inputs(torch, cfg, dev, noise: bool):
             for i in range(SP_RANKS)], pad
 
 
-def sp_kernel_checks(torch, cfg, dev, results) -> int:
-    """Phase 10: K5 and K6 against their plain versions at the two-rank
-    shard shape, deterministic and with seeded noise on the first shard and
-    on the last, whose tail is -1e30 padding (there the d_q, theta and z
-    gradients and d_attn must be exactly 0); reruns bitwise equal. Then
-    their times (plain, kernel, kernel, plain). Returns the shard's cells."""
+def as_planes(args):
+    """posterior_shard_partials' arguments (norms, attn, noise, th, z, p,
+    gx, gy, offs) as K5/K6's: (norms, planes, noise, p, gx, gy, offs)."""
+    from targetvae_tpu_torch.kernels.posterior import pack_planes
+    norms, attn, noise, th, z, *consts = args
+    return (norms, pack_planes(attn, th, z), noise, *consts)
+
+
+def check_shard_kernels(torch, args, sig_r, g, label, pad=0) -> tuple:
+    """Phase 10: K5 on the planes and K6 through posterior_shard_partials
+    (the JAX package's contract) against their plain versions on one
+    shard: each value within TOL_K5 per unit of max(1, |ref|), K6's
+    per-cell cotangents each within TOL_K4_SCALED of its own magnitude,
+    reruns bitwise, and on a shard with `pad` pads d_q, theta, z and
+    d_attn exactly 0 there. Returns the max abs errors (fwd, bwd) and the
+    kernels' outputs."""
     from targetvae_tpu_torch.kernels.posterior import (
-        posterior_shard_bwd, posterior_shard_bwd_plain, posterior_shard_fwd,
+        posterior_shard_bwd_plain, posterior_shard_fwd, posterior_shard_partials,
         posterior_shard_plain)
-    sig_r = float(np.pi / cfg.encoder.groupconv)
-    zd = cfg.encoder.z_dim
+    zd = args[4].shape[2]
+    pa = as_planes(args)
+    out = posterior_shard_fwd(*pa, sig_r)
+    again = posterior_shard_fwd(*pa, sig_r)
+    ref = posterior_shard_plain(*args, sig_r)
+    kw = {"sig_r": sig_r, "zd": zd, "want_grads": True, "g": g}
+    got = posterior_shard_partials(*args, **kw)
+    got2 = posterior_shard_partials(*args, **kw)
+    refb = posterior_shard_bwd_plain(*args, sig_r, g)
+    torch.cuda.synchronize()
     per_unit = lambda a, b: float(((a - b).abs() / b.abs().clamp(min=1.0))
                                   .max())
-    g = torch.randn(B, 2 * zd + 5, generator=torch.Generator(
-        device=dev).manual_seed(22), device=dev)
-    errs = {"fwd": 0.0, "bwd": 0.0}
+    ef = per_unit(out, ref)
+    eb = max(per_unit(a, b) for a, b in zip(got, refb))
+    # the per-cell cotangents, each element to its own magnitude
+    sb = max(scaled_err(a, b, (-1,)) for a, b in zip(got[:4], refb[:4]))
+    dead = "no pads"
+    if pad:
+        norms, attn = args[0], args[1]
+        da, dq, dth, dz, spart = got
+        a = torch.exp(attn + args[2] - norms[:, 2:3] - norms[:, 3:4])
+        eq = torch.exp(attn - norms[:, 0:1] - norms[:, 1:2])
+        d_attn = a * (da - spart[:, 0:1]) + dq - eq * spart[:, 1:2]
+        tail = slice(attn.shape[1] - pad, None)
+        zero = not any(bool(t[..., tail].any())
+                       for t in (dq, dth, dz, d_attn))
+        check(zero, f"phase 10: K6 {label}: d_q, theta, z and d_attn "
+              f"exactly 0 on its {pad} pads")
+        dead = f"{pad} pads"
+    check(bool(torch.isfinite(out).all()) and ef <= TOL_K5
+          and eb <= TOL_K5 and sb <= TOL_K4_SCALED
+          and torch.equal(out, again)
+          and all(torch.equal(a, b) for a, b in zip(got, got2)),
+          f"phase 10: K5/K6 {label} {tuple(args[1].shape)} zd={zd} ({dead}):"
+          f" fwd max err {ef:.3e}, bwd {eb:.3e} <= {TOL_K5} * max(1, |ref|);"
+          f" bwd's per-cell cotangents, each element {sb:.3e} <= "
+          f"{TOL_K4_SCALED} * (|ref| + {K4_FLOOR} * max |ref|); reruns "
+          f"bitwise identical")
+    return ((float((out - ref).abs().max()),
+             max(float((a - b).abs().max()) for a, b in zip(got, refb))),
+            out, got)
+
+
+def sp_kernel_checks(torch, cfg, dev, results) -> int:
+    """Phase 10: K5 and K6 against their plain versions at the two-rank
+    shard shape, deterministic and with seeded noise, on the first shard
+    and on the last, whose tail is -1e30 padding; at z_dim 2 (the
+    flagship's), 8 and 10 (past K3/K4's templates: K5/K6 take any z_dim);
+    on a shard of 5,000 cells, no multiple of the CTA's chunk; and B = 100
+    against two batches of 50, row for row, bitwise. Then their times
+    (plain, kernel, kernel, plain) at the flagship's. Returns the shard's
+    cells."""
+    from targetvae_tpu_torch.kernels.posterior import (
+        posterior_shard_bwd, posterior_shard_bwd_plain, posterior_shard_fwd,
+        posterior_shard_partials, posterior_shard_plain, shard_schedule)
+    sig_r = float(np.pi / cfg.encoder.groupconv)
+    gen = torch.Generator(device=dev).manual_seed(22)
+    cot = lambda zd: torch.randn(B, 2 * zd + 5, generator=gen, device=dev)
+    errs = [0.0, 0.0]
     with torch.inference_mode():
-        for noise in (False, True):
-            shards, pad = sp_shard_inputs(torch, cfg, dev, noise)
-            for i in ((0,) if not noise else (0, len(shards) - 1)):
-                args = shards[i]
-                out = posterior_shard_fwd(*args, sig_r)
-                again = posterior_shard_fwd(*args, sig_r)
-                ref = posterior_shard_plain(*args, sig_r)
-                got = posterior_shard_bwd(*args, sig_r, g)
-                got2 = posterior_shard_bwd(*args, sig_r, g)
-                refb = posterior_shard_bwd_plain(*args, sig_r, g)
-                torch.cuda.synchronize()
-                ef = per_unit(out, ref)
-                eb = max(per_unit(a, b) for a, b in zip(got, refb))
-                # the per-cell cotangents, each element to its own magnitude
-                sb = max(scaled_err(a, b, (-1,))
-                         for a, b in zip(got[:4], refb[:4]))
-                errs["fwd"] = max(errs["fwd"], float((out - ref).abs().max()))
-                errs["bwd"] = max(errs["bwd"], max(float((a - b).abs().max())
-                                                   for a, b in zip(got, refb)))
-                dead = "no pads"
-                if i == len(shards) - 1 and pad:
-                    norms, attn = args[0], args[1]
-                    da, dq, dth, dz, spart = got
-                    a = torch.exp(attn + args[2] - norms[:, 2:3]
-                                  - norms[:, 3:4])
-                    eq = torch.exp(attn - norms[:, 0:1] - norms[:, 1:2])
-                    d_attn = a * (da - spart[:, 0:1]) + dq - eq * spart[:, 1:2]
-                    tail = slice(attn.shape[1] - pad, None)
-                    zero = not any(bool(t[..., tail].any())
-                                   for t in (dq, dth, dz, d_attn))
-                    check(zero, f"phase 10: K6 on the padded shard: d_q, "
-                          f"theta, z and d_attn exactly 0 on its {pad} pads")
-                    dead = f"{pad} pads"
-                check(bool(torch.isfinite(out).all()) and ef <= TOL_K5
-                      and eb <= TOL_K5 and sb <= TOL_K4_SCALED
-                      and torch.equal(out, again)
-                      and all(torch.equal(a, b) for a, b in zip(got, got2)),
-                      f"phase 10: K5/K6 posterior_shard shard {i} "
-                      f"{tuple(args[1].shape)} ({dead}, "
-                      f"{'seeded noise' if noise else 'no noise'}): fwd max "
-                      f"err {ef:.3e}, bwd {eb:.3e} <= {TOL_K5} * max(1, |ref|);"
-                      f" bwd's per-cell cotangents, each element {sb:.3e} <= "
-                      f"{TOL_K4_SCALED} * (|ref| + {K4_FLOOR} * max |ref|); "
-                      f"reruns bitwise identical")
+        for zd, noises in ((cfg.encoder.z_dim, (False, True)), (8, (True,)),
+                           (10, (True,))):
+            g = cot(zd)
+            for noise in noises:
+                shards, pad = sp_shard_inputs(torch, cfg, dev, noise, zd)
+                for i in ((0,) if not noise else (0, len(shards) - 1)):
+                    last = i == len(shards) - 1
+                    e, _, _ = check_shard_kernels(
+                        torch, shards[i], sig_r, g,
+                        f"shard {i} ({'seeded noise' if noise else 'no noise'}"
+                        f")", pad if last else 0)
+                    if zd == cfg.encoder.z_dim:
+                        errs = [max(x, y) for x, y in zip(errs, e)]
+                del shards
+        zd = cfg.encoder.z_dim
+        g = cot(zd)
+        shards, _ = sp_shard_inputs(torch, cfg, dev, True)
         args = shards[0]
+        # a shard that is no multiple of the CTA's chunk
+        cut = tuple(a[..., :5000].contiguous() if a.dim() > 1 else a[:5000]
+                    for a in args[1:])
+        check_shard_kernels(torch, (args[0], *cut), sig_r, g,
+                            f"5,000 cells, grid {shard_schedule(5000)}")
+        # each row depends on its image alone
+        _, out, got = check_shard_kernels(torch, args, sig_r, g, "B=100")
+        kw = {"sig_r": sig_r, "zd": zd}
+        same = True
+        for h in (slice(0, B // 2), slice(B // 2, B)):
+            part = tuple(a[h] if a.dim() > 1 else a for a in args)
+            same &= torch.equal(posterior_shard_partials(*part, **kw), out[h])
+            same &= all(torch.equal(a, b[h]) for a, b in zip(
+                posterior_shard_partials(*part, want_grads=True, g=g[h], **kw),
+                got))
+        check(same, f"phase 10: K5/K6 at B={B} equal two calls of {B // 2}, "
+              f"row for row, bitwise")
         # yardstick: one pass over as many bytes as the shard's inputs, a
         # sum for K5, a negation (read and written) for K6
+        pa = as_planes(args)
         flat = torch.randn((B, sum(a.numel() for a in args) // B), device=dev)
         for name, kfn, pfn, yard in (
                 ("posterior_shard_fwd",
@@ -1868,8 +2082,8 @@ def sp_kernel_checks(torch, cfg, dev, results) -> int:
                  lambda *a: posterior_shard_bwd(*a, sig_r, g),
                  lambda *a: posterior_shard_bwd_plain(*a, sig_r, g),
                  (torch.neg, (flat,)))):
-            results[name] = {"max_abs_err": errs[name[-3:]]}
-            time_kernel(results, name, "10", kfn, args, pfn, args, yard)
+            results[name] = {"max_abs_err": errs[name.endswith("bwd")]}
+            time_kernel(results, name, "10", kfn, pa, pfn, args, yard)
         del flat
     return args[1].shape[1]
 
@@ -1962,6 +2176,14 @@ def sp_rank(rank: int, world: int, device: str) -> dict:
             prof.__exit__(None, None, None)
             out["profile"] = {"wall_ms": wall * 1e3,
                               **profile_summary(prof, SP_PROFILE_STEPS)}
+        # the posterior's windows of the step on rank 0's trace (both ranks
+        # take device_ops' five steps)
+        step = lambda: trainer.train_step(state, batch(0))
+        if rank == 0:
+            out["stage"] = sp_posterior_stage(device_ops(torch, step))
+        else:
+            for _ in range(5):
+                step()
         out["collectives_ms"] = collective_times(torch, trainer, dev)
         out["digest"] = param_digest(trainer.model)
         out["steps"] = state.step
@@ -2083,6 +2305,22 @@ def sp_train_path(torch, cfg, dev, data) -> dict:
           + json.dumps(prof["top"]) + "; collectives (name, host ms incl. "
           "waiting for the other rank, calls) "
           + json.dumps(prof["collectives_host_ms"]), flush=True)
+    stage = r0["stage"]
+    check(bool(stage.get("fwd_ms")) and bool(stage.get("bwd_ms")),
+          "phase 10: rank 0's SP posterior stage (device ms a step, gloo's "
+          "copies left out): forward (encoder kernel to K7) "
+          f"{stage.get('fwd_ms', 0):.4f}, backward (K8 to K2) "
+          f"{stage.get('bwd_ms', 0):.4f}")
+    for part in ("fwd", "bwd"):
+        print(f"phase 10: SP posterior stage, {part} ops (name, ms, count a "
+              f"step): " + json.dumps(stage[part + "_ops"]), flush=True)
+    spans = ("exchange_to_k5", "k6_to_exchange")
+    check(all(stage[k + "_ops"] for k in spans)
+          and stage["plane_copies"] == 0,
+          "phase 10: rank 0: no copy of the planes between the exchange and "
+          "K5 or between K6 and the exchange's backward (copy kernels of "
+          f">= {SP_PLANE_BLOCKS} blocks: {stage['plane_copies']}; ops a "
+          "step: " + json.dumps({k: stage[k + "_ops"] for k in spans}) + ")")
     print("phase 10: gloo collectives alone at the step's sizes, rank 0 "
           "(host ms, median of 5; MB a rank): "
           + json.dumps(r0["collectives_ms"]), flush=True)

@@ -59,8 +59,6 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int THREADS = 512;     // a K5/K6 block
-constexpr int WARPS = THREADS / 32;
 constexpr int PT = 256;          // a K3/K4 CTA
 constexpr int MAXZD = 8;
 constexpr int MAXR = 16;
@@ -114,54 +112,17 @@ __device__ __forceinline__ void block_sum(const float* v, int n, float* red,
   __syncthreads();
 }
 
-// The guarded KLs of one cell, shared by K3-K6. At a dead cell (e^q == 0,
-// live false) the moments are replaced by (0, 1), so a -1e30 pad, whose
-// e^q is exactly 0, contributes 0 * finite = 0.
-// KL(N(mu, std) || N(off, sig_r)); inv2s2 = 1 / (2 sig_r^2)
-__device__ __forceinline__ float kl_theta(float mu, float std, float off,
-                                          float sig_r, float inv2s2,
-                                          bool live) {
-  const float m = live ? mu : 0.f;
-  const float s = live ? std : 1.f;
-  const float dm = m - off;
-  return logf(sig_r / s) + (s * s + dm * dm) * inv2s2 - 0.5f;
-}
-
-// KL(N(mu, std) || N(0, 1))
-__device__ __forceinline__ float kl_unit(float mu, float std, bool live) {
-  const float m = live ? mu : 0.f;
-  const float s = live ? std : 1.f;
-  return -logf(s) + 0.5f * (s * s + m * m) - 0.5f;
-}
-
-// The cotangents of a theta cell's mean and log-std (K4, K6): g . a plus,
-// at a live cell, scale = g_kl e^q times the KL's derivative; s2 = sig_r^2.
-__device__ __forceinline__ void theta_grads(float g_mu, float g_std, float a,
-                                            float scale, bool live, float mu,
-                                            float std, float off, float s2,
-                                            float* d_mu, float* d_ls) {
-  *d_mu = g_mu * a + (live ? scale * (mu - off) / s2 : 0.f);
-  const float d_std = g_std * a + (live ? scale * (std / s2 - 1.f / std) : 0.f);
-  *d_ls = d_std * (std - EPS);
-}
-
-// The same for a z cell against N(0, 1).
-__device__ __forceinline__ void z_grads(float g_mu, float g_std, float a,
-                                        float scale, bool live, float mu,
-                                        float std, float* d_mu, float* d_ls) {
-  *d_mu = g_mu * a + (live ? scale * mu : 0.f);
-  const float d_std = g_std * a + (live ? scale * (std - 1.f / std) : 0.f);
-  *d_ls = d_std * (std - EPS);
-}
-
 // ---- K3 / K4 ----
 
 constexpr int NPIECE = 4;        // bulk copies a chunk arrives in
 
-// The float32 math of K3/K4's cells on the SFU's approximations (__expf,
-// __logf; reciprocals instead of divisions): within a few ulps of the
-// plain version's, far inside TOL_K3. The Gumbel noise keeps logf, so that
-// it matches philox_gumbel's torch.log to an ulp.
+// The guarded KLs of one cell and their derivatives, shared by K3-K6, in
+// float32 on the SFU's approximations (__expf, __logf; reciprocals instead
+// of divisions): within a few ulps of the plain versions', far inside
+// TOL_K3 and TOL_K5. K3/K4's Gumbel noise keeps logf, so that it matches
+// philox_gumbel's torch.log to an ulp. At a dead cell (e^q == 0, live
+// false) the moments are replaced by (0, 1), so a -1e30 pad, whose e^q is
+// exactly 0, contributes 0 * finite = 0.
 // KL(N(mu, std) || N(off, sig_r)); log_sig_r = log sig_r,
 // inv2s2 = 1 / (2 sig_r^2)
 __device__ __forceinline__ float kl_theta_f(float mu, float std, float off,
@@ -180,7 +141,9 @@ __device__ __forceinline__ float kl_unit_f(float mu, float std, bool live) {
   return -__logf(s) + 0.5f * (s * s + m * m) - 0.5f;
 }
 
-// theta_grads with inv_s2 = 1 / sig_r^2
+// The cotangents of a theta cell's mean and log-std (K4, K6): g . a plus,
+// at a live cell, scale = g_kl e^q times the KL's derivative;
+// inv_s2 = 1 / sig_r^2.
 __device__ __forceinline__ void theta_grads_f(float g_mu, float g_std,
                                               float a, float scale, bool live,
                                               float mu, float std, float off,
@@ -192,7 +155,7 @@ __device__ __forceinline__ void theta_grads_f(float g_mu, float g_std,
   *d_ls = d_std * (std - EPS);
 }
 
-// z_grads
+// The same for a z cell against N(0, 1).
 __device__ __forceinline__ void z_grads_f(float g_mu, float g_std, float a,
                                           float scale, bool live, float mu,
                                           float std, float* d_mu,
@@ -848,94 +811,45 @@ __global__ void __launch_bounds__(PT, 4) posterior_bwd_kernel(const PostArgs p) 
   }
 }
 
+// ---- K5 / K6 ----
+//
 // K5: one cell shard's posterior partials under global normalisers.
 //
 // Replaces targetvae_tpu/kernels/posterior.py::posterior_shard_partials'
 // forward (_sp_fwd_kernel, the pallas_call at :466), the per-rank kernel of
-// the grid-sharded (sequence-parallel) posterior. For each image, over the C
-// cells of this rank's shard, with norms = [gmax_q, g_logsum_q, gmax_a,
-// g_logsum_a] computed across ranks by the caller:
+// the grid-sharded (sequence-parallel) posterior. It reads the planes the
+// SP step's batch-to-cell exchange leaves, (B, 3 + 2 zd, C) float32 with
+// strides of its own: [attn, theta_mu, theta_logstd, z_mu (zd), z_logstd
+// (zd)] over the C cells of this rank's shard, the log-prior already added
+// to attn and the offsets to theta_mu; the noise (B, C); the per-cell
+// constants p (globally log-softmaxed log-prior), gx, gy (the attention
+// grid) and offs (C,); norms = [gmax_q, g_logsum_q, gmax_a, g_logsum_a]
+// (B, 4) computed across ranks by the caller. For each image:
 //   q = attn - gmax_q - g_logsum_q;  e^q;  a = exp(attn + noise - gmax_a - g_logsum_a)
 // and the 2*zd + 5 partial sums [sum a z_mu (zd), sum a z_std (zd),
 // sum a th_mu, sum a th_std, sum a gx, sum a gy,
 // sum e^q (q - p) + sum e^q (KL_theta + sum_d KL_z)], which the caller
-// all-reduces. p, gx, gy and offs are per cell (the r-minor flatten of the
-// grid), unlike K3's (R, M) planes.
+// all-reduces. A -1e30 pad has a = e^q = 0 and adds exactly 0.
 //
 // What bounds it on the H100: memory. At the flagship's two-rank shard
 // (B = 100, C = 6,144, zd = 2) it reads 8 planes of 2.5 MB once (~20 MB:
-// >= 0.006 ms); the arithmetic is ~100 flops a cell.
+// >= 0.006 ms); the arithmetic is ~100 flops a cell on the SFU's exp and
+// log.
 //
-// Design: one block of 512 threads per image, strided over the shard's
-// cells in one pass (the normalisers arrive precomputed, so K3's max and
-// normaliser passes and its Philox are gone); the sums are reduced with
-// warp shuffles, then across warps in shared memory in a fixed order, so a
-// rerun is bitwise equal. No atomics. The TPU kernel's (C / 128, 128) view
-// and its C % 1024 rule are TPU tiling: any C is taken.
-__global__ void __launch_bounds__(THREADS) posterior_shard_fwd_kernel(
-    const float* __restrict__ norms, const float* __restrict__ attn,
-    const float* __restrict__ noise, const float* __restrict__ th,
-    const float* __restrict__ z, const float* __restrict__ p,
-    const float* __restrict__ gx, const float* __restrict__ gy,
-    const float* __restrict__ offs, float* __restrict__ out, int C, int zd,
-    float sig_r) {
-  __shared__ float red[WARPS * NACC];
-  __shared__ float tot[NACC];
-  const int b = blockIdx.x;
-  const float* at = attn + (size_t)b * C;
-  const float* nz = noise + (size_t)b * C;
-  const float* tm = th + (size_t)b * 2 * C;
-  const float* tl = tm + C;
-  const float* zm = z + (size_t)b * 2 * zd * C;
-  const float* zl = zm + (size_t)zd * C;
-  const float n0 = norms[4 * b], n1 = norms[4 * b + 1];
-  const float n2 = norms[4 * b + 2], n3 = norms[4 * b + 3];
-  const float inv2s2 = 1.f / (2.f * sig_r * sig_r);
-
-  // v: [z_mu_e (MAXZD) | z_std_e (MAXZD) | th_mu_e, th_std_e, dx0, dx1, val1, val2]
-  float v[NACC];
-#pragma unroll
-  for (int j = 0; j < NACC; ++j) v[j] = 0.f;
-  for (int c = threadIdx.x; c < C; c += THREADS) {
-    const float x = at[c];
-    const float q = x - n0 - n1;
-    const float eq = expf(q);
-    const float a = expf(x + nz[c] - n2 - n3);
-    const bool live = !(eq == 0.f);
-    const float thm = tm[c];
-    const float ths = expf(tl[c]) + EPS;
-    v[2 * MAXZD + 0] += a * thm;
-    v[2 * MAXZD + 1] += a * ths;
-    v[2 * MAXZD + 2] += a * gx[c];
-    v[2 * MAXZD + 3] += a * gy[c];
-    const float kl_th = kl_theta(thm, ths, offs[c], sig_r, inv2s2, live);
-    float kl_z = 0.f;
-#pragma unroll
-    for (int d = 0; d < MAXZD; ++d) {
-      if (d < zd) {
-        const float zmv = zm[(size_t)d * C + c];
-        const float zs = expf(zl[(size_t)d * C + c]) + EPS;
-        v[d] += a * zmv;
-        v[MAXZD + d] += a * zs;
-        kl_z += kl_unit(zmv, zs, live);
-      }
-    }
-    v[2 * MAXZD + 4] += eq * (q - p[c]);
-    v[2 * MAXZD + 5] += eq * (kl_th + kl_z);
-  }
-  block_sum<THREADS>(v, NACC, red, tot);
-
-  if (threadIdx.x == 0) {
-    float* o = out + (size_t)b * (2 * zd + 5);
-    for (int d = 0; d < zd; ++d) {
-      o[d] = tot[d];
-      o[zd + d] = tot[MAXZD + d];
-    }
-    for (int j = 0; j < 4; ++j) o[2 * zd + j] = tot[2 * MAXZD + j];
-    o[2 * zd + 4] = tot[2 * MAXZD + 4] + tot[2 * MAXZD + 5];
-  }
-}
-
+// Design: one thread-block cluster an image, sized from the shard's shape
+// alone (kernels/posterior.py::shard_schedule: 4 CTAs of 1,536 cells at the
+// flagship, 400 CTAs of 128 threads, ~3 a SM), so that a row never depends
+// on the batch. Each thread takes 4 neighbouring cells a step with 16-byte
+// loads of every plane and constant (12 of them in flight a thread at zd =
+// 2), in one pass: the normalisers arrive precomputed, so there are no
+// running maxima. The sums merge in a fixed order: xor butterflies in each
+// warp, the warps' in order, then every CTA writes its sums into rank 0's
+// shared memory and rank 0 adds the ranks' in rank order and writes the
+// image's row. No atomics: a rerun is bitwise equal. Templates on z for
+// zd <= 8 keep the sums in registers; past that (ZD = 0) the z planes go one
+// at a time, each with its CTA sum, the logits re-read from L1/L2. Rows
+// whose planes are not 16-byte aligned take scalar loads (VEC false); any C.
+//
 // K6: phase 1 of K5's VJP.
 //
 // Replaces posterior_shard_partials' backward (_sp_bwd_kernel, the
@@ -944,101 +858,329 @@ __global__ void __launch_bounds__(THREADS) posterior_shard_fwd_kernel(
 // g_dx1, g_kl], for each cell of the shard:
 //   d_a = g_thmu th_mu + g_thstd th_std + g_dx0 gx + g_dx1 gy + sum_d g_z . z
 //   d_q = g_kl e^q (q - p + 1 + KL_theta + sum_d KL_z)
-//   dth, dz as K4 (theta_grads, z_grads)
-// and per image spart = [sum d_a a, sum d_q], the softmax VJPs' local sums;
-// the caller all-reduces them and finishes
-// d_attn = a (d_a - S1) + d_q - e^q S2 elementwise. A -1e30 pad has a = e^q
-// = 0, so its d_q, dth, dz and its d_attn are exactly 0.
+//   dth, dz as K4 (theta_grads_f, z_grads_f)
+// and per image spart = [sum d_a a, sum d_q], the softmax VJPs' local sums.
+// It writes the theta and z cotangents straight into planes 1 .. 2 + 2 zd
+// of the planes' cotangent (B, 3 + 2 zd, C), and d_a, d_q into a (B, 2, C)
+// scratch; the caller all-reduces spart and finishes plane 0, d_attn =
+// a (d_a - S1) + d_q - e^q S2, elementwise. A -1e30 pad gets exactly zero
+// d_q, dth, dz (and so a zero d_attn).
 //
 // What bounds it on the H100: memory. At the flagship's two-rank shard it
 // reads 8 planes and writes 8 (~39 MB: >= 0.012 ms).
 //
-// Design: one block of 512 threads per image, one pass over its cells,
-// each thread writing its own cells' gradients; the two sums in K5's fixed
-// order. No atomics: a rerun gives bitwise the same gradients.
-__global__ void __launch_bounds__(THREADS) posterior_shard_bwd_kernel(
-    const float* __restrict__ norms, const float* __restrict__ attn,
-    const float* __restrict__ noise, const float* __restrict__ th,
-    const float* __restrict__ z, const float* __restrict__ p,
-    const float* __restrict__ gx, const float* __restrict__ gy,
-    const float* __restrict__ offs, const float* __restrict__ g,
-    float* __restrict__ da, float* __restrict__ dq, float* __restrict__ dth,
-    float* __restrict__ dz, float* __restrict__ spart, int C, int zd,
-    float sig_r) {
-  __shared__ float red[WARPS * NACC];
-  __shared__ float tot[NACC];
-  const int b = blockIdx.x;
-  const size_t o1 = (size_t)b * C, o2 = (size_t)b * 2 * C;
-  const size_t oz = (size_t)b * 2 * zd * C, zl_off = (size_t)zd * C;
-  const float* at = attn + o1;
-  const float* nz = noise + o1;
-  const float* tm = th + o2;
-  const float* tl = tm + C;
-  const float* zm = z + oz;
-  const float* zl = zm + zl_off;
-  const float n0 = norms[4 * b], n1 = norms[4 * b + 1];
-  const float n2 = norms[4 * b + 2], n3 = norms[4 * b + 3];
-  const float s2 = sig_r * sig_r;
-  const float inv2s2 = 1.f / (2.f * s2);
+// Design: K5's grid, loads and fixed-order sums; each thread writes its 4
+// cells' cotangents with 16-byte stores. No atomics: a rerun gives
+// bitwise the same gradients.
 
-  const float* gb = g + (size_t)b * (2 * zd + 5);
-  float g_zmu[MAXZD], g_zstd[MAXZD];
-#pragma unroll
-  for (int d = 0; d < MAXZD; ++d) {
-    g_zmu[d] = d < zd ? gb[d] : 0.f;
-    g_zstd[d] = d < zd ? gb[zd + d] : 0.f;
+constexpr int SPT = 128;          // a K5/K6 CTA
+constexpr int SPW = SPT / 32;
+constexpr int SP_ZD = 8;          // the largest templated zd (ZD = 0: any)
+
+struct ShardArgs {
+  const float* norms;   // (B, 4)
+  const float* planes;  // (B, 3 + 2 zd, C), strides row, plane
+  const float* noise;   // (B, C), row stride nrow
+  const float* p;       // (C,) each: log-prior, grid x, grid y, offsets
+  const float* gx;
+  const float* gy;
+  const float* offs;
+  const float* g;       // K6: (B, 2 zd + 5)
+  float* out;           // K5: (B, 2 zd + 5); K6: spart (B, 2)
+  float* gplanes;       // K6: the planes' cotangent, strides grow, gplane
+  float* dadq;          // K6: (B, 2, C)
+  int row, plane, nrow, grow, gplane, C, zd, chunk;
+  float sig_r;
+};
+
+// Cells i .. i + 3 of a row v: one 16-byte load when VEC (v 16-byte
+// aligned, i % 4 == 0 and i + 3 < n), else scalar loads, 0 past n.
+template <bool VEC>
+__device__ __forceinline__ float4 ld4(const float* v, int i, int n) {
+  if (VEC) return __ldg(reinterpret_cast<const float4*>(v + i));
+  float4 r;
+  r.x = i < n ? __ldg(v + i) : 0.f;
+  r.y = i + 1 < n ? __ldg(v + i + 1) : 0.f;
+  r.z = i + 2 < n ? __ldg(v + i + 2) : 0.f;
+  r.w = i + 3 < n ? __ldg(v + i + 3) : 0.f;
+  return r;
+}
+
+// x[0..4) into cells i .. i + 3 of a row v (ld4's rules).
+template <bool VEC>
+__device__ __forceinline__ void st4(float* v, int i, int n,
+                                    const float (&x)[4]) {
+  if (VEC) {
+    *reinterpret_cast<float4*>(v + i) = make_float4(x[0], x[1], x[2], x[3]);
+    return;
   }
-  const float g_thmu = gb[2 * zd], g_thstd = gb[2 * zd + 1];
-  const float g_dx0 = gb[2 * zd + 2], g_dx1 = gb[2 * zd + 3];
-  const float g_kl = gb[2 * zd + 4];
-
-  float v[NACC];
-  v[0] = 0.f;
-  v[1] = 0.f;
-  for (int c = threadIdx.x; c < C; c += THREADS) {
-    const float x = at[c];
-    const float q = x - n0 - n1;
-    const float eq = expf(q);
-    const float a = expf(x + nz[c] - n2 - n3);
-    const bool live = !(eq == 0.f);
-    const float scale = g_kl * eq;
-    const float thm = tm[c];
-    const float ths = expf(tl[c]) + EPS;
-    float d_a = g_thmu * thm + g_thstd * ths + g_dx0 * gx[c] + g_dx1 * gy[c];
-    const float kl_th = kl_theta(thm, ths, offs[c], sig_r, inv2s2, live);
-    float kl_z = 0.f;
 #pragma unroll
-    for (int d = 0; d < MAXZD; ++d) {
-      if (d < zd) {
-        const size_t ic = (size_t)d * C + c;
-        const float zmv = zm[ic];
-        const float zs = expf(zl[ic]) + EPS;
-        d_a += g_zmu[d] * zmv + g_zstd[d] * zs;
-        kl_z += kl_unit(zmv, zs, live);
-        z_grads(g_zmu[d], g_zstd[d], a, scale, live, zmv, zs, dz + oz + ic,
-                dz + oz + zl_off + ic);
+  for (int l = 0; l < 4; ++l)
+    if (i + l < n) v[i + l] = x[l];
+}
+
+__device__ __forceinline__ float at4(const float4& v, int l) {
+  return l == 0 ? v.x : l == 1 ? v.y : l == 2 ? v.z : v.w;
+}
+
+// v[0..N) of every thread summed over the CTA, into out[j step]: xor
+// butterflies in each warp, then the warps' added in order by thread j.
+// red holds SPW * N floats; out is valid in every thread on return.
+template <int N>
+__device__ __forceinline__ void cta_sums(const float (&v)[N], float* red,
+                                         float* out, int step) {
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    float x = v[j];
+#pragma unroll
+    for (int o = 16; o; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+    if (lane == 0) red[w * N + j] = x;
+  }
+  __syncthreads();
+  for (int j = threadIdx.x; j < N; j += SPT) {
+    float t = 0.f;
+    for (int k = 0; k < SPW; ++k) t += red[k * N + j];
+    out[j * step] = t;
+  }
+  __syncthreads();
+}
+
+// The CTA's n sums tot[0..n) into rank 0's gather[rank n ..], once every
+// CTA of the cluster has started (each arrived at its start); then the
+// cluster meets, after which rank 0's gather holds every rank's.
+__device__ __forceinline__ void push_to_rank0(const cg::cluster_group& cl,
+                                              const float* tot, int n,
+                                              float* gather) {
+  const int rank = (int)cl.block_rank();
+  cluster_wait();
+  float* dst = cl.map_shared_rank(gather, 0) + rank * n;
+  for (int j = threadIdx.x; j < n; j += SPT) dst[j] = tot[j];
+  cl.sync();
+}
+
+// gather[r n + j] summed over the cs ranks in rank order.
+__device__ __forceinline__ float rank_sum(const float* gather, int cs, int n,
+                                          int j) {
+  float t = 0.f;
+  for (int r = 0; r < cs; ++r) t += gather[r * n + j];
+  return t;
+}
+
+// This CTA's image and cells [c0, c1) of the shard.
+struct ShardChunk {
+  int b, rank, cs, c0, c1;
+};
+
+__device__ __forceinline__ ShardChunk shard_chunk(const ShardArgs& p,
+                                                  const cg::cluster_group& cl) {
+  ShardChunk k;
+  k.cs = (int)cl.num_blocks();
+  k.rank = (int)cl.block_rank();
+  k.b = blockIdx.x / k.cs;
+  k.c0 = k.rank * p.chunk;
+  k.c1 = min(p.C, k.c0 + p.chunk);
+  return k;
+}
+
+// K5 (the design at the head of this section). v: [z_mu (ZD) | z_std (ZD)
+// | th_mu, th_std, gx, gy, e^q (q - p), e^q KL]; with ZD = 0 the z sums go
+// plane by plane after the first pass.
+template <int ZD, bool VEC>
+__global__ void __launch_bounds__(SPT) posterior_shard_fwd_kernel(
+    const ShardArgs p) {
+  extern __shared__ __align__(16) float sdyn[];   // the CTA's sums, then rank 0's gather
+  __shared__ float red[SPW * (2 * SP_ZD + 6)];
+  constexpr int NV = 2 * ZD + 6;
+  const cg::cluster_group cl = cg::this_cluster();
+  cluster_arrive_relaxed();   // this CTA has started
+  const ShardChunk k = shard_chunk(p, cl);
+  const int zd = ZD ? ZD : p.zd, nv = 2 * zd + 6;
+  float* tot = sdyn;
+  float* gather = sdyn + nv;
+  const float* at = p.planes + (size_t)k.b * p.row;
+  const float* zp = at + 3 * (size_t)p.plane;
+  const float* nz = p.noise + (size_t)k.b * p.nrow;
+  const float nq = p.norms[4 * k.b] + p.norms[4 * k.b + 1];
+  const float na = p.norms[4 * k.b + 2] + p.norms[4 * k.b + 3];
+  const float log_sig_r = logf(p.sig_r);
+  const float inv2s2 = 1.f / (2.f * p.sig_r * p.sig_r);
+  const int n = k.c1;
+
+  float v[NV];
+#pragma unroll
+  for (int j = 0; j < NV; ++j) v[j] = 0.f;
+  for (int i = k.c0 + 4 * (int)threadIdx.x; i < n; i += 4 * SPT) {
+    const float4 x4 = ld4<VEC>(at, i, n), n4 = ld4<VEC>(nz, i, n);
+    const float4 m4 = ld4<VEC>(at + p.plane, i, n);
+    const float4 s4 = ld4<VEC>(at + 2 * (size_t)p.plane, i, n);
+    const float4 p4 = ld4<VEC>(p.p, i, n), x4g = ld4<VEC>(p.gx, i, n);
+    const float4 y4g = ld4<VEC>(p.gy, i, n), o4 = ld4<VEC>(p.offs, i, n);
+    float a[4], eq[4], kl[4];
+    bool live[4];
+#pragma unroll
+    for (int l = 0; l < 4; ++l) {
+      a[l] = eq[l] = kl[l] = 0.f;
+      live[l] = false;
+      if (!VEC && i + l >= n) continue;
+      const float x = at4(x4, l), q = x - nq;
+      eq[l] = __expf(q);
+      a[l] = __expf(x + at4(n4, l) - na);
+      live[l] = !(eq[l] == 0.f);
+      const float thm = at4(m4, l), ths = __expf(at4(s4, l)) + EPS;
+      v[2 * ZD] += a[l] * thm;
+      v[2 * ZD + 1] += a[l] * ths;
+      v[2 * ZD + 2] += a[l] * at4(x4g, l);
+      v[2 * ZD + 3] += a[l] * at4(y4g, l);
+      v[2 * ZD + 4] += eq[l] * (q - at4(p4, l));
+      kl[l] = kl_theta_f(thm, ths, at4(o4, l), log_sig_r, inv2s2, live[l]);
+    }
+#pragma unroll
+    for (int d = 0; d < ZD; ++d) {
+      const float4 zm4 = ld4<VEC>(zp + d * (size_t)p.plane, i, n);
+      const float4 zl4 = ld4<VEC>(zp + (ZD + d) * (size_t)p.plane, i, n);
+#pragma unroll
+      for (int l = 0; l < 4; ++l) {
+        const float zm = at4(zm4, l), zs = __expf(at4(zl4, l)) + EPS;
+        v[d] += a[l] * zm;
+        v[ZD + d] += a[l] * zs;
+        kl[l] += kl_unit_f(zm, zs, live[l]);
       }
     }
-    const float d_q = g_kl * eq * ((q - p[c]) + 1.f + (kl_th + kl_z));
-    theta_grads(g_thmu, g_thstd, a, scale, live, thm, ths, offs[c], s2,
-                dth + o2 + c, dth + o2 + C + c);
-    da[o1 + c] = d_a;
-    dq[o1 + c] = d_q;
-    v[0] += d_a * a;
-    v[1] += d_q;
+#pragma unroll
+    for (int l = 0; l < 4; ++l) v[2 * ZD + 5] += eq[l] * kl[l];
   }
-  block_sum<THREADS>(v, 2, red, tot);
-  if (threadIdx.x == 0) {
-    spart[2 * b] = tot[0];
-    spart[2 * b + 1] = tot[1];
+  if (ZD) {
+    cta_sums<NV>(v, red, tot, 1);
+  } else {
+    // each z plane in turn: its two sums over the CTA, e^q KL_z in v[5]
+    for (int d = 0; d < zd; ++d) {
+      const float* zm_r = zp + d * (size_t)p.plane;
+      const float* zl_r = zp + (zd + d) * (size_t)p.plane;
+      float w[2] = {0.f, 0.f};
+      for (int i = k.c0 + 4 * (int)threadIdx.x; i < n; i += 4 * SPT) {
+        const float4 x4 = ld4<VEC>(at, i, n), n4 = ld4<VEC>(nz, i, n);
+        const float4 zm4 = ld4<VEC>(zm_r, i, n), zl4 = ld4<VEC>(zl_r, i, n);
+#pragma unroll
+        for (int l = 0; l < 4; ++l) {
+          if (!VEC && i + l >= n) continue;
+          const float x = at4(x4, l), eq = __expf(x - nq);
+          const float a = __expf(x + at4(n4, l) - na);
+          const float zm = at4(zm4, l), zs = __expf(at4(zl4, l)) + EPS;
+          w[0] += a * zm;
+          w[1] += a * zs;
+          v[5] += eq * kl_unit_f(zm, zs, !(eq == 0.f));
+        }
+      }
+      cta_sums<2>(w, red, tot + d, zd);
+    }
+    cta_sums<NV>(v, red, tot + 2 * zd, 1);
+  }
+
+  push_to_rank0(cl, tot, nv, gather);
+  if (k.rank == 0) {
+    float* o = p.out + (size_t)k.b * (2 * zd + 5);
+    for (int j = threadIdx.x; j < 2 * zd + 5; j += SPT)
+      o[j] = j < 2 * zd + 4 ? rank_sum(gather, k.cs, nv, j)
+                            : rank_sum(gather, k.cs, nv, j) +
+                                  rank_sum(gather, k.cs, nv, j + 1);
   }
 }
 
+// K6 (the design at the head of this section).
+template <int ZD, bool VEC>
+__global__ void __launch_bounds__(SPT) posterior_shard_bwd_kernel(
+    const ShardArgs p) {
+  extern __shared__ __align__(16) float sdyn[];   // the image's g, then rank 0's gather
+  __shared__ float red[SPW * 2], tot[2];
+  const cg::cluster_group cl = cg::this_cluster();
+  cluster_arrive_relaxed();   // this CTA has started
+  const ShardChunk k = shard_chunk(p, cl);
+  const int zd = ZD ? ZD : p.zd, ng = 2 * zd + 5;
+  float* gs = sdyn;
+  float* gather = sdyn + ng;
+  for (int j = threadIdx.x; j < ng; j += SPT)
+    gs[j] = p.g[(size_t)k.b * ng + j];
+  __syncthreads();
+  const float* at = p.planes + (size_t)k.b * p.row;
+  const float* zp = at + 3 * (size_t)p.plane;
+  const float* nz = p.noise + (size_t)k.b * p.nrow;
+  float* gp = p.gplanes + (size_t)k.b * p.grow;
+  float* da = p.dadq + (size_t)k.b * 2 * p.C;
+  float* dq = da + p.C;
+  const float nq = p.norms[4 * k.b] + p.norms[4 * k.b + 1];
+  const float na = p.norms[4 * k.b + 2] + p.norms[4 * k.b + 3];
+  const float log_sig_r = logf(p.sig_r);
+  const float inv_s2 = 1.f / (p.sig_r * p.sig_r), inv2s2 = 0.5f * inv_s2;
+  const float g_thmu = gs[2 * zd], g_thstd = gs[2 * zd + 1];
+  const float g_dx0 = gs[2 * zd + 2], g_dx1 = gs[2 * zd + 3];
+  const float g_kl = gs[2 * zd + 4];
+  const int n = k.c1;
 
-// Launches a K3/K4 kernel as B clusters of cs CTAs (cs > 8 with the
-// non-portable cluster size) with `smem` bytes of dynamic shared memory.
-template <typename Kernel>
-int launch_clusters(Kernel kernel, const PostArgs& p, int B, int cs,
+  float v[2] = {0.f, 0.f};
+  for (int i = k.c0 + 4 * (int)threadIdx.x; i < n; i += 4 * SPT) {
+    const float4 x4 = ld4<VEC>(at, i, n), n4 = ld4<VEC>(nz, i, n);
+    const float4 m4 = ld4<VEC>(at + p.plane, i, n);
+    const float4 s4 = ld4<VEC>(at + 2 * (size_t)p.plane, i, n);
+    const float4 p4 = ld4<VEC>(p.p, i, n), x4g = ld4<VEC>(p.gx, i, n);
+    const float4 y4g = ld4<VEC>(p.gy, i, n), o4 = ld4<VEC>(p.offs, i, n);
+    float a[4], eq[4], sc[4], kl[4], qp[4], d_a[4], o1[4], o2[4];
+    bool live[4];
+#pragma unroll
+    for (int l = 0; l < 4; ++l) {
+      const float x = at4(x4, l), q = x - nq;
+      eq[l] = __expf(q);
+      a[l] = __expf(x + at4(n4, l) - na);
+      live[l] = !(eq[l] == 0.f);
+      sc[l] = g_kl * eq[l];
+      qp[l] = q - at4(p4, l);
+      const float thm = at4(m4, l), ths = __expf(at4(s4, l)) + EPS;
+      const float off = at4(o4, l);
+      d_a[l] = g_thmu * thm + g_thstd * ths +
+               (g_dx0 * at4(x4g, l) + g_dx1 * at4(y4g, l));
+      kl[l] = kl_theta_f(thm, ths, off, log_sig_r, inv2s2, live[l]);
+      theta_grads_f(g_thmu, g_thstd, a[l], sc[l], live[l], thm, ths, off,
+                    inv_s2, &o1[l], &o2[l]);
+    }
+    st4<VEC>(gp + p.gplane, i, n, o1);
+    st4<VEC>(gp + 2 * (size_t)p.gplane, i, n, o2);
+#pragma unroll(ZD ? ZD : 1)
+    for (int d = 0; d < zd; ++d) {
+      const float4 zm4 = ld4<VEC>(zp + d * (size_t)p.plane, i, n);
+      const float4 zl4 = ld4<VEC>(zp + (zd + d) * (size_t)p.plane, i, n);
+      const float gm = gs[d], gsd = gs[zd + d];
+#pragma unroll
+      for (int l = 0; l < 4; ++l) {
+        const float zm = at4(zm4, l), zs = __expf(at4(zl4, l)) + EPS;
+        d_a[l] += gm * zm + gsd * zs;
+        kl[l] += kl_unit_f(zm, zs, live[l]);
+        z_grads_f(gm, gsd, a[l], sc[l], live[l], zm, zs, &o1[l], &o2[l]);
+      }
+      st4<VEC>(gp + (3 + d) * (size_t)p.gplane, i, n, o1);
+      st4<VEC>(gp + (3 + zd + d) * (size_t)p.gplane, i, n, o2);
+    }
+#pragma unroll
+    for (int l = 0; l < 4; ++l) {
+      o1[l] = g_kl * eq[l] * (qp[l] + 1.f + kl[l]);   // d_q
+      if (VEC || i + l < n) {
+        v[0] += d_a[l] * a[l];
+        v[1] += o1[l];
+      }
+    }
+    st4<VEC>(da, i, n, d_a);
+    st4<VEC>(dq, i, n, o1);
+  }
+  cta_sums<2>(v, red, tot, 1);
+  push_to_rank0(cl, tot, 2, gather);
+  if (k.rank == 0 && threadIdx.x < 2)
+    p.out[2 * k.b + threadIdx.x] = rank_sum(gather, k.cs, 2, threadIdx.x);
+}
+
+// Launches a K3-K6 kernel as B clusters of cs CTAs of `threads` threads
+// (cs > 8 with the non-portable cluster size) with `smem` bytes of dynamic
+// shared memory.
+template <typename Kernel, typename Args>
+int launch_clusters(Kernel kernel, const Args& p, int B, int cs, int threads,
                     size_t smem, cudaStream_t stream) {
   int err;
   if (cs > 8 && (err = (int)cudaFuncSetAttribute(
@@ -1047,7 +1189,7 @@ int launch_clusters(Kernel kernel, const PostArgs& p, int B, int cs,
   if ((err = allow_smem(kernel, smem))) return err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)(B * cs));
-  cfg.blockDim = dim3(PT);
+  cfg.blockDim = dim3((unsigned)threads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cudaLaunchAttribute at[1];
@@ -1093,6 +1235,46 @@ int post_args(PostArgs* p, const void* heads, const void* p_r,
   return 0;
 }
 
+// K5/K6's arguments, checked: zd >= 1, C >= 0, 1 <= cs <= 16 CTAs of
+// `chunk` cells (a multiple of 4) covering the shard's C cells; with vec,
+// every row 16-byte aligned (the pointers 16-byte aligned, C and the
+// strides multiples of 4). Returns the CUDA error code of a refusal, else 0.
+int shard_args(ShardArgs* a, const void* norms, const void* planes,
+               const void* noise, const void* p, const void* gx,
+               const void* gy, const void* offs, const void* g, void* out,
+               void* gplanes, void* dadq, int C, int zd, int row, int plane,
+               int nrow, int grow, int gplane, float sig_r, int cs,
+               int chunk, int vec) {
+  const void* rows[] = {planes, noise, p, gx, gy, offs, gplanes, dadq};
+  bool aligned = C % 4 == 0 && row % 4 == 0 && plane % 4 == 0 &&
+                 nrow % 4 == 0 && grow % 4 == 0 && gplane % 4 == 0;
+  for (const void* r : rows) aligned = aligned && (uintptr_t)r % 16 == 0;
+  if (zd < 1 || C < 0 || cs < 1 || cs > 16 || chunk < 4 || chunk % 4 ||
+      (long)cs * chunk < (long)C || (vec && !aligned))
+    return (int)cudaErrorInvalidValue;
+  a->norms = (const float*)norms;
+  a->planes = (const float*)planes;
+  a->noise = (const float*)noise;
+  a->p = (const float*)p;
+  a->gx = (const float*)gx;
+  a->gy = (const float*)gy;
+  a->offs = (const float*)offs;
+  a->g = (const float*)g;
+  a->out = (float*)out;
+  a->gplanes = (float*)gplanes;
+  a->dadq = (float*)dadq;
+  a->row = row;
+  a->plane = plane;
+  a->nrow = nrow;
+  a->grow = grow;
+  a->gplane = gplane;
+  a->C = C;
+  a->zd = zd;
+  a->chunk = chunk;
+  a->sig_r = sig_r;
+  return 0;
+}
+
 }  // namespace
 
 // K3: heads (B, M, R, D) f32, p_r, offs (R,), p_tr (M, R), grid (M, 2) ->
@@ -1114,9 +1296,9 @@ extern "C" int tvae_posterior_fwd(const void* heads, const void* p_r,
   case ZD:                                                                   \
     return deterministic                                                     \
                ? launch_clusters(posterior_fwd_kernel<ZD, true>, p, B,      \
-                                 cluster, smem, s)                           \
+                                 cluster, PT, smem, s)                           \
                : launch_clusters(posterior_fwd_kernel<ZD, false>, p, B,     \
-                                 cluster, smem, s);
+                                 cluster, PT, smem, s);
   switch (zd) {
     TVAE_K3(1) TVAE_K3(2) TVAE_K3(3) TVAE_K3(4)
     TVAE_K3(5) TVAE_K3(6) TVAE_K3(7) TVAE_K3(8)
@@ -1146,9 +1328,9 @@ extern "C" int tvae_posterior_bwd(const void* heads, const void* p_r,
   case ZD:                                                                   \
     return deterministic                                                     \
                ? launch_clusters(posterior_bwd_kernel<ZD, true>, p, B,      \
-                                 cluster, smem, s)                           \
+                                 cluster, PT, smem, s)                           \
                : launch_clusters(posterior_bwd_kernel<ZD, false>, p, B,     \
-                                 cluster, smem, s);
+                                 cluster, PT, smem, s);
   switch (zd) {
     TVAE_K4(1) TVAE_K4(2) TVAE_K4(3) TVAE_K4(4)
     TVAE_K4(5) TVAE_K4(6) TVAE_K4(7) TVAE_K4(8)
@@ -1157,38 +1339,70 @@ extern "C" int tvae_posterior_bwd(const void* heads, const void* p_r,
   return (int)cudaErrorInvalidValue;
 }
 
-// K5: the shard's (B, 2*zd + 5) partial sums; norms (B, 4), attn and noise
-// (B, C), th (B, 2, C), z (B, 2, zd, C), p, gx, gy, offs (C,).
-extern "C" int tvae_posterior_shard_fwd(const void* norms, const void* attn,
-                                        const void* noise, const void* th,
-                                        const void* z, const void* p,
+// K5: the shard's (B, 2*zd + 5) partial sums from the planes (B, 3 + 2 zd,
+// C) (strides row, plane), noise (B, C) (row stride nrow), the per-cell
+// p, gx, gy, offs (C,) and norms (B, 4); B clusters of `cluster` CTAs of
+// `chunk` cells (kernels/posterior.py::shard_schedule), 16-byte loads with
+// vec.
+extern "C" int tvae_posterior_shard_fwd(const void* norms, const void* planes,
+                                        const void* noise, const void* p,
                                         const void* gx, const void* gy,
                                         const void* offs, void* out, int B,
-                                        int C, int zd, float sig_r,
-                                        void* stream) {
-  if (zd > MAXZD) return (int)cudaErrorInvalidValue;
-  posterior_shard_fwd_kernel<<<B, THREADS, 0, (cudaStream_t)stream>>>(
-      (const float*)norms, (const float*)attn, (const float*)noise,
-      (const float*)th, (const float*)z, (const float*)p, (const float*)gx,
-      (const float*)gy, (const float*)offs, (float*)out, C, zd, sig_r);
-  return (int)cudaGetLastError();
+                                        int C, int zd, int row, int plane,
+                                        int nrow, float sig_r, int cluster,
+                                        int chunk, int vec, void* stream) {
+  ShardArgs a;
+  int err = shard_args(&a, norms, planes, noise, p, gx, gy, offs, nullptr,
+                       out, nullptr, nullptr, C, zd, row, plane, nrow, 0, 0,
+                       sig_r, cluster, chunk, vec);
+  if (err) return err;
+  const size_t smem = (size_t)(2 * zd + 6) * (1 + cluster) * 4;
+  const cudaStream_t s = (cudaStream_t)stream;
+#define TVAE_K5(ZD)                                                          \
+  case ZD:                                                                   \
+    return vec ? launch_clusters(posterior_shard_fwd_kernel<ZD, true>, a, B, \
+                                 cluster, SPT, smem, s)                      \
+               : launch_clusters(posterior_shard_fwd_kernel<ZD, false>, a,   \
+                                 B, cluster, SPT, smem, s);
+  switch (zd <= SP_ZD ? zd : 0) {
+    TVAE_K5(0) TVAE_K5(1) TVAE_K5(2) TVAE_K5(3) TVAE_K5(4)
+    TVAE_K5(5) TVAE_K5(6) TVAE_K5(7) TVAE_K5(8)
+  }
+#undef TVAE_K5
+  return (int)cudaErrorInvalidValue;
 }
 
-// K6: K5's inputs and the total cotangent g (B, 2*zd + 5); da, dq (B, C),
-// dth (B, 2, C), dz (B, 2, zd, C), spart (B, 2).
-extern "C" int tvae_posterior_shard_bwd(const void* norms, const void* attn,
-                                        const void* noise, const void* th,
-                                        const void* z, const void* p,
+// K6: K5's inputs and the total cotangent g (B, 2*zd + 5) -> the theta and
+// z cotangents into planes 1 .. 2 + 2 zd of gplanes (B, 3 + 2 zd, C)
+// (strides grow, gplane; plane 0 is the caller's), d_a and d_q into dadq
+// (B, 2, C), spart (B, 2); K5's grid.
+extern "C" int tvae_posterior_shard_bwd(const void* norms, const void* planes,
+                                        const void* noise, const void* p,
                                         const void* gx, const void* gy,
                                         const void* offs, const void* g,
-                                        void* da, void* dq, void* dth,
-                                        void* dz, void* spart, int B, int C,
-                                        int zd, float sig_r, void* stream) {
-  if (zd > MAXZD) return (int)cudaErrorInvalidValue;
-  posterior_shard_bwd_kernel<<<B, THREADS, 0, (cudaStream_t)stream>>>(
-      (const float*)norms, (const float*)attn, (const float*)noise,
-      (const float*)th, (const float*)z, (const float*)p, (const float*)gx,
-      (const float*)gy, (const float*)offs, (const float*)g, (float*)da,
-      (float*)dq, (float*)dth, (float*)dz, (float*)spart, C, zd, sig_r);
-  return (int)cudaGetLastError();
+                                        void* gplanes, void* dadq,
+                                        void* spart, int B, int C, int zd,
+                                        int row, int plane, int nrow,
+                                        int grow, int gplane, float sig_r,
+                                        int cluster, int chunk, int vec,
+                                        void* stream) {
+  ShardArgs a;
+  int err = shard_args(&a, norms, planes, noise, p, gx, gy, offs, g, spart,
+                       gplanes, dadq, C, zd, row, plane, nrow, grow, gplane,
+                       sig_r, cluster, chunk, vec);
+  if (err) return err;
+  const size_t smem = (size_t)(2 * zd + 5 + 2 * cluster) * 4;
+  const cudaStream_t s = (cudaStream_t)stream;
+#define TVAE_K6(ZD)                                                          \
+  case ZD:                                                                   \
+    return vec ? launch_clusters(posterior_shard_bwd_kernel<ZD, true>, a, B, \
+                                 cluster, SPT, smem, s)                      \
+               : launch_clusters(posterior_shard_bwd_kernel<ZD, false>, a,   \
+                                 B, cluster, SPT, smem, s);
+  switch (zd <= SP_ZD ? zd : 0) {
+    TVAE_K6(0) TVAE_K6(1) TVAE_K6(2) TVAE_K6(3) TVAE_K6(4)
+    TVAE_K6(5) TVAE_K6(6) TVAE_K6(7) TVAE_K6(8)
+  }
+#undef TVAE_K6
+  return (int)cudaErrorInvalidValue;
 }

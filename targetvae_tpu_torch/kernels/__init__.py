@@ -57,6 +57,24 @@ def encoder_tier() -> str:
             else "conv")
 
 
+def needs_grad(*trees) -> bool:
+    """Whether autograd will differentiate through any tensor of `trees`
+    (tensors, or dicts and lists of them): the direction a dispatch site
+    decides from before any launch."""
+    if not torch.is_grad_enabled():
+        return False
+    todo = list(trees)
+    while todo:
+        t = todo.pop()
+        if isinstance(t, dict):
+            todo.extend(t.values())
+        elif isinstance(t, (list, tuple)):
+            todo.extend(t)
+        elif torch.is_tensor(t) and t.requires_grad:
+            return True
+    return False
+
+
 def launch_counts() -> dict:
     return {name: fn.launches for name, fn in WRAPPERS.items()}
 

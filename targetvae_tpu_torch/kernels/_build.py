@@ -43,11 +43,13 @@ SIGNATURES = {
     # the forward's five inputs, g, dheads, B, R, M, zd, sig_r,
     # deterministic, seed, cluster, chunk, sub, stream
     "tvae_posterior_bwd": [_P] * 7 + [_I] * 4 + [_F] + [_I] * 5 + [_P],
-    # norms, attn, noise, th, z, p, gx, gy, offs, out, B, C, zd, sig_r, stream
-    "tvae_posterior_shard_fwd": [_P] * 10 + [_I] * 3 + [_F, _P],
-    # the forward's nine inputs, g, da, dq, dth, dz, spart,
-    # B, C, zd, sig_r, stream
-    "tvae_posterior_shard_bwd": [_P] * 15 + [_I] * 3 + [_F, _P],
+    # norms, planes, noise, p, gx, gy, offs, out, B, C, zd, row, plane,
+    # nrow, sig_r, cluster, chunk, vec, stream
+    "tvae_posterior_shard_fwd": [_P] * 8 + [_I] * 6 + [_F] + [_I] * 3 + [_P],
+    # the forward's seven inputs, g, gplanes, dadq, spart, B, C, zd, row,
+    # plane, nrow, grow, gplane, sig_r, cluster, chunk, vec, stream
+    "tvae_posterior_shard_bwd": [_P] * 11 + [_I] * 8 + [_F] + [_I] * 3
+                                + [_P],
     # u, v, p, q, hz, w1, b1, wh, bh, w3, b3, y, hs_out (or null),
     # B, n, F, H, L, n_out, act, stream
     "tvae_pose_decoder_fwd": [_P] * 13 + [_I] * 7 + [_P],

@@ -22,15 +22,22 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .decoder_pose import (ACT_CODES, TILE_PX, bf16_round, mlp_chain_bwd_plain,
-                           mlp_chain_plain, wgrad_schedule)
+from .decoder_pose import (ACT_CODES, KERNEL_HIDDEN, TILE_PX, bf16_round,
+                           mlp_chain_bwd_plain, mlp_chain_plain,
+                           wgrad_schedule)
 
 
-def decoder_kernel_supported(cfg) -> bool:
-    """The configurations the kernel covers, as the JAX package's: the
-    Fourier expansion, 2 layers, no resid skips, a latent."""
+def decoder_kernel_supported(cfg, grad: bool = False) -> bool:
+    """Whether K9 (and, with `grad`, its backward K10) takes this generator
+    config: the JAX package's configurations (the Fourier expansion, 2
+    layers, no resid skips, a latent) at the widths the launchers take:
+    hidden in KERNEL_HIDDEN, F % 64 == 0 and, for K10, n_out <= 8 (K9
+    forms the heads 16 at a time, any n_out). generator_apply runs the XLA
+    bf16 recipe otherwise; the route is chosen from the config before any
+    launch."""
     return (cfg.fourier_expansion and cfg.num_layers == 2 and not cfg.resid
-            and cfg.z_dim > 0)
+            and cfg.z_dim > 0 and cfg.hidden_dim in KERNEL_HIDDEN
+            and cfg.embedding_dim % 64 == 0 and (not grad or cfg.n_out <= 8))
 
 
 def _phase(x, wf, bf):
@@ -57,7 +64,7 @@ def _check_shapes(x, wf, hz, w1, wh, bh, w3):
                      (w3, (hdim, w3.shape[1]))):
         if tuple(t.shape) != shape:
             raise ValueError(f"expected {shape}, got {tuple(t.shape)}")
-    if hdim not in (64, 128, 256, 512) or f % 64 or wh.shape[0] < 1:
+    if hdim not in KERNEL_HIDDEN or f % 64 or wh.shape[0] < 1:
         raise ValueError(f"decoder_mlp kernel needs hidden in (64, 128, 256, "
                          f"512), F % 64 == 0 and >= 2 layers, got hidden="
                          f"{hdim} F={f} layers={wh.shape[0] + 1}")

@@ -67,11 +67,20 @@ def bf16_round(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16).float()
 
 
-def pose_decoder_supported(cfg) -> bool:
-    """Needs the Fourier expansion (separable phase), >= 2 layers, no resid
-    skips and a latent."""
+# the hidden widths the wgmma decoder kernels (K7-K10) take
+KERNEL_HIDDEN = (64, 128, 256, 512)
+
+
+def pose_decoder_supported(cfg, grad: bool = False) -> bool:
+    """Whether K7 (and, with `grad`, its backward K8) takes this generator
+    config: the Fourier expansion (separable phase), >= 2 layers, no resid
+    skips, a latent, hidden in KERNEL_HIDDEN, n_out <= 8 and F % 32 == 0
+    (K8: F % 64 == 0), the launchers' own rules. The bf16 tier runs the
+    XLA bf16 recipe (transform_coords, then generator_apply) otherwise;
+    the route is chosen from the config before any launch."""
     return (cfg.fourier_expansion and cfg.num_layers >= 2 and not cfg.resid
-            and cfg.z_dim > 0)
+            and cfg.z_dim > 0 and cfg.hidden_dim in KERNEL_HIDDEN
+            and cfg.n_out <= 8 and cfg.embedding_dim % (64 if grad else 32) == 0)
 
 
 def pose_freqs(theta, dx, wf_over_sigma, bf):
@@ -148,7 +157,7 @@ def fused_pose_decoder_tables(u, v, p, q, hz, w1, b1, wh, bh, w3, b3, *,
     hdim = w1.shape[1]
     n_hidden = wh.shape[0]
     n_out = w3.shape[1]
-    if hdim not in (64, 128, 256, 512) or f % 32:
+    if hdim not in KERNEL_HIDDEN or f % 32:
         raise ValueError(f"pose decoder kernel needs hidden in (64, 128, 256, "
                          f"512) and F % 32 == 0, got hidden={hdim} F={f}")
     if n_hidden < 1 or n_out > 8:
@@ -260,7 +269,7 @@ def pose_decoder_bwd(u, v, p, q, hs, w1, wh, w3, g, *,
     b, n, f = u.shape
     L, _, npx, hdim = hs.shape
     n_out = w3.shape[1]
-    if (hdim not in (64, 128, 256, 512) or f % 64 or n_out > 8 or L < 2
+    if (hdim not in KERNEL_HIDDEN or f % 64 or n_out > 8 or L < 2
             or npx != n * n):
         raise ValueError(f"pose decoder backward kernel needs hidden in (64, "
                          f"128, 256, 512), F % 64 == 0, n_out <= 8 and >= 2 "

@@ -35,8 +35,11 @@ packed output so that its cotangent arrives packed.
 
 K5/K6 port posterior_shard_partials: the same sums over one shard of the
 cell axis, under global softmax normalisers that the caller computed across
-ranks (parallel/grid_softmax.py::sp_posterior_kernel), with explicit noise
-and per-cell constants; see posterior_shard_partials.
+ranks (parallel/grid_softmax.py::sp_posterior), with explicit noise and
+per-cell constants. They read the (B, 3 + 2 zd, C) planes the SP step's
+batch-to-cell exchange leaves, where they lie, and K6 writes the theta
+and z cotangents into the planes' cotangent; posterior_shard_partials
+keeps the JAX package's argument contract by packing the planes.
 """
 
 from __future__ import annotations
@@ -54,6 +57,8 @@ _EPS = 1e-6
 # (k4_schedule)
 K3_CELLS = 3072
 HEADS_SMEM_BYTES = 64 * 1024
+# K5/K6: the cells a CTA takes at most (shard_schedule)
+SHARD_CELLS = 1536
 _M32 = 0xFFFFFFFF
 
 
@@ -217,9 +222,12 @@ def _check_shapes(named) -> None:
                              f"got {tuple(t.shape)}")
 
 
-def _check_zd(zd: int) -> None:
-    if zd > 8:
-        raise ValueError(f"posterior kernels support z_dim <= 8, got {zd}")
+def posterior_kernel_supported(ecfg) -> bool:
+    """Whether K3/K4 take this encoder config: z_dim <= 8 (their templates)
+    and R in (4, 8, 16). compute_elbo's bf16 tier runs the JAX package's
+    bf16 path (encoder_apply, then the posterior in plain PyTorch)
+    otherwise; the route is chosen from the config before any launch."""
+    return ecfg.z_dim <= 8 and ecfg.groupconv in (4, 8, 16)
 
 
 def k3_schedule(m: int, r: int, cluster: Optional[int] = None):
@@ -263,7 +271,8 @@ def _cuda_args(heads, p_r, offsets, p_tr, grid):
                          f"{tuple(heads.shape)}")
     b, m, r, d = heads.shape
     zd = (d - 3) // 2
-    _check_zd(zd)
+    if zd > 8:
+        raise ValueError(f"K3/K4 take z_dim <= 8, got {zd}")
     if r not in (4, 8, 16):
         raise ValueError(f"posterior kernels take R in (4, 8, 16), got {r}")
     f32 = torch.float32
@@ -469,37 +478,83 @@ def posterior_shard_bwd_plain(norms, attn, noise, th, z, p, gx, gy, offs,
             torch.stack([d_zm, d_zls], dim=1), spart)
 
 
-def _shard_cuda_args(norms, attn, noise, th, z, p, gx, gy, offs):
+def pack_planes(attn, th, z) -> torch.Tensor:
+    """posterior_shard_partials' arguments attn (B, C), th (B, 2, C) and z
+    (B, 2, zd, C) as the planes K5/K6 read, (B, 3 + 2 zd, C)."""
     b, c = attn.shape
-    zd = z.shape[2]
-    _check_zd(zd)
+    return torch.cat([attn[:, None], th, z.reshape(b, -1, c)], dim=1)
+
+
+def unpack_planes(planes):
+    """pack_planes' inverse: attn (B, C), th (B, 2, C), z (B, 2, zd, C)."""
+    b, d, c = planes.shape
+    return (planes[:, 0], planes[:, 1:3],
+            planes[:, 3:].reshape(b, 2, (d - 3) // 2, c))
+
+
+def shard_schedule(c: int):
+    """K5/K6's grid for shards of c cells: (cluster, chunk). An image is a
+    cluster of the smallest of 1, 2, 4, 8, 16 CTAs whose chunks hold at
+    most SHARD_CELLS cells, else 16; each CTA takes `chunk` cells (a
+    multiple of 4), the last CTA what is left. The grid depends on the
+    shard's shape alone, so a row of a batch does not depend on the
+    batch's size."""
+    ceil4 = lambda n: max(4, -(-n // 4) * 4)
+    cluster = next((k for k in (1, 2, 4, 8, 16)
+                    if ceil4(-(-c // k)) <= SHARD_CELLS), 16)
+    return cluster, ceil4(-(-c // cluster))
+
+
+def _shard_cuda_args(norms, planes, noise, p, gx, gy, offs):
+    """The K5/K6 wrappers' checks: float32 on one device, the planes (B, 3 +
+    2 zd, C) with unit cell stride (any row and plane strides), noise (B, C)
+    likewise, the rest contiguous. Returns the constants made contiguous,
+    zd, and whether every row is 16-byte aligned (the kernels' 16-byte
+    loads; else they load cell by cell)."""
+    b, d, c = planes.shape
+    if d < 5 or d % 2 == 0:
+        raise ValueError(f"planes: expected (B, 3 + 2 zd, C), got "
+                         f"{tuple(planes.shape)}")
     f32 = torch.float32
-    args = tuple(t.to(f32).contiguous()
-                 for t in (norms, attn, noise, th, z, p, gx, gy, offs))
-    _build.check_cuda(*args, dtypes=(f32,) * len(args))
-    _check_shapes((("norms", args[0], (b, 4)), ("noise", args[2], (b, c)),
-                   ("th", args[3], (b, 2, c)), ("z", args[4], (b, 2, zd, c)),
-                   ("p", args[5], (c,)), ("gx", args[6], (c,)),
-                   ("gy", args[7], (c,)), ("offs", args[8], (c,))))
-    return args
+    consts = tuple(t.contiguous() for t in (norms, p, gx, gy, offs))
+    _build.check_cuda(*consts, dtypes=(f32,) * 5)
+    for name, t in (("planes", planes), ("noise", noise)):
+        if t.device != norms.device or t.dtype != f32 or t.stride(-1) != 1:
+            raise ValueError(f"{name}: expected float32 on {norms.device} "
+                             f"with unit cell stride")
+    _check_shapes((("norms", consts[0], (b, 4)), ("noise", noise, (b, c)),
+                   ("p", consts[1], (c,)), ("gx", consts[2], (c,)),
+                   ("gy", consts[3], (c,)), ("offs", consts[4], (c,))))
+    vec = (c % 4 == 0 and all(s % 4 == 0 for s in (
+        planes.stride(0), planes.stride(1), noise.stride(0)))
+        and all(t.data_ptr() % 16 == 0 for t in (planes, noise) + consts[1:]))
+    return consts, (d - 3) // 2, vec
 
 
-def posterior_shard_fwd(norms, attn, noise, th, z, p, gx, gy, offs,
+def posterior_shard_fwd(norms, planes, noise, p, gx, gy, offs,
                         sig_r: float) -> torch.Tensor:
-    """K5: the shard's (B, 2*zd + 5) partial sums. A CPU attn takes the
-    plain version; a CUDA one launches csrc/posterior.cu."""
-    if attn.device.type == "cpu":
+    """K5: the shard's (B, 2*zd + 5) partial sums from the planes (B, 3 +
+    2 zd, C) the batch-to-cell exchange leaves, read where they lie. A CPU
+    planes takes the plain version; a CUDA one launches csrc/posterior.cu
+    on shard_schedule's grid."""
+    if planes.device.type == "cpu":
+        attn, th, z = unpack_planes(planes)
         return posterior_shard_plain(norms, attn, noise, th, z, p, gx, gy,
                                      offs, sig_r)
-    args = _shard_cuda_args(norms, attn, noise, th, z, p, gx, gy, offs)
-    b, c = attn.shape
-    zd = z.shape[2]
-    out = torch.empty((b, 2 * zd + 5), dtype=torch.float32, device=attn.device)
+    (norms, p, gx, gy, offs), zd, vec = _shard_cuda_args(
+        norms, planes, noise, p, gx, gy, offs)
+    b, _, c = planes.shape
+    cluster, chunk = shard_schedule(c)
+    out = torch.empty((b, 2 * zd + 5), dtype=torch.float32,
+                      device=planes.device)
     if b:
-        _build.launch("tvae_posterior_shard_fwd",
-                      *(t.data_ptr() for t in args), out.data_ptr(), b, c, zd,
-                      float(sig_r),
-                      torch.cuda.current_stream(attn.device).cuda_stream)
+        _build.launch("tvae_posterior_shard_fwd", norms.data_ptr(),
+                      planes.data_ptr(), noise.data_ptr(), p.data_ptr(),
+                      gx.data_ptr(), gy.data_ptr(), offs.data_ptr(),
+                      out.data_ptr(), b, c, zd, planes.stride(0),
+                      planes.stride(1), noise.stride(0), float(sig_r),
+                      cluster, chunk, int(vec),
+                      torch.cuda.current_stream(planes.device).cuda_stream)
         posterior_shard_fwd.launches += 1
     return out
 
@@ -507,29 +562,43 @@ def posterior_shard_fwd(norms, attn, noise, th, z, p, gx, gy, offs,
 posterior_shard_fwd.launches = 0
 
 
-def posterior_shard_bwd(norms, attn, noise, th, z, p, gx, gy, offs,
-                        sig_r: float, g):
-    """K6, with the outputs of posterior_shard_bwd_plain. A CPU attn takes
-    the plain version; a CUDA one launches csrc/posterior.cu."""
-    if attn.device.type == "cpu":
-        return posterior_shard_bwd_plain(norms, attn, noise, th, z, p, gx, gy,
-                                         offs, sig_r, g)
-    args = _shard_cuda_args(norms, attn, noise, th, z, p, gx, gy, offs)
-    b, c = attn.shape
-    zd = z.shape[2]
+def posterior_shard_bwd(norms, planes, noise, p, gx, gy, offs, sig_r: float,
+                        g):
+    """K6 on posterior_shard_fwd's inputs and the TOTAL cotangent g (B,
+    2*zd + 5): (gplanes, dadq, spart). gplanes (B, 3 + 2 zd, C) holds the
+    theta and z planes' cotangents in planes 1 .. 2 + 2 zd; plane 0, the
+    logits', is the caller's (d_attn needs the all-reduced spart; zeros on
+    the CPU, unwritten on the card). dadq (B, 2, C) holds d_a and d_q,
+    spart (B, 2) the local [sum d_a a, sum d_q]. A CPU planes takes the
+    plain version; a CUDA one launches csrc/posterior.cu on K5's grid."""
+    b, d, c = planes.shape
+    if planes.device.type == "cpu":
+        attn, th, z = unpack_planes(planes)
+        d_a, d_q, d_th, d_z, spart = posterior_shard_bwd_plain(
+            norms, attn, noise, th, z, p, gx, gy, offs, sig_r, g)
+        gplanes = torch.cat([torch.zeros_like(attn)[:, None], d_th,
+                             d_z.reshape(b, -1, c)], dim=1)
+        return gplanes, torch.stack([d_a, d_q], dim=1), spart
+    (norms, p, gx, gy, offs), zd, vec = _shard_cuda_args(
+        norms, planes, noise, p, gx, gy, offs)
     g = g.to(torch.float32).contiguous()
-    _build.check_cuda(args[1], g, dtypes=(torch.float32,) * 2)
+    _build.check_cuda(norms, g, dtypes=(torch.float32,) * 2)
     _check_shapes((("g", g, (b, 2 * zd + 5)),))
-    outs = (torch.empty_like(args[1]), torch.empty_like(args[1]),
-            torch.empty_like(args[3]), torch.empty_like(args[4]),
-            torch.empty((b, 2), dtype=torch.float32, device=attn.device))
+    cluster, chunk = shard_schedule(c)
+    e = lambda *shape: torch.empty(shape, dtype=torch.float32,
+                                   device=planes.device)
+    gplanes, dadq, spart = e(b, d, c), e(b, 2, c), e(b, 2)
     if b:
-        _build.launch("tvae_posterior_shard_bwd",
-                      *(t.data_ptr() for t in args), g.data_ptr(),
-                      *(t.data_ptr() for t in outs), b, c, zd, float(sig_r),
-                      torch.cuda.current_stream(attn.device).cuda_stream)
+        _build.launch("tvae_posterior_shard_bwd", norms.data_ptr(),
+                      planes.data_ptr(), noise.data_ptr(), p.data_ptr(),
+                      gx.data_ptr(), gy.data_ptr(), offs.data_ptr(),
+                      g.data_ptr(), gplanes.data_ptr(), dadq.data_ptr(),
+                      spart.data_ptr(), b, c, zd, planes.stride(0),
+                      planes.stride(1), noise.stride(0), d * c, c,
+                      float(sig_r), cluster, chunk, int(vec),
+                      torch.cuda.current_stream(planes.device).cuda_stream)
         posterior_shard_bwd.launches += 1
-    return outs
+    return gplanes, dadq, spart
 
 
 posterior_shard_bwd.launches = 0
@@ -540,7 +609,8 @@ def posterior_shard_partials(norms, attn, noise, th, z, p, gx, gy, offs, *,
                              g=None):
     """The per-shard posterior kernels with the JAX package's contract (no
     autograd: the VJP lives at the collective level,
-    parallel/grid_softmax.py::sp_posterior_kernel).
+    parallel/grid_softmax.py::sp_posterior): packs the planes and calls
+    K5 or K6.
 
     norms (B, 4): [gmax_q, g_logsum_q, gmax_a, g_logsum_a] global softmax
     normalisers per image. attn/noise (B, C); th (B, 2, C); z (B, 2, zd, C);
@@ -553,8 +623,11 @@ def posterior_shard_partials(norms, attn, noise, th, z, p, gx, gy, offs, *,
     [sum(d_a*a), sum(d_q)] softmax-VJP partials."""
     if z.shape[2] != zd:
         raise ValueError(f"z carries z_dim {z.shape[2]}, not {zd}")
+    planes = pack_planes(attn, th, z)
     if not want_grads:
-        return posterior_shard_fwd(norms, attn, noise, th, z, p, gx, gy, offs,
+        return posterior_shard_fwd(norms, planes, noise, p, gx, gy, offs,
                                    sig_r)
-    return posterior_shard_bwd(norms, attn, noise, th, z, p, gx, gy, offs,
-                               sig_r, g)
+    gplanes, dadq, spart = posterior_shard_bwd(norms, planes, noise, p, gx,
+                                               gy, offs, sig_r, g)
+    _, d_th, d_z = unpack_planes(gplanes)
+    return dadq[:, 0], dadq[:, 1], d_th, d_z, spart

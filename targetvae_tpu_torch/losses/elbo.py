@@ -2,9 +2,11 @@
 
 Joint posterior over the R x H' x W' grid (reference train_mnist.py:187-294).
 The bf16 tier runs the posterior kernel and the pose-decoder kernel (the JAX
-kernel branch, elbo.py:312-338), or for a generator the pose kernel does not
-cover generator_apply's bf16 tier; the float32 tier is the plain model code
-of elbo.py:340-381. The posterior math is float32 in both. Both tiers are
+kernel branch, elbo.py:312-338), for an encoder config the posterior kernels
+do not take (posterior_kernel_supported) the bf16 encoder_apply and the
+posterior's model code, and for a generator the pose kernel does not take
+(pose_decoder_supported) generator_apply's bf16 tier; the float32 tier is
+the plain model code of elbo.py:340-381. The posterior math is float32 in both. Both tiers are
 differentiable end to end: on the bf16 tier through the kernels' autograd
 Functions (K2 or K12, K4, K8 backward kernels); the Fourier w and b get no
 gradient.
@@ -23,9 +25,9 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ..kernels import kernel_tier
+from ..kernels import kernel_tier, needs_grad
 from ..kernels.decoder_pose import fused_pose_decoder, pose_decoder_supported
-from ..kernels.posterior import fused_posterior
+from ..kernels.posterior import fused_posterior, posterior_kernel_supported
 from ..models.encoders import (attn_dim_for, encoder_apply, encoder_heads,
                                rotation_constants)
 from ..models.generator import generator_apply
@@ -47,32 +49,34 @@ def _translation_log_prior(grid: np.ndarray) -> np.ndarray:
     return lp.astype(np.float32)
 
 
-def sp_cell_views(enc: dict, ecfg, b: int) -> dict:
-    """The encoder output of b images as flat per-cell float32 arrays plus
-    the cell constants, for the grid-sharded posterior (mirror of
-    targetvae_tpu/losses/elbo.py::sp_cell_views, mode C). Cells are the
-    r-minor flatten of (H', W', R), as the unsharded tiers': attn, th_mu,
-    th_ls (b, cells); z_mu, z_ls (b, cells, zd); the unnormalised log-prior
-    log p(t) + log p(r) (cells,); grid_cells = the attention grid repeated
-    R times (cells, 2); offs_cells = the offsets tiled M times (cells,)."""
+@functools.lru_cache(maxsize=32)
+def sp_shard_constants(ecfg, device: torch.device, ranks: int, rank: int,
+                       unit: int) -> dict:
+    """The grid-sharded posterior's constants for rank `rank` of `ranks`,
+    made once for each config and device (outside inference mode, so that
+    autograd may use them). The R*M cells, r-minor as the heads' (the JAX
+    package's losses/elbo.py::sp_cell_views), padded to a multiple of
+    ranks * unit, so that each shard holds c = "c_loc" cells; the pads carry
+    a -1e30 log-prior and zero constants. "bias" (D, R): log p(r) for the
+    logit, the offsets for theta's mean, 0 for the rest, which the exchange
+    adds to the heads; "p" (c,) the shard of the joint log-prior (globally
+    log-softmaxed, posterior_constants' p_tr), "gx", "gy" the attention
+    grid and "offs" the offsets of its cells; "sig_r"."""
+    const = posterior_constants(ecfg, device)
     R, zd = ecfg.groupconv, ecfg.z_dim
-    ad = attn_dim_for(ecfg)
-    M = ad * ad
-    dev = enc["attn"].device
-    grid_np = attention_grid(ad, ecfg.image_dim)
-    p_t = torch.as_tensor(_translation_log_prior(grid_np), device=dev)
-    cells = M * R
-    f32 = lambda v, *shape: v.reshape(b, cells, *shape).float()
-    return {
-        "cells": cells, "sig_r": float(np.pi / R),
-        "attn": f32(enc["attn"]), "th_mu": f32(enc["theta_mu"]),
-        "th_ls": f32(enc["theta_logstd"]), "z_mu": f32(enc["z_mu"], zd),
-        "z_ls": f32(enc["z_logstd"], zd),
-        "log_prior": (p_t[:, None] + enc["p_r"]).reshape(-1),
-        "grid_cells": torch.as_tensor(np.repeat(grid_np, R, axis=0),
-                                      device=dev),
-        "offs_cells": enc["offsets"].repeat(M),
-    }
+    cells = const["p_tr"].numel()
+    c = -(-cells // (ranks * unit)) * unit
+    shard = slice(rank * c, (rank + 1) * c)
+    pad = lambda v, value: torch.cat(
+        [v, torch.full((ranks * c - cells,), value, device=device)])[shard]
+    with torch.inference_mode(False):
+        bias = torch.zeros((3 + 2 * zd, R), device=device)
+        bias[0], bias[1] = const["p_r"], const["offsets"]
+        grid = const["grid"].repeat_interleave(R, dim=0)
+        return {"c_loc": c, "sig_r": float(np.pi / R), "bias": bias,
+                "p": pad(const["p_tr"].reshape(-1), -1e30),
+                "gx": pad(grid[:, 0], 0.0), "gy": pad(grid[:, 1], 0.0),
+                "offs": pad(const["offsets"].repeat(cells // R), 0.0)}
 
 
 def _normal_noise(generator: Optional[torch.Generator], shape, device):
@@ -89,9 +93,13 @@ def reconstruct_log_prob(params: dict, cfg: ModelConfig, x_coord: torch.Tensor,
                          ) -> torch.Tensor:
     """Decode (theta, dx, z) and score y. On the kernel tier the pose decoder
     derives the coordinates from (theta, dx) and the standard image grid, so
-    x_coord must be that grid (it is for every caller of the model)."""
+    x_coord must be that grid (it is for every caller of the model); a
+    generator K7 (or, under autograd, K8) does not take
+    (pose_decoder_supported) decodes the transformed coordinates with
+    generator_apply."""
     gcfg, ecfg = cfg.generator, cfg.encoder
-    if kernel_tier(compute_dtype) and pose_decoder_supported(gcfg):
+    grad = needs_grad(params["generator"], theta, dx, z)
+    if kernel_tier(compute_dtype) and pose_decoder_supported(gcfg, grad):
         y_hat = fused_pose_decoder(theta, dx, z, params["generator"], gcfg,
                                    ecfg.image_dim)
     else:
@@ -136,7 +144,7 @@ def compute_elbo(params: dict, cfg: ModelConfig, x_coord: torch.Tensor,
     grid = const["grid"]
     sig_r = np.pi / R
 
-    if kernel_tier(compute_dtype):
+    if kernel_tier(compute_dtype) and posterior_kernel_supported(ecfg):
         # the encoder's raw heads go to the posterior kernels as they lie
         # (B, M, R, D); K3 adds log p(r) and the offsets itself, and K4
         # returns their cotangent in the same layout

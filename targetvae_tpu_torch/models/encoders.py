@@ -35,7 +35,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..kernels import encoder_tier, kernel_tier
+from ..kernels import encoder_tier, kernel_tier, needs_grad
 from ..kernels.decoder_pose import _act
 from ..kernels.lifted_encoder import build_patches, fused_lifted_encoder
 from ..kernels.mix_heads import (fused_lift_act_mix_heads,
@@ -199,27 +199,16 @@ def _mode_c_f32(params: dict, cfg: EncoderConfig, y: torch.Tensor):
 def encoder_kernel_supported(cfg: EncoderConfig, tier: str,
                              grad: bool) -> bool:
     """Whether encoder tier `tier` ("conv" or "patch") has kernels for this
-    config's K: its forward (K1 takes K % 16 == 0 up to 128, K11 K in 16,
-    32, 64, 128) and, with `grad`, its backward (K2 and K12: K in 16, 32,
-    64, 128). The bf16 tier runs the plain recipe (_mode_c_bf16_recipe)
-    otherwise; the route is chosen from the shapes alone, before any
-    launch. (All four kernels take at most 16 heads, z_dim <= 6, and raise
-    past it.)"""
+    config: its forward (K1 takes K % 16 == 0 up to 128, K11 K in 16, 32,
+    64, 128) and, with `grad`, its backward (K2 and K12: K in 16, 32, 64,
+    128), all four at most 16 heads, D = 3 + 2 z_dim (z_dim <= 6). The bf16
+    tier runs the plain recipe (_mode_c_bf16_recipe) otherwise; the route
+    is chosen from the shapes alone, before any launch."""
     K = cfg.kernels_num
     fwd = (K % 16 == 0 and 16 <= K <= 128) if tier == "conv" else (
         K in (16, 32, 64, 128))
-    return fwd and (not grad or K in (16, 32, 64, 128))
-
-
-def _needs_grad(params: dict, y: torch.Tensor) -> bool:
-    """Whether autograd will differentiate the encoder's output."""
-    if not torch.is_grad_enabled():
-        return False
-    leaves, todo = [y], [params]
-    while todo:
-        for v in todo.pop().values():
-            (todo if isinstance(v, dict) else leaves).append(v)
-    return any(torch.is_tensor(t) and t.requires_grad for t in leaves)
+    return (3 + 2 * cfg.z_dim <= 16 and fwd
+            and (not grad or K in (16, 32, 64, 128)))
 
 
 def encoder_heads(params: dict, cfg: EncoderConfig, y: torch.Tensor,
@@ -232,7 +221,7 @@ def encoder_heads(params: dict, cfg: EncoderConfig, y: torch.Tensor,
     _require_mode_c(cfg)
     if kernel_tier(compute_dtype):
         tier = encoder_tier()
-        if not encoder_kernel_supported(cfg, tier, _needs_grad(params, y)):
+        if not encoder_kernel_supported(cfg, tier, needs_grad(params, y)):
             out = _mode_c_bf16_recipe(params, cfg, y)
         elif tier == "patch":
             out = _mode_c_patch_tier(params, cfg, y)

@@ -6,8 +6,9 @@ h = W_c embed(x) + W_z z broadcast over pixels, then `num_layers` - 1 hidden
 layers and a final linear to n_out.
 
 Three tiers, chosen where the JAX package chooses (generator.py:23-29,67-105):
-  - bf16 on a configuration decoder_kernel_supported covers, with a latent:
-    the fused decoder_mlp kernel (K9, K10 under autograd);
+  - bf16 on a configuration decoder_kernel_supported covers in the
+    direction asked, with a latent: the fused decoder_mlp kernel (K9, K10
+    under autograd);
   - any other bf16 generator: the JAX package's XLA recipe in plain
     PyTorch, features computed in float32 and rounded to bf16, bf16 matmul
     operands, float32 accumulation;
@@ -21,7 +22,7 @@ from typing import Optional
 import torch
 import torch.nn as nn
 
-from ..kernels import kernel_tier
+from ..kernels import kernel_tier, needs_grad
 from ..kernels.decoder_mlp import decoder_kernel_supported, fused_decoder_mlp
 from ..kernels.decoder_pose import _act, bf16_round
 from ..ops.fourier import fourier_apply, fourier_init
@@ -59,7 +60,8 @@ def generator_apply(params: dict, cfg: GeneratorConfig, x: torch.Tensor,
     if compute_dtype is not None and not kernel_tier(compute_dtype):
         raise ValueError(f"unsupported compute_dtype {compute_dtype}")
     bf16 = kernel_tier(compute_dtype)
-    if bf16 and z is not None and decoder_kernel_supported(cfg):
+    if bf16 and z is not None and decoder_kernel_supported(
+            cfg, needs_grad(params, x, z)):
         return fused_decoder_mlp(x, z, params, cfg)
     # the bf16 recipe's matmul: bf16 operands, float32 accumulation
     mm = ((lambda a, w: bf16_round(a) @ bf16_round(w)) if bf16

@@ -1,15 +1,17 @@
 """Grid-sharded joint posterior, the sequence-parallel (SP) analogue for
 TARGET-VAE (mirror of targetvae_tpu/parallel/grid_softmax.py, its
-kernel-composed tier: sharded_log_softmax, _global_norms and
-sp_posterior_kernel, with the batch-to-cell exchange of
-targetvae_tpu/train/loop.py::_loss_fn_sp).
+kernel-composed tier: _global_norms and sp_posterior_kernel, with the
+batch-to-cell exchange of targetvae_tpu/train/loop.py::_loss_fn_sp; the
+log-prior's sharded log-softmax is a shard of the globally normalised
+prior, a constant, losses/elbo.py::sp_shard_constants).
 
 The posterior's long axis, the R x H' x W' cells, is split over the ranks of
 a process group. Each rank runs the per-shard kernels K5/K6
-(kernels/posterior.py::posterior_shard_partials) on its cells; a
-cross-rank log-sum-exp (a MAX, then a SUM all-reduce) normalises the
-softmaxes and a SUM all-reduce combines the partial moments. What crosses
-ranks per reduction is O(B), whatever the grid's size.
+(kernels/posterior.py::posterior_shard_fwd/bwd) on its cells, on the planes
+the batch-to-cell exchange leaves; a cross-rank log-sum-exp (a MAX, then a
+SUM all-reduce) normalises the softmaxes and a SUM all-reduce combines the
+partial moments. What crosses ranks per reduction is O(B), whatever the
+grid's size.
 
 Gradient convention: every rank computes the same replicated outputs and
 differentiates its own share of the loss; the losses of all ranks add up
@@ -27,85 +29,93 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-from ..kernels.posterior import posterior_shard_bwd, posterior_shard_fwd
+from ..kernels.posterior import (pack_planes, posterior_shard_bwd,
+                                 posterior_shard_fwd)
 
 
-def _global_norms(logits: torch.Tensor, group) -> torch.Tensor:
-    """(B, 2, K) logits -> (B, 4) [gmax_0, g_logsum_0, gmax_1, g_logsum_1]
-    for the K softmaxes (here K = 2: q and the sample) whose cell axis is
-    sharded over `group`: a MAX all-reduce of the local maxima, a pure
-    numerical shift (exact without a gradient), then a SUM all-reduce of
-    the local sums of exp(logits - gmax). No gradient flows through them;
-    sp_posterior_kernel's backward accounts for the normalisers."""
+def _global_norms(logits, group) -> torch.Tensor:
+    """A list of K (B, C) logits, each a softmax whose cell axis is sharded
+    over `group` -> (B, 2K) [gmax_0, g_logsum_0, gmax_1, ...]: each rank's
+    log-sum-exp over its shard, a MAX all-reduce of them (a pure
+    numerical shift), then a SUM all-reduce of the exponentials under it;
+    gmax + g_logsum is the global log-sum-exp, all the kernels read. No
+    gradient flows through them; sp_posterior's backward accounts for the
+    normalisers."""
     with torch.no_grad():
-        gmax = logits.amax(dim=-1)                              # (B, K)
+        lse = torch.stack([torch.logsumexp(x, dim=-1) for x in logits], 1)
+        gmax = lse.clone()
         dist.all_reduce(gmax, op=dist.ReduceOp.MAX, group=group)
-        gsum = torch.exp(logits - gmax[..., None]).sum(dim=-1)
+        gsum = torch.exp(lse - gmax)
         dist.all_reduce(gsum, group=group)
         return torch.stack([gmax, torch.log(gsum)], dim=-1).reshape(
-            logits.shape[0], -1)
-
-
-def sharded_log_softmax(logits: torch.Tensor, group) -> torch.Tensor:
-    """log_softmax over the last axis of (B, cells_local) logits whose
-    cells are sharded over `group`: the local shard of the global
-    log_softmax. For constants (the SP path's log-prior); it raises for a
-    tensor that wants a gradient, which would miss the normaliser's."""
-    if logits.requires_grad:
-        raise ValueError("sharded_log_softmax takes constants; the posterior's "
-                         "differentiable softmaxes are sp_posterior_kernel's")
-    n = _global_norms(logits[:, None], group)
-    return logits - n[:, 0:1] - n[:, 1:2]
+            lse.shape[0], -1)
 
 
 class _SPPosterior(torch.autograd.Function):
     """K5 under the global normalisers, then a SUM all-reduce; backward: a
-    SUM all-reduce of the cotangent, K6, a SUM all-reduce of the
-    softmax-VJP sums and the elementwise d_attn."""
+    SUM all-reduce of the cotangent, K6 (the theta and z planes'
+    cotangents written into the planes' gradient), a SUM all-reduce of the
+    softmax-VJP sums and the elementwise d_attn into its plane 0: one
+    gradient for the planes, no slices."""
 
     @staticmethod
-    def forward(ctx, attn, noise, th, z, p, gx, gy, offs, group, sig_r):
-        norms = _global_norms(torch.stack([attn, attn + noise], dim=1), group)
-        part = posterior_shard_fwd(norms, attn, noise, th, z, p, gx, gy, offs,
+    def forward(ctx, planes, noise, p, gx, gy, offs, group, sig_r):
+        attn = planes[:, 0]
+        norms = _global_norms([attn, attn + noise], group)
+        part = posterior_shard_fwd(norms, planes, noise, p, gx, gy, offs,
                                    sig_r)
         dist.all_reduce(part, group=group)
-        ctx.save_for_backward(attn, noise, th, z, p, gx, gy, offs, norms)
+        ctx.save_for_backward(planes, noise, p, gx, gy, offs, norms)
         ctx.cfg = (group, sig_r)
         return part
 
     @staticmethod
     def backward(ctx, g):
-        attn, noise, th, z, p, gx, gy, offs, norms = ctx.saved_tensors
+        planes, noise, p, gx, gy, offs, norms = ctx.saved_tensors
         group, sig_r = ctx.cfg
         # out = the all-reduced partials is used on every rank: the total
         # cotangent of this rank's partials is the sum of all ranks' g
         g_tot = g.contiguous().clone()
         dist.all_reduce(g_tot, group=group)
-        da, dq, dth, dz, spart = posterior_shard_bwd(
-            norms, attn, noise, th, z, p, gx, gy, offs, sig_r, g_tot)
+        gplanes, dadq, spart = posterior_shard_bwd(
+            norms, planes, noise, p, gx, gy, offs, sig_r, g_tot)
         dist.all_reduce(spart, group=group)                       # (B, 2)
-        a = torch.exp(attn + noise - norms[:, 2:3] - norms[:, 3:4])
-        eq = torch.exp(attn - norms[:, 0:1] - norms[:, 1:2])
-        d_attn = a * (da - spart[:, 0:1]) + dq - eq * spart[:, 1:2]
-        return d_attn, None, dth, dz, None, None, None, None, None, None
+        attn = planes[:, 0]
+        a = torch.exp(attn + noise - (norms[:, 2:3] + norms[:, 3:4]))
+        eq = torch.exp(attn - (norms[:, 0:1] + norms[:, 1:2]))
+        # d_attn = a (d_a - S1) + d_q - e^q S2
+        torch.addcmul(dadq[:, 1] - eq * spart[:, 1:2], a,
+                      dadq[:, 0] - spart[:, 0:1], out=gplanes[:, 0])
+        return (gplanes,) + (None,) * 7
+
+
+def sp_posterior(group, sig_r: float, planes, noise, p, gx, gy,
+                 offs) -> torch.Tensor:
+    """The grid-sharded posterior on the per-shard kernels, run on every
+    rank of `group` with its LOCAL cell shard, on the planes as the
+    batch-to-cell exchange leaves them.
+
+    planes (B, 3 + 2 zd, C_local) float32 [attn, theta_mu, theta_logstd,
+    z_mu (zd), z_logstd (zd)], any row and plane strides; noise (B,
+    C_local) this rank's Gumbel noise (not differentiated); p (C,) the
+    globally log-softmaxed log-prior shard; gx, gy, offs (C,) per-cell
+    constants. Padded cells carry -1e30 logits.
+
+    Returns (B, 2zd+5) [z_mu_e (zd), z_std_e (zd), th_mu_e, th_std_e, dx0,
+    dx1, kl], the same on every rank; differentiable in the planes."""
+    return _SPPosterior.apply(planes, noise, p, gx, gy, offs, group,
+                              float(sig_r))
 
 
 def sp_posterior_kernel(group, sig_r: float, zd: int, attn, noise, th, z, p,
                         gx, gy, offs) -> torch.Tensor:
-    """The grid-sharded posterior on the per-shard kernels, run on every
-    rank of `group` with its LOCAL cell shard.
-
-    attn, noise (B, C_local) float32 (noise: this rank's Gumbel noise, not
-    differentiated); th (B, 2, C) = [theta_mu, theta_logstd]; z (B, 2, zd, C)
-    = [z_mu, z_logstd]; p (C,) the globally log-softmaxed log-prior shard;
-    gx, gy, offs (C,) per-cell constants. Padded cells carry -1e30 logits.
-
-    Returns (B, 2zd+5) [z_mu_e (zd), z_std_e (zd), th_mu_e, th_std_e, dx0,
-    dx1, kl], the same on every rank; differentiable in attn, th and z."""
+    """sp_posterior with the JAX package's arguments: attn (B, C), th (B, 2,
+    C) = [theta_mu, theta_logstd], z (B, 2, zd, C) = [z_mu, z_logstd],
+    packed into the planes; differentiable in attn, th and z."""
     if z.shape[2] != zd:
         raise ValueError(f"z carries z_dim {z.shape[2]}, not {zd}")
-    return _SPPosterior.apply(attn, noise, th, z, p, gx, gy, offs, group,
-                              float(sig_r))
+    return sp_posterior(group, sig_r, pack_planes(attn, th, z), noise, p, gx,
+                        gy, offs)
 
 
 class _AllToAll(torch.autograd.Function):
@@ -141,5 +151,57 @@ def batch_to_cells(x: torch.Tensor, group) -> torch.Tensor:
     b, *mid, cells = x.shape
     if cells % t:
         raise ValueError(f"{cells} cells do not split over {t} ranks")
-    chunks = x.reshape(b, *mid, t, cells // t).movedim(-2, 0)
-    return _AllToAll.apply(chunks, group).reshape(t * b, *mid, cells // t)
+    return chunks_to_cells(x.reshape(b, *mid, t, cells // t).movedim(-2, 0),
+                           group)
+
+
+def chunks_to_cells(chunks: torch.Tensor, group) -> torch.Tensor:
+    """batch_to_cells on its send buffer: (T, b_l, ..., c) chunks, chunk s
+    for rank s, -> (T * b_l, ..., c), read in place when contiguous."""
+    t, b, *rest = chunks.shape
+    return _AllToAll.apply(chunks, group).reshape(t * b, *rest)
+
+
+class _HeadsToChunks(torch.autograd.Function):
+    """The encoder's raw heads of this rank's rows as the exchange's send
+    buffer, in one pass: (b, cells, D) heads, cells r-minor, -> (T, b, D,
+    c) chunks of c cells, bias (D, R) added (log p(r) to the logit, the
+    offsets to theta's mean), the cells past the grid padded with -1e30
+    logits and zero moments. Its backward takes the chunks' cotangent back
+    to the heads' layout."""
+
+    @staticmethod
+    def forward(ctx, heads, bias, t, c):
+        b, cells, d = heads.shape
+        r = bias.shape[1]
+        out = heads.new_empty((t, b, d, c))
+        src = heads.transpose(1, 2)                             # (b, d, cells)
+        spans = [(s * c, max(0, min(cells, (s + 1) * c) - s * c))
+                 for s in range(t)]
+        for s, (lo, n) in enumerate(spans):
+            if n:
+                torch.add(src[:, :, lo:lo + n].unflatten(2, (n // r, r)),
+                          bias[:, None], out=out[s, :, :, :n].unflatten(
+                              2, (n // r, r)))
+            if n < c:
+                out[s, :, 1:, n:] = 0.0
+                out[s, :, 0, n:] = -1e30
+        ctx.spans, ctx.shape = spans, heads.shape
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        gh = g.new_empty(ctx.shape)
+        dst = gh.transpose(1, 2)
+        for s, (lo, n) in enumerate(ctx.spans):
+            dst[:, :, lo:lo + n] = g[s, :, :, :n]
+        return gh, None, None, None
+
+
+def heads_to_chunks(heads, bias, t: int, c: int) -> torch.Tensor:
+    """_HeadsToChunks: the send buffer of the SP step's exchange; c a
+    multiple of R, so that each chunk holds whole positions."""
+    if c % bias.shape[1]:
+        raise ValueError(f"chunks of {c} cells split positions of "
+                         f"{bias.shape[1]} rotations")
+    return _HeadsToChunks.apply(heads, bias, t, c)

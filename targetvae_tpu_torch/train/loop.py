@@ -24,12 +24,12 @@ import torch
 import torch.distributed as dist
 
 from ..losses.elbo import (_normal_noise, compute_elbo, reconstruct_log_prob,
-                           sp_cell_views)
-from ..models.encoders import encoder_apply
+                           sp_shard_constants)
+from ..models.encoders import encoder_heads
 from ..models.targetvae import TargetVAE, resolve_device
 from ..ops.gumbel import gumbel_noise
-from ..parallel.grid_softmax import (batch_to_cells, sharded_log_softmax,
-                                     sp_posterior_kernel)
+from ..parallel.grid_softmax import (chunks_to_cells, heads_to_chunks,
+                                     sp_posterior)
 from ..parallel.mesh import make_mesh
 from ..utils.config import ModelConfig, TrainConfig
 from .state import TrainState, create_train_state
@@ -120,32 +120,18 @@ class Trainer:
         b_l = b // t_n
         rows = slice(t * b_l, (t + 1) * b_l)
         dev = y.device
-        enc = encoder_apply(params["encoder"], ecfg, y[rows], None,
-                            self.compute_dtype)
-        cv = sp_cell_views(enc, ecfg, b_l)
-        cells = cv["cells"]
-        # pad every shard to a multiple of SP_CELL_UNIT cells: -1e30 logits
-        # and log-prior, zero moments and constants; the pads carry exactly
-        # zero posterior mass and gradient
-        unit = t_n * SP_CELL_UNIT
-        pad = -(-cells // unit) * unit - cells
-        planes = torch.cat([cv["attn"][:, None], cv["th_mu"][:, None],
-                            cv["th_ls"][:, None], cv["z_mu"].transpose(1, 2),
-                            cv["z_ls"].transpose(1, 2)], dim=1)
-        fill = torch.zeros((b_l, planes.shape[1], pad), device=dev)
-        fill[:, 0] = -1e30
-        # batch-split -> cell-split (one exchange of all 3 + 2zd planes)
-        planes = batch_to_cells(torch.cat([planes, fill], dim=2), group)
-        c_loc = planes.shape[2]
-        attn, th = planes[:, 0], planes[:, 1:3]
-        z = planes[:, 3:].reshape(b, 2, zd, c_loc)
-        shard = slice(t * c_loc, (t + 1) * c_loc)
-        const = lambda v, value: torch.cat(
-            [v, torch.full((pad, *v.shape[1:]), value, device=dev)])[shard]
-        p_loc = sharded_log_softmax(const(cv["log_prior"], -1e30)[None],
-                                    group)[0]
-        gxy = const(cv["grid_cells"], 0.0)
-        offs = const(cv["offs_cells"], 0.0)
+        const = sp_shard_constants(ecfg, dev, t_n, t, SP_CELL_UNIT)
+        c_loc = const["c_loc"]
+        heads = encoder_heads(params["encoder"], ecfg, y[rows],
+                              self.compute_dtype)
+        # batch-split -> cell-split: the raw heads, log p(r) and the offsets
+        # added and the cells padded to t_n * c_loc (-1e30 logits, zero
+        # moments; the pads carry exactly zero posterior mass and gradient)
+        # in one pass into the send buffer, one exchange of all 3 + 2 zd
+        # planes; K5/K6 read the received planes where they lie
+        planes = chunks_to_cells(heads_to_chunks(
+            heads.reshape(b_l, -1, 3 + 2 * zd), const["bias"], t_n, c_loc),
+            group)
         # the Gumbel noise differs per rank (its generator's seed folded
         # with the rank); the reparameterisation noise is drawn for all B
         # rows and is the same on every rank, as the moments it scales
@@ -156,8 +142,8 @@ class Trainer:
                                      device=generator.device))
             noise = gumbel_noise((b, c_loc), torch.Generator(
                 device=dev).manual_seed(seed + t), dev)
-        out = sp_posterior_kernel(group, cv["sig_r"], zd, attn, noise, th, z,
-                                  p_loc, gxy[:, 0], gxy[:, 1], offs)
+        out = sp_posterior(group, const["sig_r"], planes, noise, const["p"],
+                           const["gx"], const["gy"], const["offs"])
         z_s = out[:, zd:2 * zd] * _normal_noise(generator, (b, zd), dev) \
             + out[:, :zd]
         theta = out[:, 2 * zd + 1] * _normal_noise(generator, (b,), dev) \

@@ -106,7 +106,7 @@ def _model_config(**gen):
 
 
 GENERATORS = {
-    "kernel": {},                                   # K9's configuration
+    "kernel": {"hidden_dim": 64},                   # K9's, at its width
     "no_fourier": {"fourier_expansion": False},     # neither K9 nor pose
     "resid": {"resid": True, "num_layers": 3},      # neither K9 nor pose
 }

@@ -28,10 +28,11 @@ from targetvae_tpu_torch.kernels.mix_heads import (
     fused_lift_act_mix_heads, lift_act_mix_heads_bwd_plain,
     lift_act_mix_heads_plain, mix_heads_bwd)
 from targetvae_tpu_torch.kernels.posterior import (
-    HEADS_SMEM_BYTES, K3_CELLS, fused_posterior, k3_schedule, k4_schedule,
-    philox4x32, philox_gumbel, posterior_bwd, posterior_bwd_plain,
-    posterior_fwd, posterior_plain, posterior_shard_bwd,
-    posterior_shard_bwd_plain, posterior_shard_fwd, posterior_shard_plain)
+    HEADS_SMEM_BYTES, K3_CELLS, SHARD_CELLS, fused_posterior, k3_schedule,
+    k4_schedule, pack_planes, philox4x32, philox_gumbel, posterior_bwd,
+    posterior_bwd_plain, posterior_fwd, posterior_plain,
+    posterior_shard_bwd_plain, posterior_shard_fwd, posterior_shard_partials,
+    posterior_shard_plain, shard_schedule)
 from targetvae_tpu_torch.models.generator import generator_init
 from targetvae_tpu_torch.ops.coords import image_grid, transform_coords
 from targetvae_tpu_torch.utils.config import GeneratorConfig
@@ -858,18 +859,37 @@ def test_decoder_mlp_backward_kernel_shapes_on_cuda(cuda, layers, n, hidden,
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
-# ---- on the card: the grid-sharded posterior partials (K5, K6) against
-# their plain versions ----
+# ---- the grid-sharded posterior partials (K5, K6) ----
 #
-# As K3/K4: the same float32 formulas summed in another order, so 1e-4 per
-# unit of max(1, |value|); reruns bitwise equal; a -1e30 pad gets exactly
-# zero d_q, theta and z gradients (and so a zero d_attn).
+# On the card against their plain versions. As K3/K4: the same float32
+# formulas summed in another order, so 1e-4 per unit of max(1, |value|),
+# and each per-cell cotangent within 1e-2 of its own magnitude
+# (_scaled_err); reruns bitwise equal; a -1e30 pad gets exactly zero d_q,
+# theta and z gradients (and so a zero d_attn).
 
-def _shard_case(noise: bool, pad: int, B=3, C=1000, zd=2):
-    """One shard (C cells, no multiple of 32) of a 2C-cell grid whose
-    normalisers are computed over the whole grid; its last `pad` cells are
-    -1e30 pads."""
-    rng = np.random.default_rng(11)
+@pytest.mark.parametrize("c", [1, 7, 1000, 1536, 1537, 5000, 6144, 12289,
+                               30000])
+def test_shard_schedule_covers_each_cell_once(c):
+    """K5/K6's grid: every cell of the shard in exactly one CTA's chunk, the
+    chunks multiples of 4 (16-byte loads), at most SHARD_CELLS cells while
+    a cluster of 16 holds the shard, the grid a function of the shard's
+    cells alone (the flagship's two-rank shard: 4 CTAs of 1,536)."""
+    cs, chunk = shard_schedule(c)
+    assert cs in (1, 2, 4, 8, 16) and chunk % 4 == 0
+    assert (cs - 1) * chunk < c <= cs * chunk
+    assert chunk <= SHARD_CELLS or cs == 16
+    if c == 6144:
+        assert (cs, chunk) == (4, 1536)
+    if c == 12289:
+        assert (cs, chunk) == (16, 772)
+
+
+def _shard_case(noise: bool, pad: int, B=3, C=1000, zd=2, seed=11):
+    """One shard (C cells) of a 2C-cell grid whose normalisers are computed
+    over the whole grid; its last `pad` cells are -1e30 pads. Returns the
+    JAX package's arguments (norms, attn, noise, th, z, p, gx, gy, offs)
+    and a cotangent g."""
+    rng = np.random.default_rng(seed)
     f = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32))
     attn = f(B, 2 * C) * 2
     attn[:, C - pad:C] = -1e30
@@ -881,30 +901,30 @@ def _shard_case(noise: bool, pad: int, B=3, C=1000, zd=2):
     norms = torch.cat(lse(attn) + lse(attn + g_noise), dim=1)
     p = torch.log_softmax(f(C), dim=0)
     p[C - pad:] = -1e30
-    return (norms, attn[:, :C].contiguous(), g_noise[:, :C].contiguous(),
+    return [norms, attn[:, :C].contiguous(), g_noise[:, :C].contiguous(),
             f(B, 2, C) * 0.5, f(B, 2, zd, C) * 0.5, p, f(C), f(C),
-            f(C) * 0.3), f(B, 2 * zd + 5)
+            f(C) * 0.3], f(B, 2 * zd + 5)
 
 
 def _close_per_unit(a, b):
     return float(((a - b).abs() / b.abs().clamp(min=1.0)).max())
 
 
-@pytest.mark.parametrize("noise, pad", [(False, 0), (True, 0), (True, 300)])
-def test_posterior_shard_kernels_on_cuda(cuda, noise, pad):
-    args, g = _shard_case(noise, pad)
-    args = [t.to(cuda) for t in args]
-    g = g.to(cuda)
-    sig_r = float(np.pi / 8)
+def _check_shard_kernels(args, g, sig_r, pad=0):
+    """K5 and K6 (through posterior_shard_partials) against their plain
+    versions; reruns bitwise; the pads exactly 0."""
+    kw = {"sig_r": sig_r, "zd": args[4].shape[2]}
     kernels.reset_launch_counts()
-    out = posterior_shard_fwd(*args, sig_r)
-    grads = posterior_shard_bwd(*args, sig_r, g)
-    again = posterior_shard_bwd(*args, sig_r, g)
+    out = posterior_shard_partials(*args, **kw)
+    grads = posterior_shard_partials(*args, want_grads=True, g=g, **kw)
+    again = posterior_shard_partials(*args, want_grads=True, g=g, **kw)
+    out2 = posterior_shard_partials(*args, **kw)
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
-    assert counts["posterior_shard_fwd"] == 1
+    assert counts["posterior_shard_fwd"] == 2
     assert counts["posterior_shard_bwd"] == 2
     assert _close_per_unit(out, posterior_shard_plain(*args, sig_r)) < 1e-4
+    assert torch.equal(out, out2)
     ref = posterior_shard_bwd_plain(*args, sig_r, g)
     for a, b in zip(grads, ref):
         assert a.shape == b.shape and bool(torch.isfinite(a).all())
@@ -913,10 +933,64 @@ def test_posterior_shard_kernels_on_cuda(cuda, noise, pad):
         assert _scaled_err(a, b, (-1,)) < 1e-2
     assert all(torch.equal(a, b) for a, b in zip(grads, again))
     if pad:
-        da, dq, dth, dz, _ = grads
         dead = slice(args[1].shape[1] - pad, None)
-        for t in (dq, dth, dz):
+        for t in grads[1:4]:
             assert not bool(t[..., dead].any())
+
+
+@pytest.mark.parametrize("noise, pad", [(False, 0), (True, 0), (True, 300)])
+def test_posterior_shard_kernels_on_cuda(cuda, noise, pad):
+    args, g = _shard_case(noise, pad)
+    _check_shard_kernels([t.to(cuda) for t in args], g.to(cuda),
+                         float(np.pi / 8), pad)
+
+
+# (B, C, zd, pad, unaligned): the flagship's two-rank shard, first and
+# padded last (zd 2, 8 and 10: K5/K6 take any z_dim, past 8 at run time);
+# clusters of 1 (C = 1,000), 2 (1,537), 8 (7,000) and 16 CTAs (12,289,
+# past the portable 8); C = 5,000, 1,537 and 12,289, no multiple of the
+# CTA's chunk (1,252; 772; 772); C = 1,001 no multiple of 4 (cell by
+# cell); planes whose rows are not 16-byte aligned (cell by cell)
+SHARD_SHAPES = [(100, 6144, 2, 0, False), (100, 6144, 2, 120, False),
+                (100, 6144, 8, 120, False), (100, 6144, 10, 120, False),
+                (5, 5000, 2, 300, False), (3, 1537, 10, 0, False),
+                (4, 7000, 2, 100, False), (4, 12289, 2, 100, False),
+                (3, 1001, 3, 200, False), (3, 1000, 9, 0, True)]
+
+
+@pytest.mark.parametrize("B, C, zd, pad, unaligned", SHARD_SHAPES)
+def test_posterior_shard_kernels_over_shapes_on_cuda(cuda, B, C, zd, pad,
+                                                     unaligned):
+    args, g = _shard_case(True, pad, B=B, C=C, zd=zd, seed=12)
+    args = [t.to(cuda) for t in args]
+    if unaligned:
+        # the planes as a view into a buffer whose rows start one float in
+        planes = pack_planes(args[1], args[3], args[4])
+        buf = torch.zeros((B, planes.shape[1], C + 1), device=cuda)
+        buf[..., 1:] = planes
+        view = buf[..., 1:]
+        out = posterior_shard_fwd(args[0], view, *args[2:3], *args[5:],
+                                  float(np.pi / 4))
+        ref = posterior_shard_plain(*args, float(np.pi / 4))
+        assert _close_per_unit(out, ref) < 1e-4
+    _check_shard_kernels(args, g.to(cuda), float(np.pi / 4), pad)
+
+
+def test_posterior_shard_rows_do_not_depend_on_the_batch_on_cuda(cuda):
+    """B = 100 at the flagship's shard equals two calls of 50, row for row,
+    bitwise: the grid is one cluster an image."""
+    args, g = _shard_case(True, 120, B=100, C=6144, zd=2, seed=14)
+    args = [t.to(cuda) for t in args]
+    g = g.to(cuda)
+    kw = {"sig_r": float(np.pi / 8), "zd": 2}
+    whole = posterior_shard_partials(*args, **kw)
+    whole_b = posterior_shard_partials(*args, want_grads=True, g=g, **kw)
+    for half in (slice(0, 50), slice(50, 100)):
+        part = [a[half] if a.dim() > 1 else a for a in args]
+        assert torch.equal(posterior_shard_partials(*part, **kw), whole[half])
+        got = posterior_shard_partials(*part, want_grads=True, g=g[half],
+                                       **kw)
+        assert all(torch.equal(a, b[half]) for a, b in zip(got, whole_b))
 
 
 @pytest.mark.parametrize("hidden", [128, 512])

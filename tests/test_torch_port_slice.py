@@ -33,7 +33,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def _config():
     return jcfg.ModelConfig(
-        generator=jcfg.GeneratorConfig(z_dim=2, hidden_dim=32, n_out=1,
+        generator=jcfg.GeneratorConfig(z_dim=2, hidden_dim=64, n_out=1,
                                        num_layers=2, fourier_expansion=True,
                                        fourier_sigma=2.0 / 13,
                                        embedding_dim=64),
@@ -126,7 +126,7 @@ def test_port_runs_without_jax():
         "from targetvae_tpu_torch import TargetVAE, ModelConfig\n"
         "from targetvae_tpu_torch.utils.config import EncoderConfig, "
         "GeneratorConfig\n"
-        "cfg = ModelConfig(GeneratorConfig(hidden_dim=32, "
+        "cfg = ModelConfig(GeneratorConfig(hidden_dim=64, "
         "fourier_expansion=True, embedding_dim=64), EncoderConfig("
         "image_dim=14, kernels_num=16, kernels_size=8, padding=3, "
         "groupconv=4))\n"

@@ -67,12 +67,12 @@ SP_CASES = {"random": (lambda: _shard_inputs(3, 4096, 2, 0),
 
 
 def _model_config():
-    """A small mode-C model: 18x18 images, K=8, P4, hidden 32, F=64; its
+    """A small mode-C model: 18x18 images, K=8, P4, hidden 64, F=64; its
     17 x 17 x 4 = 1,156 cells pad to 2,048, so each rank's shard holds
     live cells and rank 1's also pads."""
     d = 18
     return ModelConfig(
-        generator=GeneratorConfig(z_dim=2, hidden_dim=32, n_out=1,
+        generator=GeneratorConfig(z_dim=2, hidden_dim=64, n_out=1,
                                   num_layers=2, fourier_expansion=True,
                                   fourier_sigma=2.0 / (d - 1),
                                   embedding_dim=64),
@@ -190,6 +190,74 @@ def test_shard_partials_plain_match_jax_kernel():
     for a, b in zip(got_b, posterior_shard_bwd_plain(
             *targs, kw["sig_r"], torch.from_numpy(g))):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("zd", [8, 10])
+def test_shard_partials_wide_latent_match_jax_kernel(zd):
+    """K5/K6 take any z_dim (their templates reach 8, a run-time z_dim
+    past it): the plain versions, through posterior_shard_partials, against
+    the JAX kernel in interpret mode at z_dim 8 and 10, one shard of a
+    2,048-cell grid (B=2, C=1,024); rtol/atol 1e-5, as at z_dim 2."""
+    import jax.numpy as jnp
+    from targetvae_tpu.kernels.posterior import (
+        posterior_shard_partials as jax_partials)
+    attn, noise, th, z, p, gx, gy, offs = _shard_inputs(2, 2048, zd, 5)
+
+    def lse(x):
+        m = x.max(axis=1, keepdims=True)
+        return [m, np.log(np.exp(x - m).sum(axis=1, keepdims=True))]
+    norms = np.concatenate(lse(attn) + lse(attn + noise), 1).astype(np.float32)
+    cut = lambda v: np.ascontiguousarray(v[..., 1024:])
+    args = [norms] + [cut(v) for v in (attn, noise, th, z, p, gx, gy, offs)]
+    g = np.random.default_rng(6).normal(size=(2, 2 * zd + 5)).astype(
+        np.float32)
+    kw = {"sig_r": float(np.pi / 8), "zd": zd}
+    ref_f = jax_partials(*map(jnp.asarray, args), interpret=True, **kw)
+    ref_b = jax_partials(*map(jnp.asarray, args), interpret=True,
+                         want_grads=True, g=jnp.asarray(g), **kw)
+    targs = [torch.from_numpy(a) for a in args]
+    np.testing.assert_allclose(posterior_shard_partials(*targs, **kw).numpy(),
+                               np.asarray(ref_f), rtol=1e-5, atol=1e-5)
+    got_b = posterior_shard_partials(*targs, want_grads=True,
+                                     g=torch.from_numpy(g), **kw)
+    for a, b in zip(got_b, ref_b):
+        assert a.shape == b.shape
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5,
+                                   atol=1e-5)
+
+
+@pytest.mark.parametrize("cells, t, c", [(1156, 2, 1024), (100, 2, 1024),
+                                         (2048, 2, 1024), (300, 3, 128)])
+def test_heads_to_chunks_is_the_padded_exchange_buffer(cells, t, c):
+    """The SP step's send buffer in one pass: the raw heads (b, cells, D)
+    with log p(r) and the offsets added (bias (D, R)), padded to t * c
+    cells with -1e30 logits and zero moments, cut into t chunks of c cells
+    (b, D, c), equals the planes built step by step (transpose, add, cat
+    the pads, chunk), exactly; and its backward returns the chunks'
+    cotangent in the heads' layout, as autograd of that construction. A
+    whole rank's chunk can be pads (100 cells)."""
+    from targetvae_tpu_torch.parallel.grid_softmax import heads_to_chunks
+    b, R, D = 3, 4, 7
+    rng = np.random.default_rng(7)
+    heads = torch.from_numpy(rng.normal(size=(b, cells, D)).astype(
+        np.float32))
+    bias = torch.zeros((D, R))
+    bias[0], bias[1] = torch.tensor([-1.0, -2.0, -3.0, -4.0]), torch.tensor(
+        [0.0, 1.5, 3.0, -1.5])
+    h1, h2 = heads.clone().requires_grad_(), heads.clone().requires_grad_()
+    got = heads_to_chunks(h1, bias, t, c)
+    planes = h2.transpose(1, 2) + bias.repeat(1, cells // R)
+    fill = torch.zeros((b, D, t * c - cells))
+    fill[:, 0] = -1e30
+    ref = torch.cat([planes, fill], dim=2).reshape(b, D, t, c).movedim(2, 0)
+    assert got.shape == (t, b, D, c)
+    assert torch.equal(got, ref)
+    g = torch.from_numpy(rng.normal(size=(t, b, D, c)).astype(np.float32))
+    got.backward(g)
+    ref.backward(g)
+    assert torch.equal(h1.grad, h2.grad)
+    with pytest.raises(ValueError, match="rotations"):
+        heads_to_chunks(heads, bias, 2, 1022)
 
 
 # ---- the SP posterior over 2 ranks against JAX's under shard_map ----

@@ -8,21 +8,20 @@ tensors, as chip_smoke.py makes them) for the port found under --root (a
 checkout of the repository; this one by default) and times, for each
 kernel K1-K12: the kernel (chip_smoke.device_ms: the calls replayed from a
 CUDA graph, their inputs cold in L2, the median of 5 windows of at least 2
-ms), its plain version the same way, and the host-inclusive figure of
-chip_smoke.cuda_ms (CUDA events around 10 calls of the wrapper). K3 and K4
-are timed sampled and deterministic; beside K3-K6 a yardstick: one PyTorch
-pass over the same input bytes (a sum over each image's bytes for the
-forwards, a negation that reads and writes them for the backwards). K2's
-and K12's cotangent is seeded noise (chip_smoke's phase 8 feeds them a
-train step's). Then the posterior stage of the train step and of the eval
-batch on each encoder tier (chip_smoke.posterior_stage: the device ms
-between the encoder kernel and K7, and between K8 and K2's or K12's
-chain). chip_smoke.py times this checkout's kernels with the same timer;
-this tool exists to time another checkout's beside it in one call, the
-parent of a change. K3/K4 take the checkout's posterior contract: the
-encoder's raw heads (B, M, R, D), or the (B, R, M) planes of the
-checkouts before it (planes_from_heads), which PERF.md's parent rows of
-the heads contract's change were timed through. Prints one JSON line
+ms) and its plain version the same way. K3 and K4 are timed sampled and
+deterministic; beside K3-K6 a yardstick: one PyTorch pass over the same
+input bytes (a sum over each image's bytes for the forwards, a negation
+that reads and writes them for the backwards). K2's and K12's cotangent is
+seeded noise (chip_smoke's phase 8 feeds them a train step's). Then the
+posterior stage of the train step and of the eval batch on each encoder
+tier (chip_smoke.posterior_stage: the device ms between the encoder kernel
+and K7, and between K8 and K2's or K12's chain), and of the SP train step
+on rank 0 of two ranks sharing the card over gloo (gloo's copies left out,
+chip_smoke.sp_posterior_stage). chip_smoke.py times this checkout's
+kernels with the same timer; this tool exists to time another checkout's
+beside it in one call, the parent of a change. K5/K6 take the checkout's
+contract: the exchanged planes (B, 3 + 2 zd, C), or the JAX package's
+separate attn, th and z of the checkouts before it. Prints one JSON line
 with the card's name and power limit. Needs a CUDA device.
 """
 
@@ -38,16 +37,31 @@ import sys
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def planes_from_heads(torch, heads, p_r, offs, p_tr, grid, sig_r):
-    """The (B, R, M) planes contract of the posterior kernels before the
-    heads contract, from posterior_inputs' arguments."""
-    b, m, r, d = heads.shape
-    zd = (d - 3) // 2
-    hp = heads.permute(0, 3, 2, 1)                        # (B, D, R, M)
-    c = lambda t: t.contiguous()
-    return (c(hp[:, 0] + p_r[:, None]), c(hp[:, 1] + offs[:, None]),
-            c(hp[:, 2]), c(hp[:, 3:3 + zd]), c(hp[:, 3 + zd:]), c(p_tr.T),
-            grid, offs, sig_r)
+def sp_stage_rank(rank: int, world: int) -> dict:
+    """A rank of the SP train step (chip_smoke's flagship, bf16, conv tier)
+    of the port at --root: five steps, rank 0's under the profiler; rank 0
+    returns chip_smoke.sp_posterior_stage of its trace. The rank inherits
+    main's path, --root first, and has imported the port from it to start;
+    chip_smoke comes from this checkout."""
+    sys.path.insert(0, HERE)
+    import torch
+    import chip_smoke as cs
+    from targetvae_tpu_torch.train import Trainer
+    from targetvae_tpu_torch.utils.config import TrainConfig
+    dev = torch.device("cuda", 0)
+    cfg = cs.flagship_config()
+    y = torch.from_numpy(cs.synthetic_images(cs.B, cfg.encoder.image_dim,
+                                             3)).to(dev)
+    with cs.encoder_tier("conv"):
+        trainer = Trainer(cfg, TrainConfig(compute_dtype="bfloat16", tp=world,
+                                           sp=True), device=dev)
+        state = trainer.init_state(0)
+        step = lambda: trainer.train_step(state, y)
+        if rank == 0:
+            return cs.sp_posterior_stage(cs.device_ops(torch, step))
+        for _ in range(5):
+            step()
+    return {}
 
 
 def main() -> int:
@@ -97,8 +111,7 @@ def main() -> int:
 
     def time(name, kfn, kargs, pfn, pargs, yfn=None, yargs=None):
         row = {"ms": cs.device_ms(kfn, kargs),
-               "host_ms": cs.cuda_ms(lambda: kfn(*kargs))}
-        row["plain_ms"] = cs.device_ms(pfn, pargs)
+               "plain_ms": cs.device_ms(pfn, pargs)}
         if yfn is not None:
             row["yardstick_ms"] = cs.device_ms(yfn, yargs)
         res[name] = row
@@ -114,13 +127,9 @@ def main() -> int:
         flat = rn(b, total(heads_args) // b)
         ysum = lambda x: x.view(b, -1).sum(1)
         yneg = lambda x: torch.neg(x)
-        new = "heads" in inspect.signature(post.posterior_fwd).parameters
-        k3 = heads_args if new else planes_from_heads(torch, *heads_args)
+        k3 = heads_args
         g3 = rn(b, 2 * zd + 5)
-        if new:
-            noise = post.philox_gumbel(9, b, R, heads.shape[1], dev)
-        else:
-            noise = k3[0]
+        noise = post.philox_gumbel(9, b, R, heads.shape[1], dev)
         for det, tag in ((False, ""), (True, " deterministic")):
             time("K3" + tag,
                  lambda *a: post.posterior_fwd(9, *a, deterministic=det),
@@ -133,13 +142,16 @@ def main() -> int:
         del k3, heads_args, heads, flat
         shards, _ = cs.sp_shard_inputs(torch, cfg, dev, True)
         a5 = shards[0]
+        planes = "planes" in inspect.signature(
+            post.posterior_shard_fwd).parameters
+        k5 = cs.as_planes(a5) if planes else a5
         sig_r = float(np.pi / R)
         flat5 = rn(b, total(a5) // b)
         g5 = rn(b, 2 * zd + 5)
-        time("K5", lambda *a: post.posterior_shard_fwd(*a, sig_r), a5,
+        time("K5", lambda *a: post.posterior_shard_fwd(*a, sig_r), k5,
              lambda *a: post.posterior_shard_plain(*a, sig_r), a5,
              ysum, (flat5,))
-        time("K6", lambda *a: post.posterior_shard_bwd(*a, sig_r, g5), a5,
+        time("K6", lambda *a: post.posterior_shard_bwd(*a, sig_r, g5), k5,
              lambda *a: post.posterior_shard_bwd_plain(*a, sig_r, g5), a5,
              yneg, (flat5,))
         del shards, a5, flat5
@@ -185,9 +197,13 @@ def main() -> int:
             del trainer, state
         for key in (tier + " train", tier + " eval"):
             print(f"stage {key}: " + json.dumps(stage[key]), flush=True)
+    from targetvae_tpu_torch.parallel.distributed import run_local
+    stage["sp train"] = run_local(sp_stage_rank, 2, backend="gloo",
+                                  timeout=cs.SP_TIMEOUT)[0]
+    print("stage sp train: " + json.dumps(stage["sp train"]), flush=True)
     print(json.dumps({"root": os.path.abspath(args.root), "card": smi,
                       "device": torch.cuda.get_device_name(0),
-                      "contract": "heads" if new else "planes",
+                      "shard_contract": "planes" if planes else "separate",
                       "kernels": res,
                       "stage": {k: {n: v for n, v in s.items()
                                     if n.endswith("_ms")}
