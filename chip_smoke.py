@@ -49,15 +49,26 @@ from a seed):
      ranks), a profile of rank 0 and its posterior stage;
  11. the bf16 tier at a generator width no decoder kernel takes (hidden
      384): eval, three train steps and decode, the generator on the XLA
-     bf16 recipe, no decoder kernel launched.
+     bf16 recipe, no decoder kernel launched;
+ 12. the training run through the CLI on each encoder tier:
+     targetvae_tpu_torch.cli.train_mnist.main in-process on an MNIST-U
+     directory of synthetic images (1,050 train, 250 test, each split
+     ending in a 50-image tail), 3 epochs with snapshots every 2: finite
+     TSV lines, a rising test ELBO, the checkpoints written, K1-K4, K7, K8
+     (patch tier: K11, K12, K3, K4, K7, K8) launched once a step and once
+     a test batch, tails included, and load_encoder's embed of
+     inference.sav bitwise the run's own; then a resume of the conv-tier
+     run to epoch 4, whose loaded parameters and Adam moments equal the
+     saved ones bitwise. Each tier's epoch img/s (the CLI's own line) is
+     printed beside phase 8's train_step img/s.
 
 Phases 2-8 cover both mode-C encoder tiers: the default "conv" tier (the
 cuDNN lift conv, K1/K2) and the fused patch encoder (K11/K12) that
 TARGETVAE_ENCODER_TIER=patch selects (phases 3, 4 and 7 drive each tier's
 embed, eval and train path; phases 2 and 6 also check K11 and K12 at the
 galaxy encoder's C = 3 shape). Each of phases 3, 4, 6 (the z_dim routes),
-7, 9, 10 and 11 sets the launch counts to 0 just before it drives its path
-and reads them just after (phase 10 in each rank). Every failed check exits
+7, 9, 10, 11 and 12 sets the launch counts to 0 just before it drives its
+path and reads them just after (phase 10 in each rank). Every failed check exits
 non-zero. With no CUDA device, or outside a checkout, it fails without
 printing a result. Its last line is {"ok": true, "device": {...}}; the line
 before it is the kernels' JSON.
@@ -166,6 +177,11 @@ SP_TIMEOUT = 600    # seconds for phase 10's ranks, all included
 SP_EXCHANGE_US = 50.0  # the exchange's copies through host memory take longer
 SP_PLANE_BLOCKS = 64   # grid blocks of a copy kernel that moves a plane
 ROUTED_HIDDEN = 384  # phase 11's generator width, which no decoder kernel takes
+CLI_TRAIN = 1050    # phase 12's split sizes: each ends in a 50-image tail
+CLI_TEST = 250
+CLI_EPOCHS = 3      # phase 12's epochs, snapshots every CLI_SAVE_INTERVAL
+CLI_SAVE_INTERVAL = 2
+CLI_STEP_REPS = 10  # train steps timed beside each tier's CLI run
 ROUTED_STEPS = 3     # its train steps
 # device_ms, the kernel timer: windows of at least 2 ms of replayed calls,
 # the median of 5; calls rotate over copies of their inputs so that 60 MB
@@ -1239,8 +1255,9 @@ def run(torch, dev) -> int:
                                            z9)
     results["decoder_mlp_fwd"]["decode_ms"] = decode_ms["decode_ms"]
     results["decoder_mlp_bwd"]["decode_grad_ms"] = decode_ms["decode_grad_ms"]
-    time_training(torch, cfg, k1, k3, k7, k9, k11, h1, cot, trainer, state,
-                  trainer_p, state_p, data, results)
+    step_rates = time_training(torch, cfg, k1, k3, k7, k9, k11, h1, cot,
+                               trainer, state, trainer_p, state_p, data,
+                               results)
     del trainer, state, trainer_p, state_p
 
     # ---- phase 10: the grid-sharded posterior and the SP train step ----
@@ -1249,6 +1266,9 @@ def run(torch, dev) -> int:
 
     # ---- phase 11: the bf16 tier past the decoder kernels' widths ----
     routed_generator_path(torch, kernels, cfg, dev, data)
+
+    # ---- phase 12: the training run through the CLI, each tier ----
+    cli_counts = cli_training_path(torch, kernels, cfg, dev, step_rates)
 
     sources = {
         "mix_heads_fwd": ("mix_heads.cu", "mix_heads.py:232"),
@@ -1267,7 +1287,8 @@ def run(torch, dev) -> int:
                "train": train_counts, "embed_patch": patch_counts["embed"],
                "eval_patch": patch_counts["eval"],
                "train_patch": patch_counts["train"], "decode": decode_counts,
-               "train_sp": sp_counts}
+               "train_sp": sp_counts, "train_cli": cli_counts["conv"],
+               "train_cli_patch": cli_counts["patch"]}
     # each kernel's launches on the main path that runs it: the conv tier's
     # train step, the patch tier's (K11, K12), bf16 decode (K9, K10), the
     # SP train step's rank 0 (K5, K6)
@@ -1745,6 +1766,7 @@ def time_training(torch, cfg, k1, k3, k7, k9, k11, h1, cot, trainer, state,
               f"TFLOP/s)", flush=True)
 
     yb = data[:B]
+    step_rates = {}
     for tier, tr, st in (("conv", trainer, state), ("patch", trainer_p,
                                                      state_p)):
         with encoder_tier(tier):
@@ -1758,6 +1780,7 @@ def time_training(torch, cfg, k1, k3, k7, k9, k11, h1, cot, trainer, state,
         print(f"phase 8: {tier} tier: train {B / step_ms * 1e3:.1f} img/s "
               f"(bf16 train_step, B={B}, {step_ms:.3f} ms/step device time "
               f"incl. Adam; {wall_ms:.3f} ms/step host clock)", flush=True)
+        step_rates[tier] = (B / step_ms * 1e3, B / wall_ms * 1e3)
 
     # the posterior stage: the device ops between the encoder kernel and K7,
     # and between K8 and K2's or K12's chain, of the train step and of the
@@ -1815,6 +1838,7 @@ def time_training(torch, cfg, k1, k3, k7, k9, k11, h1, cot, trainer, state,
               f"profiler): "
               f"{json.dumps({k: round(v, 4) for k, v in tanh_passes.items()})}",
               flush=True)
+    return step_rates
 
 
 def wide_latent_routes(torch, kernels, cfg, dev, data) -> None:
@@ -2325,6 +2349,214 @@ def sp_train_path(torch, cfg, dev, data) -> dict:
           "(host ms, median of 5; MB a rank): "
           + json.dumps(r0["collectives_ms"]), flush=True)
     return r0["counts"]
+
+
+class _Tee:
+    """A text stream that writes to `stream` and keeps a copy."""
+
+    def __init__(self, stream):
+        self.stream, self.parts = stream, []
+
+    def write(self, text):
+        self.parts.append(text)
+        return self.stream.write(text)
+
+    def flush(self):
+        self.stream.flush()
+
+
+def tsv_rows(run: str) -> dict:
+    """{(epoch, split): (elbo, error, kl)} of a run's train_log.txt."""
+    rows = {}
+    for line in open(os.path.join(run, "train_log.txt")):
+        parts = line.strip().split("\t")
+        if len(parts) == 5 and parts[1] in ("train", "test"):
+            rows[(int(parts[0]), parts[1])] = tuple(map(float, parts[2:]))
+    return rows
+
+
+def state_arrays(torch, state) -> dict:
+    """The parameters and Adam's moments of a TrainState as host copies,
+    keyed by the parameters' names."""
+    named = dict(state.model.named_parameters())
+    out = {}
+    for name, p in named.items():
+        out["param " + name] = p.detach().cpu().numpy().copy()
+        for key in ("exp_avg", "exp_avg_sq"):
+            out[key + " " + name] = (
+                state.optimizer.state[p][key].cpu().numpy().copy())
+    return out
+
+
+def file_arrays(path: str, named: dict) -> dict:
+    """training_state.sav's parameters and Adam moments, keyed as
+    state_arrays keys them: the file's pytree paths joined by dots are the
+    parameters' names, with the module spatial_generator named
+    "generator"."""
+    from targetvae_tpu_torch.train import load_checkpoint
+    params, _, payload = load_checkpoint(path)
+    inner = payload["extra"]["opt_state"]["inner_state"]["0"]
+    trees = {"param ": params, "exp_avg ": inner["mu"],
+             "exp_avg_sq ": inner["nu"]}
+    out = {}
+    for name in named:
+        for prefix, tree in trees.items():
+            node = tree
+            path = name.replace("spatial_generator.", "generator.", 1)
+            for part in path.split("."):
+                node = node[int(part) if isinstance(node, list) else part]
+            out[prefix + name] = node
+    return out
+
+
+def host_step_ms(torch, cfg, dev, tier, images) -> float:
+    """Host-clock ms of one bf16 Trainer.train_step on the uint8 batch
+    `images`, from fresh weights, the mean of CLI_STEP_REPS after two
+    warm-up steps: the step the CLI's epoch loop runs, timed as its epoch
+    line is, beside it on the same card."""
+    from targetvae_tpu_torch.train import Trainer
+    from targetvae_tpu_torch.utils.config import TrainConfig
+    trainer = Trainer(cfg, TrainConfig(compute_dtype="bfloat16",
+                                       minibatch_size=B), device=dev)
+    state = trainer.init_state(0)
+    y = torch.from_numpy(images[..., None].astype(np.float32) / 255).to(dev)
+    with encoder_tier(tier):
+        for _ in range(2):
+            trainer.train_step(state, y)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(CLI_STEP_REPS):
+            trainer.train_step(state, y)
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t) / CLI_STEP_REPS * 1e3
+
+
+def cli_training_path(torch, kernels, cfg, dev, step_rates) -> dict:
+    """Phase 12: targetvae_tpu_torch.cli.train_mnist.main, in-process so that
+    the launch counts see it, on an MNIST-U directory of synthetic images
+    at the flagship's flags, on each encoder tier; then a resume of the
+    conv tier's run. Returns each tier's launch counts."""
+    import importlib
+    import re
+    import tempfile
+    from targetvae_tpu_torch.cli import train_mnist
+    from targetvae_tpu_torch.cli.clustering_common import load_encoder
+    fit_mod = importlib.import_module("targetvae_tpu_torch.train.fit")
+
+    images = np.round(synthetic_images(CLI_TRAIN + CLI_TEST,
+                                       cfg.encoder.image_dim, 12)[..., 0]
+                      * 255).astype(np.uint8)
+    steps = CLI_EPOCHS * -(-CLI_TRAIN // B)
+    evals = CLI_EPOCHS * -(-CLI_TEST // B)
+    used = {"conv": ("mix_heads_fwd", "mix_heads_bwd"),
+            "patch": ("lifted_encoder_fwd", "lifted_encoder_bwd")}
+    counts, runs, finals = {}, {}, {}
+    with tempfile.TemporaryDirectory() as root:
+        os.makedirs(os.path.join(root, "data", "mnist_U"))
+        for split, part in (("train", images[:CLI_TRAIN]),
+                            ("test", images[CLI_TRAIN:])):
+            np.save(os.path.join(root, "data", "mnist_U",
+                                 f"images_{split}.npy"), part)
+        args = ["--dataset", "mnist-U", "--data-root",
+                os.path.join(root, "data"), "--fourier-expansion",
+                "--compute-dtype", "bfloat16", "--minibatch-size", str(B),
+                "--save-interval", str(CLI_SAVE_INTERVAL)]
+        for tier in ("conv", "patch"):
+            log_root = os.path.join(root, "logs_" + tier)
+            tee = _Tee(sys.stderr)
+            with encoder_tier(tier), contextlib.redirect_stderr(tee):
+                kernels.reset_launch_counts()
+                state = train_mnist.main(args + [
+                    "--num-epochs", str(CLI_EPOCHS), "--log-root", log_root])
+                torch.cuda.synchronize()
+                counts[tier] = kernels.launch_counts()
+            run = os.path.join(log_root, os.listdir(log_root)[0])
+            runs[tier], finals[tier] = run, state
+            rows = tsv_rows(run)
+            fwd = used[tier][:1] + ("posterior_fwd", "pose_decoder_fwd")
+            bwd = used[tier][1:] + ("posterior_bwd", "pose_decoder_bwd")
+            expect = {k: (steps + evals if k in fwd else steps if k in bwd
+                          else 0) for k in counts[tier]}
+            files = ["inference.sav", "generator.sav", "training_state.sav",
+                     "inference_epoch2.sav", "generator_epoch2.sav"]
+            check(sorted(rows) == sorted((e, s) for e in range(1, 4)
+                                         for s in ("train", "test"))
+                  and np.isfinite(list(rows.values())).all()
+                  and rows[(3, "test")][0] > rows[(1, "test")][0]
+                  and all(os.path.exists(os.path.join(run, f))
+                          for f in files)
+                  and state.step == steps,
+                  f"phase 12: {tier} tier: train_mnist {CLI_EPOCHS} epochs "
+                  f"of {CLI_TRAIN} images (test {CLI_TEST}), B={B}: finite "
+                  f"TSV lines {sorted(rows)}, test ELBO "
+                  f"{[round(rows[(e, 'test')][0], 3) for e in (1, 2, 3)]} "
+                  f"(epoch 3 above epoch 1), {files} written, {state.step} "
+                  f"steps")
+            check(counts[tier] == expect,
+                  f"phase 12: {tier} tier: launches {counts[tier]} == one "
+                  f"a train step ({steps}, the 50-image tails included) and "
+                  f"the forwards also one a test batch ({evals})")
+            rates = [(int(m[1]), float(m[2]), int(m[3])) for m in re.finditer(
+                r"# epoch (\d+): ([\d.]+)s, (\d+) images/sec",
+                "".join(tee.parts))]
+            check(len(rates) == CLI_EPOCHS,
+                  f"phase 12: {tier} tier: the CLI's epoch lines {rates}")
+            step_ms = host_step_ms(torch, cfg, dev, tier, images[:B])
+            print(f"phase 12: {tier} tier: epoch img/s (the CLI's line, host "
+                  f"clock, {CLI_TRAIN} images incl. the tail) "
+                  f"{[r[2] for r in rates]} (epoch s "
+                  f"{[r[1] for r in rates]}); train_step just after "
+                  f"{B / step_ms * 1e3:.1f} img/s ({step_ms:.3f} ms/step, "
+                  f"host clock, {CLI_STEP_REPS} steps); phase 8 train_step "
+                  f"{step_rates[tier][0]:.1f} img/s (device time), "
+                  f"{step_rates[tier][1]:.1f} img/s (host clock)",
+                  flush=True)
+
+            model, params = load_encoder(os.path.join(run, "inference.sav"),
+                                         dev)
+            y = torch.from_numpy(images[:B, ..., None].astype(np.float32)
+                                 / 255).to(dev)
+            with torch.inference_mode():
+                got = model.embed(params, y)
+                ref = state.model.embed(state.model.params(), y)
+            same = all(torch.equal(got[k], ref[k]) for k in ref)
+            check(same, f"phase 12: {tier} tier: load_encoder(inference.sav)"
+                  f" then embed of {B} images (float32) bitwise the embed of "
+                  f"the parameters the run ended with")
+
+        # the conv tier's run resumed to epoch CLI_EPOCHS + 1
+        saved = state_arrays(torch, finals["conv"])
+        on_disk = file_arrays(os.path.join(runs["conv"],
+                                           "training_state.sav"),
+                              dict(finals["conv"].model.named_parameters()))
+        loaded = {}
+        load = fit_mod.load_train_state
+
+        def spy(*a, **kw):
+            out = load(*a, **kw)
+            loaded.update(state_arrays(torch, out[0]))
+            return out
+        fit_mod.load_train_state = spy
+        try:
+            with encoder_tier("conv"):
+                train_mnist.main(args + [
+                    "--num-epochs", str(CLI_EPOCHS + 1),
+                    "--log-root", os.path.dirname(runs["conv"]),
+                    "--resume", runs["conv"]])
+        finally:
+            fit_mod.load_train_state = load
+        rows = tsv_rows(runs["conv"])
+        differ = [k for k in saved if not (
+            np.array_equal(loaded.get(k), saved[k])
+            and np.array_equal(on_disk[k], saved[k]))]
+        check(sorted(rows)[-2:] == [(4, "test"), (4, "train")]
+              and np.isfinite(list(rows.values())).all()
+              and len(saved) == len(loaded) and not differ,
+              f"phase 12: conv tier: --resume to epoch {CLI_EPOCHS + 1} "
+              f"appends {sorted(rows)[-2:]}; the {len(saved)} arrays (parameters and "
+              f"Adam moments) it loaded equal, bitwise, those the run ended "
+              f"with and saved (differ: {differ})")
+    return counts
 
 
 if __name__ == "__main__":

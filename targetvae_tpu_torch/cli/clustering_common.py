@@ -1,8 +1,10 @@
-"""Batched latent extraction for clustering and evaluation
-(mirror of targetvae_tpu/cli/clustering_common.py::embed_dataset).
+"""Checkpoint loading and batched latent extraction for clustering and
+evaluation (mirror of targetvae_tpu/cli/clustering_common.py::load_encoder
+and embed_dataset).
 
-The rest of that module (checkpoint loading, clustering, accuracy, figures)
-is not ported yet (ROADMAP.md, queue 1, item 15).
+The rest of that module (clustering, accuracy, pose correlations, figures)
+is not ported yet (ROADMAP.md, queue 1, item 15), nor the reading of the
+reference's pickled torch .sav files (item 26).
 """
 
 from __future__ import annotations
@@ -13,6 +15,23 @@ import numpy as np
 import torch
 
 from ..models.targetvae import TargetVAE
+from ..train.checkpoint import load_checkpoint
+from ..utils.jax_params import params_from_jax
+
+
+def load_encoder(path_to_encoder: str, device=None) -> Tuple[TargetVAE, dict]:
+    """Load an inference.sav checkpoint written by either package ->
+    (model, params): the model on `device` (None: cuda:0) and params
+    {"encoder": tensors there}, which model.embed takes."""
+    with open(path_to_encoder, "rb") as f:
+        head = f.read(2)
+    if head == b"PK" or head[:1] == b"\x80":
+        raise NotImplementedError(
+            f"{path_to_encoder} is a reference torch checkpoint; reading "
+            "those is not ported yet (ROADMAP.md, queue 1, item 26)")
+    params, cfg, _ = load_checkpoint(path_to_encoder)
+    model = TargetVAE(cfg, device)
+    return model, params_from_jax(params, model.device)
 
 
 def _dtype(compute_dtype):

@@ -79,6 +79,13 @@ def sp_shard_constants(ecfg, device: torch.device, ranks: int, rank: int,
                 "offs": pad(const["offsets"].repeat(cells // R), 0.0)}
 
 
+def _wmean(v: torch.Tensor, row_weights: Optional[torch.Tensor]
+           ) -> torch.Tensor:
+    """Batch mean, or the weighted SUM when per-row weights are given (the
+    caller owns the normalisation, see reconstruction_log_prob)."""
+    return v.mean() if row_weights is None else row_weights @ v
+
+
 def _normal_noise(generator: Optional[torch.Generator], shape, device):
     if generator is None:
         return torch.zeros(shape, device=device)
@@ -89,7 +96,8 @@ def _normal_noise(generator: Optional[torch.Generator], shape, device):
 def reconstruct_log_prob(params: dict, cfg: ModelConfig, x_coord: torch.Tensor,
                          y: torch.Tensor, theta: torch.Tensor, dx: torch.Tensor,
                          z: torch.Tensor,
-                         compute_dtype: Optional[torch.dtype] = None
+                         compute_dtype: Optional[torch.dtype] = None,
+                         row_weights: Optional[torch.Tensor] = None
                          ) -> torch.Tensor:
     """Decode (theta, dx, z) and score y. On the kernel tier the pose decoder
     derives the coordinates from (theta, dx) and the standard image grid, so
@@ -107,7 +115,8 @@ def reconstruct_log_prob(params: dict, cfg: ModelConfig, x_coord: torch.Tensor,
         y_hat = generator_apply(params["generator"], gcfg, x_t,
                                 z if gcfg.z_dim > 0 else None,
                                 compute_dtype=compute_dtype)
-    return reconstruction_log_prob(y_hat, y, cfg.likelihood.kind)
+    return reconstruction_log_prob(y_hat, y, cfg.likelihood.kind,
+                                   row_weights=row_weights)
 
 
 @functools.lru_cache(maxsize=32)
@@ -131,9 +140,14 @@ def posterior_constants(ecfg, device: torch.device):
 def compute_elbo(params: dict, cfg: ModelConfig, x_coord: torch.Tensor,
                  y: torch.Tensor, generator: Optional[torch.Generator] = None,
                  compute_dtype: Optional[torch.dtype] = None,
+                 row_weights: Optional[torch.Tensor] = None,
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Returns scalar (elbo, log_p_x_g_z, kl_div), batch means.
-    x_coord: (N, 2) base pixel coordinates; y: (B, H, W, C) images."""
+    x_coord: (N, 2) base pixel coordinates; y: (B, H, W, C) images.
+
+    row_weights: optional (B,) weights turning every batch mean into a
+    weighted SUM (caller-normalised), as the JAX package's _wmean: the
+    Trainer's zero-weight padding of a ragged tail batch."""
     ecfg = cfg.encoder
     b = y.shape[0]
     zd = ecfg.z_dim
@@ -157,7 +171,7 @@ def compute_elbo(params: dict, cfg: ModelConfig, x_coord: torch.Tensor,
         z_mu_e, z_std_e = post["z_mu_e"], post["z_std_e"]
         th_mu_e, th_std_e = post["theta_mu_e"], post["theta_std_e"]
         dx = post["dx"]
-        kl_div = post["kl"].mean()
+        kl_div = _wmean(post["kl"], row_weights)
     else:
         enc = encoder_apply(params["encoder"], ecfg, y, generator,
                             compute_dtype)
@@ -187,10 +201,11 @@ def compute_elbo(params: dict, cfg: ModelConfig, x_coord: torch.Tensor,
         offs_cells = enc["offsets"].repeat(M)                     # r-minor
         kl_th = normal_kl(tq_mu, tq_std, offs_cells, sig_r)
         val2 = (torch.exp(qf) * (kl_th + kl_z)).sum(dim=1)
-        kl_div = (val1 + val2).mean()
+        kl_div = _wmean(val1 + val2, row_weights)
 
     z = z_std_e * _normal_noise(generator, (b, zd), dev) + z_mu_e
     theta = th_std_e * _normal_noise(generator, (b,), dev) + th_mu_e
     log_p = reconstruct_log_prob(params, cfg, x_coord, y, theta, dx, z,
-                                 compute_dtype=compute_dtype)
+                                 compute_dtype=compute_dtype,
+                                 row_weights=row_weights)
     return log_p - kl_div, log_p, kl_div

@@ -1,25 +1,34 @@
-"""The training step (mirror of targetvae_tpu/train/loop.py, Trainer's
-_step_impl and _eval_impl over the plain compute_elbo loss, and its
-grid-sharded _loss_fn_sp).
+"""The training step and the epoch loop (mirror of
+targetvae_tpu/train/loop.py: Trainer's _step_impl and _eval_impl over the
+plain compute_elbo loss, its grid-sharded _loss_fn_sp, train_epoch,
+eval_epoch and _pad_tail).
 
 A step is eager PyTorch: the ELBO forward on the chosen tier, autograd
 backward (on the bf16 tier through the K2 or, on the patch encoder tier,
 K12, and the K4 and K8 backward kernels), and one in-place Adam step.
 
+An epoch takes its batches from a data tensor that lies on the model's
+device (fit() puts it there once), gathered by index_select in the order of
+torch.randperm drawn from the state's generator; the ragged tail runs as one
+smaller batch (drop_last=False), as the JAX package runs it on one device.
+The metrics stay on the device and are read once per chunk of
+progress_chunk batches, one chunk behind the steps being queued, so the
+host does not wait for the card after every step.
+
 With TrainConfig(sp=True, tp=T) the bf16 step runs on T ranks of an
 initialised torch.distributed process group (parallel/), each calling
 train_step with the same whole batch: the posterior's cells are sharded
 over the ranks (K5/K6, parallel/grid_softmax.py), and each rank runs the
-encoder and decoder on its B/T rows. The JAX package's epoch scans,
-ragged-tail padding with row weights, host streams, dp > 1 and TP
-parameter sharding are not ported yet (ROADMAP.md, queue 1, items 11, 22,
-23).
+encoder and decoder on its B/T rows. Weighted rows on that step (a ragged
+tail padded over the ranks), host streams, dp > 1 and TP parameter
+sharding are not ported yet (ROADMAP.md, queue 1, items 22-24).
 """
 
 from __future__ import annotations
 
 from typing import Optional, Tuple, Union
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -82,6 +91,7 @@ class Trainer:
             raise ValueError(f"model is on {model.device}, not {device}")
         self.model = model
         self.cfg = train_cfg
+        self.batch = train_cfg.minibatch_size
         self.compute_dtype = (torch.bfloat16
                               if train_cfg.compute_dtype == "bfloat16" else None)
         self._x_coord = model.base_grid()
@@ -97,11 +107,14 @@ class Trainer:
                                   generator)
 
     def _loss_fn(self, params: dict, y: torch.Tensor,
-                 generator: Optional[torch.Generator]):
-        """(-elbo, log_p, kl) of batch y under params."""
+                 generator: Optional[torch.Generator],
+                 w: Optional[torch.Tensor] = None):
+        """(-elbo, log_p, kl) of batch y under params: batch means, or sums
+        weighted by the rows' weights w."""
         elbo, log_p, kl = compute_elbo(params, self.model.cfg, self._x_coord,
                                        y, generator,
-                                       compute_dtype=self.compute_dtype)
+                                       compute_dtype=self.compute_dtype,
+                                       row_weights=w)
         return -elbo, log_p, kl
 
     def _loss_fn_sp(self, params: dict, y: torch.Tensor,
@@ -158,37 +171,47 @@ class Trainer:
         return kl - log_p, log_p, kl
 
     def _objective(self, params: dict, y: torch.Tensor,
-                   generator: Optional[torch.Generator]):
+                   generator: Optional[torch.Generator],
+                   w: Optional[torch.Tensor] = None):
         """(the scalar this rank differentiates, the (3,) metrics [elbo,
         log_p, kl] of the whole batch). With sp the objective is this
         rank's loss divided by the number of ranks, so that the ranks'
         objectives add up to the batch mean, and the metrics are
         all-reduced."""
         if self._mesh is None:
-            neg_elbo, log_p, kl = self._loss_fn(params, y, generator)
+            neg_elbo, log_p, kl = self._loss_fn(params, y, generator, w)
             return neg_elbo, torch.stack([-neg_elbo, log_p, kl]).detach()
+        if w is not None:
+            raise NotImplementedError(
+                "row weights on the grid-sharded step (a ragged tail padded "
+                "over the ranks) are not ported yet (ROADMAP.md, queue 1, "
+                "item 24)")
         loss, log_p, kl = self._loss_fn_sp(params, y, generator)
         t_n = self._mesh.model
         metrics = torch.stack([-loss, log_p, kl]).detach() / t_n
         dist.all_reduce(metrics, group=self._mesh.group)
         return loss / t_n, metrics
 
-    def _on_device(self, y) -> torch.Tensor:
-        # a bf16 batch is upcast, as the JAX loss does
+    def on_device(self, y) -> torch.Tensor:
+        """y (an array or tensor) as float32 on the model's device, without
+        a copy where it already is; a bf16 batch is upcast, as the JAX
+        loss does."""
         return torch.as_tensor(y).to(self.model.device, torch.float32)
 
-    def train_step(self, state: TrainState, y
+    def train_step(self, state: TrainState, y,
+                   row_weights: Optional[torch.Tensor] = None
                    ) -> Tuple[TrainState, torch.Tensor]:
         """One Adam step on the batch y (B, H, W, C), noise from
-        state.generator (None: deterministic). Returns (state, metrics) with
+        state.generator (None: deterministic); row_weights (B,) turns the
+        batch means into weighted sums. Returns (state, metrics) with
         metrics the (3,) tensor [elbo, log_p, kl] on the model's device;
         reading it waits for the step. The parameters, Adam's moments and
         state.step are updated in place. With sp every rank passes the same
         y and gets the same metrics and parameters."""
-        y = self._on_device(y)
+        y = self.on_device(y)
         state.optimizer.zero_grad(set_to_none=True)
         objective, metrics = self._objective(state.model.params(), y,
-                                             state.generator)
+                                             state.generator, row_weights)
         objective.backward()
         if self._mesh is not None:
             self._mesh.all_reduce_grads(state.model.parameters())
@@ -197,10 +220,126 @@ class Trainer:
         return state, metrics
 
     def eval_step(self, state: TrainState, y,
-                  generator: Optional[torch.Generator] = None
+                  generator: Optional[torch.Generator] = None,
+                  row_weights: Optional[torch.Tensor] = None
                   ) -> torch.Tensor:
         """[elbo, log_p, kl] of the batch y, no gradient; noise from
         `generator` (None: deterministic)."""
         with torch.inference_mode():
-            return self._objective(state.model.params(), self._on_device(y),
-                                   generator)[1]
+            return self._objective(state.model.params(), self.on_device(y),
+                                   generator, row_weights)[1]
+
+    # batches per chunk whose metrics are read together when a progress
+    # callback wants mid-epoch reports
+    progress_chunk = 50
+
+    def train_epoch(self, state: TrainState, data, ctf=None, progress=None,
+                    ) -> Tuple[TrainState, Tuple[float, float, float]]:
+        """One epoch over `data` (N, H, W, C). Returns (state, (elbo,
+        gen_loss, kl)) with gen_loss = -log_p, matching the reference's
+        reported Error.
+
+        The order is torch.randperm(N) drawn from state.generator (a state
+        without one keeps the data's order); N // B full batches, then the
+        tail as one batch of N % B. progress: optional callback(images_seen,
+        elbo, gen_loss, kl) called with the reference's streaming-mean
+        accumulators (train_mnist.py:326-345) every `progress_chunk`
+        batches. A chunk's metrics are read once the next chunk's steps are
+        queued."""
+        no_ctf(ctf)
+        data = self.on_device(data)
+        n = data.shape[0]
+        b = min(self.batch, n)
+        g = state.generator
+        perm = (torch.arange(n) if g is None
+                else torch.randperm(n, generator=g, device=g.device)
+                ).to(data.device)
+        n_full = n // b
+        chunk = n_full if progress is None else min(self.progress_chunk,
+                                                    n_full)
+        metrics, weights = [], []
+        pending, block = None, []
+        for i in range(n_full):
+            state, m = self.train_step(
+                state, data.index_select(0, perm[i * b:(i + 1) * b]))
+            block.append(m)
+            if len(block) == chunk or i == n_full - 1:
+                if pending is not None:    # waits for the PREVIOUS chunk
+                    _collect(pending, b, metrics, weights)
+                    if progress is not None:
+                        progress(int(sum(weights)),
+                                 *_streaming_means(metrics, weights))
+                pending, block = torch.stack(block), []
+        if pending is not None:
+            _collect(pending, b, metrics, weights)
+
+        rem = n - n_full * b
+        if rem:
+            tail, w = self._pad_tail(perm[n_full * b:], rem)
+            state, m = self.train_step(state, data.index_select(0, tail), w)
+            _collect(m[None], rem, metrics, weights)
+        return state, _weighted_mean(np.concatenate(metrics), weights)
+
+    def _pad_tail(self, tail: torch.Tensor, rem: int):
+        """Pad a ragged tail's index vector to the next multiple of the
+        ranks by repeating its first row with ZERO weight, the real rows
+        carrying 1/rem (their loss, gradients and metrics equal the
+        unpadded tail's batch means). With no mesh: (tail, None), the tail
+        runs as a smaller batch."""
+        pad = 0 if self._mesh is None else (-rem) % self._mesh.model
+        if not pad:
+            return tail, None
+        tail = torch.cat([tail, tail[:1].expand(pad)])
+        w = torch.cat([torch.full((rem,), 1.0 / rem), torch.zeros(pad)])
+        return tail, w.to(tail.device)
+
+    def eval_epoch(self, state: TrainState, data, ctf=None, seed: int = 0,
+                   ) -> Tuple[float, float, float]:
+        """(elbo, gen_loss, kl) over `data` in order, batches of B and the
+        tail, sampled with a generator seeded `seed`."""
+        no_ctf(ctf)
+        data = self.on_device(data)
+        n = data.shape[0]
+        b = min(self.batch, n)
+        n_full = n // b
+        gen = torch.Generator().manual_seed(seed)
+        out = [self.eval_step(state, data[i * b:(i + 1) * b], gen)
+               for i in range(n_full)]
+        weights = [float(b)] * n_full
+        rem = n - n_full * b
+        if rem:
+            tail, w = self._pad_tail(
+                torch.arange(n_full * b, n, device=data.device), rem)
+            out.append(self.eval_step(state, data.index_select(0, tail), gen,
+                                      w))
+            weights.append(float(rem))
+        return _weighted_mean(torch.stack(out).cpu().numpy(), weights)
+
+def no_ctf(ctf) -> None:
+    if ctf is not None:
+        raise NotImplementedError(
+            "per-image CTF kernels belong to the particles likelihood, which "
+            "is not ported yet (ROADMAP.md, queue 1, item 19)")
+
+
+def _collect(pending: torch.Tensor, b: int, metrics: list,
+             weights: list) -> None:
+    """Read a (k, 3) block of step metrics to the host, each step weighing
+    its batch size b."""
+    host = pending.cpu().numpy()
+    metrics.append(host)
+    weights += [float(b)] * host.shape[0]
+
+
+def _weighted_mean(metrics: np.ndarray, weights) -> Tuple[float, float, float]:
+    """metrics (nb, 3) of (elbo, log_p, kl) -> (elbo, gen_loss, kl)."""
+    w = np.asarray(weights)[:, None]
+    m = (metrics * w).sum(0) / w.sum()
+    return float(m[0]), float(-m[1]), float(m[2])
+
+
+def _streaming_means(metrics, weights) -> Tuple[float, float, float]:
+    """Running (elbo, gen_loss, kl) over the batches seen so far — the
+    weighted mean the reference's per-minibatch accumulators converge to
+    (train_mnist.py:330-338)."""
+    return _weighted_mean(np.concatenate(metrics), weights)

@@ -114,3 +114,8 @@ class TrainConfig:
     sp: bool = False
     host_stream: bool = False
     stream_bf16: bool = False
+
+
+def fourier_sigma_for(image_dim: int) -> float:
+    """Reference train_mnist.py:511 — sigma = pixel pitch 2/(dim-1)."""
+    return 2.0 / (image_dim - 1)

@@ -6,7 +6,8 @@ group-conv weight (out, in, rot_in, k, k), the Fourier buffers (2, F) and
 params_from_jax takes TargetVAE.init's pytree with numpy leaves
 (e.g. jax.tree.map(np.asarray, params)) and returns the nested dict of float32
 tensors that TargetVAE.load_params and every apply function take;
-params_to_jax is its inverse, with numpy leaves.
+params_to_jax is its inverse, with numpy leaves that are copies: a later
+in-place update of the parameters (Adam's) does not reach them.
 """
 
 from __future__ import annotations
@@ -28,4 +29,4 @@ def params_to_jax(tree):
         return {k: params_to_jax(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return [params_to_jax(v) for v in tree]
-    return tree.detach().cpu().numpy()
+    return tree.detach().to("cpu", copy=True).numpy()

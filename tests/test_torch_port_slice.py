@@ -117,10 +117,13 @@ def test_bf16_kernel_tier_tracks_f32_tier(pair):
     assert all(np.isfinite(float(t)) for t in sampled)
 
 
-def test_port_runs_without_jax():
+def test_port_runs_without_jax(tmp_path):
+    """The package, its train CLI and its checkpoints with jax, flax,
+    optax, msgpack and the JAX package all blocked from import."""
     code = (
-        "import sys\n"
-        "for m in ('jax', 'jaxlib', 'flax', 'optax', 'targetvae_tpu'):\n"
+        "import os, sys\n"
+        "for m in ('jax', 'jaxlib', 'flax', 'optax', 'msgpack', "
+        "'targetvae_tpu'):\n"
         "    sys.modules[m] = None\n"
         "import numpy as np, torch\n"
         "from targetvae_tpu_torch import TargetVAE, ModelConfig\n"
@@ -139,8 +142,31 @@ def test_port_runs_without_jax():
         "tr = Trainer(m, TrainConfig(compute_dtype='bfloat16'))\n"
         "st, met = tr.train_step(tr.init_state(0), torch.rand(2, 14, 14, 1))\n"
         "assert st.step == 1 and bool(torch.isfinite(met).all())\n"
+        "root = sys.argv[1]\n"
+        "os.makedirs(root + '/data/mnist_U')\n"
+        "for split, n in (('train', 30), ('test', 10)):\n"
+        "    np.save(root + f'/data/mnist_U/images_{split}.npy', np.random."
+        "default_rng(n).integers(0, 256, (n, 12, 12), dtype=np.uint8))\n"
+        "from targetvae_tpu_torch.cli import train_mnist\n"
+        "st = train_mnist.main(['--image-dim', '12', '--groupconv', '4', "
+        "'--encoder-kernel-number', '16', '--encoder-kernel-size', '8', "
+        "'--encoder-padding', '2', '--generator-hidden-dim', '32', "
+        "'--minibatch-size', '20', '--num-epochs', '1', '-d', '-1', "
+        "'--data-root', root + '/data', '--log-root', root + '/logs'])\n"
+        "run = root + '/logs/' + os.listdir(root + '/logs')[0]\n"
+        "from targetvae_tpu_torch.cli.clustering_common import load_encoder\n"
+        "em, ep = load_encoder(run + '/inference.sav', device='cpu')\n"
+        "y = torch.rand(3, 12, 12, 1)\n"
+        "assert torch.equal(em.embed(ep, y)['dx'], "
+        "st.model.embed(st.model.params(), y)['dx'])\n"
+        "from targetvae_tpu_torch.train import load_train_state\n"
+        "fresh = train_mnist.TargetVAE(st.model.cfg, 'cpu')\n"
+        "st2, _, host = load_train_state(run + '/training_state.sav', "
+        "Trainer(fresh, TrainConfig()).init_state(1))\n"
+        "assert st2.step == st.step == 2 and int(host['epoch']) == 1\n"
         "print('ok')\n")
-    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
-                         capture_output=True, text=True, timeout=120)
+    res = subprocess.run([sys.executable, "-c", code, str(tmp_path)],
+                         cwd=REPO, capture_output=True, text=True,
+                         timeout=120)
     assert res.returncode == 0, res.stderr
-    assert res.stdout.strip() == "ok"
+    assert res.stdout.strip().splitlines()[-1] == "ok"
