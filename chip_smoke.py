@@ -61,14 +61,30 @@ from a seed):
      run to epoch 4, whose loaded parameters and Adam moments equal the
      saved ones bitwise. Each tier's epoch img/s (the CLI's own line) is
      printed beside phase 8's train_step img/s.
+ 13. the other inference modes at full width, tools/bench_config.py's
+     mnist-a (mode A, an MLP), mnist-b (mode B, one 50 x 50 conv) and
+     mnist-b-p8 (mode B, a P8 lift and fc_r): K1 and K2 at R = 1 with the
+     rectangular mixing (KI = 128 and 1,024) and K3 and K4 at R = 1 over
+     the 2,601 cells, each against its plain version and timed;
+     embed_dataset, the held-out and the deterministic ELBO (against
+     float32), one deterministic step's gradients against float32, 20
+     sampled train steps (each of the mode's kernels launched once a
+     step: mode A K7, K8; mode B K1-K4 at R = 1, K7, K8), and train, eval
+     and embed img/s (mode B also the cuDNN lift's share);
+ 14. clustering through the CLIs: tools/make_synthetic_shapes.py writes a
+     labelled MNIST-U directory (1,050 train, 250 test images), train_mnist
+     trains 2 epochs in mode C (conv tier) and in mode B (groupconv 0),
+     clustering_mnist clusters each run's test latents (bf16, k-means, 5
+     clusters): results.txt with a finite accuracy and three finite
+     correlations; then the time of k-means with 100 restarts on the card.
 
 Phases 2-8 cover both mode-C encoder tiers: the default "conv" tier (the
 cuDNN lift conv, K1/K2) and the fused patch encoder (K11/K12) that
 TARGETVAE_ENCODER_TIER=patch selects (phases 3, 4 and 7 drive each tier's
 embed, eval and train path; phases 2 and 6 also check K11 and K12 at the
 galaxy encoder's C = 3 shape). Each of phases 3, 4, 6 (the z_dim routes),
-7, 9, 10, 11 and 12 sets the launch counts to 0 just before it drives its
-path and reads them just after (phase 10 in each rank). Every failed check exits
+7, 9, 10, 11, 12 and 13 sets the launch counts to 0 just before it drives
+its path and reads them just after (phase 10 in each rank). Every failed check exits
 non-zero. With no CUDA device, or outside a checkout, it fails without
 printing a result. Its last line is {"ok": true, "device": {...}}; the line
 before it is the kernels' JSON.
@@ -77,6 +93,7 @@ before it is the kernels' JSON.
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import os
 import subprocess
@@ -182,6 +199,21 @@ CLI_TEST = 250
 CLI_EPOCHS = 3      # phase 12's epochs, snapshots every CLI_SAVE_INTERVAL
 CLI_SAVE_INTERVAL = 2
 CLI_STEP_REPS = 10  # train steps timed beside each tier's CLI run
+MODE_CONFIGS = ("mnist-a", "mnist-b", "mnist-b-p8")   # phase 13's
+MODE_STEPS = 20     # sampled train steps of each of them
+# mode B's theta heads (encoder.conv_r), bf16 tier vs float32 tier, one
+# deterministic step, relative L2: under theta's weak N(0, pi) prior their
+# gradient is a near-cancellation of the decoder's and the KL's terms over
+# the cells, which bf16 rounding moves far more than any other leaf. The JAX
+# package's own bf16 TPU tier (its kernels interpreted on the CPU,
+# tools/calibrate_mode_b_grad_tol.py) reads up to 0.207 there over 24
+# inputs of mnist-b and mnist-b-p8 (10 and 25 images, seeds 0-7 / 0-3), and
+# the port on the card reads 0.001-0.220 on the same inputs
+# (tools/read_mode_b_grad_gap.py --from): 0.25 is that largest JAX reading
+# rounded up. Every other leaf stays held to TOL_GRAD.
+THETA_HEADS = ("encoder.conv_r.w", "encoder.conv_r.b")
+TOL_GRAD_THETA = 0.25
+CLUSTER_EPOCHS = 2  # phase 14's training runs before clustering
 ROUTED_STEPS = 3     # its train steps
 # device_ms, the kernel timer: windows of at least 2 ms of replayed calls,
 # the median of 5; calls rotate over copies of their inputs so that 60 MB
@@ -844,7 +876,8 @@ def planted_k4_faults(torch, k3, g3, ref, ref_s, noise, chunk) -> dict:
             "float64": scaled_err(ref, f64)}
 
 
-def check_posterior_fwd(torch, k3, results, label, schedule=None):
+def check_posterior_fwd(torch, k3, results, label, schedule=None,
+                        phase="2"):
     """K3 on k3 (posterior_inputs' arguments; on `schedule`'s grid, a
     k3_schedule, if given)
     against its plain version: deterministic, and sampled against the plain
@@ -864,29 +897,30 @@ def check_posterior_fwd(torch, k3, results, label, schedule=None):
     err = per_unit(det_k, plain(None))
     abs3 = float((det_k - plain(None)).abs().max())
     check(bool(torch.isfinite(det_k).all()) and err <= TOL_K3,
-          f"phase 2: K3 posterior_fwd deterministic {label} heads "
+          f"phase {phase}: K3 posterior_fwd deterministic {label} heads "
           f"{tuple(heads.shape)}: max err {err:.3e} (abs {abs3:.3e}) <= "
           f"{TOL_K3} * max(1, |ref|)")
     s1, s2 = fwd(11, heads), fwd(11, heads)
     err_s = per_unit(s1, plain(philox_gumbel(11, b, r, m, heads.device)))
     check(err_s <= TOL_K3_SAMPLED,
-          f"phase 2: K3 sampled {label} vs plain fed the kernel's Philox "
+          f"phase {phase}: K3 sampled {label} vs plain fed the kernel's Philox "
           f"noise: max err {err_s:.3e} <= {TOL_K3_SAMPLED} * max(1, |ref|)")
     half = [fwd(11 + i, heads[i:i + b // 2]) for i in (0, b // 2)]
     check(torch.equal(s1, s2) and torch.equal(s1, torch.cat(half)),
-          f"phase 2: K3 sampled {label}: same seed gives identical output; "
+          f"phase {phase}: K3 sampled {label}: same seed gives identical output; "
           f"rows identical for batch {b} vs 2 x {b // 2}")
     kl_err = float((s1[:, -1] - det_k[:, -1]).abs().max())
     check(kl_err <= 1e-6 * float(det_k[:, -1].abs().max().clamp(min=1.0)),
-          f"phase 2: K3 sampled {label}: kl equals deterministic kl (max "
+          f"phase {phase}: K3 sampled {label}: kl equals deterministic kl (max "
           f"diff {kl_err:.3e})")
     if label == "flagship":
         results["posterior_fwd"] = {"max_abs_err": abs3,
                                     "max_err_sampled": err_s}
+    return abs3, err_s
 
 
 def check_posterior_bwd(torch, k3, g3, results, label, schedule=None,
-                        schedule3=None):
+                        schedule3=None, phase="6"):
     """K4 on k3 with the packed cotangent g3 (on `schedule`'s grid, a
     k4_schedule, and K3 on `schedule3`'s, if given)
     against its plain version, deterministic and sampled (fed the kernel's
@@ -908,7 +942,7 @@ def check_posterior_bwd(torch, k3, g3, results, label, schedule=None,
     abs4 = float((got - ref).abs().max())
     check(bool(torch.isfinite(got).all()) and got.shape == heads.shape
           and err <= TOL_K4 and sc <= TOL_K4_SCALED,
-          f"phase 6: K4 posterior_bwd deterministic {label} heads "
+          f"phase {phase}: K4 posterior_bwd deterministic {label} heads "
           f"{tuple(heads.shape)}: max err {err:.3e} (abs {abs4:.3e}) <= "
           f"{TOL_K4} * max(1, |ref|); each element {sc:.3e} <= "
           f"{TOL_K4_SCALED} * (|ref| + {K4_FLOOR} * max |ref|)")
@@ -917,7 +951,7 @@ def check_posterior_bwd(torch, k3, g3, results, label, schedule=None,
     ref_s = posterior_bwd_plain(g3, *k3, noise=noise)
     err_s, sc_s = per_unit(s1, ref_s), scaled_err(s1, ref_s)
     check(err_s <= TOL_K4_SAMPLED and sc_s <= TOL_K4_SCALED,
-          f"phase 6: K4 sampled {label} vs plain fed the kernel's Philox "
+          f"phase {phase}: K4 sampled {label} vs plain fed the kernel's Philox "
           f"noise: max err {err_s:.3e} <= {TOL_K4_SAMPLED} * max(1, |ref|); "
           f"each element {sc_s:.3e} <= {TOL_K4_SCALED} * (|ref| + "
           f"{K4_FLOOR} * max |ref|)")
@@ -925,7 +959,7 @@ def check_posterior_bwd(torch, k3, g3, results, label, schedule=None,
     reads = planted_k4_faults(torch, k3, g3, ref, ref_s, noise, chunk)
     f64 = reads.pop("float64")
     check(min(reads.values()) > TOL_K4_SCALED,
-          f"phase 6: K4 {label}: planted faults read "
+          f"phase {phase}: K4 {label}: planted faults read "
           f"{({n: float(f'{v:.3e}') for n, v in reads.items()})} > "
           f"{TOL_K4_SCALED}; the sound kernel {max(sc, sc_s):.3e}, the "
           f"float32 plain version against float64 {f64:.3e}")
@@ -933,7 +967,7 @@ def check_posterior_bwd(torch, k3, g3, results, label, schedule=None,
     halves = [bwd(11 + i, g3[i:i + h], heads[i:i + h]) for i in (0, h)]
     check(torch.equal(s1, bwd(11, g3, heads))
           and torch.equal(s1, torch.cat(halves)),
-          f"phase 6: K4 sampled {label}: same seed gives identical "
+          f"phase {phase}: K4 sampled {label}: same seed gives identical "
           f"gradients; rows identical for batch {b} vs 2 x {h} with the "
           f"seed offset")
     d = torch.randn(heads.shape, generator=torch.Generator(
@@ -944,13 +978,14 @@ def check_posterior_bwd(torch, k3, g3, results, label, schedule=None,
     fd = float(((fwd(step) - fwd(-step)) * g3.double()).sum()) / (2 * step)
     an = float((s1.double() * d.double()).sum())
     check(abs(fd - an) <= TOL_K4_FD * max(abs(an), 1.0),
-          f"phase 6: K4 sampled {label}: <grad, dir> {an:.6g} vs central "
+          f"phase {phase}: K4 sampled {label}: <grad, dir> {an:.6g} vs central "
           f"difference of K3 at the same seed {fd:.6g} (step {step}): rel "
           f"{abs(fd - an) / max(abs(an), 1.0):.3e} <= {TOL_K4_FD}")
     if label == "flagship":
         results["posterior_bwd"] = {"max_abs_err": abs4,
                                     "max_err_sampled": err_s,
                                     "scaled_err": max(sc, sc_s)}
+    return abs4, err_s, max(sc, sc_s)
 
 
 def check_posterior_shapes(torch, cfg, dev):
@@ -1149,6 +1184,11 @@ def run(torch, dev) -> int:
               f"{z_c.shape} {rot.shape} {tr.shape}, finite, launches "
               f"{embed_counts}")
         yb = torch.from_numpy(images[:B]).to(dev)
+        direct = model.embed(params, yb, compute_dtype=bf16)
+        check(all(np.array_equal(direct[k].cpu().numpy(), a[:B]) for k, a in
+                  (("z_content", z_c), ("theta_mu", rot), ("dx", tr))),
+              f"phase 3: embed_dataset's first {B} rows (pinned staging, "
+              f"one copy out) bitwise model.embed's on the same batch")
         dx32 = model.embed(params, yb)["dx"].cpu().numpy()
         dx_err = float(np.abs(tr[:B] - dx32).max())
         check(dx_err <= TOL_DX, f"phase 3: bf16 vs float32 embed dx max abs "
@@ -1270,6 +1310,12 @@ def run(torch, dev) -> int:
     # ---- phase 12: the training run through the CLI, each tier ----
     cli_counts = cli_training_path(torch, kernels, cfg, dev, step_rates)
 
+    # ---- phase 13: modes A and B at full width; K1-K4 at R = 1 ----
+    mode_rows = mode_paths(torch, kernels, dev)
+
+    # ---- phase 14: clustering through the CLIs ----
+    clustering_path(torch, kernels, dev)
+
     sources = {
         "mix_heads_fwd": ("mix_heads.cu", "mix_heads.py:232"),
         "mix_heads_bwd": ("mix_heads.cu", "mix_heads.py:269"),
@@ -1298,7 +1344,7 @@ def run(torch, dev) -> int:
                  "posterior_shard_fwd": "train_sp",
                  "posterior_shard_bwd": "train_sp"}
     bounds = kernel_bounds(cfg, k1[0].shape[0], shard_cells)
-    print(json.dumps({"kernels": [
+    entries = [
         {"name": name, "route": "cuda",
          "source": "targetvae_tpu_torch/csrc/" + src,
          "replaces": "targetvae_tpu/kernels/" + rep,
@@ -1307,7 +1353,17 @@ def run(torch, dev) -> int:
                               for path, counts in by_path.items()},
          **results[name], "bound_ms": bounds[name][0],
          "bound_by": bounds[name][1], "library_ms": None}
-        for name, (src, rep) in sources.items()]}), flush=True)
+        for name, (src, rep) in sources.items()]
+    # the R = 1 forms (phase 13): launches on their config's train steps
+    sources["mix_heads_r1_fwd"] = ("mix_heads_r1.cu", "mix_heads.py:232")
+    sources["mix_heads_r1_bwd"] = ("mix_heads_r1.cu", "mix_heads.py:269")
+    for key, row in mode_rows.items():
+        src, rep = sources[key.split("[")[0]]
+        entries.append({"name": key, "route": "cuda",
+                        "source": "targetvae_tpu_torch/csrc/" + src,
+                        "replaces": "targetvae_tpu/kernels/" + rep,
+                        **row, "library_ms": None})
+    print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
@@ -1484,25 +1540,30 @@ def train_path(torch, kernels, cfg, dev):
     return trainer, state, data, counts, g32
 
 
-def check_tier_grads(torch, g16, g32, tier):
+def check_tier_grads(torch, g16, g32, tier, phase="7", leaf_tol=None):
     """One deterministic step's gradients, a bf16 kernel tier against the
-    float32 tier, each parameter leaf within TOL_GRAD relative L2. The
-    attention head's bias: the joint softmax is invariant to a shift of
-    every logit, so its exact gradient is zero and both tiers hold rounding
-    noise, held to 1e-3 of the attention weights' gradient."""
+    float32 tier, each parameter leaf within TOL_GRAD relative L2 (or its
+    bound in leaf_tol). The attention head's bias (modes B and C): the
+    softmax over the cells is invariant to a shift of every logit, so its
+    exact gradient is zero and both tiers hold rounding noise, held to 1e-3
+    of the attention weights' gradient."""
+    leaf_tol = leaf_tol or {}
     shift = "encoder.conv_a.b"
-    noise_floor = 1e-3 * float(g32["encoder.conv_a.w"].norm())
     rels = {n: rel_l2(g16[n], g32[n]) for n in g32 if n != shift}
-    worst = max(rels, key=rels.get)
+    worst = max(rels, key=lambda n: rels[n] / leaf_tol.get(n, TOL_GRAD))
+    shift_ok, shift_msg = True, ""
+    if shift in g32:
+        floor = 1e-3 * float(g32["encoder.conv_a.w"].norm())
+        n16, n32 = float(g16[shift].norm()), float(g32[shift].norm())
+        shift_ok = n16 <= floor and n32 <= floor
+        shift_msg = f"; {shift} |g| {n16:.2e} / {n32:.2e} <= {floor:.2e}"
     check(all(bool(torch.isfinite(g).all()) for g in g16.values())
-          and rels[worst] <= TOL_GRAD
-          and float(g16[shift].norm()) <= noise_floor
-          and float(g32[shift].norm()) <= noise_floor,
-          f"phase 7: deterministic step gradients, bf16 {tier} tier vs float32"
-          f" tier, rel L2 per leaf <= {TOL_GRAD}: "
-          f"{({n: float(f'{r:.2e}') for n, r in rels.items()})}; worst {worst};"
-          f" {shift} |g| {float(g16[shift].norm()):.2e} / "
-          f"{float(g32[shift].norm()):.2e} <= {noise_floor:.2e}")
+          and rels[worst] <= leaf_tol.get(worst, TOL_GRAD) and shift_ok,
+          f"phase {phase}: deterministic step gradients, bf16 {tier} tier "
+          f"vs float32 tier, rel L2 per leaf <= {TOL_GRAD}"
+          + "".join(f" ({n} <= {v:.3g})" for n, v in leaf_tol.items())
+          + f": {({n: float(f'{r:.2e}') for n, r in rels.items()})}; worst "
+          f"{worst}" + shift_msg)
 
 
 def train_steps(torch, kernels, trainer, state, data, steps, tier):
@@ -2557,6 +2618,372 @@ def cli_training_path(torch, kernels, cfg, dev, step_rates) -> dict:
               f"Adam moments) it loaded equal, bitwise, those the run ended "
               f"with and saved (differ: {differ})")
     return counts
+
+
+def mode_config(name: str):
+    """tools/bench_config.py's mnist-a, mnist-b and mnist-b-p8, copied (that
+    tool imports the JAX package): 50x50x1 images, z = 2, a Fourier decoder
+    with F = 1,024, hidden 512 and 2 layers, Bernoulli, theta prior pi.
+    mnist-a: mode A, an MLP of 2,500 -> 128 -> 128 -> 10. mnist-b: mode B,
+    one 50 x 50 conv of 128 kernels, padding 25 (51 x 51 = 2,601 cells).
+    mnist-b-p8: mode B, a P8 group lift of the same size and fc_r."""
+    from targetvae_tpu_torch.utils.config import (
+        EncoderConfig, GeneratorConfig, LikelihoodConfig, ModelConfig)
+    d = 50
+    gen = GeneratorConfig(z_dim=2, hidden_dim=512, n_out=1, num_layers=2,
+                          fourier_expansion=True, fourier_sigma=2.0 / (d - 1))
+    if name == "mnist-a":
+        enc = EncoderConfig(t_inf="unimodal", r_inf="unimodal", image_dim=d,
+                            in_channels=1, z_dim=2, kernels_num=128,
+                            num_layers=2, theta_prior=np.pi)
+    else:
+        enc = EncoderConfig(t_inf="attention", r_inf="unimodal", image_dim=d,
+                            in_channels=1, z_dim=2, kernels_num=128,
+                            groupconv=8 if name.endswith("p8") else 0,
+                            theta_prior=np.pi)
+    return ModelConfig(generator=gen, encoder=enc,
+                       likelihood=LikelihoodConfig(kind="bernoulli"))
+
+
+def r1_bounds(n: int, ki: int, K: int, D: int, b: int, m: int,
+              zd: int) -> dict:
+    """The least time of the R = 1 kernels on the H100 at this run's shapes,
+    as kernel_bounds counts them: K1 reads pre1 (n, ki) bf16 and the
+    weights and writes (n, D) f32, 2 n (ki K + K D) bf16 operations; K2
+    reads pre1, g and the weights and writes dpre1 (n, ki) bf16 and the
+    weight gradients, 2 n (3 ki K + 2 K D) operations (pre2 recomputed,
+    dW2, dh1; dWh, dh2); K3 / K4 over b images of m cells, as
+    kernel_bounds' posterior rows at R = 1."""
+    bf, f4 = 2, 4
+    w = (ki * K + K * D) * bf + (ki + K + D) * f4
+    planes = (3 + 2 * zd) * b * m * f4
+    return {
+        "mix_heads_r1_fwd": bound(n * ki * bf + w + n * D * f4,
+                                  2 * n * (ki * K + K * D), PEAK_BF16),
+        "mix_heads_r1_bwd": bound(n * ki * bf + n * D * f4 + w + n * ki * bf
+                                  + (ki * K + K * D + K + D + ki) * f4,
+                                  2 * n * (3 * ki * K + 2 * K * D),
+                                  PEAK_BF16),
+        "posterior_fwd": bound(planes + b * (2 * zd + 5) * f4,
+                               b * m * (40 + 16 * zd), PEAK_F32),
+        "posterior_bwd": bound(2 * planes + b * (2 * zd + 5) * f4,
+                               b * m * 2 * (40 + 16 * zd), PEAK_F32)}
+
+
+def r1_kernel_checks(torch, name, cfg, params, y, rows_out: dict) -> None:
+    """Phase 13: K1 and K2 at R = 1 on the lift rows of the config's own
+    mode-B encoder (N = B * 51 * 51 positions, KI = R_lift K), each against
+    its plain version, then timed beside it (device_ms); rows_out gets the
+    kernels' rows of the JSON line, keyed "kernel[config]"."""
+    from targetvae_tpu_torch.kernels.mix_heads import (
+        lift_act_mix_heads_bwd_plain, lift_act_mix_heads_plain,
+        mix_heads_r1_bwd, mix_heads_r1_fwd)
+    from targetvae_tpu_torch.models.encoders import (
+        conv_rows, head_weights, mode_b_matrices)
+    e = cfg.encoder
+    K, D, bf = e.kernels_num, 3 + 2 * e.z_dim, torch.bfloat16
+    w, bc, mix_w, mix_b = mode_b_matrices(params["encoder"], e)
+    rows, _ = conv_rows(w, y, e.image_dim // 2)
+    wh, bh = head_weights(params["encoder"])
+    k1 = (rows, bc.float().contiguous(), mix_w.to(bf).contiguous(),
+          mix_b.float().contiguous(), wh.to(bf).contiguous(),
+          bh.float().contiguous())
+    n, ki = rows.shape
+    fwd = lambda *a: mix_heads_r1_fwd(*a, K=K)
+    pfwd = lambda *a: lift_act_mix_heads_plain(*a, R=1, K=K)
+    got, again, ref = fwd(*k1), fwd(*k1), pfwd(*k1)
+    err1 = float((got - ref).abs().max())
+    check(bool(torch.isfinite(got).all()) and err1 <= TOL_K1
+          and torch.equal(got, again),
+          f"phase 13: {name}: K1 at R = 1 mix_heads_r1_fwd pre1 "
+          f"{tuple(rows.shape)} W2 {tuple(mix_w.shape)} -> "
+          f"{tuple(got.shape)}: max_abs_err {err1:.3e} <= {TOL_K1}; a rerun "
+          f"bitwise equal")
+    g = torch.randn((n, D), generator=torch.Generator(
+        device=rows.device).manual_seed(17), device=rows.device) * 1e-2
+    k2 = k1[:5] + (g,)
+    bwd = lambda *a: mix_heads_r1_bwd(*a, K=K)
+    pbwd = lambda *a: lift_act_mix_heads_bwd_plain(*a, R=1, K=K)
+    got2, again2, ref2 = bwd(*k2), bwd(*k2), pbwd(*k2)
+    rel_dp = rel_l2(got2[0], ref2[0])
+    abs_dp = float((got2[0].float() - ref2[0].float()).abs().max())
+    rels = [rel_l2(a, b) for a, b in zip(got2[1:], ref2[1:])]
+    check(got2[0].dtype == bf and rel_dp <= TOL_DPRE1_REL
+          and max(rels) <= TOL_BWD_REL
+          and all(torch.equal(a, b) for a, b in zip(got2, again2)),
+          f"phase 13: {name}: K2 at R = 1 mix_heads_r1_bwd: dpre1 "
+          f"{tuple(got2[0].shape)} rel L2 {rel_dp:.3e} <= {TOL_DPRE1_REL}; "
+          f"dbc, dW2, db2, dWh, dbh rel L2 "
+          f"{[float(f'{r:.2e}') for r in rels]} <= {TOL_BWD_REL}; reruns "
+          f"bitwise equal")
+    del got, again, ref, got2, again2, ref2
+    bounds = r1_bounds(n, ki, K, D, y.shape[0], n // y.shape[0], e.z_dim)
+    for kname, kfn, pfn, args, errs in (
+            ("mix_heads_r1_fwd", fwd, pfwd, k1, {"max_abs_err": err1}),
+            ("mix_heads_r1_bwd", bwd, pbwd, k2,
+             {"max_abs_err": abs_dp, "dpre1_rel_l2": rel_dp,
+              "grads_rel_l2": max(rels)})):
+        key = f"{kname}[{name}]"
+        rows_out[key] = dict(errs, bound_ms=bounds[kname][0],
+                             bound_by=bounds[kname][1])
+        time_kernel(rows_out, key, "13", kfn, args, pfn, args)
+
+
+def r1_posterior_checks(torch, cfg, dev, rows_out: dict) -> None:
+    """Phase 13: K3 and K4 at R = 1 (mode B's posterior over 51 x 51 =
+    2,601 cells, B = 100, z = 2: seeded raw heads under the mode's own
+    constants) against their plain versions, deterministic and sampled
+    (the kernel's Philox noise fed to the plain version; scaled_err and
+    the planted faults for K4), then timed (device_ms)."""
+    from targetvae_tpu_torch.kernels.posterior import (
+        philox_gumbel, posterior_bwd, posterior_bwd_plain, posterior_fwd,
+        posterior_plain)
+    from targetvae_tpu_torch.losses.elbo import posterior_constants
+    e = cfg.encoder
+    const = posterior_constants(e, dev)
+    m, zd = const["grid"].shape[0], e.z_dim
+    g = torch.Generator(device=dev).manual_seed(18)
+    scale = torch.tensor([2.0, 1.0, 0.3] + [1.0] * zd + [0.3] * zd,
+                         device=dev)
+    heads = torch.randn((B, m, 1, 3 + 2 * zd), generator=g,
+                        device=dev) * scale
+    k3 = (heads, const["p_r"], const["offsets"], const["p_tr"],
+          const["grid"], const["sig_r"])
+    label = f"R = 1, {m} cells"
+    abs3, err3 = check_posterior_fwd(torch, k3, None, label, phase="13")
+    g3 = torch.randn((B, 2 * zd + 5), generator=g, device=dev)
+    abs4, err4, sc4 = check_posterior_bwd(torch, k3, g3, None, label,
+                                          phase="13")
+    bounds = r1_bounds(0, 8, 16, 1, B, m, zd)
+    noise = philox_gumbel(9, B, 1, m, dev)
+    for kname, kfn, kargs, pfn, pargs, row in (
+            ("posterior_fwd", lambda *a: posterior_fwd(9, *a), k3,
+             lambda *a: posterior_plain(*a, noise=noise), k3,
+             {"max_abs_err": abs3, "max_err_sampled": err3}),
+            ("posterior_bwd", lambda *a: posterior_bwd(9, *a), (g3,) + k3,
+             lambda *a: posterior_bwd_plain(*a, noise=noise), (g3,) + k3,
+             {"max_abs_err": abs4, "max_err_sampled": err4,
+              "scaled_err": sc4})):
+        key = f"{kname}[R=1]"
+        rows_out[key] = dict(row, bound_ms=bounds[kname][0],
+                             bound_by=bounds[kname][1])
+        time_kernel(rows_out, key, "13", kfn, kargs, pfn, pargs)
+    det = lambda *a: posterior_fwd(9, *a, deterministic=True)
+    rows_out["posterior_fwd[R=1]"]["det_ms"] = min(device_ms(det, k3),
+                                                  device_ms(det, k3))
+
+
+def mode_paths(torch, kernels, dev) -> dict:
+    """Phase 13: the other inference modes at full width, each of mnist-a,
+    mnist-b and mnist-b-p8 through the entry points: embed_dataset (bf16)
+    over N_EMBED images, a held-out bf16 ELBO and a deterministic one
+    against the float32 tier, one deterministic step's gradients against
+    the float32 tier, MODE_STEPS sampled train steps with the launch counts
+    read around them (each kernel of the mode once a step), and train,
+    eval and embed img/s; the R = 1 kernels checked and timed on the mode-B
+    configs' own shapes. Returns the kernels' rows (keyed
+    "kernel[config]") with each one's launches on its config's steps."""
+    from targetvae_tpu_torch import TargetVAE
+    from targetvae_tpu_torch.cli.clustering_common import embed_dataset
+    from targetvae_tpu_torch.losses.elbo import compute_elbo
+    from targetvae_tpu_torch.models.encoders import conv_rows, mode_b_matrices
+    from targetvae_tpu_torch.train import Trainer
+    from targetvae_tpu_torch.utils.config import TrainConfig
+    bf16 = torch.bfloat16
+    rows = {}
+    images = synthetic_images(N_EMBED, 50, 2)
+    data = torch.from_numpy(synthetic_images(TRAIN_BATCHES * B, 50, 3)).to(dev)
+    posterior_done = False
+    for name in MODE_CONFIGS:
+        cfg = mode_config(name)
+        mode_b = cfg.encoder.mode == "B"
+        model = TargetVAE(cfg, device=dev)
+        params = model.init(torch.Generator().manual_seed(0))
+        y = torch.from_numpy(images[:B]).to(dev)
+        x_coord = model.base_grid()
+        with torch.inference_mode():
+            if mode_b:
+                r1_kernel_checks(torch, name, cfg, params, y, rows)
+                if not posterior_done:
+                    r1_posterior_checks(torch, cfg, dev, rows)
+                    posterior_done = True
+            kernels.reset_launch_counts()
+            z_c, rot, tr = embed_dataset(model, params, images, B, "bfloat16")
+            emb = kernels.launch_counts()
+            check(z_c.shape == (N_EMBED, 4) and rot.shape == (N_EMBED, 1)
+                  and tr.shape == (N_EMBED, 2)
+                  and all(np.isfinite(a).all() for a in (z_c, rot, tr))
+                  and emb == {k: (N_EMBED // B if mode_b
+                                  and k == "mix_heads_r1_fwd" else 0)
+                              for k in emb},
+                  f"phase 13: {name}: embed_dataset bf16 over {N_EMBED} "
+                  f"images: shapes {z_c.shape} {rot.shape} {tr.shape}, "
+                  f"finite, launches {emb} (mode B: K1 at R = 1 once a "
+                  f"batch; mode A: none)")
+            gen = torch.Generator().manual_seed(5)
+            kernels.reset_launch_counts()
+            elbos = [[float(t) for t in model.elbo(
+                params, x_coord, torch.from_numpy(
+                    images[i * B:(i + 1) * B]).to(dev), gen, bf16)]
+                for i in range(EVAL_BATCHES)]
+            ev = kernels.launch_counts()
+            fwd = (("mix_heads_r1_fwd", "posterior_fwd") if mode_b
+                   else ()) + ("pose_decoder_fwd",)
+            check(bool(np.isfinite(elbos).all())
+                  and ev == {k: EVAL_BATCHES if k in fwd else 0 for k in ev},
+                  f"phase 13: {name}: held-out ELBO bf16 over {EVAL_BATCHES} "
+                  f"batches {np.round(elbos, 3).tolist()}, launches {ev}")
+            e16 = float(model.elbo(params, x_coord, y, None, bf16)[0])
+            e32 = float(model.elbo(params, x_coord, y, None, None)[0])
+            rel = abs(e16 - e32) / abs(e32)
+            check(rel <= TOL_ELBO,
+                  f"phase 13: {name}: deterministic ELBO bf16 {e16:.4f} vs "
+                  f"float32 {e32:.4f}: rel diff {rel:.3e} <= {TOL_ELBO}")
+
+        def tier_grads(dt):
+            model.zero_grad(set_to_none=True)
+            (-compute_elbo(model.params(), cfg, x_coord, data[:B], None,
+                           dt)[0]).backward()
+            return {n: p.grad.detach().clone()
+                    for n, p in model.named_parameters()}
+        g16, g32 = tier_grads(bf16), tier_grads(None)
+        leaf_tol = {n: TOL_GRAD_THETA for n in THETA_HEADS} if mode_b else {}
+        model.zero_grad(set_to_none=True)
+        check_tier_grads(torch, g16, g32, name, phase="13",
+                         leaf_tol=leaf_tol)
+        del g16, g32
+
+        trainer = Trainer(cfg, TrainConfig(compute_dtype="bfloat16",
+                                           minibatch_size=B), device=dev)
+        state = trainer.init_state(0)
+        kernels.reset_launch_counts()
+        metrics = []
+        for i in range(MODE_STEPS):
+            j = i % TRAIN_BATCHES
+            state, m = trainer.train_step(state, data[j * B:(j + 1) * B])
+            metrics.append(m)
+        m = torch.stack(metrics).cpu().numpy()
+        counts = kernels.launch_counts()
+        used = (("mix_heads_r1_fwd", "mix_heads_r1_bwd", "posterior_fwd",
+                 "posterior_bwd") if mode_b else ()) + (
+            "pose_decoder_fwd", "pose_decoder_bwd")
+        first, last = float(m[:5, 0].mean()), float(m[-5:, 0].mean())
+        check(bool(np.isfinite(m).all()) and last > first
+              and counts == {k: MODE_STEPS if k in used else 0
+                             for k in counts},
+              f"phase 13: {name}: {MODE_STEPS} sampled bf16 train steps at "
+              f"B={B}: ELBO finite, mean of the first 5 {first:.3f} -> last 5 "
+              f"{last:.3f}; launches {counts} (each of the mode's kernels "
+              f"once a step)")
+        for key in rows:
+            kname = key.split("[")[0]
+            if key.endswith(f"[{name}]") or (mode_b and key.endswith(
+                    "[R=1]") and "launches" not in rows[key]):
+                rows[key]["launches"] = counts[kname]
+        yb = data[:B]
+        step_ms = cuda_ms(lambda: trainer.train_step(state, yb))
+        with torch.inference_mode():
+            eval_ms = cuda_ms(lambda: model.elbo(params, x_coord, yb, gen,
+                                                 bf16))
+            embed_dataset(model, params, images, B, "bfloat16")
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            embed_dataset(model, params, images, B, "bfloat16")
+            torch.cuda.synchronize()
+            embed_s = time.perf_counter() - t
+        line = (f"phase 13: {name}: train {B / step_ms * 1e3:.1f} img/s "
+                f"({step_ms:.3f} ms/step), eval {B / eval_ms * 1e3:.1f} img/s "
+                f"({eval_ms:.3f} ms/batch) (CUDA events, host included, "
+                f"B={B}); embed {N_EMBED / embed_s:.1f} img/s (embed_dataset, "
+                f"host to host)")
+        if mode_b:
+            e = cfg.encoder
+            w0 = mode_b_matrices(params["encoder"], e)[0].detach()
+            w = w0.clone().requires_grad_(True)
+            rows_g = torch.randn((B * 51 * 51, w.shape[0]), device=dev,
+                                 dtype=bf16)
+
+            def lift_train():
+                conv_rows(w, yb, e.image_dim // 2)[0].backward(rows_g)
+            with torch.inference_mode():
+                lift_ms = cuda_ms(lambda: conv_rows(w0, yb,
+                                                    e.image_dim // 2))
+            lift_train_ms = cuda_ms(lift_train)
+            line += (f"; the cuDNN lift conv {lift_ms:.3f} ms forward, "
+                     f"{lift_train_ms:.3f} ms with its weight gradient "
+                     f"({100 * lift_train_ms / step_ms:.1f} % of the step)")
+            del rows_g, w
+        print(line, flush=True)
+        del trainer, state, model, params
+        torch.cuda.empty_cache()
+    return rows
+
+
+def clustering_path(torch, kernels, dev) -> None:
+    """Phase 14: clustering through the CLIs. tools/make_synthetic_shapes.py
+    (a subprocess: numpy and scipy) writes a labelled MNIST-U directory of
+    CLI_TRAIN + CLI_TEST images; train_mnist trains CLUSTER_EPOCHS epochs in
+    mode C (conv tier) and in mode B (groupconv 0); clustering_mnist embeds
+    the test images (bf16), corrects the poses by the plain images', and
+    clusters them (k-means, 100 restarts on the card) into 5 clusters:
+    results.txt written, the accuracy and the three correlations finite.
+    Then times k-means of 100 restarts on the card."""
+    import tempfile
+    from targetvae_tpu_torch.cli import clustering_mnist, train_mnist
+    from targetvae_tpu_torch.cli.clustering_algorithms import kmeans
+    here = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as root:
+        data = os.path.join(root, "data")
+        subprocess.run([sys.executable, os.path.join(
+            here, "tools", "make_synthetic_shapes.py"), "--out-root", data,
+            "--n-train", str(CLI_TRAIN), "--n-test", str(CLI_TEST)],
+            check=True, capture_output=True, timeout=300)
+        for label, flags in (
+                ("mode C, conv tier", []),
+                ("mode B, groupconv 0", ["--t-inf", "attention", "--r-inf",
+                                         "unimodal", "--groupconv", "0"])):
+            logs = os.path.join(root, "logs", str(len(flags)))
+            with contextlib.redirect_stderr(io.StringIO()):
+                train_mnist.main(["--dataset", "mnist-U", "--data-root", data,
+                                  "--fourier-expansion", "--compute-dtype",
+                                  "bfloat16", "--num-epochs",
+                                  str(CLUSTER_EPOCHS), "--log-root", logs]
+                                 + flags)
+            run = os.path.join(logs, os.listdir(logs)[0])
+            t = time.perf_counter()
+            res = clustering_mnist.main([
+                "--dataset", "mnist-U", "--data-root", data,
+                "--path-to-encoder", os.path.join(run, "inference.sav"),
+                "--path-to-labels", os.path.join(data, "mnist_U",
+                                                 "labels_test.npy"),
+                "--n-clusters", "5", "--compute-dtype", "bfloat16"])
+            secs = time.perf_counter() - t
+            text = open(os.path.join(run, "results.txt")).read()
+            vals = [res["acc"], res["rot_corr"], *res["tr_corr"]]
+            check("accuracy for clustering" in text
+                  and "circular correlation" in text
+                  and "Pearson correlation" in text
+                  and bool(np.isfinite(np.asarray(vals, float)).all()),
+                  f"phase 14: {label}: train_mnist {CLUSTER_EPOCHS} epochs, "
+                  f"then clustering_mnist (bf16, k-means, 5 clusters) in "
+                  f"{secs:.1f} s: results.txt written; accuracy "
+                  f"{res['acc']:.4f}, rotation circular correlation "
+                  f"{res['rot_corr']:.4f}, translation Pearson (x, y) "
+                  f"{res['tr_corr'][0]:.4f}, {res['tr_corr'][1]:.4f} (finite)")
+            z = res["z_values"]
+    rng = np.random.default_rng(19)
+    big = np.concatenate([z] + [z + rng.normal(size=z.shape) * 0.1
+                                for _ in range(39)])
+    for pts in (z, big):
+        kmeans(pts, 5, device=dev)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        _, inertia = kmeans(pts, 5, device=dev)
+        torch.cuda.synchronize()
+        print(f"phase 14: k-means, 100 restarts batched on the card, N = "
+              f"{pts.shape[0]}, dimension {pts.shape[1]}, 5 clusters: "
+              f"{(time.perf_counter() - t) * 1e3:.1f} ms (host clock), "
+              f"inertia {inertia:.4f}", flush=True)
 
 
 if __name__ == "__main__":

@@ -7,6 +7,9 @@ checkpoint contract as the JAX package's CLI. Runs on cuda:0 by default
 
     python -m targetvae_tpu_torch.cli.train_mnist --dataset mnist-U \\
         --fourier-expansion --compute-dtype bfloat16 --num-epochs 60
+
+--t-inf unimodal --r-inf unimodal trains mode A, --t-inf attention
+--r-inf unimodal --groupconv 0|4|8|16 mode B, the defaults mode C.
 """
 
 from __future__ import annotations

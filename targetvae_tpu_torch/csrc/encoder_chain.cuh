@@ -1,7 +1,9 @@
-// The encoder chain's device code shared by csrc/mix_heads.cu (K1, K2) and
-// csrc/lifted_encoder.cu (K11; K12's first pass is K2's chain): the tile
-// constants and swizzled-tile helpers, the resident weights, and the
-// forward tail that K1 and K11 run from a bf16 h1 tile,
+// The encoder chain's device code shared by csrc/mix_heads.cu (K1, K2),
+// csrc/mix_heads_r1.cu (K1, K2 at R = 1) and csrc/lifted_encoder.cu (K11;
+// K12's first pass is K2's chain): the tile constants and swizzled-tile
+// helpers, the resident weights, and the forward tail that K1 and K11 run
+// from a bf16 h1 tile (fwd_heads, its part after pre2, also ends the R = 1
+// forward),
 //   pre2 = h1 W2 + b2,  h2 = bf16(act(pre2)),  heads = h2 Wh + bh,
 // with the heads of a tile kept in shared memory across its rotations and
 // written out as one block.
@@ -113,32 +115,22 @@ __device__ __forceinline__ void stage_wht(unsigned char* wht,
   }
 }
 
-// The forward from this warpgroup's bf16 h1 at h (64 positions x 128
-// channels, two swizzled tiles): pre2 = h1 W2 into acc, h2 = bf16(act(pre2
-// + b2)) over h1 in place, then the heads h2 Wh into hd (8 registers: row
+// From pre2 = h1 W2 in acc (the accumulators of this warpgroup's 64
+// positions x 128 channels, b2 not added): h2 = bf16(act(pre2 + b2)) into
+// h (two swizzled tiles), then the heads h2 Wh into hd (8 registers: row
 // acc_row(t, x), head acc_col(t, x); bh not added). nk = ceil(K / 16) k16
 // steps. The callers pass act as a constant of their template, so that the
-// epilogue's activation compiles to straight-line code. A TMA store still reading h (K11's saved h1) is waited for by
-// thread 0 before h2 overwrites it when wait_store is set. `bar` is the
-// warpgroup's named barrier; seg takes the probe's tail segments.
-__device__ __forceinline__ void fwd_tail(float* acc, float* hd, unsigned char* h,
-                                         const unsigned char* w2s,
-                                         const unsigned char* wht,
-                                         const float* b2s, int nk, int t,
-                                         int act, bool wait_store, int bar,
-                                         long long* seg) {
+// epilogue's activation compiles to straight-line code. A TMA store still
+// reading h (K11's saved h1) is waited for by thread 0 before h2 overwrites
+// it when wait_store is set. `bar` is the warpgroup's named barrier; seg
+// takes the probe's tail segments.
+__device__ __forceinline__ void fwd_heads(float* acc, float* hd,
+                                          unsigned char* h,
+                                          const unsigned char* wht,
+                                          const float* b2s, int nk, int t,
+                                          int act, bool wait_store, int bar,
+                                          long long* seg) {
   PROBE(long long c = clock64();)
-  acc_fence<64>(acc);
-  wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < 8; ++kk)
-    if (kk < nk)
-      wgmma<128, 0, 1>(acc, gmma_desc(h + (kk >> 2) * TILE + (kk & 3) * 32, 16, 1024),
-                       gmma_desc(w2s + kk * 2048, W2T, 1024), kk > 0);
-  wgmma_commit();
-  wgmma_wait<0>();
-  acc_fence<64>(acc);
-  PROBE(seg[0] += clock64() - c; c = clock64();)
   if (wait_store) {
     if (t == 0) tma_store_wait_read();
     bar_sync(bar, 128);
@@ -178,6 +170,30 @@ __device__ __forceinline__ void fwd_tail(float* acc, float* hd, unsigned char* h
 #pragma unroll
     for (int x = 0; x < 8; ++x) hd[x] += hd2[x];
   PROBE(seg[2] += clock64() - c;)
+}
+
+// The forward from this warpgroup's bf16 h1 at h (64 positions x 128
+// channels, two swizzled tiles): pre2 = h1 W2 into acc, then fwd_heads with
+// h2 over h1 in place.
+__device__ __forceinline__ void fwd_tail(float* acc, float* hd, unsigned char* h,
+                                         const unsigned char* w2s,
+                                         const unsigned char* wht,
+                                         const float* b2s, int nk, int t,
+                                         int act, bool wait_store, int bar,
+                                         long long* seg) {
+  PROBE(long long c = clock64();)
+  acc_fence<64>(acc);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+    if (kk < nk)
+      wgmma<128, 0, 1>(acc, gmma_desc(h + (kk >> 2) * TILE + (kk & 3) * 32, 16, 1024),
+                       gmma_desc(w2s + kk * 2048, W2T, 1024), kk > 0);
+  wgmma_commit();
+  wgmma_wait<0>();
+  acc_fence<64>(acc);
+  PROBE(seg[0] += clock64() - c;)
+  fwd_heads(acc, hd, h, wht, b2s, nk, t, act, wait_store, bar, seg);
 }
 
 // The heads of this warpgroup's 64 positions (the first at p0w) for

@@ -29,8 +29,9 @@
 // multiple of 4 cells, one a CTA (4 CTAs of 3,044 cells at the flagship).
 // Each CTA streams its chunk, with the chunk's p_tr, through a ring of 4
 // stages of 256 cells in shared memory, each stage one pair of 1-D bulk
-// copies completing on an mbarrier (the wrapper hands it 16-byte aligned
-// heads), so every byte is read from device memory once. Each
+// copies completing on an mbarrier (the few floats of a ragged edge copied
+// by the issuing thread, copy_edges), so every byte is read from device
+// memory once. Each
 // thread takes one cell a stage, draws its Gumbel noise once, and keeps a
 // running sum of it in one pass, flash-attention style: q's and the
 // sample's largest logit so far, the two normalisers and the 2 zd + 6
@@ -169,8 +170,17 @@ __device__ __forceinline__ void z_grads_f(float g_mu, float g_std, float a,
 // One launch of K3 or K4: CTA `rank` of image b's cluster takes the cells
 // [rank chunk, min(C, (rank + 1) chunk)), at most `sub` of them in shared
 // memory at a time. The heads, p_tr and K4's output are 16-byte aligned
-// and every chunk and sub-chunk holds a multiple of 4 cells (post_args), so
-// each piece of cells is a whole number of 16-byte bulk copies.
+// and every chunk and sub-chunk starts on a multiple of 4 cells
+// (post_args). At R >= 4 an image's R M cells are a multiple of 4 too, so
+// every piece of cells is a whole number of 16-byte bulk copies. At R = 1
+// (mode B, M = 51 x 51 at 50 x 50 images) an image of M D floats may start
+// 4, 8 or 12 bytes past a 16-byte boundary and its last chunk may end
+// between two. K3 and K4 take that case as instantiations of their own
+// (RAGGED, launched at R = 1), so that mode C's code is as it was: a CTA
+// keeps its cells in shared memory at the same offset modulo 16 as in
+// device memory (Chunk::off), and copy_edges and store_cells move the at
+// most 3 floats on either side of a piece's aligned body with plain loads
+// and stores.
 struct PostArgs {
   const float* heads;   // (B, M, R, D)
   const float* p_r;     // (R,)
@@ -187,6 +197,7 @@ struct PostArgs {
 // This CTA's share of its image's cells.
 struct Chunk {
   int b, rank, c0, n, nsub;
+  int off;              // floats from a 16-byte boundary to src
   const float* src;     // the heads of cell c0
   uint32_t key;
 };
@@ -201,6 +212,7 @@ __device__ __forceinline__ Chunk make_chunk(const PostArgs& p,
   k.n = max(0, min(C, k.c0 + p.chunk) - k.c0);
   k.nsub = (k.n + p.sub - 1) / p.sub;
   k.src = p.heads + ((size_t)k.b * C + k.c0) * D;
+  k.off = (int)(((uintptr_t)k.src & 15u) >> 2);
   k.key = p.seed + (uint32_t)k.b;
   return k;
 }
@@ -232,41 +244,87 @@ __device__ __forceinline__ int piece_cells(int n) {
   return ((n + NPIECE - 1) / NPIECE + PT - 1) / PT * PT;
 }
 
-// Starts the copy of n cells (D floats each) from src into sm: NPIECE bulk
-// copies, piece j (cells [j q, (j + 1) q), q = piece_cells(n)) completing
-// on bar[j] (an empty piece arrives at once).
+// The floats [src, src + n) of device memory into shared memory at dst,
+// dst and src alike modulo 16 bytes, in two parts: the at most 3 floats
+// before the first 16-byte boundary and the at most 3 after the last one,
+// which this thread copies here with plain loads and stores, and the
+// aligned body between, whose floats it returns (a multiple of 4, starting
+// at float `head`) for one bulk copy. The caller's arrival on the piece's
+// mbarrier, after this, publishes the plain stores to the waiting threads
+// (an arrival releases, a completed wait acquires).
+struct Span {
+  int head, body;
+};
+__device__ __forceinline__ Span copy_edges(float* dst, const float* src,
+                                           int n) {
+  const int head =
+      min(n, (int)(((16u - ((uint32_t)(uintptr_t)src & 15u)) & 15u) >> 2));
+  const int body = (n - head) & ~3;
+  for (int i = 0; i < head; ++i) dst[i] = src[i];
+  for (int i = head + body; i < n; ++i) dst[i] = src[i];
+  return {head, body};
+}
+
+// Starts the copy of n cells (D floats each) from src into sm: NPIECE
+// pieces, piece j (cells [j q, (j + 1) q), q = piece_cells(n)) one bulk
+// copy (RAGGED: sm and src alike modulo 16 bytes, and the piece's edges)
+// completing on bar[j] (an empty piece arrives at once).
+template <bool RAGGED>
 __device__ __forceinline__ void start_load(const float* src, float* sm, int n,
                                            int D, uint64_t* bar) {
   if (threadIdx.x == 0) {
     const int q = piece_cells(n);
     for (int j = 0; j < NPIECE; ++j) {
       const int lo = min(n, j * q), hi = min(n, lo + q);
-      const uint32_t bytes = (uint32_t)(hi - lo) * D * 4u;
-      if (bytes) {
-        mbar_expect_tx(&bar[j], bytes);
-        bulk_load(sm + (size_t)lo * D, src + (size_t)lo * D, bytes, &bar[j]);
+      float* d = sm + (size_t)lo * D;
+      const float* g = src + (size_t)lo * D;
+      if constexpr (RAGGED) {
+        const Span e = copy_edges(d, g, (hi - lo) * D);
+        mbar_expect_tx(&bar[j], (uint32_t)e.body * 4u);
+        if (e.body)
+          bulk_load(d + e.head, g + e.head, (uint32_t)e.body * 4u, &bar[j]);
       } else {
-        mbar_arrive(&bar[j]);
+        const uint32_t bytes = (uint32_t)(hi - lo) * D * 4u;
+        if (bytes) {
+          mbar_expect_tx(&bar[j], bytes);
+          bulk_load(d, g, bytes, &bar[j]);
+        } else {
+          mbar_arrive(&bar[j]);
+        }
       }
     }
   }
 }
 
 // start_load, then waits for all of it.
+template <bool RAGGED>
 __device__ __forceinline__ void load_all(const float* src, float* sm, int n,
                                          int D, uint64_t* bar, uint32_t* ph) {
-  start_load(src, sm, n, D, bar);
+  start_load<RAGGED>(src, sm, n, D, bar);
   for (int j = 0; j < NPIECE; ++j) mbar_wait(&bar[j], *ph);
   *ph ^= 1u;
 }
 
-// nf floats (a multiple of 4) from sm to the 16-byte aligned dst in
-// coalesced 16-byte stores.
+// nf floats from sm to dst in coalesced 16-byte stores: dst 16-byte
+// aligned and nf a multiple of 4, or (RAGGED) dst and sm alike modulo 16
+// bytes and the at most 3 floats on either side of the aligned body in
+// plain stores.
+template <bool RAGGED>
 __device__ __forceinline__ void store_cells(float* dst, const float* sm,
                                             int nf) {
-  float4* d4 = reinterpret_cast<float4*>(dst);
-  const float4* s4 = reinterpret_cast<const float4*>(sm);
-  for (int i = threadIdx.x; i < nf / 4; i += PT) d4[i] = s4[i];
+  int head = 0, n4 = nf / 4;
+  if constexpr (RAGGED) {
+    head = min(nf, (int)(((16u - ((uint32_t)(uintptr_t)dst & 15u)) & 15u) >> 2));
+    n4 = (nf - head) >> 2;
+  }
+  float4* d4 = reinterpret_cast<float4*>(dst + head);
+  const float4* s4 = reinterpret_cast<const float4*>(sm + head);
+  for (int i = threadIdx.x; i < n4; i += PT) d4[i] = s4[i];
+  if constexpr (RAGGED) {
+    const int t = threadIdx.x, tail = head + 4 * n4;
+    if (t < head) dst[t] = sm[t];
+    if (t < nf - tail) dst[tail + t] = sm[tail + t];
+  }
 }
 
 // An online log-sum-exp: the largest logit m and the sum s of exp(x - m).
@@ -329,7 +387,7 @@ __device__ void block_lse(Lse* lq, Lse* la, float* red) {
 // Loads the CTA's cells (each sub-chunk in turn, its pieces as they land),
 // draws their noise into nz (only the last sub-chunk's stays), and returns
 // the CTA's pairs of q's and the sample's logits.
-template <bool DET>
+template <bool DET, bool RAGGED>
 __device__ void chunk_stats(const PostArgs& p, const Chunk& k, float* sm,
                             float* nz, const float* prs, uint64_t* bar,
                             uint32_t* ph, float* red, Lse* oq, Lse* oa) {
@@ -338,7 +396,7 @@ __device__ void chunk_stats(const PostArgs& p, const Chunk& k, float* sm,
   for (int j = 0; j < k.nsub; ++j) {
     const int cj = j * p.sub, nj = min(p.sub, k.n - cj);
     if (j) __syncthreads();
-    start_load(k.src + (size_t)cj * D, sm, nj, D, bar);
+    start_load<RAGGED>(k.src + (size_t)cj * D, sm, nj, D, bar);
     const int q = piece_cells(nj);
     for (int pc = 0; pc < NPIECE; ++pc) {
       mbar_wait(&bar[pc], *ph);
@@ -540,31 +598,54 @@ __device__ __forceinline__ Run<ZD> run_load(const float* src) {
 constexpr int NST = 4;            // K3's ring: stages of PT cells, one a thread
 constexpr int MAXRUN = 6 + 2 * MAXZD + 4;
 
-// K3's ring stage s: PT cells of heads, then their PT p_tr values.
-__device__ __forceinline__ float* stage_at(float* ring, int s, int D) {
-  return ring + (size_t)s * PT * (D + 1);
+// K3's ring stage s: PT cells of heads, then from float ptr_at their PT
+// p_tr values; RAGGED, the heads from float k.off on (at their device
+// offset modulo 16 bytes) and p_tr 4 floats later (16-byte aligned in
+// device memory, as each chunk starts on a multiple of 4 cells).
+template <bool RAGGED>
+__host__ __device__ constexpr int ptr_at(int D) {
+  return PT * D + (RAGGED ? 4 : 0);
+}
+template <bool RAGGED>
+__host__ __device__ constexpr int stage_floats(int D) {
+  return ptr_at<RAGGED>(D) + PT;
 }
 
 // Starts the copy of piece j (cells [j PT, min(n, (j + 1) PT)) of the
 // CTA's chunk: heads and p_tr) into its ring stage, completing on
 // full[j % NST].
+template <bool RAGGED>
 __device__ __forceinline__ void k3_fetch(const PostArgs& p, const Chunk& k,
                                          int j, float* ring, uint64_t* full,
                                          int D) {
   if (threadIdx.x != 0) return;
   const int lo = j * PT, nc = min(PT, k.n - lo);
-  float* st = stage_at(ring, j % NST, D);
-  const uint32_t hb = (uint32_t)nc * D * 4u, pb = (uint32_t)nc * 4u;
-  mbar_expect_tx(&full[j % NST], hb + pb);
-  bulk_load(st, k.src + (size_t)lo * D, hb, &full[j % NST]);
-  bulk_load(st + PT * D, p.p_tr + k.c0 + lo, pb, &full[j % NST]);
+  float* st = ring + (size_t)(j % NST) * stage_floats<RAGGED>(D);
+  float* sp = st + ptr_at<RAGGED>(D);
+  const float* gh = k.src + (size_t)lo * D;
+  const float* gp = p.p_tr + k.c0 + lo;
+  uint64_t* bar = &full[j % NST];
+  if constexpr (RAGGED) {
+    float* sh = st + k.off;
+    const Span eh = copy_edges(sh, gh, nc * D), ep = copy_edges(sp, gp, nc);
+    mbar_expect_tx(bar, (uint32_t)(eh.body + ep.body) * 4u);
+    if (eh.body)
+      bulk_load(sh + eh.head, gh + eh.head, (uint32_t)eh.body * 4u, bar);
+    if (ep.body)
+      bulk_load(sp + ep.head, gp + ep.head, (uint32_t)ep.body * 4u, bar);
+  } else {
+    const uint32_t hb = (uint32_t)nc * D * 4u, pb = (uint32_t)nc * 4u;
+    mbar_expect_tx(bar, hb + pb);
+    bulk_load(st, gh, hb, bar);
+    bulk_load(sp, gp, pb, bar);
+  }
 }
 
 // K3 (the design in this file's first comment): each thread keeps a Run
 // over its cells, one a ring stage, as the CTA streams its chunk through
 // the ring; the CTA's Run goes into rank 0's shared memory, and rank 0
 // merges the ranks' in rank order and writes the image's 2 zd + 5 scalars.
-template <int ZD, bool DET>
+template <int ZD, bool DET, bool RAGGED>
 __global__ void __launch_bounds__(PT, 4) posterior_fwd_kernel(const PostArgs p) {
   extern __shared__ __align__(16) float smem[];
   __shared__ uint64_t full[NST];
@@ -585,7 +666,7 @@ __global__ void __launch_bounds__(PT, 4) posterior_fwd_kernel(const PostArgs p) 
   }
   __syncthreads();
   for (int j = 0; j < min(NST, npieces); ++j)
-    k3_fetch(p, k, j, smem, full, D);
+    k3_fetch<RAGGED>(p, k, j, smem, full, D);
   const float log_sig_r = logf(p.sig_r);
   const float inv2s2 = 1.f / (2.f * p.sig_r * p.sig_r);
 
@@ -594,8 +675,8 @@ __global__ void __launch_bounds__(PT, 4) posterior_fwd_kernel(const PostArgs p) 
     mbar_wait(&full[j % NST], (uint32_t)(j / NST) & 1u);
     const int i = threadIdx.x;
     if (j * PT + i < k.n) {
-      const float* st = stage_at(smem, j % NST, D);
-      const float* h = st + i * D;
+      const float* st = smem + (size_t)(j % NST) * stage_floats<RAGGED>(D);
+      const float* h = st + (RAGGED ? k.off : 0) + i * D;
       const int c = k.c0 + j * PT + i, r = c & (p.R - 1), mm = c >> p.log2r;
       const float x = h[0] + prs[r];
       if (x > u.mq) {
@@ -614,7 +695,7 @@ __global__ void __launch_bounds__(PT, 4) posterior_fwd_kernel(const PostArgs p) 
         kl += kl_unit_f(h[3 + d], zs[d], live);
       }
       u.sq += w;
-      u.P += w * (x - st[PT * D + i]);
+      u.P += w * (x - st[ptr_at<RAGGED>(D) + i]);
       u.K += w * kl;
       float wa = w;
       if (!DET) {
@@ -634,7 +715,7 @@ __global__ void __launch_bounds__(PT, 4) posterior_fwd_kernel(const PostArgs p) 
       u.f[2 * ZD + 3] += wa * __ldg(p.grid + 2 * mm + 1);
     }
     __syncthreads();   // every thread is done with the stage
-    if (j + NST < npieces) k3_fetch(p, k, j + NST, smem, full, D);
+    if (j + NST < npieces) k3_fetch<RAGGED>(p, k, j + NST, smem, full, D);
   }
 
   // the CTA's run: the warps', then warp 0 merges them and, once every CTA
@@ -702,7 +783,7 @@ __global__ void __launch_bounds__(PT, 4) posterior_fwd_kernel(const PostArgs p) 
 // Two cluster barriers an image. A chunk past the shared memory allowed
 // streams in sub-chunks, read twice, and finishes dattn in device memory.
 // No atomics: a rerun gives bitwise the same gradients.
-template <int ZD, bool DET>
+template <int ZD, bool DET, bool RAGGED>
 __global__ void __launch_bounds__(PT, 4) posterior_bwd_kernel(const PostArgs p) {
   extern __shared__ __align__(16) float smem[];
   __shared__ uint64_t bar[NPIECE];
@@ -713,15 +794,16 @@ __global__ void __launch_bounds__(PT, 4) posterior_bwd_kernel(const PostArgs p) 
   const Chunk k = make_chunk(p, cl);
   constexpr int zd = ZD, D = 3 + 2 * ZD;
   const int C = p.R * p.M;
-  float* sm = smem;
-  float* aa = smem + (size_t)p.sub * D;   // the noise, then a
+  constexpr int SLACK = RAGGED ? 4 : 0;        // room for k.off
+  float* sm = smem + (RAGGED ? k.off : 0);     // the cells, as K3's stages
+  float* aa = smem + (size_t)p.sub * D + SLACK;   // the noise, then a
   float* ee = aa + p.sub;                  // e^q
   if ((int)threadIdx.x < 2 * zd + 5)
     gs[threadIdx.x] = p.g[(size_t)k.b * (2 * zd + 5) + threadIdx.x];
   setup(p, prs, ofs, bar);
   uint32_t ph = 0;
   Lse lq, la;
-  chunk_stats<DET>(p, k, sm, aa, prs, bar, &ph, red, &lq, &la);
+  chunk_stats<DET, RAGGED>(p, k, sm, aa, prs, bar, &ph, red, &lq, &la);
   exchange_norms(cl, lq, la, xch, nrm);
   const float m = nrm[0], ma = nrm[2];
   const float inv_s = 1.f / nrm[1], inv_sa = 1.f / nrm[3];
@@ -741,7 +823,7 @@ __global__ void __launch_bounds__(PT, 4) posterior_bwd_kernel(const PostArgs p) 
     const int cj = j * p.sub, nj = min(p.sub, k.n - cj);
     if (k.nsub > 1) {
       __syncthreads();
-      load_all(k.src + (size_t)cj * D, sm, nj, D, bar, &ph);
+      load_all<RAGGED>(k.src + (size_t)cj * D, sm, nj, D, bar, &ph);
     }
     for (int i = threadIdx.x; i < nj; i += PT) {
       const int c = k.c0 + cj + i, r = c & (p.R - 1), mm = c >> p.log2r;
@@ -785,7 +867,7 @@ __global__ void __launch_bounds__(PT, 4) posterior_bwd_kernel(const PostArgs p) 
     }
     if (k.nsub > 1) {
       __syncthreads();
-      store_cells(dst + (size_t)cj * D, sm, nj * D);
+      store_cells<RAGGED>(dst + (size_t)cj * D, sm, nj * D);
     }
   }
   block_sum<PT>(v, 2, red, xs);
@@ -798,7 +880,7 @@ __global__ void __launch_bounds__(PT, 4) posterior_bwd_kernel(const PostArgs p) 
     for (int i = threadIdx.x; i < k.n; i += PT)
       sm[i * D] = sm[i * D] - aa[i] * s_da - ee[i] * s_dq;
     __syncthreads();
-    store_cells(dst, sm, k.n * D);
+    store_cells<RAGGED>(dst, sm, k.n * D);
   } else {
     for (int i = threadIdx.x; i < k.n; i += PT) {
       const int c = k.c0 + i;
@@ -1203,7 +1285,7 @@ int launch_clusters(Kernel kernel, const Args& p, int B, int cs, int threads,
   return (int)cudaGetLastError();
 }
 
-// K3/K4's arguments, checked: R a power of two from 4 to MAXR,
+// K3/K4's arguments, checked: R a power of two up to MAXR (1 for mode B),
 // 1 <= zd <= MAXZD, 1 <= cs <= 16 CTAs of `chunk` cells covering the
 // image's R M cells, chunk and sub multiples of 4, the heads, p_tr and out
 // 16-byte aligned (the bulk copies' units). Returns the CUDA error code of
@@ -1212,7 +1294,7 @@ int post_args(PostArgs* p, const void* heads, const void* p_r,
               const void* offs, const void* p_tr, const void* grid,
               const void* g, void* out, int R, int M, int zd, float sig_r,
               int seed, int cs, int chunk, int sub) {
-  if (R < 4 || R > MAXR || (R & (R - 1)) || zd < 1 || zd > MAXZD || M < 1 ||
+  if (R < 1 || R > MAXR || (R & (R - 1)) || zd < 1 || zd > MAXZD || M < 1 ||
       cs < 1 || cs > 16 || chunk < 4 || chunk % 4 || sub < 4 || sub % 4 ||
       (long)cs * chunk < (long)R * M || (uintptr_t)heads % 16 ||
       (uintptr_t)p_tr % 16 || (uintptr_t)out % 16)
@@ -1290,20 +1372,25 @@ extern "C" int tvae_posterior_fwd(const void* heads, const void* p_r,
   int err = post_args(&p, heads, p_r, offs, p_tr, grid, nullptr, out, R, M,
                       zd, sig_r, seed, cluster, chunk, chunk);
   if (err) return err;
-  const size_t smem = (size_t)NST * PT * (3 + 2 * zd + 1) * 4;
+  const bool ragged = R == 1;
+  const int D = 3 + 2 * zd;
+  const size_t smem = (size_t)NST * 4 *
+      (ragged ? stage_floats<true>(D) : stage_floats<false>(D));
   const cudaStream_t s = (cudaStream_t)stream;
+#define TVAE_K3_AT(ZD, DET)                                                  \
+  (ragged ? launch_clusters(posterior_fwd_kernel<ZD, DET, true>, p, B,      \
+                            cluster, PT, smem, s)                           \
+          : launch_clusters(posterior_fwd_kernel<ZD, DET, false>, p, B,     \
+                            cluster, PT, smem, s))
 #define TVAE_K3(ZD)                                                          \
   case ZD:                                                                   \
-    return deterministic                                                     \
-               ? launch_clusters(posterior_fwd_kernel<ZD, true>, p, B,      \
-                                 cluster, PT, smem, s)                           \
-               : launch_clusters(posterior_fwd_kernel<ZD, false>, p, B,     \
-                                 cluster, PT, smem, s);
+    return deterministic ? TVAE_K3_AT(ZD, true) : TVAE_K3_AT(ZD, false);
   switch (zd) {
     TVAE_K3(1) TVAE_K3(2) TVAE_K3(3) TVAE_K3(4)
     TVAE_K3(5) TVAE_K3(6) TVAE_K3(7) TVAE_K3(8)
   }
 #undef TVAE_K3
+#undef TVAE_K3_AT
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1322,20 +1409,23 @@ extern "C" int tvae_posterior_bwd(const void* heads, const void* p_r,
   int err = post_args(&p, heads, p_r, offs, p_tr, grid, g, dheads, R, M, zd,
                       sig_r, seed, cluster, chunk, sub);
   if (err) return err;
-  const size_t smem = (size_t)sub * (3 + 2 * zd + 2) * 4;
+  const bool ragged = R == 1;
+  const size_t smem = ((size_t)sub * (3 + 2 * zd + 2) + (ragged ? 4 : 0)) * 4;
   const cudaStream_t s = (cudaStream_t)stream;
+#define TVAE_K4_AT(ZD, DET)                                                  \
+  (ragged ? launch_clusters(posterior_bwd_kernel<ZD, DET, true>, p, B,      \
+                            cluster, PT, smem, s)                           \
+          : launch_clusters(posterior_bwd_kernel<ZD, DET, false>, p, B,     \
+                            cluster, PT, smem, s))
 #define TVAE_K4(ZD)                                                          \
   case ZD:                                                                   \
-    return deterministic                                                     \
-               ? launch_clusters(posterior_bwd_kernel<ZD, true>, p, B,      \
-                                 cluster, PT, smem, s)                           \
-               : launch_clusters(posterior_bwd_kernel<ZD, false>, p, B,     \
-                                 cluster, PT, smem, s);
+    return deterministic ? TVAE_K4_AT(ZD, true) : TVAE_K4_AT(ZD, false);
   switch (zd) {
     TVAE_K4(1) TVAE_K4(2) TVAE_K4(3) TVAE_K4(4)
     TVAE_K4(5) TVAE_K4(6) TVAE_K4(7) TVAE_K4(8)
   }
 #undef TVAE_K4
+#undef TVAE_K4_AT
   return (int)cudaErrorInvalidValue;
 }
 

@@ -27,12 +27,15 @@ import torch
 from .decoder_mlp import decoder_mlp_bwd, decoder_mlp_fwd
 from .decoder_pose import fused_pose_decoder_tables, pose_decoder_bwd
 from .lifted_encoder import lifted_encoder_bwd, lifted_encoder_fwd
-from .mix_heads import mix_heads_bwd, mix_heads_fwd
+from .mix_heads import (mix_heads_bwd, mix_heads_fwd, mix_heads_r1_bwd,
+                        mix_heads_r1_fwd)
 from .posterior import (posterior_bwd, posterior_fwd, posterior_shard_bwd,
                         posterior_shard_fwd)
 
 WRAPPERS = {"mix_heads_fwd": mix_heads_fwd,
             "mix_heads_bwd": mix_heads_bwd,
+            "mix_heads_r1_fwd": mix_heads_r1_fwd,
+            "mix_heads_r1_bwd": mix_heads_r1_bwd,
             "posterior_fwd": posterior_fwd,
             "posterior_bwd": posterior_bwd,
             "posterior_shard_fwd": posterior_shard_fwd,

@@ -34,6 +34,11 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     # pre1, bc, w2, b2, wh, bh, out, N, R, K, D, G, chunk, act, stream
     "tvae_mix_heads_fwd": [_P] * 7 + [_I] * 7 + [_P],
+    # pre1, bc, w2, b2, wh, bh, out, N, KI, K, D, G, chunk, act, stream
+    "tvae_mix_heads_r1_fwd": [_P] * 7 + [_I] * 7 + [_P],
+    # pre1, bc, w2, b2, wh, g, dpre1, dpre2, part_a, part_b, sums, N, KI, K,
+    # D, G, chunk, SPa, runs, per, SPb, act, stream
+    "tvae_mix_heads_r1_bwd": [_P] * 11 + [_I] * 11 + [_P],
     # heads, p_r, offs, p_tr, grid, out, B, R, M, zd, sig_r, deterministic,
     # seed, cluster, chunk, stream
     "tvae_posterior_fwd": [_P] * 6 + [_I] * 4 + [_F] + [_I] * 4 + [_P],

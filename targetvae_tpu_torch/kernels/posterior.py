@@ -2,8 +2,10 @@
 variant (K5 forward, K6 backward).
 
 K3/K4 port targetvae_tpu/kernels/posterior.py::fused_posterior (its `_call`,
-forward and backward). They take the encoder's raw heads where the encoder
-kernels leave them: (B, M, R, D) float32, D = 3 + 2*zd channels [attention
+forward and backward), for mode C (R in 4, 8, 16) and mode B (R = 1, whose
+images of M cells need not come in fours: the kernels mask the ragged
+edges). They take the encoder's raw heads where the encoder kernels leave
+them: (B, M, R, D) float32, D = 3 + 2*zd channels [attention
 logit, theta mean, theta log-std, z means (zd), z log-stds (zd)] over the
 cells m-major, r-minor (the JAX package's flatten), and add the rotation
 prior log p(r) to the logit and the offsets to theta's mean themselves. For
@@ -56,6 +58,7 @@ _EPS = 1e-6
 # a CTA holds in shared memory at most, a larger chunk streaming through it
 # (k4_schedule)
 K3_CELLS = 3072
+K3_CELLS_R1 = 1024
 HEADS_SMEM_BYTES = 64 * 1024
 # K5/K6: the cells a CTA takes at most (shard_schedule)
 SHARD_CELLS = 1536
@@ -223,24 +226,29 @@ def _check_shapes(named) -> None:
 
 
 def posterior_kernel_supported(ecfg) -> bool:
-    """Whether K3/K4 take this encoder config: z_dim <= 8 (their templates)
-    and R in (4, 8, 16). compute_elbo's bf16 tier runs the JAX package's
-    bf16 path (encoder_apply, then the posterior in plain PyTorch)
-    otherwise; the route is chosen from the config before any launch."""
-    return ecfg.z_dim <= 8 and ecfg.groupconv in (4, 8, 16)
+    """Whether K3/K4 take this encoder config: z_dim <= 8 (their templates),
+    and mode C with R in (4, 8, 16) or mode B (R = 1). compute_elbo's bf16
+    tier runs the JAX package's bf16 path (encoder_apply, then the
+    posterior in plain PyTorch) otherwise; the route is chosen from the
+    config before any launch."""
+    return ecfg.z_dim <= 8 and (ecfg.mode == "B" or (
+        ecfg.mode == "C" and ecfg.groupconv in (4, 8, 16)))
 
 
 def k3_schedule(m: int, r: int, cluster: Optional[int] = None):
     """K3's grid for images of r*m cells: (cluster, chunk). An image is a
     cluster of `cluster` CTAs, by default the smallest of 1, 2, 4, 8, 16
-    whose chunks hold at most K3_CELLS cells, else 16; each CTA streams
-    `chunk` cells (a multiple of 4). The grid depends on the image's shape
-    alone, so a row of a batch does not depend on the batch's size."""
+    whose chunks hold at most K3_CELLS cells (K3_CELLS_R1 at R = 1, whose
+    images are small: mode B's 2,604 cells would leave a lone CTA streaming
+    them, 100 CTAs on 132 SMs), else 16; each CTA streams `chunk` cells (a
+    multiple of 4). The grid depends on the image's shape alone, so a row
+    of a batch does not depend on the batch's size."""
     c = r * m
     ceil4 = lambda n: -(-n // 4) * 4
+    cap = K3_CELLS_R1 if r == 1 else K3_CELLS
     if cluster is None:
         cluster = next((k for k in (1, 2, 4, 8, 16)
-                        if ceil4(-(-c // k)) <= K3_CELLS), 16)
+                        if ceil4(-(-c // k)) <= cap), 16)
     return cluster, ceil4(-(-c // cluster))
 
 
@@ -273,8 +281,8 @@ def _cuda_args(heads, p_r, offsets, p_tr, grid):
     zd = (d - 3) // 2
     if zd > 8:
         raise ValueError(f"K3/K4 take z_dim <= 8, got {zd}")
-    if r not in (4, 8, 16):
-        raise ValueError(f"posterior kernels take R in (4, 8, 16), got {r}")
+    if r not in (1, 4, 8, 16):
+        raise ValueError(f"posterior kernels take R in (1, 4, 8, 16), got {r}")
     f32 = torch.float32
     args = tuple(t.to(f32).contiguous()
                  for t in (heads, p_r, offsets, p_tr, grid))

@@ -1,15 +1,23 @@
-"""The TARGET-VAE ELBO for mode C (mirror of targetvae_tpu/losses/elbo.py).
+"""The TARGET-VAE ELBO for the three inference modes (mirror of
+targetvae_tpu/losses/elbo.py).
 
-Joint posterior over the R x H' x W' grid (reference train_mnist.py:187-294).
-The bf16 tier runs the posterior kernel and the pose-decoder kernel (the JAX
-kernel branch, elbo.py:312-338), for an encoder config the posterior kernels
-do not take (posterior_kernel_supported) the bf16 encoder_apply and the
-posterior's model code, and for a generator the pose kernel does not take
-(pose_decoder_supported) generator_apply's bf16 tier; the float32 tier is
-the plain model code of elbo.py:340-381. The posterior math is float32 in both. Both tiers are
-differentiable end to end: on the bf16 tier through the kernels' autograd
-Functions (K2 or K12, K4, K8 backward kernels); the Fourier w and b get no
-gradient.
+Mode A (unimodal x unimodal): one Gaussian over (theta, dx, z), a
+reparameterised draw, closed-form KLs. Modes B (attention x unimodal) and C
+(attention x attention): a posterior over the H' x W' translations, for mode
+C jointly with the R rotations (reference train_mnist.py:187-294); mode B is
+the R = 1 case with offsets 0, the translation prior alone and the
+conditional theta prior N(0, theta_prior).
+The bf16 tier runs the posterior kernel (K3/K4; the JAX kernel branches,
+elbo.py:252-278 and :312-338) and the pose-decoder kernel, for an encoder
+config the posterior kernels do not take (posterior_kernel_supported) the
+bf16 encoder_apply and the posterior's model code, and for a generator the
+pose kernel does not take (pose_decoder_supported) generator_apply's bf16
+tier; the float32 tier is the plain model code of elbo.py:234-250, :280-310
+and :340-381. Mode A's encoder is float32 on both tiers, its decoder the
+pose kernel on the bf16 tier. The posterior math is float32 in both. Both
+tiers are differentiable end to end: on the bf16 tier through the kernels'
+autograd Functions (K2 or K12, K4, K8 backward kernels); the Fourier w and
+b get no gradient.
 
 Sampling: with a torch.Generator the posterior sample is Gumbel-perturbed and
 theta and z are reparameterised with normal noise, all drawn from it. With
@@ -121,20 +129,48 @@ def reconstruct_log_prob(params: dict, cfg: ModelConfig, x_coord: torch.Tensor,
 
 @functools.lru_cache(maxsize=32)
 def posterior_constants(ecfg, device: torch.device):
-    """The joint posterior's constants for an encoder config on `device`,
-    made once (outside inference mode, so that autograd may use them): the
-    attention grid (M, 2), log p(r) and the offsets (R,), and the joint
-    prior log p(t, r) = log_softmax(log p(t) + log p(r)) over
-    the cells, (M, R) m-major as the heads' cells."""
+    """The posterior's constants for an encoder config of mode B or C on
+    `device`, made once (outside inference mode, so that autograd may use
+    them): the attention grid (M, 2), log p(r) and the offsets (R,), the
+    joint prior log p(t, r) = log_softmax(log p(t) + log p(r)) over the
+    cells, (M, R) m-major as the heads' cells, and the conditional prior's
+    std sig_r (pi / R). Mode B has one rotation cell: log p(r) and the
+    offset 0, log p(t) alone (already normalised) and sig_r theta_prior."""
     ad = attn_dim_for(ecfg)
     grid_np = attention_grid(ad, ecfg.image_dim)
-    p_r, offsets = rotation_constants(ecfg, device)
     with torch.inference_mode(False):
         grid = torch.as_tensor(grid_np, device=device)
         p_t = torch.as_tensor(_translation_log_prior(grid_np), device=device)
+        if ecfg.mode == "B":
+            zero = torch.zeros((1,), device=device)
+            return {"grid": grid, "p_r": zero, "offsets": zero,
+                    "p_tr": p_t[:, None], "sig_r": float(ecfg.theta_prior)}
+        p_r, offsets = rotation_constants(ecfg, device)
         p_tr = torch.log_softmax((p_t[:, None] + p_r).reshape(-1), dim=0)
     return {"grid": grid, "p_r": p_r, "offsets": offsets,
-            "p_tr": p_tr.reshape(ad * ad, ecfg.groupconv)}
+            "p_tr": p_tr.reshape(ad * ad, ecfg.groupconv),
+            "sig_r": float(np.pi / ecfg.groupconv)}
+
+
+def _mode_a_posterior(params: dict, ecfg, y: torch.Tensor,
+                      generator: Optional[torch.Generator],
+                      row_weights: Optional[torch.Tensor]):
+    """Mode A: (theta, dx, z) from one reparameterised draw of the
+    encoder's Gaussian, dx scaled by 0.1 (reference train_mnist.py:62-66),
+    and the closed-form KL: theta's against N(0, theta_prior), the unit
+    normal's over the translations and the content (:82-83)."""
+    enc = encoder_apply(params["encoder"], ecfg, y)
+    z_mu, z_logstd = enc["z_mu"], enc["z_logstd"]
+    z_std = torch.exp(z_logstd)
+    zfull = z_std * _normal_noise(generator, z_mu.shape, y.device) + z_mu
+    sigma = ecfg.theta_prior
+    kl_theta = (-z_logstd[:, 0] + np.log(sigma)
+                + (z_std[:, 0] ** 2 + z_mu[:, 0] ** 2) / (2 * sigma ** 2)
+                - 0.5)
+    z_kl = (-z_logstd[:, 1:] + 0.5 * z_std[:, 1:] ** 2
+            + 0.5 * z_mu[:, 1:] ** 2 - 0.5)
+    kl_div = _wmean(kl_theta + z_kl.sum(dim=1), row_weights)
+    return zfull[:, 0], zfull[:, 1:3] * 0.1, zfull[:, 3:], kl_div
 
 
 def compute_elbo(params: dict, cfg: ModelConfig, x_coord: torch.Tensor,
@@ -151,17 +187,25 @@ def compute_elbo(params: dict, cfg: ModelConfig, x_coord: torch.Tensor,
     ecfg = cfg.encoder
     b = y.shape[0]
     zd = ecfg.z_dim
-    R = ecfg.groupconv
-    M = attn_dim_for(ecfg) ** 2
     dev = y.device
+    if ecfg.mode == "A":
+        theta, dx, z, kl_div = _mode_a_posterior(params, ecfg, y, generator,
+                                                 row_weights)
+        log_p = reconstruct_log_prob(params, cfg, x_coord, y, theta, dx, z,
+                                     compute_dtype=compute_dtype,
+                                     row_weights=row_weights)
+        return log_p - kl_div, log_p, kl_div
+    R = 1 if ecfg.mode == "B" else ecfg.groupconv
+    M = attn_dim_for(ecfg) ** 2
     const = posterior_constants(ecfg, dev)
     grid = const["grid"]
-    sig_r = np.pi / R
+    sig_r = const["sig_r"]
 
     if kernel_tier(compute_dtype) and posterior_kernel_supported(ecfg):
         # the encoder's raw heads go to the posterior kernels as they lie
         # (B, M, R, D); K3 adds log p(r) and the offsets itself, and K4
-        # returns their cotangent in the same layout
+        # returns their cotangent in the same layout (mode B: R = 1, p(r)
+        # and the offset 0)
         heads = encoder_heads(params["encoder"], ecfg, y, compute_dtype)
         seed = (0 if generator is None else int(torch.randint(
             0, 2 ** 31 - 1, (1,), generator=generator, device=generator.device)))
@@ -175,6 +219,12 @@ def compute_elbo(params: dict, cfg: ModelConfig, x_coord: torch.Tensor,
     else:
         enc = encoder_apply(params["encoder"], ecfg, y, generator,
                             compute_dtype)
+        if ecfg.mode == "B":
+            # one rotation cell: the (B, H', W', 1) layout of mode C
+            enc = {k: v.unsqueeze(3) for k, v in enc.items()}
+            enc["q"] = torch.log_softmax(enc["attn"].reshape(b, -1),
+                                         dim=1).reshape(enc["attn"].shape)
+            enc["offsets"] = const["offsets"]
         q = enc["q"]                                              # (B,H',W',R)
         a_s4 = (enc["a_sampled"] if generator is not None
                 else torch.softmax(enc["attn"].reshape(b, -1), dim=1)

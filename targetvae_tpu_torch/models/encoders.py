@@ -1,28 +1,38 @@
-"""The mode-C TARGET-VAE encoder (mirror of targetvae_tpu/models/encoders.py).
+"""The three TARGET-VAE encoders (mirror of targetvae_tpu/models/encoders.py).
 
-Reference src/models.py:333-403: a lifting group conv puts the image on the
-rotation group, a 1x1x1 mixing conv and three heads (attention logit,
-theta mean/logstd, z mean/logstd) run per (position, rotation), and a joint
-posterior is formed over the R x H' x W' grid. Heads are channels-last,
-(B, H', W', R) and (B, H', W', R, zd), as in the JAX package.
+Reference src/models.py:229-403. Mode A (t_inf=unimodal, r_inf=unimodal) is
+an MLP on the flattened image with a unimodal Gaussian posterior over
+(theta, dx, z). Mode B (t_inf=attention, r_inf=unimodal) runs one image-sized
+conv (groupconv 0), or a group lift whose rotations a learned fc_r collapses
+(groupconv 4/8/16), then the 1x1 mixing conv and the heads at each of the
+H' x W' translations. Mode C lifts the image onto the rotation group with a
+group conv, and a 1x1x1 mixing conv and three heads (attention logit, theta
+mean/logstd, z mean/logstd) run per (position, rotation); a joint posterior
+is formed over the R x H' x W' grid. Heads are channels-last, (B, H', W', R)
+and (B, H', W', R, zd), as in the JAX package; encoder_heads gives mode B's
+the same layout with R = 1.
 
 Two tiers, chosen by kernels.kernel_tier(compute_dtype):
-  - bf16, with two encoders chosen by kernels.encoder_tier() where the JAX
-    package chooses (encoders.py::_use_encoder_kernel):
+  - bf16, with two mode-C encoders chosen by kernels.encoder_tier() where
+    the JAX package chooses (encoders.py::_use_encoder_kernel):
       "conv" (default): the lift conv runs as one bf16 F.conv2d (cuDNN on
       the card) and the lift activation, mixing and heads run in the fused
       mix_heads kernel, whose backward kernel returns the conv's bf16
       cotangent;
       "patch" (TARGETVAE_ENCODER_TIER=patch): the fused patch encoder, the
       lift one im2col GEMM inside the kernel (kernels/lifted_encoder.py);
-    where the tier has no kernel for the config's widths in the direction
-    asked (encoder_kernel_supported) the JAX package's XLA bf16 recipe in
-    plain PyTorch;
+    mode B runs the counterpart of the JAX package's _mode_b_fast: the
+    image-sized lift as one bf16 F.conv2d, fc_r folded into conv2 as one
+    rectangular (R_lift K, K) mixing, then the mix_heads kernel at R = 1
+    (it has no patch route, in either package, and widths K1/K2 at R = 1
+    do not take raise); mode A's MLP runs in float32 on both tiers, as in
+    the JAX package; where the tier has no mode-C kernel for the config's
+    widths in the direction asked (encoder_kernel_supported) the JAX
+    package's XLA bf16 recipe in plain PyTorch;
   - float32 (compute_dtype=None): plain PyTorch model code.
-encoder_heads returns the raw heads, which the kernel-tier ELBO hands to
-the posterior kernels as they lie; encoder_apply splits them and adds the
-rotation prior and the offsets.
-Modes A and B are not ported yet (ROADMAP.md, queue 1, slice 5).
+encoder_heads returns the raw heads of modes B and C, which the kernel-tier
+ELBO hands to the posterior kernels as they lie; encoder_apply splits them
+and adds the rotation prior and the offsets.
 """
 
 from __future__ import annotations
@@ -39,22 +49,25 @@ from ..kernels import encoder_tier, kernel_tier, needs_grad
 from ..kernels.decoder_pose import _act
 from ..kernels.lifted_encoder import build_patches, fused_lifted_encoder
 from ..kernels.mix_heads import (fused_lift_act_mix_heads,
+                                 fused_mix_heads_r1,
                                  lift_act_mix_heads_plain)
-from ..ops.groupconv import lifted_conv2d, lifted_weight
+from ..ops.groupconv import conv2d, lifted_conv2d, lifted_weight
 from ..ops.gumbel import gumbel_softmax
 from ..ops.rotate import rotate_filter_bank
 from ..utils.config import EncoderConfig
-from ..utils.initializers import groupconv_init, linear_init
+from ..utils.initializers import conv2d_init, groupconv_init, linear_init
 
 
-def _require_mode_c(cfg: EncoderConfig) -> None:
-    if cfg.mode != "C":
-        raise NotImplementedError(
-            f"encoder mode {cfg.mode} is not ported yet (ROADMAP.md, queue 1, "
-            "slice 5); this package implements mode C")
-    if cfg.groupconv not in (4, 8, 16):
-        raise ValueError("attention rotation inference requires groupconv in "
-                         f"(4, 8, 16), got {cfg.groupconv}")
+def _check_groupconv(cfg: EncoderConfig) -> None:
+    """The JAX package's errors for a groupconv the mode does not take
+    (targetvae_tpu/models/encoders.py::encoder_init)."""
+    if cfg.mode == "C" and cfg.groupconv not in (4, 8, 16):
+        raise ValueError(
+            "attention rotation inference (t_inf=attention, r_inf=attention*) "
+            f"requires groupconv in (4, 8, 16), got {cfg.groupconv}")
+    if cfg.mode == "B" and cfg.groupconv not in (0, 4, 8, 16):
+        raise ValueError(
+            f"groupconv must be 0, 4, 8 or 16, got {cfg.groupconv}")
 
 
 def group_offsets(R: int) -> np.ndarray:
@@ -87,8 +100,31 @@ def attn_dim_for(cfg: EncoderConfig) -> int:
 
 def encoder_init(generator: torch.Generator, cfg: EncoderConfig,
                  device=None) -> dict:
-    _require_mode_c(cfg)
+    """The JAX package's parameter tree for the config's mode, drawn from
+    `generator` in the order of its keys."""
+    _check_groupconv(cfg)
     kn, zd = cfg.kernels_num, cfg.z_dim
+    if cfg.mode == "A":
+        # the MLP on the flattened image -> 2 (z_dim + 3); the reference
+        # passes the encoder kernel number as the hidden width
+        n = cfg.image_dim * cfg.image_dim * cfg.in_channels
+        widths = [n] + [kn] * cfg.num_layers + [2 * (zd + 3)]
+        return {"layers": [linear_init(generator, a, o, device=device)
+                           for a, o in zip(widths[:-1], widths[1:])]}
+    if cfg.mode == "B":
+        n = cfg.image_dim
+        p = ({"conv1": conv2d_init(generator, cfg.in_channels, kn, n,
+                                   device=device)}
+             if cfg.groupconv == 0 else
+             {"conv1": groupconv_init(generator, cfg.in_channels, kn, n,
+                                      device=device),
+              "fc_r": linear_init(generator, cfg.groupconv, 1,
+                                  device=device)})
+        return {**p,
+                "conv2": linear_init(generator, kn, kn, device=device),
+                "conv_a": linear_init(generator, kn, 1, device=device),
+                "conv_r": linear_init(generator, kn, 2, device=device),
+                "conv_z": linear_init(generator, kn, 2 * zd, device=device)}
     return {
         "conv1": groupconv_init(generator, cfg.in_channels, kn,
                                 cfg.kernels_size, device=device),
@@ -115,8 +151,16 @@ def _split_heads(out: torch.Tensor, zd: int):
 
 
 def lift_rows(params: dict, cfg: EncoderConfig, y: torch.Tensor):
-    """The raw bf16 lift conv (no bias, no activation) as (B*H'*W', R*K) rows
-    with r-major channels, the mix_heads kernel's input; returns (rows, H').
+    """The raw bf16 mode-C lift conv (no bias, no activation) as
+    (B*H'*W', R*K) rows with r-major channels, the mix_heads kernel's input;
+    returns (rows, H'). conv_rows does the work."""
+    w = lifted_weight(params["conv1"]["w"], cfg.groupconv)
+    return conv_rows(w, y, cfg.padding)
+
+
+def conv_rows(w: torch.Tensor, y: torch.Tensor, padding: int):
+    """The raw bf16 conv of y (B, H, W, C) with the OIHW weight w (out, C, k,
+    k) as (B*H'*W', out) rows; returns (rows, H').
 
     The conv runs with channels_last operands, so its (B, R*K, H', W') output
     is stored as (B, H', W', R*K) and the rows are a view of it (the final
@@ -126,14 +170,13 @@ def lift_rows(params: dict, cfg: EncoderConfig, y: torch.Tensor):
     gradient (cuDNN's bf16 wgrad, f32 accumulation, bf16 out, as the JAX
     tier's _lift_wgrad), then the cast and the rotation gather back to the
     f32 parameter. The images are data (detached), so no dgrad is run."""
-    R, K = cfg.groupconv, cfg.kernels_num
-    w = lifted_weight(params["conv1"]["w"], R).to(torch.bfloat16)
+    w = w.to(torch.bfloat16)
     x = y.detach().permute(0, 3, 1, 2).to(torch.bfloat16)
     pre1 = F.conv2d(x.contiguous(memory_format=torch.channels_last),
                     w.contiguous(memory_format=torch.channels_last),
-                    padding=cfg.padding)
-    b, _, hp, wp = pre1.shape
-    return pre1.permute(0, 2, 3, 1).reshape(b * hp * wp, R * K).contiguous(), hp
+                    padding=padding)
+    b, c, hp, wp = pre1.shape
+    return pre1.permute(0, 2, 3, 1).reshape(b * hp * wp, c).contiguous(), hp
 
 
 def _mode_c_kernel_tier(params: dict, cfg: EncoderConfig, y: torch.Tensor):
@@ -196,6 +239,72 @@ def _mode_c_f32(params: dict, cfg: EncoderConfig, y: torch.Tensor):
     return h @ wh + bh
 
 
+def mode_b_matrices(params: dict, cfg: EncoderConfig):
+    """Mode B's lift and mixing as the kernel route runs them
+    (targetvae_tpu/models/encoders.py::_mode_b_fast): the lift's OIHW conv
+    weight (R K, C, k, k) with r-major output channels (the plain conv1 at
+    groupconv 0), its bias over them (R K,), and the mixing (R K, K) with
+    its bias (K,), fc_r folded into conv2 when groupconv > 0:
+    M[(r, k'), k] = fc_w[r] W2[k', k], b' = fc_b sum_k' W2[k', k] + b2.
+    The fold is torch ops on the parameters, so autograd carries its
+    gradient to fc_r and conv2."""
+    if cfg.groupconv == 0:
+        return (params["conv1"]["w"], params["conv1"]["b"],
+                params["conv2"]["w"], params["conv2"]["b"])
+    R, K = cfg.groupconv, cfg.kernels_num
+    w2 = params["conv2"]["w"]
+    fw, fb = params["fc_r"]["w"][:, 0], params["fc_r"]["b"][0]
+    return (lifted_weight(params["conv1"]["w"], R),
+            params["conv1"]["b"].repeat(R),
+            (fw[:, None, None] * w2).reshape(R * K, K),
+            fb * w2.sum(dim=0) + params["conv2"]["b"])
+
+
+def _mode_b_kernel_tier(params: dict, cfg: EncoderConfig, y: torch.Tensor):
+    """The bf16 lift conv, then the mixing and heads at R = 1 over the
+    R_lift K lifted channels: K1 at R = 1 (mix_heads_r1_fwd, K2 at R = 1
+    under autograd). (B*H'*W', D) heads."""
+    w, bc, mix_w, mix_b = mode_b_matrices(params, cfg)
+    rows, _ = conv_rows(w, y, cfg.image_dim // 2)
+    wh, bh = head_weights(params)
+    return fused_mix_heads_r1(rows, bc, mix_w, mix_b, wh, bh,
+                              K=cfg.kernels_num, act_kind=cfg.activation)
+
+
+def _mode_b_f32(params: dict, cfg: EncoderConfig, y: torch.Tensor):
+    """The plain mode-B encoder (targetvae_tpu/models/encoders.py::
+    encoder_apply's mode-B model code): (B, H', W', D) heads."""
+    kind, pad = cfg.activation, cfg.image_dim // 2
+    c1 = params["conv1"]
+    if cfg.groupconv == 0:
+        x = _act(conv2d(y, c1["w"], c1["b"], padding=pad), kind)
+    else:
+        lift = _act(lifted_conv2d(y, c1["w"], c1["b"], R=cfg.groupconv,
+                                  padding=pad), kind)
+        # the learned rotation collapse fc_r: Linear(R, 1)
+        x = (torch.einsum("bhwrk,r->bhwk", lift, params["fc_r"]["w"][:, 0])
+             + params["fc_r"]["b"])
+    h = _act(x @ params["conv2"]["w"] + params["conv2"]["b"], kind)
+    wh, bh = head_weights(params)
+    return h @ wh + bh
+
+
+def _mode_a(params: dict, cfg: EncoderConfig, y: torch.Tensor) -> dict:
+    """The mode-A MLP (reference src/models.py:229-260), float32 on both
+    tiers as in the JAX package; the ResidLinear option adds each hidden
+    layer's input: act(W h + b + h). z_mu, z_logstd (B, z_dim + 3)."""
+    kind = cfg.activation
+    layers = params["layers"]
+    h = _act(y.reshape(y.shape[0], -1) @ layers[0]["w"] + layers[0]["b"],
+             kind)
+    for layer in layers[1:-1]:
+        pre = h @ layer["w"] + layer["b"]
+        h = _act(pre + h if cfg.resid else pre, kind)
+    out = h @ layers[-1]["w"] + layers[-1]["b"]
+    latent = cfg.z_dim + 3
+    return {"z_mu": out[:, :latent], "z_logstd": out[:, latent:]}
+
+
 def encoder_kernel_supported(cfg: EncoderConfig, tier: str,
                              grad: bool) -> bool:
     """Whether encoder tier `tier` ("conv" or "patch") has kernels for this
@@ -203,7 +312,8 @@ def encoder_kernel_supported(cfg: EncoderConfig, tier: str,
     64, 128) and, with `grad`, its backward (K2 and K12: K in 16, 32, 64,
     128), all four at most 16 heads, D = 3 + 2 z_dim (z_dim <= 6). The bf16
     tier runs the plain recipe (_mode_c_bf16_recipe) otherwise; the route
-    is chosen from the shapes alone, before any launch."""
+    is chosen from the shapes alone, before any launch. Mode C only: mode
+    B's widths are checked by _mode_b_heads."""
     K = cfg.kernels_num
     fwd = (K % 16 == 0 and 16 <= K <= 128) if tier == "conv" else (
         K in (16, 32, 64, 128))
@@ -213,12 +323,19 @@ def encoder_kernel_supported(cfg: EncoderConfig, tier: str,
 
 def encoder_heads(params: dict, cfg: EncoderConfig, y: torch.Tensor,
                   compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """The mode-C encoder's raw heads, (B, H', W', R, D) float32 with
-    D = 3 + 2*z_dim channels [attention logit, theta mean, theta log-std,
-    z means, z log-stds], before the rotation prior and the offsets. On the
-    kernel tier this is a view of K1's or K11's output as they write it,
-    which the posterior kernels read where it lies."""
-    _require_mode_c(cfg)
+    """The raw heads of modes B and C, (B, H', W', R, D) float32 (R = 1 for
+    mode B) with D = 3 + 2*z_dim channels [attention logit, theta mean,
+    theta log-std, z means, z log-stds], before the rotation prior and the
+    offsets. On the kernel tier this is a view of K1's or K11's output as
+    they write it, which the posterior kernels read where it lies. Mode B
+    with TARGETVAE_ENCODER_TIER=patch raises: neither package has a patch
+    route for its image-sized lift."""
+    _check_groupconv(cfg)
+    if cfg.mode == "A":
+        raise ValueError("mode A (unimodal x unimodal) has no attention "
+                         "heads; encoder_apply returns its moments")
+    if cfg.mode == "B":
+        return _mode_b_heads(params, cfg, y, compute_dtype)
     if kernel_tier(compute_dtype):
         tier = encoder_tier()
         if not encoder_kernel_supported(cfg, tier, needs_grad(params, y)):
@@ -233,6 +350,33 @@ def encoder_heads(params: dict, cfg: EncoderConfig, y: torch.Tensor,
         raise ValueError(f"unsupported compute_dtype {compute_dtype}")
     hp = attn_dim_for(cfg)
     return out.reshape(y.shape[0], hp, hp, cfg.groupconv, -1)
+
+
+def _mode_b_heads(params: dict, cfg: EncoderConfig, y: torch.Tensor,
+                  compute_dtype: Optional[torch.dtype]) -> torch.Tensor:
+    if kernel_tier(compute_dtype):
+        if encoder_tier() == "patch":
+            raise NotImplementedError(
+                "TARGETVAE_ENCODER_TIER=patch has no mode-B route: the JAX "
+                "package has none either, and K11's im2col patches of the "
+                "image-sized lift would take "
+                f"{cfg.in_channels * cfg.image_dim ** 2 * 2} bytes a position "
+                "(1.3 GB a batch of 100 at 50x50); unset it for mode B")
+        d = 3 + 2 * cfg.z_dim
+        if cfg.kernels_num not in (16, 32, 64, 128) or d > 16:
+            raise ValueError(
+                "the bf16 tier runs mode B on K1/K2 at R = 1, which take "
+                f"kernels_num in (16, 32, 64, 128) and at most 16 heads "
+                f"(z_dim <= 6); got kernels_num={cfg.kernels_num}, "
+                f"z_dim={cfg.z_dim}. Use the float32 tier "
+                "(compute_dtype=None) for these widths")
+        out = _mode_b_kernel_tier(params, cfg, y)
+    elif compute_dtype is None:
+        out = _mode_b_f32(params, cfg, y)
+    else:
+        raise ValueError(f"unsupported compute_dtype {compute_dtype}")
+    hp = attn_dim_for(cfg)
+    return out.reshape(y.shape[0], hp, hp, 1, -1)
 
 
 @functools.lru_cache(maxsize=32)
@@ -254,13 +398,29 @@ def encoder_apply(params: dict, cfg: EncoderConfig, y: torch.Tensor,
     """y: (B, H, W, C) channels-last images. generator: draws the Gumbel
     sample `a_sampled`; None skips sampling (embedding).
 
-    Returns attn (logits incl. log p(r)), q (joint log posterior), p_r,
-    offsets, theta_mu (incl. offsets), theta_logstd, z_mu, z_logstd: the
-    heads of encoder_heads, split, with the rotation prior and the offsets
-    added."""
-    attn, theta_mu, theta_logstd, z_mu, z_logstd = _split_heads(
-        encoder_heads(params, cfg, y, compute_dtype), cfg.z_dim)
+    Mode C returns attn (logits incl. log p(r)), q (joint log posterior),
+    p_r, offsets, theta_mu (incl. offsets), theta_logstd, z_mu, z_logstd:
+    the heads of encoder_heads, split, with the rotation prior and the
+    offsets added. Mode B returns attn (B, H', W'), theta_mu, theta_logstd,
+    z_mu, z_logstd (B, H', W', zd) and a_sampled, as the JAX package's;
+    mode A z_mu and z_logstd (B, z_dim + 3)."""
+    if cfg.mode == "A":
+        _check_groupconv(cfg)
+        return _mode_a(params, cfg, y)
+    heads = encoder_heads(params, cfg, y, compute_dtype)
     b = y.shape[0]
+    if cfg.mode == "B":
+        attn, theta_mu, theta_logstd, z_mu, z_logstd = _split_heads(
+            heads.squeeze(3), cfg.z_dim)
+        out = {"attn": attn, "theta_mu": theta_mu,
+               "theta_logstd": theta_logstd, "z_mu": z_mu,
+               "z_logstd": z_logstd}
+        if generator is not None:
+            out["a_sampled"] = gumbel_softmax(
+                attn.reshape(b, -1), generator).reshape(attn.shape)
+        return out
+    attn, theta_mu, theta_logstd, z_mu, z_logstd = _split_heads(heads,
+                                                                cfg.z_dim)
     p_r, offsets = rotation_constants(cfg, y.device)
     attn = attn + p_r
     flat = attn.reshape(b, -1)
@@ -274,17 +434,27 @@ def encoder_apply(params: dict, cfg: EncoderConfig, y: torch.Tensor,
     return out
 
 
+def _param_dict(sub: dict) -> nn.ParameterDict:
+    return nn.ParameterDict({k: nn.Parameter(v) for k, v in sub.items()})
+
+
 class Encoder(nn.Module):
-    """The mode-C encoder's parameters in encoder_init's layout (conv1 w
+    """The encoder's parameters in encoder_init's layout (mode C: conv1 w
     (K, C, 1, k, k) and b; conv2, conv_a, conv_r, conv_z with w (K, out) and
-    b); encoder_apply computes with them."""
+    b; mode B: conv1 (w (K, C, k, k) at groupconv 0), fc_r at groupconv > 0,
+    and the same heads; mode A: the list "layers" of w (n_in, n_out) and b);
+    encoder_apply computes with them."""
 
     def __init__(self, cfg: EncoderConfig, params: dict):
         super().__init__()
         self.cfg = cfg
         for name, sub in params.items():
-            self.add_module(name, nn.ParameterDict(
-                {k: nn.Parameter(v) for k, v in sub.items()}))
+            self.add_module(name, nn.ModuleList(map(_param_dict, sub))
+                            if isinstance(sub, (list, tuple))
+                            else _param_dict(sub))
 
     def params(self) -> dict:
-        return {name: dict(sub.items()) for name, sub in self.named_children()}
+        return {name: ([dict(d.items()) for d in sub]
+                       if isinstance(sub, nn.ModuleList)
+                       else dict(sub.items()))
+                for name, sub in self.named_children()}

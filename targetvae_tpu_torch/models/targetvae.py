@@ -7,7 +7,8 @@ the other methods are functions of (params, inputs) like the JAX ones.
 `embed` reproduces the reference clustering embedding get_latent
 (clustering_mnist.py:45-164): argmax posterior cell (no sampling),
 z_content = [z_mu; z_std] at the best cell, theta = theta_mu there, and
-dx = the softmax-expected grid coordinate marginalised over rotations.
+dx = the softmax-expected grid coordinate (marginalised over rotations in
+mode C); in mode A the Gaussian's own means.
 """
 
 from __future__ import annotations
@@ -98,6 +99,10 @@ class TargetVAE(nn.Module):
         b = y.shape[0]
         enc = encoder_apply(params["encoder"], ecfg, y, None,
                             compute_dtype=compute_dtype)
+        if ecfg.mode == "A":
+            z_mu, z_std = enc["z_mu"], torch.exp(enc["z_logstd"])
+            return {"z_content": torch.cat([z_mu[:, 3:], z_std[:, 3:]], dim=1),
+                    "theta_mu": z_mu[:, 0:1], "dx": z_mu[:, 1:3]}
         attn = enc["attn"]
         flat = attn.reshape(b, -1)
         ind = torch.argmax(flat, dim=1)                              # (B,)
@@ -108,6 +113,8 @@ class TargetVAE(nn.Module):
         theta_best = enc["theta_mu"].reshape(b, -1)[rows, ind][:, None]
         grid = torch.as_tensor(attention_grid(attn.shape[1], ecfg.image_dim),
                                device=y.device)
-        sm = torch.softmax(flat, dim=1).reshape(attn.shape).sum(dim=3)
-        dx = sm.reshape(b, -1) @ grid
+        sm = torch.softmax(flat, dim=1)
+        if ecfg.mode == "C":
+            sm = sm.reshape(attn.shape).sum(dim=3).reshape(b, -1)
+        dx = sm @ grid
         return {"z_content": z_content, "theta_mu": theta_best, "dx": dx}

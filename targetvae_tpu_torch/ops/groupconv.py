@@ -1,4 +1,5 @@
-"""Lifting group convolution C -> P_R (mirror of targetvae_tpu/ops/groupconv.py).
+"""Lifting group convolution C -> P_R and the plain conv (mirror of
+targetvae_tpu/ops/groupconv.py).
 
 The R rotated filter copies come from the static gather tables
 (ops/rotate.py) and run as one F.conv2d whose output channels are r-major
@@ -13,6 +14,19 @@ import torch
 import torch.nn.functional as F
 
 from .rotate import rotate_filter_bank
+
+
+def conv2d(x: torch.Tensor, weight: torch.Tensor,
+           bias: Optional[torch.Tensor] = None, padding: int = 0,
+           compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Plain 2-D conv, channels last: x (B, H, W, C_in), weight (out, in, k,
+    k). Returns (B, H', W', out) float32; with a compute dtype the conv runs
+    in it and its output is cast back (as the JAX tier does)."""
+    xc, w = x.permute(0, 3, 1, 2), weight
+    if compute_dtype is not None:
+        xc, w = xc.to(compute_dtype), w.to(compute_dtype)
+    y = F.conv2d(xc, w, padding=padding).float().permute(0, 2, 3, 1)
+    return y if bias is None else y + bias
 
 
 def lifted_weight(weight: torch.Tensor, R: int) -> torch.Tensor:

@@ -70,6 +70,14 @@ class Trainer:
                 f"TrainConfig dp={train_cfg.dp}: data parallelism is not "
                 "ported yet (ROADMAP.md, queue 1, item 23)")
         self._mesh = None
+        mode = (model if isinstance(model, ModelConfig)
+                else model.cfg).encoder.mode
+        if train_cfg.sp and mode != "C":
+            raise NotImplementedError(
+                f"sp=True with encoder mode {mode}: the grid-sharded "
+                "posterior is ported for mode C only; mode B's waits "
+                "(ROADMAP.md, queue 1, item 24), and mode A has no grid to "
+                "shard")
         if train_cfg.sp:
             if train_cfg.tp <= 1:
                 raise ValueError("sp=True shards the posterior grid over the "

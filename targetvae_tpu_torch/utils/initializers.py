@@ -29,6 +29,18 @@ def linear_init(generator: torch.Generator, n_in: int, n_out: int,
     return p
 
 
+def conv2d_init(generator: torch.Generator, in_channels: int,
+                out_channels: int, kernel_size: int, bias: bool = True,
+                device=None) -> dict:
+    """Weight stored (out, in, k, k) (the reference's Conv2d layout)."""
+    bound = 1.0 / math.sqrt(in_channels * kernel_size * kernel_size)
+    p = {"w": _uniform(generator, (out_channels, in_channels, kernel_size,
+                                   kernel_size), bound, device)}
+    if bias:
+        p["b"] = _uniform(generator, (out_channels,), bound, device)
+    return p
+
+
 def groupconv_init(generator: torch.Generator, in_channels: int,
                    out_channels: int, kernel_size: int, input_rot_dim: int = 1,
                    bias: bool = True, device=None) -> dict:

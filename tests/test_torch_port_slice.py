@@ -118,12 +118,13 @@ def test_bf16_kernel_tier_tracks_f32_tier(pair):
 
 
 def test_port_runs_without_jax(tmp_path):
-    """The package, its train CLI and its checkpoints with jax, flax,
-    optax, msgpack and the JAX package all blocked from import."""
+    """The package, its train and clustering CLIs, modes A and B and its
+    checkpoints with jax, flax, optax, msgpack, scikit-learn, matplotlib
+    and the JAX package all blocked from import."""
     code = (
         "import os, sys\n"
         "for m in ('jax', 'jaxlib', 'flax', 'optax', 'msgpack', "
-        "'targetvae_tpu'):\n"
+        "'targetvae_tpu', 'sklearn', 'matplotlib'):\n"
         "    sys.modules[m] = None\n"
         "import numpy as np, torch\n"
         "from targetvae_tpu_torch import TargetVAE, ModelConfig\n"
@@ -164,6 +165,29 @@ def test_port_runs_without_jax(tmp_path):
         "st2, _, host = load_train_state(run + '/training_state.sav', "
         "Trainer(fresh, TrainConfig()).init_state(1))\n"
         "assert st2.step == st.step == 2 and int(host['epoch']) == 1\n"
+        "rng = np.random.default_rng(1)\n"
+        "np.save(root + '/data/mnist_test.npy', rng.integers(0, 256, "
+        "(10, 12, 12), dtype=np.uint8))\n"
+        "np.save(root + '/data/mnist_U/transforms_test.npy', "
+        "rng.normal(size=(10, 3)))\n"
+        "np.save(root + '/labels.npy', np.arange(10) % 2)\n"
+        "from targetvae_tpu_torch.cli import clustering_mnist\n"
+        "res = clustering_mnist.main(['--image-dim', '12', '--data-root', "
+        "root + '/data', '--path-to-encoder', run + '/inference.sav', "
+        "'--path-to-labels', root + '/labels.npy', '--n-clusters', '2', "
+        "'-d', '-1'])\n"
+        "assert res['acc'] >= 0.5 and os.path.exists(run + '/results.txt')\n"
+        "for t, g in (('unimodal', 4), ('attention', 0), ('attention', 8)):\n"
+        "    mb = TargetVAE(ModelConfig(GeneratorConfig(hidden_dim=64, "
+        "fourier_expansion=True, embedding_dim=64), EncoderConfig("
+        "t_inf=t, r_inf='unimodal', image_dim=14, kernels_num=16, "
+        "groupconv=g)), device='cpu')\n"
+        "    pb = mb.init(torch.Generator().manual_seed(0))\n"
+        "    o = mb.embed(pb, torch.rand(2, 14, 14, 1), torch.bfloat16)\n"
+        "    assert o['dx'].shape == (2, 2)\n"
+        "    tb = Trainer(mb, TrainConfig(compute_dtype='bfloat16'))\n"
+        "    sb, mt = tb.train_step(tb.init_state(0), torch.rand(2, 14, 14, 1))\n"
+        "    assert bool(torch.isfinite(mt).all())\n"
         "print('ok')\n")
     res = subprocess.run([sys.executable, "-c", code, str(tmp_path)],
                          cwd=REPO, capture_output=True, text=True,

@@ -6,9 +6,10 @@
 Builds flagship-shape inputs (random weights, synthetic images and seeded
 tensors, as chip_smoke.py makes them) for the port found under --root (a
 checkout of the repository; this one by default) and times, for each
-kernel K1-K12: the kernel (chip_smoke.device_ms: the calls replayed from a
-CUDA graph, their inputs cold in L2, the median of 5 windows of at least 2
-ms) and its plain version the same way. K3 and K4 are timed sampled and
+kernel K1-K12 (K1-K4 also at R = 1, on mode B's mnist-b and mnist-b-p8,
+where the checkout has them): the kernel (chip_smoke.device_ms: the calls
+replayed from a CUDA graph, their inputs cold in L2, the median of 5
+windows of at least 2 ms) and its plain version the same way. K3 and K4 are timed sampled and
 deterministic; beside K3-K6 a yardstick: one PyTorch pass over the same
 input bytes (a sum over each image's bytes for the forwards, a negation
 that reads and writes them for the backwards). K2's and K12's cotangent is
@@ -62,6 +63,58 @@ def sp_stage_rank(rank: int, world: int) -> dict:
         for _ in range(5):
             step()
     return {}
+
+
+def r1_kernels(cs, torch, dev, rn, time) -> None:
+    """K1 and K2 at R = 1 on the lift rows of chip_smoke's mnist-b and
+    mnist-b-p8 (KI = 128, 1,024), K3 and K4 at R = 1 on seeded heads of
+    their 2,601 cells, where the checkout at --root has them (mode B)."""
+    import targetvae_tpu_torch.kernels.mix_heads as mh
+    if not hasattr(mh, "mix_heads_r1_fwd"):
+        print("R = 1 kernels: not in this checkout", flush=True)
+        return
+    import targetvae_tpu_torch.kernels.posterior as post
+    from targetvae_tpu_torch import TargetVAE
+    from targetvae_tpu_torch.losses.elbo import posterior_constants
+    from targetvae_tpu_torch.models.encoders import (
+        conv_rows, head_weights, mode_b_matrices)
+    bf = torch.bfloat16
+    y = torch.from_numpy(cs.synthetic_images(cs.B, 50, 3)).to(dev)
+    for name in ("mnist-b", "mnist-b-p8"):
+        cfg = cs.mode_config(name)
+        e = cfg.encoder
+        params = TargetVAE(cfg, device=dev).init(
+            torch.Generator().manual_seed(0))["encoder"]
+        w, bc, mix_w, mix_b = mode_b_matrices(params, e)
+        rows, _ = conv_rows(w, y, e.image_dim // 2)
+        wh, bh = head_weights(params)
+        K, D = e.kernels_num, 3 + 2 * e.z_dim
+        k1 = (rows, bc.float().contiguous(), mix_w.to(bf).contiguous(),
+              mix_b.float().contiguous(), wh.to(bf).contiguous(),
+              bh.float().contiguous())
+        time(f"K1 R=1 {name}", lambda *a: mh.mix_heads_r1_fwd(*a, K=K), k1,
+             lambda *a: mh.lift_act_mix_heads_plain(*a, R=1, K=K), k1)
+        a2 = (*k1[:5], rn(rows.shape[0], D) * 1e-2)
+        time(f"K2 R=1 {name}", lambda *a: mh.mix_heads_r1_bwd(*a, K=K), a2,
+             lambda *a: mh.lift_act_mix_heads_bwd_plain(*a, R=1, K=K), a2)
+        del k1, a2, rows
+    const = posterior_constants(cfg.encoder, dev)
+    m, zd = const["grid"].shape[0], cfg.encoder.z_dim
+    scale = torch.tensor([2.0, 1.0, 0.3] + [1.0] * zd + [0.3] * zd,
+                         device=dev)
+    k3 = (rn(cs.B, m, 1, 3 + 2 * zd) * scale, const["p_r"],
+          const["offsets"], const["p_tr"], const["grid"], const["sig_r"])
+    g3 = rn(cs.B, 2 * zd + 5)
+    noise = post.philox_gumbel(9, cs.B, 1, m, dev)
+    for det, tag in ((False, ""), (True, " deterministic")):
+        time("K3 R=1" + tag,
+             lambda *a: post.posterior_fwd(9, *a, deterministic=det), k3,
+             lambda *a: post.posterior_plain(
+                 *a, noise=None if det else noise), k3)
+        time("K4 R=1" + tag,
+             lambda *a: post.posterior_bwd(9, g3, *a, deterministic=det), k3,
+             lambda *a: post.posterior_bwd_plain(
+                 g3, *a, noise=None if det else noise), k3)
 
 
 def main() -> int:
@@ -175,6 +228,7 @@ def main() -> int:
         time("K12", lambda *a: lifted_encoder_bwd(*a, R=R, K=K), a12,
              lambda *a: lifted_encoder_bwd_plain(*a, R=R, K=K), a12)
         del h1, a12, k1, k7, k9, k11
+        r1_kernels(cs, torch, dev, rn, time)
 
     from targetvae_tpu_torch.train import Trainer
     from targetvae_tpu_torch.utils.config import TrainConfig
