@@ -77,14 +77,37 @@ from a seed):
      clustering_mnist clusters each run's test latents (bf16, k-means, 5
      clusters): results.txt with a finite accuracy and three finite
      correlations; then the time of k-means with 100 restarts on the card.
+ 15. the particles model at the EMPIAR-10025 shape, full width, B = 100
+     (110 x 110, mode C, P8, K = 128, k = 64, padding 16: 49,928 cells
+     an image, 624,100 positions a batch; Gaussian with 109 x 109 CTF
+     kernels and mask radius 45): K1, K2, K3, K4, K7 and K8 (n_out 1 and
+     2), K11 and K12 (the patches' 2.56e9 elements) against their plain
+     versions and timed; the deterministic bf16 ELBO of each encoder tier
+     and its CTF-filtered decoded mean against float32, one deterministic
+     step's gradients (the CTF tables in physical units); 20 sampled
+     train steps on each tier (finite, rising ELBO, each kernel once a
+     step); train, eval and embed img/s on each tier and the cuDNN lift's
+     share of the conv tier's step; then train_particles (2 epochs of
+     tools/make_synthetic_particles_torch.py's stand-in, 1,050 / 250 by
+     --train-portion, --mask-radius 45 --normalize, CTF) and
+     clustering_particles on its inference.sav: finite TSV lines, the _ctf
+     tag, launches once a step, cluster_assignments.npy, results.txt; then
+     one epoch with --fit-noise and no CTF table, held the same way (with
+     a CTF table the variance is CTF-filtered and a --fit-noise run
+     diverges, in the JAX package as in the port).
+ 16. dSprites and galaxy through their CLIs at full width: train_dsprites
+     and train_galaxy 2 epochs each on the synthetic tools' data (launches
+     once a step, K7 and K8 at galaxy's depth 4 and n_out 3), then
+     clustering_dsprites and clustering_galaxy; each config's bf16 train
+     step on each encoder tier (img/s).
 
 Phases 2-8 cover both mode-C encoder tiers: the default "conv" tier (the
 cuDNN lift conv, K1/K2) and the fused patch encoder (K11/K12) that
 TARGETVAE_ENCODER_TIER=patch selects (phases 3, 4 and 7 drive each tier's
 embed, eval and train path; phases 2 and 6 also check K11 and K12 at the
 galaxy encoder's C = 3 shape). Each of phases 3, 4, 6 (the z_dim routes),
-7, 9, 10, 11, 12 and 13 sets the launch counts to 0 just before it drives
-its path and reads them just after (phase 10 in each rank). Every failed check exits
+7, 9, 10, 11, 12, 13, 15 and 16 sets the launch counts to 0 just before it
+drives its path and reads them just after (phase 10 in each rank). Every failed check exits
 non-zero. With no CUDA device, or outside a checkout, it fails without
 printing a result. Its last line is {"ok": true, "device": {...}}; the line
 before it is the kernels' JSON.
@@ -214,6 +237,32 @@ MODE_STEPS = 20     # sampled train steps of each of them
 THETA_HEADS = ("encoder.conv_r.w", "encoder.conv_r.b")
 TOL_GRAD_THETA = 0.25
 CLUSTER_EPOCHS = 2  # phase 14's training runs before clustering
+EMPIAR_DIM = 110    # phase 15: the EMPIAR-10025 particles' size
+EMPIAR_STEPS = 20   # sampled train steps on each encoder tier
+EMPIAR_EMBED = 500  # particles embedded for the embed img/s
+EMPIAR_REPS = 3     # calls cuda_ms averages for phase 15's step and batch
+PARTICLES_TOTAL = 1300       # phase 15's CLI stack, split 1,050 / 250 by
+PARTICLES_PORTION = "0.8077"  # --train-portion (int(1300 * 0.8077) = 1050)
+PARTICLES_TEST = 100         # the held-out stack clustering_particles embeds
+VERTICAL_EPOCHS = 2  # phases 15-16's CLI training runs
+DSPRITES_TRAIN, DSPRITES_TEST = 1000, 100   # train_dsprites' default limit
+# The particles model at the EMPIAR shape (phase 15), bf16 tier vs float32
+# tier, no noise, at the initial weights on this phase's batch (B = 100,
+# CTF tables in physical units). Under the Gaussian with CTF and mask the
+# theta head's gradient (conv_r) nearly cancels, as mode B's does (PR 13),
+# and so do the lift and mixing layers' (conv1, conv2), which it reaches:
+# the JAX package's own bf16 TPU tier (its kernels interpreted on the CPU,
+# tools/calibrate_particles_grad_tol.py, phase 15's inputs, seeds 0-1)
+# reads up to 0.315 there, the port on the same inputs up to 0.25; every
+# other leaf reads <= 0.03 and keeps TOL_GRAD. The bound is that largest
+# reading rounded up, under 1, so that a zero or disconnected gradient
+# (1.0) fails. The CTF-filtered decoded mean that the Gaussian scores:
+# 0.0121 in the JAX package, 0.0120 in the port; its bound is TOL_ELBO's
+# 2e-2.
+TOL_GRAD_EMPIAR_ENC = 0.35
+EMPIAR_CANCELLING = ("encoder.conv1.", "encoder.conv2.", "encoder.conv_r.")
+TOL_MU_EMPIAR = TOL_ELBO
+VERTICAL_REPS = 5    # train steps cuda_ms averages in phase 16, each tier
 ROUTED_STEPS = 3     # its train steps
 # device_ms, the kernel timer: windows of at least 2 ms of replayed calls,
 # the median of 5; calls rotate over copies of their inputs so that 60 MB
@@ -346,6 +395,7 @@ def device_ms(fn, args, windows: int = TIMER_WINDOWS) -> float:
     g = capture(n)
     g.replay()
     one = replay(g, n)
+    del g                       # its pool, before the next capture takes one
     reps = n * max(1, -(-int(TIMER_WINDOW_MS / max(one, 1e-4)) // n))
     g = capture(reps)
     g.replay()
@@ -546,7 +596,6 @@ def kernel_inputs(params, cfg, dev):
     tests/test_kernels.py (K9 at the posed 50x50 grids K7 decodes)."""
     import torch
     from targetvae_tpu_torch.models.encoders import head_weights, lift_rows
-    from targetvae_tpu_torch.kernels.decoder_pose import pose_tables
     from targetvae_tpu_torch.ops.coords import image_grid, transform_coords
 
     ecfg, gcfg = cfg.encoder, cfg.generator
@@ -559,22 +608,31 @@ def kernel_inputs(params, cfg, dev):
           wh, bh)
 
     k3 = posterior_inputs(torch, ecfg, B, dev)
+    k7, pose, z = pose_inputs(torch, pg, gcfg, ecfg.image_dim, dev)
+    theta, dx, wf, bf = pose
+    x = transform_coords(torch.as_tensor(image_grid(ecfg.image_dim),
+                                         device=dev), dx, theta).contiguous()
+    k9 = (x, wf, bf, *k7[4:])
+    k11, xp = patch_inputs(pe, ecfg, y)
+    return k1, k3, k7, pose, k9, z, k11, (xp, y)
+
+
+def pose_inputs(torch, pg, gcfg, n: int, dev):
+    """K7's inputs for B posed n x n images of generator params pg: seeded
+    poses and latents (theta, dx * 0.2, z, from seed 4, as
+    tests/test_kernels.py), their pose tables and the generator's weights;
+    with the poses (theta, dx, wf, bf) and z."""
+    from targetvae_tpu_torch.kernels.decoder_pose import pose_tables
     g = torch.Generator(device=dev).manual_seed(4)
     rn = lambda *s: torch.randn(s, generator=g, device=dev)
-
-    theta, dx, z = rn(B), rn(B, 2) * 0.2, rn(B, zd)
+    theta, dx, z = rn(B), rn(B, 2) * 0.2, rn(B, gcfg.z_dim)
     wf = pg["fourier"]["w"] / gcfg.fourier_sigma
-    u, v, p, q = pose_tables(theta, dx, wf, pg["fourier"]["b"], ecfg.image_dim)
+    u, v, p, q = pose_tables(theta, dx, wf, pg["fourier"]["b"], n)
     k7 = (u, v, p, q, z @ pg["latent_linear"]["w"], pg["coord_linear"]["w"],
           pg["coord_linear"]["b"], torch.stack([h["w"] for h in pg["hidden"]]),
           torch.stack([h["b"] for h in pg["hidden"]]), pg["out"]["w"],
           pg["out"]["b"])
-    x = transform_coords(torch.as_tensor(image_grid(ecfg.image_dim),
-                                         device=dev), dx, theta).contiguous()
-    k9 = (x, wf, pg["fourier"]["b"], *k7[4:])
-    k11, xp = patch_inputs(pe, ecfg, y)
-    return (k1, k3, k7, (theta, dx, wf, pg["fourier"]["b"]), k9, z, k11,
-            (xp, y))
+    return k7, (theta, dx, wf, pg["fourier"]["b"]), z
 
 
 def bound(nbytes: float, ops: float, peak: float):
@@ -807,9 +865,10 @@ def galaxy_inputs(torch, dev):
     return k11_g, gcfg_e
 
 
-def check_k11(torch, k11, R, K, label):
-    """Phase 2: K11 serving and in save-h1 mode against its plain version.
-    Returns the heads' max abs error and the saved h1."""
+def check_k11(torch, k11, R, K, label, phase="2"):
+    """K11 serving and in save-h1 mode against its plain version (phase 2,
+    and 15 at the EMPIAR shape). Returns the heads' max abs error and the
+    saved h1."""
     from targetvae_tpu_torch.kernels.lifted_encoder import (
         lifted_encoder_fwd, lifted_encoder_plain)
     o_k = lifted_encoder_fwd(*k11, R=R, K=K)
@@ -821,7 +880,8 @@ def check_k11(torch, k11, R, K, label):
     err_h = float((h1.float() - h1_p.float()).abs().max())
     check(bool(torch.isfinite(o_k).all()) and err <= TOL_K11
           and torch.equal(o_k, o_s) and err_h <= step,
-          f"phase 2: K11 lifted_encoder_fwd {label} P {tuple(k11[0].shape)} "
+          f"phase {phase}: K11 lifted_encoder_fwd {label} P "
+          f"{tuple(k11[0].shape)} "
           f"-> {tuple(o_k.shape)}: max_abs_err {err:.3e} <= {TOL_K11}; "
           f"save-h1 output identical, h1 {tuple(h1.shape)} max_abs_err "
           f"{err_h:.3e} <= {step:.3e} (one bf16 step)")
@@ -1062,6 +1122,37 @@ def main() -> int:
             return run(torch, torch.device("cuda", 0))
     except CheckFailed:
         return 1
+
+
+# each kernel's CUDA source in targetvae_tpu_torch/csrc/ and the TPU kernel
+# it replaces (file:line in targetvae_tpu/kernels/)
+SOURCES = {
+    "mix_heads_fwd": ("mix_heads.cu", "mix_heads.py:232"),
+    "mix_heads_bwd": ("mix_heads.cu", "mix_heads.py:269"),
+    "posterior_fwd": ("posterior.cu", "posterior.py:241"),
+    "posterior_bwd": ("posterior.cu", "posterior.py:253"),
+    "pose_decoder_fwd": ("decoder_pose.cu", "decoder_pose.py:390"),
+    "pose_decoder_bwd": ("decoder_pose_bwd.cu", "decoder_pose.py:439"),
+    "decoder_mlp_fwd": ("decoder_mlp.cu", "decoder_mlp.py:99"),
+    "decoder_mlp_bwd": ("decoder_mlp.cu", "decoder_mlp.py:234"),
+    "lifted_encoder_fwd": ("lifted_encoder.cu", "lifted_encoder.py:179"),
+    "lifted_encoder_bwd": ("lifted_encoder.cu", "lifted_encoder.py:215"),
+    "posterior_shard_fwd": ("posterior.cu", "posterior.py:466"),
+    "posterior_shard_bwd": ("posterior.cu", "posterior.py:477"),
+    "mix_heads_r1_fwd": ("mix_heads_r1.cu", "mix_heads.py:232"),
+    "mix_heads_r1_bwd": ("mix_heads_r1.cu", "mix_heads.py:269")}
+
+
+def kernel_entry(key: str, row: dict) -> dict:
+    """A row of the kernels' JSON line: the kernel's name (key, with its
+    config in brackets for the rows of phases 13 and 15), route, source,
+    the TPU kernel it replaces, its numbers, and library_ms (no single
+    PyTorch call computes any of these kernels)."""
+    src, replaced = SOURCES[key.split("[")[0]]
+    return {"name": key, "route": "cuda",
+            "source": "targetvae_tpu_torch/csrc/" + src,
+            "replaces": "targetvae_tpu/kernels/" + replaced,
+            **row, "library_ms": None}
 
 
 def run(torch, dev) -> int:
@@ -1316,19 +1407,13 @@ def run(torch, dev) -> int:
     # ---- phase 14: clustering through the CLIs ----
     clustering_path(torch, kernels, dev)
 
-    sources = {
-        "mix_heads_fwd": ("mix_heads.cu", "mix_heads.py:232"),
-        "mix_heads_bwd": ("mix_heads.cu", "mix_heads.py:269"),
-        "posterior_fwd": ("posterior.cu", "posterior.py:241"),
-        "posterior_bwd": ("posterior.cu", "posterior.py:253"),
-        "pose_decoder_fwd": ("decoder_pose.cu", "decoder_pose.py:390"),
-        "pose_decoder_bwd": ("decoder_pose_bwd.cu", "decoder_pose.py:439"),
-        "decoder_mlp_fwd": ("decoder_mlp.cu", "decoder_mlp.py:99"),
-        "decoder_mlp_bwd": ("decoder_mlp.cu", "decoder_mlp.py:234"),
-        "lifted_encoder_fwd": ("lifted_encoder.cu", "lifted_encoder.py:179"),
-        "lifted_encoder_bwd": ("lifted_encoder.cu", "lifted_encoder.py:215"),
-        "posterior_shard_fwd": ("posterior.cu", "posterior.py:466"),
-        "posterior_shard_bwd": ("posterior.cu", "posterior.py:477")}
+    # ---- phase 15: the particles model at the EMPIAR shape, its CLIs ----
+    vertical_rows, _ = empiar_path(torch, kernels, dev)
+    particles_cli(torch, kernels, dev, vertical_rows)
+
+    # ---- phase 16: dSprites and galaxy through their CLIs ----
+    vertical_clis(torch, kernels, dev)
+
     by_path = {"embed": embed_counts, "eval": eval_counts,
                "train": train_counts, "embed_patch": patch_counts["embed"],
                "eval_patch": patch_counts["eval"],
@@ -1345,24 +1430,17 @@ def run(torch, dev) -> int:
                  "posterior_shard_bwd": "train_sp"}
     bounds = kernel_bounds(cfg, k1[0].shape[0], shard_cells)
     entries = [
-        {"name": name, "route": "cuda",
-         "source": "targetvae_tpu_torch/csrc/" + src,
-         "replaces": "targetvae_tpu/kernels/" + rep,
-         "launches": by_path[main_path.get(name, "train")][name],
-         "launches_by_path": {path: counts[name]
-                              for path, counts in by_path.items()},
-         **results[name], "bound_ms": bounds[name][0],
-         "bound_by": bounds[name][1], "library_ms": None}
-        for name, (src, rep) in sources.items()]
-    # the R = 1 forms (phase 13): launches on their config's train steps
-    sources["mix_heads_r1_fwd"] = ("mix_heads_r1.cu", "mix_heads.py:232")
-    sources["mix_heads_r1_bwd"] = ("mix_heads_r1.cu", "mix_heads.py:269")
-    for key, row in mode_rows.items():
-        src, rep = sources[key.split("[")[0]]
-        entries.append({"name": key, "route": "cuda",
-                        "source": "targetvae_tpu_torch/csrc/" + src,
-                        "replaces": "targetvae_tpu/kernels/" + rep,
-                        **row, "library_ms": None})
+        kernel_entry(name, {
+            "launches": by_path[main_path.get(name, "train")][name],
+            "launches_by_path": {path: counts[name]
+                                 for path, counts in by_path.items()},
+            **results[name], "bound_ms": bounds[name][0],
+            "bound_by": bounds[name][1]})
+        for name in SOURCES if not name.startswith("mix_heads_r1")]
+    # the R = 1 forms (phase 13) on their config's train steps, and the
+    # particles path's kernels at the EMPIAR shape (phase 15)
+    entries += [kernel_entry(key, row)
+                for key, row in (mode_rows | vertical_rows).items()]
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1376,22 +1454,75 @@ def check_backward_kernels(torch, cfg, dev, k1, k3, k7, pose, k9, k11, h1,
     their plain versions on the same flagship-shape inputs, with seeded
     cotangents, and K12 at the galaxy encoder's C = 3 shape. Returns the
     cotangents and K7's saved tiles for the timings."""
-    from targetvae_tpu_torch.kernels.decoder_pose import (
-        fused_pose_decoder_tables, pose_closure, pose_decoder_bwd,
-        pose_decoder_bwd_plain, pose_decoder_plain)
-    from targetvae_tpu_torch.kernels.mix_heads import (
-        lift_act_mix_heads_bwd_plain, mix_heads_bwd)
-
     R, K, zd = cfg.encoder.groupconv, cfg.encoder.kernels_num, cfg.encoder.z_dim
     gen = torch.Generator(device=dev).manual_seed(13)
     rn = lambda *s: torch.randn(s, generator=gen, device=dev)
-    max_abs = lambda a, b: max(float((x.float() - y.float()).abs().max())
-                               for x, y in zip(a, b))
-    same = lambda a, b: all(torch.equal(x, y) for x, y in zip(a, b))
-    finite = lambda a: all(bool(torch.isfinite(x).all()) for x in a)
 
     # K2
     g1 = rn(k1[0].shape[0], R * (3 + 2 * zd))
+    results["mix_heads_bwd"] = {"max_abs_err": check_k2(torch, k1, g1, R, K,
+                                                        "")}
+
+    # K4, then K3 and K4 at the other shapes the port takes
+    g3 = rn(B, 2 * zd + 5)
+    check_posterior_bwd(torch, k3, g3, results, "flagship")
+    check_posterior_shapes(torch, cfg, dev)
+
+    # K7 save-residuals mode, then K8 and the pose closure
+    g7 = rn(B, k7[0].shape[1] ** 2, k7[9].shape[1])
+    err8, hs = check_k8(torch, k7, pose, g7, "")
+    results["pose_decoder_bwd"] = {"max_abs_err": err8}
+
+    # K12 from K11's saved h1, K10 from K9's inputs
+    from targetvae_tpu_torch.kernels.decoder_mlp import (
+        decoder_mlp_bwd, decoder_mlp_bwd_plain)
+    from targetvae_tpu_torch.kernels.lifted_encoder import lifted_encoder_fwd
+    g11 = rn(k11[0].shape[0], R * (3 + 2 * zd))
+    results["lifted_encoder_bwd"] = {"max_abs_err": check_k12(
+        torch, (k11[0], h1, *k11[3:6], g11), R, K, "")}
+    k11_g, ecfg_g = galaxy_inputs(torch, dev)
+    Rg, Kg = ecfg_g.groupconv, ecfg_g.kernels_num
+    _, h1_g = lifted_encoder_fwd(*k11_g, R=Rg, K=Kg, save_h1=True)
+    g11_g = rn(k11_g[0].shape[0], Rg * (3 + 2 * ecfg_g.z_dim))
+    check_k12(torch, (k11_g[0], h1_g, *k11_g[3:6], g11_g), Rg, Kg,
+              "galaxy C=3")
+
+    g9 = rn(*k9[0].shape[:2], 1)
+    got = decoder_mlp_bwd(*k9, g9)
+    again = decoder_mlp_bwd(*k9, g9)
+    ref = decoder_mlp_bwd_plain(*k9, g9)
+    torch.cuda.synchronize()
+    names = ("dx", "dhz", "dW1", "db1", "dWh", "dbh", "dW3", "db3")
+    rels = {n: rel_l2(a, b) for n, a, b in zip(names, got, ref)}
+    check(_finite(got) and max(rels.values()) <= TOL_K10_REL
+          and _same(got, again),
+          f"phase 6: K10 decoder_mlp_bwd x {tuple(k9[0].shape)}: rel L2 "
+          f"{({n: float(f'{r:.2e}') for n, r in rels.items()})} <= "
+          f"{TOL_K10_REL}; rerun bitwise identical")
+    results["decoder_mlp_bwd"] = {"max_abs_err": _max_abs(got, ref)}
+    return g1, g3, g7, hs, g11, g9
+
+
+def _finite(ts) -> bool:
+    return all(bool(ts_.isfinite().all()) for ts_ in ts)
+
+
+def _same(a, b) -> bool:
+    return all(x.equal(y) for x, y in zip(a, b))
+
+
+def _max_abs(a, b) -> float:
+    return max(float((x.float() - y.float()).abs().max()) for x, y in zip(a, b))
+
+
+def check_k2(torch, k1, g1, R, K, label, phase="6") -> float:
+    """K2 on K1's inputs with the cotangent g1 against its plain version:
+    dpre1 within one bf16 step outside the rows where a near-zero pre2
+    flips the leaky slope (k2_leaky_flips), the other gradients within
+    TOL_BWD_REL relative L2, a rerun bitwise equal. Returns the max abs
+    error over its outputs."""
+    from targetvae_tpu_torch.kernels.mix_heads import (
+        lift_act_mix_heads_bwd_plain, mix_heads_bwd)
     got = mix_heads_bwd(*k1[:5], g1, R=R, K=K)
     again = mix_heads_bwd(*k1[:5], g1, R=R, K=K)
     ref = lift_act_mix_heads_bwd_plain(*k1[:5], g1, R=R, K=K)
@@ -1400,11 +1531,13 @@ def check_backward_kernels(torch, cfg, dev, k1, k3, k7, pose, k9, k11, h1,
     rel_dp = rel_l2(got[0], ref[0])
     rels = [rel_l2(a, b) for a, b in zip(got[1:], ref[1:])]
     fl = k2_leaky_flips(torch, k1, g1, got[0], ref[0], R, K)
-    check(finite(got) and fl["err_other_rows"] <= fl["step"]
+    check(_finite(got) and fl["err_other_rows"] <= fl["step"]
           and fl["rows_explained"] == fl["rows_past_step"]
           and rel_dp <= TOL_DPRE1_REL and max(rels) <= TOL_BWD_REL
-          and same(got, again),
-          f"phase 6: K2 mix_heads_bwd {tuple(k1[0].shape)}: dpre1 max_abs_err "
+          and _same(got, again),
+          f"phase {phase}: K2 mix_heads_bwd {label + ' ' if label else ''}"
+          f"{tuple(k1[0].shape)}: "
+          f"dpre1 max_abs_err "
           f"{err_dp:.3e}; {fl['near_zero']} pre2 entries near zero in "
           f"{fl['rows_near_zero']} rows; other rows max_abs_err "
           f"{fl['err_other_rows']:.3e} <= one bf16 step {fl['step']:.3e}; "
@@ -1413,14 +1546,18 @@ def check_backward_kernels(torch, cfg, dev, k1, k3, k7, pose, k9, k11, h1,
           f"pre2; rel L2 {rel_dp:.3e} <= {TOL_DPRE1_REL}; dbc, dW2, db2, "
           f"dWh, dbh rel L2 {np.round(rels, 7).tolist()} <= {TOL_BWD_REL}; "
           f"rerun bitwise identical")
-    results["mix_heads_bwd"] = {"max_abs_err": max_abs(got, ref)}
+    return _max_abs(got, ref)
 
-    # K4, then K3 and K4 at the other shapes the port takes
-    g3 = rn(B, 2 * zd + 5)
-    check_posterior_bwd(torch, k3, g3, results, "flagship")
-    check_posterior_shapes(torch, cfg, dev)
 
-    # K7 save-residuals mode, then K8 and the pose closure
+def check_k8(torch, k7, pose, g7, label, phase="6"):
+    """K7's save-residuals mode (output identical to serving, h tiles within
+    one bf16 step of the plain version's), then K8 with the cotangent g7
+    and the pose closure against their plain versions (TOL_BWD_REL relative
+    L2 each, a rerun bitwise equal). Returns K8's max abs error and K7's
+    saved h tiles."""
+    from targetvae_tpu_torch.kernels.decoder_pose import (
+        fused_pose_decoder_tables, pose_closure, pose_decoder_bwd,
+        pose_decoder_bwd_plain, pose_decoder_plain)
     y, hs = fused_pose_decoder_tables(*k7, save_res=True)
     y0 = fused_pose_decoder_tables(*k7)
     _, hs_p = pose_decoder_plain(*k7, save_res=True)
@@ -1428,10 +1565,11 @@ def check_backward_kernels(torch, cfg, dev, k1, k3, k7, pose, k9, k11, h1,
     hscale = float(hs_p.float().abs().max())
     err_hs = float((hs.float() - hs_p.float()).abs().max())
     check(torch.equal(y, y0) and err_hs <= hscale / 128,
-          f"phase 6: K7 save-residuals: output identical to the serving "
-          f"forward; h tiles {tuple(hs.shape)} max_abs_err {err_hs:.3e} <= "
-          f"{hscale / 128:.3e} (one bf16 step)")
-    g7 = rn(*y.shape)
+          f"phase {phase}: K7 save-residuals{' ' + label if label else ''}: "
+          f"output identical to the "
+          f"serving forward; h tiles {tuple(hs.shape)} max_abs_err "
+          f"{err_hs:.3e} <= {hscale / 128:.3e} (one bf16 step)")
+    del hs_p
     bwd_args = (*k7[:4], hs, k7[5], k7[7], k7[9], g7)
     got = pose_decoder_bwd(*bwd_args)
     again = pose_decoder_bwd(*bwd_args)
@@ -1442,63 +1580,35 @@ def check_backward_kernels(torch, cfg, dev, k1, k3, k7, pose, k9, k11, h1,
     names = ("dfx", "dfy", "dfc", "dhz", "dW1", "db1", "dWh", "dbh", "dW3",
              "db3", "dtheta", "d(dx)")
     rels = {n: rel_l2(a, b) for n, a, b in zip(names, got, ref)}
-    check(finite(got) and max(rels.values()) <= TOL_BWD_REL
-          and same(got[:10], again),
-          f"phase 6: K8 pose_decoder_bwd {tuple(k7[0].shape)} + closure: rel "
+    check(_finite(got) and max(rels.values()) <= TOL_BWD_REL
+          and _same(got[:10], again),
+          f"phase {phase}: K8 pose_decoder_bwd {label + ' ' if label else ''}"
+          f"{tuple(k7[0].shape)} "
+          f"+ closure: rel "
           f"L2 {({n: float(f'{r:.2e}') for n, r in rels.items()})} <= "
           f"{TOL_BWD_REL}; rerun bitwise identical")
-    results["pose_decoder_bwd"] = {"max_abs_err": max_abs(got, ref)}
+    return _max_abs(got, ref), hs
 
-    # K12 from K11's saved h1, K10 from K9's inputs
-    from targetvae_tpu_torch.kernels.decoder_mlp import (
-        decoder_mlp_bwd, decoder_mlp_bwd_plain)
+
+def check_k12(torch, bwd11, R, K, label, phase="6") -> float:
+    """K12 on (P, h1, W2, b2, Wh, g) against its plain version: each
+    gradient within TOL_BWD_REL relative L2, a rerun bitwise equal.
+    Returns the max abs error over its outputs."""
     from targetvae_tpu_torch.kernels.lifted_encoder import (
-        lifted_encoder_bwd, lifted_encoder_bwd_plain, lifted_encoder_fwd)
-    g11 = rn(k11[0].shape[0], R * (3 + 2 * zd))
-    bwd11 = (k11[0], h1, *k11[3:6], g11)
+        lifted_encoder_bwd, lifted_encoder_bwd_plain)
     got = lifted_encoder_bwd(*bwd11, R=R, K=K)
     again = lifted_encoder_bwd(*bwd11, R=R, K=K)
     ref = lifted_encoder_bwd_plain(*bwd11, R=R, K=K)
     torch.cuda.synchronize()
     names = ("dWc", "dbc", "dW2", "db2", "dWh", "dbh")
     rels = {n: rel_l2(a, b) for n, a, b in zip(names, got, ref)}
-    check(finite(got) and max(rels.values()) <= TOL_BWD_REL
-          and same(got, again),
-          f"phase 6: K12 lifted_encoder_bwd P {tuple(k11[0].shape)}: rel L2 "
+    check(_finite(got) and max(rels.values()) <= TOL_BWD_REL
+          and _same(got, again),
+          f"phase {phase}: K12 lifted_encoder_bwd {label + ' ' if label else ''}P "
+          f"{tuple(bwd11[0].shape)}: rel L2 "
           f"{({n: float(f'{r:.2e}') for n, r in rels.items()})} <= "
           f"{TOL_BWD_REL}; rerun bitwise identical")
-    results["lifted_encoder_bwd"] = {"max_abs_err": max_abs(got, ref)}
-    k11_g, ecfg_g = galaxy_inputs(torch, dev)
-    Rg, Kg = ecfg_g.groupconv, ecfg_g.kernels_num
-    _, h1_g = lifted_encoder_fwd(*k11_g, R=Rg, K=Kg, save_h1=True)
-    g11_g = rn(k11_g[0].shape[0], Rg * (3 + 2 * ecfg_g.z_dim))
-    bwd_g = (k11_g[0], h1_g, *k11_g[3:6], g11_g)
-    got = lifted_encoder_bwd(*bwd_g, R=Rg, K=Kg)
-    again = lifted_encoder_bwd(*bwd_g, R=Rg, K=Kg)
-    ref = lifted_encoder_bwd_plain(*bwd_g, R=Rg, K=Kg)
-    torch.cuda.synchronize()
-    rels = {n: rel_l2(a, b) for n, a, b in zip(names, got, ref)}
-    check(finite(got) and max(rels.values()) <= TOL_BWD_REL
-          and same(got, again),
-          f"phase 6: K12 lifted_encoder_bwd galaxy C=3 P "
-          f"{tuple(k11_g[0].shape)}: rel L2 "
-          f"{({n: float(f'{r:.2e}') for n, r in rels.items()})} <= "
-          f"{TOL_BWD_REL}; rerun bitwise identical")
-
-    g9 = rn(*k9[0].shape[:2], 1)
-    got = decoder_mlp_bwd(*k9, g9)
-    again = decoder_mlp_bwd(*k9, g9)
-    ref = decoder_mlp_bwd_plain(*k9, g9)
-    torch.cuda.synchronize()
-    names = ("dx", "dhz", "dW1", "db1", "dWh", "dbh", "dW3", "db3")
-    rels = {n: rel_l2(a, b) for n, a, b in zip(names, got, ref)}
-    check(finite(got) and max(rels.values()) <= TOL_K10_REL
-          and same(got, again),
-          f"phase 6: K10 decoder_mlp_bwd x {tuple(k9[0].shape)}: rel L2 "
-          f"{({n: float(f'{r:.2e}') for n, r in rels.items()})} <= "
-          f"{TOL_K10_REL}; rerun bitwise identical")
-    results["decoder_mlp_bwd"] = {"max_abs_err": max_abs(got, ref)}
-    return g1, g3, g7, hs, g11, g9
+    return _max_abs(got, ref)
 
 
 def train_path(torch, kernels, cfg, dev):
@@ -1557,11 +1667,15 @@ def check_tier_grads(torch, g16, g32, tier, phase="7", leaf_tol=None):
         n16, n32 = float(g16[shift].norm()), float(g32[shift].norm())
         shift_ok = n16 <= floor and n32 <= floor
         shift_msg = f"; {shift} |g| {n16:.2e} / {n32:.2e} <= {floor:.2e}"
+    groups = {}
+    for n, v in leaf_tol.items():
+        groups.setdefault(v, []).append(n)
     check(all(bool(torch.isfinite(g).all()) for g in g16.values())
           and rels[worst] <= leaf_tol.get(worst, TOL_GRAD) and shift_ok,
           f"phase {phase}: deterministic step gradients, bf16 {tier} tier "
           f"vs float32 tier, rel L2 per leaf <= {TOL_GRAD}"
-          + "".join(f" ({n} <= {v:.3g})" for n, v in leaf_tol.items())
+          + "".join(f" ({os.path.commonprefix(ns)}* <= {v:.3g})"
+                    for v, ns in groups.items())
           + f": {({n: float(f'{r:.2e}') for n, r in rels.items()})}; worst "
           f"{worst}" + shift_msg)
 
@@ -2984,6 +3098,602 @@ def clustering_path(torch, kernels, dev) -> None:
               f"{pts.shape[0]}, dimension {pts.shape[1]}, 5 clusters: "
               f"{(time.perf_counter() - t) * 1e3:.1f} ms (host clock), "
               f"inertia {inertia:.4f}", flush=True)
+
+
+def empiar_config(fit_noise: bool = False):
+    """Phase 15's particles model at the EMPIAR-10025 shape
+    (targetvae_tpu/cli/train_particles.py's defaults at 110 x 110,
+    tools/bench_config.py's particles-ctf): 110x110x1, mode C, P8, K = 128,
+    k = 64, padding 16 (79 x 79 = 6,241 positions, 49,928 cells an image),
+    z = 2, a Fourier decoder F = 1,024, hidden 512, 2 layers (n_out 2 with
+    fit_noise), Gaussian with CTF kernels and mask radius 45, theta prior
+    pi."""
+    from targetvae_tpu_torch.utils.config import (
+        EncoderConfig, GeneratorConfig, LikelihoodConfig, ModelConfig)
+    d = EMPIAR_DIM
+    return ModelConfig(
+        generator=GeneratorConfig(z_dim=2, hidden_dim=512,
+                                  n_out=2 if fit_noise else 1, num_layers=2,
+                                  fourier_expansion=True,
+                                  fourier_sigma=2.0 / (d - 1)),
+        encoder=EncoderConfig(t_inf="attention", r_inf="attention+offsets",
+                              image_dim=d, in_channels=1, z_dim=2,
+                              kernels_num=128, kernels_size=64, padding=16,
+                              groupconv=8, theta_prior=np.pi,
+                              normal_prior_over_r=False),
+        likelihood=LikelihoodConfig(kind="gaussian", fit_noise=fit_noise,
+                                    mask_radius=45, use_ctf=True))
+
+
+def empiar_ctf(torch, n: int, dev):
+    """(n, 109, 109) CTF kernels from the port's ctf_filter over
+    tools/bench_config.py's spread (:126-131) in the units the CTF tables
+    and ctf_filter take: the defocus spread linearly over 1.0-2.5 um, cs
+    2.0 mm, 300 kV, 1.5 A/px, amplitude contrast 7 %, no B-factor.
+    (bench_config.py writes the defocus in A and the amplitude contrast as
+    a fraction, which ctf_filter reads as um and percent: a defocus of
+    1-2.5 cm, whose kernels are aliased noise.)"""
+    from targetvae_tpu_torch.data.ctf import ctf_filter
+    full = lambda v: np.full(n, v)
+    table = {"defocus": np.linspace(1.0, 2.5, n), "cs": full(2.0),
+             "voltage": full(300.0), "apix": full(1.5), "bfactor": full(0.0),
+             "ampcont": full(7.0), "dfdiff": full(0.0), "dfang": full(0.0)}
+    kc = EMPIAR_DIM - 1
+    return torch.from_numpy(ctf_filter(table, kc, kc)).to(dev)
+
+
+@contextlib.contextmanager
+def filtered_mean(module, apply_ctf, seen: dict):
+    """Replaces module.reconstruction_log_prob (the likelihood that the
+    ELBO's reconstruction calls) with one that also stores, in seen["mu"],
+    the decoded mean filtered by the batch's CTF kernels (apply_ctf(mean
+    (B, n, n), kernels)): what the Gaussian scores against the particles.
+    tools/calibrate_particles_grad_tol.py also spies on the JAX package's
+    module with it."""
+    inner = module.reconstruction_log_prob
+
+    def spy(y_hat, y, kind, **kw):
+        b, n = y.shape[0], y.shape[1]
+        seen["mu"] = apply_ctf(y_hat[..., 0].reshape(b, n, n), kw["ctf"])
+        return inner(y_hat, y, kind, **kw)
+    module.reconstruction_log_prob = spy
+    try:
+        yield
+    finally:
+        module.reconstruction_log_prob = inner
+
+
+def particle_images(n: int, seed: int) -> np.ndarray:
+    """synthetic_images at 110 x 110, each standardised by its own mean and
+    std as train_particles --normalize does: (n, 110, 110, 1) float32."""
+    from targetvae_tpu_torch.data.datasets import preprocess_particles
+    imgs = synthetic_images(n, EMPIAR_DIM, seed)[..., 0]
+    return np.ascontiguousarray(
+        preprocess_particles(imgs, 0, True)[..., None], dtype=np.float32)
+
+
+def empiar_kernel_checks(torch, cfg, params, dev) -> dict:
+    """Phase 15: each kernel of the particles path against its plain
+    version at the EMPIAR shape, B = 100, then timed beside it (device_ms):
+    K1 and K2 on the lift rows of 100 synthetic particles (624,100
+    positions), K3 and K4 over 49,928 cells (their default cluster grids),
+    K7 and K8 over 12,100 pixels at n_out 1 and, with a fit-noise
+    generator, 2, K11 and K12 on the 624,100 x 4,096 patches (2.56e9 bf16
+    elements, past 2^31). Returns the kernels' rows, keyed
+    "kernel[EMPIAR]" (K7 / K8 at n_out 2 "kernel[EMPIAR n_out 2]")."""
+    from targetvae_tpu_torch import TargetVAE
+    from targetvae_tpu_torch.kernels.decoder_pose import (
+        fused_pose_decoder_tables, pose_decoder_bwd, pose_decoder_bwd_plain,
+        pose_decoder_plain)
+    from targetvae_tpu_torch.kernels.lifted_encoder import (
+        lifted_encoder_bwd, lifted_encoder_bwd_plain, lifted_encoder_fwd,
+        lifted_encoder_plain)
+    from targetvae_tpu_torch.kernels.mix_heads import (
+        fused_lift_act_mix_heads, lift_act_mix_heads_bwd_plain,
+        lift_act_mix_heads_plain, mix_heads_bwd, mix_heads_fwd)
+    from targetvae_tpu_torch.kernels.posterior import (
+        k3_schedule, k4_schedule, philox_gumbel, posterior_bwd,
+        posterior_bwd_plain, posterior_fwd, posterior_plain)
+    from targetvae_tpu_torch.models.encoders import attn_dim_for
+    e = cfg.encoder
+    R, K, zd, n = e.groupconv, e.kernels_num, e.z_dim, e.image_dim
+    gen = torch.Generator(device=dev).manual_seed(21)
+    rn = lambda *s: torch.randn(s, generator=gen, device=dev)
+    rows = {}
+    key = lambda k, label="EMPIAR": f"{k}[{label}]"
+    k1, k3, k7, pose, _, _, k11, _ = kernel_inputs(params, cfg, dev)
+    n_pos, m = k1[0].shape[0], k3[0].shape[1]
+    hp = attn_dim_for(e)
+    print(f"phase 15: EMPIAR shape: {n} x {n} images, H' = W' = {hp}, "
+          f"{n_pos} positions a batch, {m * R} cells an image, patches "
+          f"{tuple(k11[0].shape)} ({k11[0].numel()} elements); K3 grid "
+          f"(cluster, chunk) {k3_schedule(m, R)}, K4 (cluster, chunk, sub) "
+          f"{k4_schedule(m, R, 3 + 2 * zd)}", flush=True)
+    bounds = kernel_bounds(cfg, n_pos, 0)
+
+    def timed(name, label, kfn, kargs, pfn, pargs, row, bnd=bounds):
+        rows[key(name, label)] = dict(row, bound_ms=bnd[name][0],
+                                      bound_by=bnd[name][1])
+        torch.cuda.empty_cache()     # the checks' tensors, before the graphs
+        time_kernel(rows, key(name, label), "15", kfn, kargs, pfn, pargs)
+
+    # K1 and K2: the conv tier's mixing on the cuDNN lift's rows
+    o_k = fused_lift_act_mix_heads(*k1, R=R, K=K)
+    o_p = lift_act_mix_heads_plain(*k1, R=R, K=K)
+    torch.cuda.synchronize()
+    err1 = float((o_k - o_p).abs().max())
+    check(bool(torch.isfinite(o_k).all()) and err1 <= TOL_K1,
+          f"phase 15: K1 mix_heads_fwd EMPIAR {tuple(k1[0].shape)} -> "
+          f"{tuple(o_k.shape)}: max_abs_err {err1:.3e} <= {TOL_K1}")
+    del o_k, o_p
+    g1 = rn(n_pos, R * (3 + 2 * zd))
+    err2 = check_k2(torch, k1, g1, R, K, "EMPIAR", "15")
+    timed("mix_heads_fwd", "EMPIAR", lambda *a: mix_heads_fwd(*a, R=R, K=K),
+          k1, lambda *a: lift_act_mix_heads_plain(*a, R=R, K=K), k1,
+          {"max_abs_err": err1})
+    k2 = (*k1[:5], g1)
+    timed("mix_heads_bwd", "EMPIAR", lambda *a: mix_heads_bwd(*a, R=R, K=K),
+          k2, lambda *a: lift_act_mix_heads_bwd_plain(*a, R=R, K=K), k2,
+          {"max_abs_err": err2})
+    del k1, k2, g1
+    torch.cuda.empty_cache()
+
+    # K3 and K4 over 49,928 cells
+    abs3, err3 = check_posterior_fwd(torch, k3, None, "EMPIAR", phase="15")
+    g3 = rn(B, 2 * zd + 5)
+    abs4, err4, sc4 = check_posterior_bwd(torch, k3, g3, None, "EMPIAR",
+                                          phase="15")
+    noise3 = philox_gumbel(9, B, R, m, dev)
+    timed("posterior_fwd", "EMPIAR", lambda *a: posterior_fwd(9, *a), k3,
+          lambda *a: posterior_plain(*a, noise=noise3), k3,
+          {"max_abs_err": abs3, "max_err_sampled": err3})
+    timed("posterior_bwd", "EMPIAR", lambda *a: posterior_bwd(9, *a),
+          (g3,) + k3, lambda *a: posterior_bwd_plain(*a, noise=noise3),
+          (g3,) + k3, {"max_abs_err": abs4, "max_err_sampled": err4,
+                       "scaled_err": sc4})
+    del k3, noise3
+
+    # K7 and K8 at n_out 1 and (a fit-noise generator) 2
+    cfg2 = empiar_config(fit_noise=True)
+    pg2 = TargetVAE(cfg2, device=dev).init(
+        torch.Generator().manual_seed(0))["generator"]
+    k7b, pose_b, _ = pose_inputs(torch, pg2, cfg2.generator, n, dev)
+    for label, c, k7_, pose_ in (("EMPIAR", cfg, k7, pose),
+                                 ("EMPIAR n_out 2", cfg2, k7b, pose_b)):
+        y7k = fused_pose_decoder_tables(*k7_)
+        y7p = pose_decoder_plain(*k7_)
+        torch.cuda.synchronize()
+        err7 = float((y7k - y7p).abs().max())
+        check(bool(torch.isfinite(y7k).all()) and err7 <= TOL_K7,
+              f"phase 15: K7 pose_decoder_fwd {label} {tuple(k7_[0].shape)} "
+              f"-> {tuple(y7k.shape)}: max_abs_err {err7:.3e} <= {TOL_K7}")
+        g7 = rn(*y7k.shape)
+        del y7k, y7p
+        err8, hs = check_k8(torch, k7_, pose_, g7, label, "15")
+        bnd = kernel_bounds(c, n_pos, 0)
+        timed("pose_decoder_fwd", label, fused_pose_decoder_tables, k7_,
+              pose_decoder_plain, k7_, {"max_abs_err": err7}, bnd)
+        bwd7 = (*k7_[:4], hs, k7_[5], k7_[7], k7_[9], g7)
+        timed("pose_decoder_bwd", label, pose_decoder_bwd, bwd7,
+              pose_decoder_bwd_plain, bwd7, {"max_abs_err": err8}, bnd)
+        del hs, bwd7, g7
+    del k7, k7b, pg2
+    torch.cuda.empty_cache()
+
+    # K11 and K12: the patch tier at B = 100
+    err11, h1 = check_k11(torch, k11, R, K, "EMPIAR", phase="15")
+    g11 = rn(n_pos, R * (3 + 2 * zd))
+    bwd11 = (k11[0], h1, *k11[3:6], g11)
+    err12 = check_k12(torch, bwd11, R, K, "EMPIAR", "15")
+    timed("lifted_encoder_fwd", "EMPIAR",
+          lambda *a: lifted_encoder_fwd(*a, R=R, K=K), k11,
+          lambda *a: lifted_encoder_plain(*a, R=R, K=K), k11,
+          {"max_abs_err": err11})
+    timed("lifted_encoder_bwd", "EMPIAR",
+          lambda *a: lifted_encoder_bwd(*a, R=R, K=K), bwd11,
+          lambda *a: lifted_encoder_bwd_plain(*a, R=R, K=K), bwd11,
+          {"max_abs_err": err12})
+    del k11, h1, g11, bwd11
+    torch.cuda.empty_cache()
+    return rows
+
+
+def empiar_path(torch, kernels, dev) -> tuple:
+    """Phase 15: the particles model at the EMPIAR shape, full width, B =
+    100 (empiar_config, CTF kernels from empiar_ctf, standardised
+    synthetic particles): its kernels against their plain versions and
+    timed (empiar_kernel_checks); the deterministic bf16 ELBO of each
+    encoder tier against the float32 tier, and one deterministic step's
+    gradients; EMPIAR_STEPS sampled train steps on each tier (finite,
+    rising ELBO, each kernel of the tier once a step); train, eval and
+    embed img/s on each tier, and the cuDNN lift's share of the conv
+    tier's step. Returns the kernels' rows and the launch counts of each
+    tier's steps."""
+    import targetvae_tpu_torch.losses.elbo as elbo_module
+    from targetvae_tpu_torch import TargetVAE
+    from targetvae_tpu_torch.cli.clustering_common import embed_dataset
+    from targetvae_tpu_torch.losses.elbo import compute_elbo
+    from targetvae_tpu_torch.losses.likelihoods import ctf_apply
+    from targetvae_tpu_torch.models.encoders import lift_rows
+    from targetvae_tpu_torch.train import Trainer
+    from targetvae_tpu_torch.utils.config import TrainConfig
+    bf16 = torch.bfloat16
+    cfg = empiar_config()
+    e = cfg.encoder
+    model = TargetVAE(cfg, device=dev)
+    params = model.init(torch.Generator().manual_seed(0))
+    with torch.inference_mode():
+        rows = empiar_kernel_checks(torch, cfg, params, dev)
+
+    ctf = empiar_ctf(torch, 2 * B, dev)
+    data = torch.from_numpy(particle_images(2 * B, 3)).to(dev)
+    yb, cb = data[:B], ctf[:B]
+    x_coord = model.base_grid()
+    seen = {}
+    with torch.inference_mode(), filtered_mean(elbo_module, ctf_apply, seen):
+        e32 = float(model.elbo(params, x_coord, yb, None, None, ctf=cb)[0])
+        mu32 = seen["mu"]
+        for tier in ("conv", "patch"):
+            with encoder_tier(tier):
+                e16 = float(model.elbo(params, x_coord, yb, None, bf16,
+                                       ctf=cb)[0])
+            rel = abs(e16 - e32) / abs(e32)
+            rel_mu = rel_l2(seen["mu"], mu32)
+            check(np.isfinite(e16) and rel <= TOL_ELBO
+                  and rel_mu <= TOL_MU_EMPIAR,
+                  f"phase 15: {tier} tier: deterministic ELBO with CTF and "
+                  f"mask, bf16 {e16:.4f} vs float32 {e32:.4f}: rel diff "
+                  f"{rel:.3e} <= {TOL_ELBO}; the CTF-filtered decoded mean, "
+                  f"rel L2 {rel_mu:.3e} <= {TOL_MU_EMPIAR}")
+        del mu32, seen
+
+    def tier_grads(dt):
+        model.zero_grad(set_to_none=True)
+        (-compute_elbo(model.params(), cfg, x_coord, yb, None, dt,
+                       ctf=cb)[0]).backward()
+        return {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+    g32 = tier_grads(None)
+    leaf_tol = {n: (TOL_GRAD_EMPIAR_ENC if n.startswith(EMPIAR_CANCELLING)
+                    else TOL_GRAD) for n in g32}
+    for tier in ("conv", "patch"):
+        with encoder_tier(tier):
+            g16 = tier_grads(bf16)
+        check_tier_grads(torch, g16, g32, tier + " (EMPIAR)", phase="15",
+                         leaf_tol=leaf_tol)
+        del g16
+    del g32
+    model.zero_grad(set_to_none=True)
+    torch.cuda.empty_cache()
+
+    images = particle_images(EMPIAR_EMBED, 2)
+    # the train steps cycle over TRAIN_BATCHES batches, so that the first
+    # and the last 5 steps see the same particles
+    steps_y = torch.from_numpy(particle_images(TRAIN_BATCHES * B, 4)).to(dev)
+    steps_ctf = empiar_ctf(torch, TRAIN_BATCHES * B, dev)
+    counts, step_ms = {}, {}
+    used = {"conv": ("mix_heads_fwd", "mix_heads_bwd"),
+            "patch": ("lifted_encoder_fwd", "lifted_encoder_bwd")}
+    for tier in ("conv", "patch"):
+        trainer = Trainer(model, TrainConfig(compute_dtype="bfloat16",
+                                             minibatch_size=B), device=dev)
+        state = trainer.init_state(0)
+        with encoder_tier(tier):
+            kernels.reset_launch_counts()
+            metrics = []
+            for i in range(EMPIAR_STEPS):
+                j = slice((i % TRAIN_BATCHES) * B, (i % TRAIN_BATCHES + 1) * B)
+                state, m = trainer.train_step(state, steps_y[j],
+                                              ctf=steps_ctf[j])
+                metrics.append(m)
+            m = torch.stack(metrics).cpu().numpy()
+            counts[tier] = kernels.launch_counts()
+            expect = used[tier] + ("posterior_fwd", "posterior_bwd",
+                                   "pose_decoder_fwd", "pose_decoder_bwd")
+            first, last = float(m[:5, 0].mean()), float(m[-5:, 0].mean())
+            check(bool(np.isfinite(m).all()) and last > first
+                  and counts[tier] == {k: EMPIAR_STEPS if k in expect else 0
+                                       for k in counts[tier]},
+                  f"phase 15: {tier} tier: {EMPIAR_STEPS} sampled bf16 train "
+                  f"steps at B={B} with CTF kernels and the mask: ELBO "
+                  f"finite, mean of the first 5 {first:.3f} -> last 5 "
+                  f"{last:.3f}; launches {counts[tier]} (each of the tier's "
+                  f"kernels once a step)")
+            print(f"phase 15: {tier} tier: ELBO per step "
+                  f"{np.round(m[:, 0], 2).tolist()}", flush=True)
+            step_ms[tier] = cuda_ms(lambda: trainer.train_step(
+                state, yb, ctf=cb), reps=EMPIAR_REPS)
+            gen = torch.Generator().manual_seed(5)
+            with torch.inference_mode():
+                p_ = model.params()
+                eval_ms = cuda_ms(lambda: model.elbo(p_, x_coord, yb, gen,
+                                                     bf16, ctf=cb),
+                                  reps=EMPIAR_REPS)
+                embed_dataset(model, p_, images[:B], B, "bfloat16")
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                embed_dataset(model, p_, images, B, "bfloat16")
+                torch.cuda.synchronize()
+                embed_s = time.perf_counter() - t
+        line = (f"phase 15: {tier} tier: train {B / step_ms[tier] * 1e3:.1f} "
+                f"img/s ({step_ms[tier]:.3f} ms/step), eval "
+                f"{B / eval_ms * 1e3:.1f} img/s ({eval_ms:.3f} ms/batch) "
+                f"(CUDA events, host included, B={B}, with CTF); embed "
+                f"{EMPIAR_EMBED / embed_s:.1f} img/s (embed_dataset, host to "
+                f"host, {EMPIAR_EMBED} particles)")
+        if tier == "conv":
+            pe = model.params()["encoder"]
+            with torch.inference_mode():
+                lift_ms = cuda_ms(lambda: lift_rows(pe, e, yb),
+                                  reps=EMPIAR_REPS)
+            rows_g = torch.randn_like(lift_rows(pe, e, yb)[0].detach())
+
+            def lift_train():
+                lift_rows(pe, e, yb)[0].backward(rows_g)
+            lift_train_ms = cuda_ms(lift_train, reps=EMPIAR_REPS)
+            model.zero_grad(set_to_none=True)
+            line += (f"; the cuDNN lift conv (64 x 64 kernels, 1,024 "
+                     f"outputs) {lift_ms:.3f} ms forward, {lift_train_ms:.3f} "
+                     f"ms with its weight gradient "
+                     f"({100 * lift_train_ms / step_ms[tier]:.1f} % of the "
+                     f"step)")
+            del rows_g
+        print(line, flush=True)
+        del trainer, state
+        torch.cuda.empty_cache()
+    del model, params, data, ctf, steps_y, steps_ctf
+    torch.cuda.empty_cache()
+    # each kernel's launches on the steps of the tier that runs it: the
+    # patch tier's for K11 and K12, the conv tier's for the rest
+    for k, row in rows.items():
+        name = k.split("[")[0]
+        if k.endswith("[EMPIAR]"):
+            row["launches"] = counts["patch" if name.startswith("lifted")
+                                     else "conv"][name]
+    return rows, counts
+
+
+def particles_cli(torch, kernels, dev, rows: dict) -> dict:
+    """Phase 15, the CLIs: tools/make_synthetic_particles_torch.py (a
+    subprocess: the port's ctf_filter and mrc.write, no pandas) writes
+    QUALITY.md's stand-in at 110 x 110 (3 classes, CTF, SNR 0.2):
+    PARTICLES_TOTAL particles with one CTF table, and PARTICLES_TEST more.
+    train_particles, on the conv tier, 1,050 / 250 of them split by
+    --train-portion (each split ending in a 50-image tail), with CTF,
+    --mask-radius 45 and --normalize: VERTICAL_EPOCHS epochs with finite
+    TSV lines, the _ctf tag, the checkpoints, each kernel once a step and
+    the forwards once a test batch; then clustering_particles embeds the
+    held-out stack (bf16) and clusters it into 3: cluster_assignments.npy
+    and results.txt with finite correlations. Then one epoch with
+    --fit-noise and no CTF table (K7 and K8 at n_out 2, the rows' n_out 2
+    launches), held as the first run is. With a CTF table a --fit-noise
+    run diverges, in the JAX package as in the port: the variance is
+    CTF-filtered, and the 'same' correlation's truncated windows near the
+    edge take it <= 0 on a part of the mask, where the Gaussian's
+    (mu - y)^2 / var is unbounded above
+    (tests/test_torch_port_particles.py::
+    test_fit_noise_with_ctf_diverges_in_jax_as_in_the_port). Returns the
+    first run's launch counts."""
+    import re
+    import tempfile
+    from targetvae_tpu_torch.cli import clustering_particles, train_particles
+    from targetvae_tpu_torch.cli.clustering_common import cluster_acc
+    here = os.path.dirname(os.path.abspath(__file__))
+    n_train = int(PARTICLES_TOTAL * float(PARTICLES_PORTION))
+    n_test = PARTICLES_TOTAL - n_train
+    fwd = ("mix_heads_fwd", "posterior_fwd", "pose_decoder_fwd")
+    bwd = ("mix_heads_bwd", "posterior_bwd", "pose_decoder_bwd")
+    files = ("inference.sav", "generator.sav", "training_state.sav")
+    with tempfile.TemporaryDirectory() as root:
+        data = os.path.join(root, "particles")
+        t = time.perf_counter()
+        subprocess.run([sys.executable, os.path.join(
+            here, "tools", "make_synthetic_particles_torch.py"), "--out-root",
+            data, "--n-train", str(PARTICLES_TOTAL), "--n-test",
+            str(PARTICLES_TEST), "--image-dim", str(EMPIAR_DIM)],
+            check=True, capture_output=True, timeout=300)
+        gen_s = time.perf_counter() - t
+        runs = {}
+        ctf_args = ["--ctf-train", os.path.join(data, "ctf_train.txt")]
+        for label, extra, epochs in (("", ctf_args, VERTICAL_EPOCHS),
+                                     (" --fit-noise", ["--fit-noise"], 1)):
+            logs = os.path.join(root, "logs" + label.strip())
+            steps = epochs * -(-n_train // B)
+            evals = epochs * -(-n_test // B)
+            tee = _Tee(sys.stderr)
+            with contextlib.redirect_stderr(tee):
+                kernels.reset_launch_counts()
+                state = train_particles.main([
+                    "--train-path", os.path.join(data, "particles_train.mrcs"),
+                    "--train-portion", PARTICLES_PORTION, "--mask-radius",
+                    "45", "--normalize", "--fourier-expansion",
+                    "--compute-dtype", "bfloat16", "--num-epochs",
+                    str(epochs), "--log-root", logs] + extra)
+                torch.cuda.synchronize()
+                counts = kernels.launch_counts()
+            run = os.path.join(logs, os.listdir(logs)[0])
+            runs[label] = (run, counts)
+            tsv = tsv_rows(run)
+            expect = {k: (steps + evals if k in fwd else steps if k in bwd
+                          else 0) for k in counts}
+            rates = [int(r[1]) for r in re.finditer(
+                r"# epoch \d+: [\d.]+s, (\d+) images/sec",
+                "".join(tee.parts))]
+            finite = bool(np.isfinite(list(tsv.values())).all())
+            check(sorted(tsv) == sorted((ep, sp) for ep in range(
+                1, epochs + 1) for sp in ("train", "test"))
+                  and finite
+                  and ("_ctf" in os.path.basename(run)) == (not label)
+                  and all(os.path.exists(os.path.join(run, f))
+                          for f in files)
+                  and state.step == steps and counts == expect,
+                  f"phase 15: train_particles{label} (conv tier, "
+                  f"{'no CTF' if label else 'CTF'}, --mask-radius 45 "
+                  f"--normalize) {epochs} epochs of "
+                  f"{n_train} particles (test {n_test}) from a stack of "
+                  f"{PARTICLES_TOTAL} written in {gen_s:.1f} s: TSV lines "
+                  f"{ {k: [round(v, 2) for v in tsv[k]] for k in sorted(tsv)} }"
+                  f" (finite: {finite}), "
+                  f"run {os.path.basename(run)}, {files} written, "
+                  f"{state.step} steps; launches {counts} == one a train "
+                  f"step ({steps}) and the forwards also one a test batch "
+                  f"({evals}); epoch img/s (the CLI's line) {rates}")
+        run = runs[""][0]
+        t = time.perf_counter()
+        res = clustering_particles.main([
+            "--test-path", os.path.join(data, "particles_test.mrcs"),
+            "--path-to-encoder", os.path.join(run, "inference.sav"),
+            "--path-to-transformations",
+            os.path.join(data, "transforms_test.npy"), "--normalize",
+            "--n-clusters", "3", "--compute-dtype", "bfloat16"])
+        secs = time.perf_counter() - t
+        cluster = np.load(os.path.join(run, "cluster_assignments.npy"))
+        _, acc = cluster_acc(np.load(os.path.join(data, "labels_test.npy")),
+                             cluster)
+        text = open(os.path.join(run, "results.txt")).read()
+        vals = [res["rot_corr"], *res["tr_corr"]]
+        check(cluster.shape == (PARTICLES_TEST,)
+              and np.array_equal(cluster, res["cluster"])
+              and "circular correlation" in text and "Pearson" in text
+              and bool(np.isfinite(np.asarray(vals, float)).all()),
+              f"phase 15: clustering_particles (bf16, Ward, 3 clusters) of "
+              f"{PARTICLES_TEST} held-out particles in {secs:.1f} s: "
+              f"cluster_assignments.npy {cluster.shape}, results.txt with "
+              f"rotation circular correlation {res['rot_corr']:.4f}, "
+              f"translation Pearson (x, y) {res['tr_corr'][0]:.4f}, "
+              f"{res['tr_corr'][1]:.4f} (finite); accuracy against the "
+              f"labels after {VERTICAL_EPOCHS} epochs {acc:.4f}")
+    fit_noise_counts = runs[" --fit-noise"][1]
+    for k, row in rows.items():
+        if k.endswith("[EMPIAR n_out 2]"):
+            row["launches"] = fit_noise_counts[k.split("[")[0]]
+    return runs[""][1]
+
+
+def vertical_clis(torch, kernels, dev) -> dict:
+    """Phase 16: dSprites and galaxy through their CLIs at full width.
+    tools/make_synthetic_dsprites.py and make_synthetic_galaxies.py
+    (subprocesses: numpy and scipy) write their stand-ins; train_dsprites
+    (its default 1,000 / 100 images; 64 x 64, k = 64, padding 32: 65 x 65
+    positions) and train_galaxy (1,050 / 250 RGB 64 x 64 images; k = 65,
+    padding 16; K7 and K8 at depth 4 and n_out 3) each train
+    VERTICAL_EPOCHS epochs on the conv tier: finite TSV lines, the
+    checkpoints, each kernel once a step and the forwards once a test
+    batch; then clustering_dsprites (results.txt with a finite accuracy
+    and correlations) and clustering_galaxy (the assignments and the
+    embeddings). Then each config's bf16 train step on each encoder tier
+    (cuda_ms, B = 100). Returns each config's CLI launch counts."""
+    import tempfile
+    from targetvae_tpu_torch.cli import (clustering_dsprites,
+                                         clustering_galaxy, train_dsprites,
+                                         train_galaxy)
+    from targetvae_tpu_torch.train import Trainer, load_checkpoint
+    from targetvae_tpu_torch.utils.config import TrainConfig
+    here = os.path.dirname(os.path.abspath(__file__))
+    tool = lambda name: os.path.join(here, "tools", name)
+    fwd = ("mix_heads_fwd", "posterior_fwd", "pose_decoder_fwd")
+    bwd = ("mix_heads_bwd", "posterior_bwd", "pose_decoder_bwd")
+    all_counts = {}
+    with tempfile.TemporaryDirectory() as root:
+        ds, gal = os.path.join(root, "dsprites"), os.path.join(root, "galaxy")
+        for script, out, n_tr, n_te in (
+                ("make_synthetic_dsprites.py", ds, DSPRITES_TRAIN,
+                 DSPRITES_TEST),
+                ("make_synthetic_galaxies.py", gal, CLI_TRAIN, CLI_TEST)):
+            subprocess.run([sys.executable, tool(script), "--out-root", out,
+                            "--n-train", str(n_tr), "--n-test", str(n_te)],
+                           check=True, capture_output=True, timeout=300)
+        common = ["--fourier-expansion", "--compute-dtype", "bfloat16",
+                  "--num-epochs", str(VERTICAL_EPOCHS)]
+        cases = (
+            ("dSprites", train_dsprites, [
+                "--train-path", os.path.join(ds, "imgs_train.npy"),
+                "--test-path", os.path.join(ds, "imgs_test.npy")],
+             DSPRITES_TRAIN, DSPRITES_TEST,
+             os.path.join(ds, "imgs_train.npy"), 1.0),
+            ("galaxy", train_galaxy, [
+                "--train-path", os.path.join(gal, "galaxy_zoo_train.npy"),
+                "--test-path", os.path.join(gal, "galaxy_zoo_test.npy")],
+             CLI_TRAIN, CLI_TEST, os.path.join(gal, "galaxy_zoo_train.npy"),
+             1 / 255))
+        for label, module, paths, n_tr, n_te, train_npy, scale in cases:
+            logs = os.path.join(root, "logs_" + label)
+            steps = VERTICAL_EPOCHS * -(-n_tr // B)
+            evals = VERTICAL_EPOCHS * -(-n_te // B)
+            with contextlib.redirect_stderr(io.StringIO()):
+                kernels.reset_launch_counts()
+                state = module.main(paths + common + ["--log-root", logs])
+                torch.cuda.synchronize()
+                counts = kernels.launch_counts()
+            run = os.path.join(logs, os.listdir(logs)[0])
+            tsv = tsv_rows(run)
+            expect = {k: (steps + evals if k in fwd else steps if k in bwd
+                          else 0) for k in counts}
+            _, cfg, _ = load_checkpoint(os.path.join(run, "inference.sav"))
+            g = cfg.generator
+            check(sorted(tsv) == sorted((ep, sp) for ep in range(
+                1, VERTICAL_EPOCHS + 1) for sp in ("train", "test"))
+                  and np.isfinite(list(tsv.values())).all()
+                  and state.step == steps and counts == expect
+                  and os.path.exists(os.path.join(run, "generator.sav")),
+                  f"phase 16: {label}: {module.__name__.split('.')[-1]} "
+                  f"{VERTICAL_EPOCHS} epochs of {n_tr} images (test {n_te}), "
+                  f"generator depth {g.num_layers}, n_out {g.n_out}: finite "
+                  f"TSV lines "
+                  f"{ {k: [round(v, 2) for v in tsv[k]] for k in sorted(tsv)} }"
+                  f", {state.step} steps; launches {counts} == one a train "
+                  f"step ({steps}) and the forwards also one a test batch "
+                  f"({evals})")
+            all_counts[label] = counts
+            enc = os.path.join(run, "inference.sav")
+            with contextlib.redirect_stderr(io.StringIO()):
+                if label == "dSprites":
+                    res = clustering_dsprites.main([
+                        *paths, "--train-labels",
+                        os.path.join(ds, "latent_train.npy"), "--test-labels",
+                        os.path.join(ds, "latent_test.npy"),
+                        "--path-to-encoder", enc, "--compute-dtype",
+                        "bfloat16"])
+                    vals = [res["acc"], res["rot_corr"], *res["tr_corr"]]
+                    ok = ("accuracy for clustering" in open(os.path.join(
+                        run, "results.txt")).read()
+                        and bool(np.isfinite(np.asarray(vals, float)).all()))
+                    msg = (f"accuracy {res['acc']:.4f}, rotation circular "
+                           f"correlation {res['rot_corr']:.4f}, translation "
+                           f"Pearson {np.round(res['tr_corr'], 4).tolist()}")
+                else:
+                    res = clustering_galaxy.main([
+                        *paths, "--path-to-encoder", enc, "--compute-dtype",
+                        "bfloat16"])
+                    z = np.load(os.path.join(run, "z_values.npy"))
+                    ok = (z.shape == (n_tr + n_te, 4)
+                          and np.array_equal(np.load(os.path.join(
+                              run, "cluster_assignments.npy")),
+                              res["cluster"])
+                          and os.path.exists(os.path.join(run,
+                                                          "results.txt")))
+                    msg = (f"z_values.npy {z.shape}, cluster_assignments.npy "
+                           f"{res['cluster'].shape}")
+            check(ok, f"phase 16: {label}: the clustering CLI (bf16, Ward): "
+                      + msg)
+            yb = torch.from_numpy(np.load(train_npy)[:B].astype(np.float32)
+                                  * scale).to(dev)
+            if yb.dim() == 3:
+                yb = yb[..., None]
+            trainer = Trainer(cfg, TrainConfig(compute_dtype="bfloat16",
+                                               minibatch_size=B), device=dev)
+            st = trainer.init_state(0)
+            rates = {}
+            for tier in ("conv", "patch"):
+                with encoder_tier(tier):
+                    rates[tier] = B / cuda_ms(lambda: trainer.train_step(
+                        st, yb), reps=VERTICAL_REPS) * 1e3
+            print(f"phase 16: {label}: train img/s (bf16 train_step, B={B}, "
+                  f"CUDA events, host included): conv tier "
+                  f"{rates['conv']:.1f}, patch tier {rates['patch']:.1f}",
+                  flush=True)
+            del trainer, st, yb
+            torch.cuda.empty_cache()
+    return all_counts
 
 
 if __name__ == "__main__":

@@ -4,13 +4,17 @@ targetvae_tpu/cli/clustering_common.py), in numpy, scipy and torch.
 
 The clustering itself runs on cli/clustering_algorithms.py (k-means on the
 device, Ward on the host) where the JAX package calls scikit-learn. Not
-ported yet (ROADMAP.md, queue 1): the t-SNE and confusion-matrix figures
-(item 15: scikit-learn's TSNE and matplotlib are not on the card), and the
-reading of the reference's pickled torch .sav files (item 26).
+ported yet (ROADMAP.md, queue 1): the figures (item 15: the t-SNE and
+confusion-matrix figures, the particles' rotation and translation
+histograms, the galaxy z-scatter; scikit-learn's TSNE and matplotlib are
+not on the card), and the reading of the reference's pickled torch .sav
+files (item 26).
 """
 
 from __future__ import annotations
 
+import argparse
+import sys
 from typing import Tuple
 
 import numpy as np
@@ -20,6 +24,44 @@ from ..models.targetvae import TargetVAE
 from ..train.checkpoint import load_checkpoint
 from ..utils.jax_params import params_from_jax
 from .clustering_algorithms import kmeans, ward
+
+
+def add_clustering_args(parser: argparse.ArgumentParser,
+                        clustering: str = "agglomerative",
+                        n_clusters: int = 10,
+                        channels: Tuple[str, int] = ("--in-channels", 1)
+                        ) -> argparse.ArgumentParser:
+    """The flags every clustering CLI shares, with the JAX CLIs' names,
+    defaults and types. The model's flags (-z, --t-inf, --r-inf,
+    --activation and `channels`: galaxy's --in-channels 3, dSprites'
+    --inp-channel) parse but are read by no one: load_encoder takes the
+    model's config from the checkpoint."""
+    ignored = "read from the checkpoint; ignored"
+    parser.add_argument("-z", "--z-dim", type=int, default=2, help=ignored)
+    parser.add_argument("--path-to-encoder",
+                        help="path to the saved encoder model")
+    parser.add_argument("--t-inf", default="attention",
+                        choices=["unimodal", "attention"], help=ignored)
+    parser.add_argument("--r-inf", default="attention+offsets",
+                        choices=["unimodal", "attention", "attention+offsets"],
+                        help=ignored)
+    parser.add_argument("--clustering", default=clustering,
+                        choices=["agglomerative", "k-means"],
+                        help=f"agglomerative | k-means (default:{clustering})")
+    parser.add_argument("--n-clusters", default=n_clusters, type=int,
+                        help=f"Number of clusters (default:{n_clusters})")
+    parser.add_argument(channels[0], type=int, default=channels[1],
+                        help=ignored)
+    parser.add_argument("--activation", choices=["tanh", "leakyrelu"],
+                        default="leakyrelu", help=ignored)
+    parser.add_argument("--minibatch-size", type=int, default=100)
+    parser.add_argument("--compute-dtype", choices=["float32", "bfloat16"],
+                        default="float32",
+                        help="embedding compute dtype: bfloat16 runs the "
+                             "fused CUDA kernels on the card; float32 "
+                             "bit-matches the reference protocol")
+    parser.add_argument("-d", "--device", type=int, default=0)
+    return parser
 
 
 def load_encoder(path_to_encoder: str, device=None) -> Tuple[TargetVAE, dict]:
@@ -97,6 +139,15 @@ def embed_dataset(model: TargetVAE, params: dict, images: np.ndarray,
             outs.append((out["z_content"], out["theta_mu"], out["dx"]))
     zs, rots, trs = (torch.cat(parts).cpu().numpy() for parts in zip(*outs))
     return zs, rots, trs
+
+
+def figures_not_written(*names: str) -> None:
+    """One stderr line naming the JAX CLI's figures this CLI does not
+    write."""
+    print(f"# {', '.join(names)} not written: the figures need "
+          "matplotlib (and t-SNE scikit-learn), which the card does not have "
+          "(ROADMAP.md, queue 1, item 15)", file=sys.stderr)
+
 
 def cluster_acc(y_true: np.ndarray, y_pred: np.ndarray):
     """Hungarian-matching clustering accuracy (reference

@@ -24,9 +24,10 @@ from typing import Optional
 import numpy as np
 
 from ..data.datasets import load_mnist
-from .clustering_common import (cluster_acc, embed_dataset, load_encoder,
-                                measure_correlations, run_clustering,
-                                write_results)
+from .clustering_common import (add_clustering_args, cluster_acc,
+                                embed_dataset, figures_not_written,
+                                load_encoder, measure_correlations,
+                                run_clustering, write_results)
 from .common import select_device
 
 
@@ -37,10 +38,6 @@ def build_parser() -> argparse.ArgumentParser:
                         default="mnist-U",
                         help="which MNIST datset to train/validate on "
                              "(default:mnist-U)")
-    parser.add_argument("-z", "--z-dim", type=int, default=2,
-                        help="latent variable dimension (default:2)")
-    parser.add_argument("--path-to-encoder",
-                        help="path to the saved encoder model")
     parser.add_argument("--path-to-mnist-test",
                         default="./data/MNIST/processed/test.pt",
                         help="path to the file that has labels of the test "
@@ -48,28 +45,9 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--path-to-labels", default=None,
                         help="npy file of integer test labels (alternative to "
                              "--path-to-mnist-test)")
-    parser.add_argument("--t-inf", default="attention",
-                        choices=["unimodal", "attention"])
-    parser.add_argument("--r-inf", default="attention+offsets",
-                        choices=["unimodal", "attention", "attention+offsets"])
-    parser.add_argument("--clustering", default="k-means",
-                        choices=["agglomerative", "k-means"],
-                        help="agglomerative | k-means (default:k-means)")
-    parser.add_argument("--n-clusters", default=10, type=int,
-                        help="Number of clusters (default:10)")
-    parser.add_argument("--in-channels", type=int, default=1)
     parser.add_argument("--image-dim", type=int, default=50)
-    parser.add_argument("--activation", choices=["tanh", "leakyrelu"],
-                        default="leakyrelu")
-    parser.add_argument("--minibatch-size", type=int, default=100)
-    parser.add_argument("--compute-dtype", choices=["float32", "bfloat16"],
-                        default="float32",
-                        help="embedding compute dtype: bfloat16 runs the "
-                             "fused CUDA kernels on the card; float32 "
-                             "bit-matches the reference protocol")
-    parser.add_argument("-d", "--device", type=int, default=0)
     parser.add_argument("--data-root", default="data")
-    return parser
+    return add_clustering_args(parser, "k-means", 10)
 
 
 def _load_labels(args) -> Optional[np.ndarray]:
@@ -128,9 +106,7 @@ def main(argv=None) -> dict:
     acc = None
     if labels is not None:
         _, acc = cluster_acc(labels, cluster)
-    print("# tsne.jpg and confusion_matrix.jpg are not written: they need "
-          "scikit-learn's TSNE and matplotlib (ROADMAP.md, queue 1, item 15)",
-          file=sys.stderr)
+    figures_not_written("tsne.jpg", "confusion_matrix.jpg")
     write_results(os.path.join(path_prefix, "results.txt"),
                   args.path_to_encoder, acc=acc, rot_corr=rot_corr,
                   tr_corr=tr_corr)

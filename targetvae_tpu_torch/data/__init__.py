@@ -1,7 +1,9 @@
-"""Dataset loading (mirror of targetvae_tpu/data): the MNIST variants. The
-MRC, CTF and image modules are not ported yet (ROADMAP.md, queue 1, item
-18)."""
+"""Dataset loading (mirror of targetvae_tpu/data), numpy only: the MNIST,
+dSprites, galaxy and particle loaders, MRC stacks, CTF kernels and image
+preprocessing."""
 
-from .datasets import load_mnist
+from .datasets import (load_mnist, load_npy_split, load_particles,
+                       preprocess_particles, train_test_split)
 
-__all__ = ["load_mnist"]
+__all__ = ["load_mnist", "load_npy_split", "load_particles",
+           "preprocess_particles", "train_test_split"]

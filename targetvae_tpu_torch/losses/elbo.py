@@ -105,15 +105,18 @@ def reconstruct_log_prob(params: dict, cfg: ModelConfig, x_coord: torch.Tensor,
                          y: torch.Tensor, theta: torch.Tensor, dx: torch.Tensor,
                          z: torch.Tensor,
                          compute_dtype: Optional[torch.dtype] = None,
-                         row_weights: Optional[torch.Tensor] = None
+                         row_weights: Optional[torch.Tensor] = None,
+                         ctf: Optional[torch.Tensor] = None
                          ) -> torch.Tensor:
-    """Decode (theta, dx, z) and score y. On the kernel tier the pose decoder
-    derives the coordinates from (theta, dx) and the standard image grid, so
-    x_coord must be that grid (it is for every caller of the model); a
-    generator K7 (or, under autograd, K8) does not take
-    (pose_decoder_supported) decodes the transformed coordinates with
-    generator_apply."""
-    gcfg, ecfg = cfg.generator, cfg.encoder
+    """Decode (theta, dx, z) and score y under the configured likelihood,
+    with the per-image CTF kernels ctf (B, kc, kc) where given. On the
+    kernel tier the pose decoder derives the coordinates from (theta, dx)
+    and the standard image grid, so x_coord must be that grid (it is for
+    every caller of the model); a generator K7 (or, under autograd, K8) does
+    not take (pose_decoder_supported) decodes the transformed coordinates
+    with generator_apply. The likelihood then runs on y_hat in float32 on
+    both tiers (the CTF by FFT, likelihoods.ctf_apply)."""
+    gcfg, ecfg, lcfg = cfg.generator, cfg.encoder, cfg.likelihood
     grad = needs_grad(params["generator"], theta, dx, z)
     if kernel_tier(compute_dtype) and pose_decoder_supported(gcfg, grad):
         y_hat = fused_pose_decoder(theta, dx, z, params["generator"], gcfg,
@@ -123,8 +126,10 @@ def reconstruct_log_prob(params: dict, cfg: ModelConfig, x_coord: torch.Tensor,
         y_hat = generator_apply(params["generator"], gcfg, x_t,
                                 z if gcfg.z_dim > 0 else None,
                                 compute_dtype=compute_dtype)
-    return reconstruction_log_prob(y_hat, y, cfg.likelihood.kind,
-                                   row_weights=row_weights)
+    return reconstruction_log_prob(
+        y_hat, y, lcfg.kind, fit_noise=lcfg.fit_noise, ctf=ctf, dx=dx,
+        mask_radius=lcfg.mask_radius,
+        btw_pixels_space=2.0 / (ecfg.image_dim - 1), row_weights=row_weights)
 
 
 @functools.lru_cache(maxsize=32)
@@ -177,9 +182,11 @@ def compute_elbo(params: dict, cfg: ModelConfig, x_coord: torch.Tensor,
                  y: torch.Tensor, generator: Optional[torch.Generator] = None,
                  compute_dtype: Optional[torch.dtype] = None,
                  row_weights: Optional[torch.Tensor] = None,
+                 ctf: Optional[torch.Tensor] = None,
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Returns scalar (elbo, log_p_x_g_z, kl_div), batch means.
-    x_coord: (N, 2) base pixel coordinates; y: (B, H, W, C) images.
+    x_coord: (N, 2) base pixel coordinates; y: (B, H, W, C) images; ctf:
+    optional (B, kc, kc) real-space CTF kernels of the Gaussian likelihood.
 
     row_weights: optional (B,) weights turning every batch mean into a
     weighted SUM (caller-normalised), as the JAX package's _wmean: the
@@ -193,7 +200,7 @@ def compute_elbo(params: dict, cfg: ModelConfig, x_coord: torch.Tensor,
                                                  row_weights)
         log_p = reconstruct_log_prob(params, cfg, x_coord, y, theta, dx, z,
                                      compute_dtype=compute_dtype,
-                                     row_weights=row_weights)
+                                     row_weights=row_weights, ctf=ctf)
         return log_p - kl_div, log_p, kl_div
     R = 1 if ecfg.mode == "B" else ecfg.groupconv
     M = attn_dim_for(ecfg) ** 2
@@ -257,5 +264,5 @@ def compute_elbo(params: dict, cfg: ModelConfig, x_coord: torch.Tensor,
     theta = th_std_e * _normal_noise(generator, (b,), dev) + th_mu_e
     log_p = reconstruct_log_prob(params, cfg, x_coord, y, theta, dx, z,
                                  compute_dtype=compute_dtype,
-                                 row_weights=row_weights)
+                                 row_weights=row_weights, ctf=ctf)
     return log_p - kl_div, log_p, kl_div

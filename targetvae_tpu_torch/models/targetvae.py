@@ -71,10 +71,11 @@ class TargetVAE(nn.Module):
                 "encoder": self.encoder.params()}
 
     def elbo(self, params: dict, x_coord: torch.Tensor, y: torch.Tensor,
-             generator: Optional[torch.Generator] = None, compute_dtype=None):
+             generator: Optional[torch.Generator] = None, compute_dtype=None,
+             ctf: Optional[torch.Tensor] = None):
         from ..losses.elbo import compute_elbo
         return compute_elbo(params, self.cfg, x_coord, y, generator,
-                            compute_dtype=compute_dtype)
+                            compute_dtype=compute_dtype, ctf=ctf)
 
     def forward(self, y: torch.Tensor,
                 generator: Optional[torch.Generator] = None,

@@ -9,8 +9,7 @@ periodic epoch snapshots every save_interval epochs. Adds what the reference
 lacks: a full resume checkpoint (optimizer state + generator + controller
 state), per-epoch throughput logging, and a torch.profiler trace of one
 epoch. Runs on one device: the mesh, SP and host-stream branches of the JAX
-package's fit are not ported yet (ROADMAP.md, queue 1, items 22-24), nor the
-per-image CTF kernels (item 19).
+package's fit are not ported yet (ROADMAP.md, queue 1, items 22-24).
 """
 
 from __future__ import annotations
@@ -25,18 +24,16 @@ from ..models.targetvae import TargetVAE
 from ..utils.config import TrainConfig
 from .checkpoint import AsyncCheckpointer, load_train_state, save_model_pair
 from .logging import RunLogger
-from .loop import Trainer, no_ctf
+from .loop import Trainer
 from .schedule import EarlyStopping, ReduceLROnPlateau
 from .state import set_learning_rate
 
 RESUME_FILE = "training_state.sav"
 
 
-def _refuse_unported(train_cfg: TrainConfig, ctf_train, ctf_test) -> None:
+def _refuse_unported(train_cfg: TrainConfig) -> None:
     """What fit does not run yet; the Trainer refuses the host feed, dp > 1
     and tp > 1 itself."""
-    no_ctf(ctf_train)
-    no_ctf(ctf_test)
     if train_cfg.sp:
         raise NotImplementedError(
             "--sp: fit on grid-sharded ranks (with their ragged tails) is "
@@ -49,8 +46,9 @@ def fit(model: TargetVAE, train_cfg: TrainConfig, logger: RunLogger,
         resume_dir: Optional[str] = None,
         profile_dir: Optional[str] = None):
     """Returns the final TrainState. y_train, y_test: (N, H, W, C) arrays or
-    tensors, put on the model's device once."""
-    _refuse_unported(train_cfg, ctf_train, ctf_test)
+    tensors, and ctf_train, ctf_test: their (N, kc, kc) CTF kernels or None,
+    put on the model's device once."""
+    _refuse_unported(train_cfg)
     trainer = Trainer(model, train_cfg)
     state = trainer.init_state(train_cfg.seed)
     num_epochs = num_epochs or train_cfg.num_epochs
@@ -78,8 +76,9 @@ def fit(model: TargetVAE, train_cfg: TrainConfig, logger: RunLogger,
         logger.line(f"# resumed from {ckpt} at epoch {start_epoch}, "
                     f"lr {scheduler.lr:g}")
 
-    y_train = trainer.on_device(y_train)
-    y_test = trainer.on_device(y_test)
+    y_train, y_test = trainer.on_device(y_train), trainer.on_device(y_test)
+    ctf_train = trainer.on_device(ctf_train)
+    ctf_test = trainer.on_device(ctf_test)
 
     stopper.save_fn = lambda: save_model_pair(
         logger.path_prefix, state.model.params(), model.cfg,
@@ -106,14 +105,14 @@ def fit(model: TargetVAE, train_cfg: TrainConfig, logger: RunLogger,
                             f"{c / n_train:.1%}, ELBO={elbo_m:.5f}, "
                             f"Error={err_m:.5f}, KL={kl_m:.5f}")
         state, (elbo, gen_loss, kl) = trainer.train_epoch(
-            state, y_train, progress=report)
+            state, y_train, ctf_train, progress=report)
         dt = time.time() - t0
         logger.progress(" " * 100)     # clear the \r progress line
         logger.epoch(epoch + 1, "train", elbo, gen_loss, kl)
         logger.progress(f"# epoch {epoch + 1}: {dt:.2f}s, "
                         f"{n_train / dt:.0f} images/sec")
 
-        elbo_t, gen_loss_t, kl_t = trainer.eval_epoch(state, y_test,
+        elbo_t, gen_loss_t, kl_t = trainer.eval_epoch(state, y_test, ctf_test,
                                                       seed=epoch)
         logger.epoch(epoch + 1, "test", elbo_t, gen_loss_t, kl_t)
 

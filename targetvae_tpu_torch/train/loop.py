@@ -11,6 +11,8 @@ An epoch takes its batches from a data tensor that lies on the model's
 device (fit() puts it there once), gathered by index_select in the order of
 torch.randperm drawn from the state's generator; the ragged tail runs as one
 smaller batch (drop_last=False), as the JAX package runs it on one device.
+Per-image CTF kernels (the particles' Gaussian likelihood), where given,
+lie on the device beside the data and are gathered by the same indices.
 The metrics stay on the device and are read once per chunk of
 progress_chunk batches, one chunk behind the steps being queued, so the
 host does not wait for the card after every step.
@@ -19,9 +21,10 @@ With TrainConfig(sp=True, tp=T) the bf16 step runs on T ranks of an
 initialised torch.distributed process group (parallel/), each calling
 train_step with the same whole batch: the posterior's cells are sharded
 over the ranks (K5/K6, parallel/grid_softmax.py), and each rank runs the
-encoder and decoder on its B/T rows. Weighted rows on that step (a ragged
-tail padded over the ranks), host streams, dp > 1 and TP parameter
-sharding are not ported yet (ROADMAP.md, queue 1, items 22-24).
+encoder and decoder on its B/T rows. Weighted rows and CTF kernels on that
+step (a ragged tail padded over the ranks; the particles' likelihood), host
+streams, dp > 1 and TP parameter sharding are not ported yet (ROADMAP.md,
+queue 1, items 22-24).
 """
 
 from __future__ import annotations
@@ -116,13 +119,14 @@ class Trainer:
 
     def _loss_fn(self, params: dict, y: torch.Tensor,
                  generator: Optional[torch.Generator],
-                 w: Optional[torch.Tensor] = None):
-        """(-elbo, log_p, kl) of batch y under params: batch means, or sums
-        weighted by the rows' weights w."""
+                 w: Optional[torch.Tensor] = None,
+                 ctf: Optional[torch.Tensor] = None):
+        """(-elbo, log_p, kl) of batch y (and its CTF kernels) under params:
+        batch means, or sums weighted by the rows' weights w."""
         elbo, log_p, kl = compute_elbo(params, self.model.cfg, self._x_coord,
                                        y, generator,
                                        compute_dtype=self.compute_dtype,
-                                       row_weights=w)
+                                       row_weights=w, ctf=ctf)
         return -elbo, log_p, kl
 
     def _loss_fn_sp(self, params: dict, y: torch.Tensor,
@@ -180,15 +184,20 @@ class Trainer:
 
     def _objective(self, params: dict, y: torch.Tensor,
                    generator: Optional[torch.Generator],
-                   w: Optional[torch.Tensor] = None):
+                   w: Optional[torch.Tensor] = None,
+                   ctf: Optional[torch.Tensor] = None):
         """(the scalar this rank differentiates, the (3,) metrics [elbo,
         log_p, kl] of the whole batch). With sp the objective is this
         rank's loss divided by the number of ranks, so that the ranks'
         objectives add up to the batch mean, and the metrics are
         all-reduced."""
         if self._mesh is None:
-            neg_elbo, log_p, kl = self._loss_fn(params, y, generator, w)
+            neg_elbo, log_p, kl = self._loss_fn(params, y, generator, w, ctf)
             return neg_elbo, torch.stack([-neg_elbo, log_p, kl]).detach()
+        if ctf is not None:
+            raise NotImplementedError(
+                "CTF kernels on the grid-sharded step are not ported yet "
+                "(ROADMAP.md, queue 1, item 24)")
         if w is not None:
             raise NotImplementedError(
                 "row weights on the grid-sharded step (a ragged tail padded "
@@ -200,26 +209,29 @@ class Trainer:
         dist.all_reduce(metrics, group=self._mesh.group)
         return loss / t_n, metrics
 
-    def on_device(self, y) -> torch.Tensor:
+    def on_device(self, y) -> Optional[torch.Tensor]:
         """y (an array or tensor) as float32 on the model's device, without
-        a copy where it already is; a bf16 batch is upcast, as the JAX
-        loss does."""
+        a copy where it already is; a bf16 batch (or bf16 CTF kernels) is
+        upcast, as the JAX loss does. None stays None."""
+        if y is None:
+            return None
         return torch.as_tensor(y).to(self.model.device, torch.float32)
 
     def train_step(self, state: TrainState, y,
-                   row_weights: Optional[torch.Tensor] = None
-                   ) -> Tuple[TrainState, torch.Tensor]:
-        """One Adam step on the batch y (B, H, W, C), noise from
-        state.generator (None: deterministic); row_weights (B,) turns the
-        batch means into weighted sums. Returns (state, metrics) with
+                   row_weights: Optional[torch.Tensor] = None,
+                   ctf=None) -> Tuple[TrainState, torch.Tensor]:
+        """One Adam step on the batch y (B, H, W, C) with its CTF kernels
+        ctf (B, kc, kc) where given, noise from state.generator (None:
+        deterministic); row_weights (B,) turns the batch means into weighted
+        sums. Returns (state, metrics) with
         metrics the (3,) tensor [elbo, log_p, kl] on the model's device;
         reading it waits for the step. The parameters, Adam's moments and
         state.step are updated in place. With sp every rank passes the same
         y and gets the same metrics and parameters."""
-        y = self.on_device(y)
         state.optimizer.zero_grad(set_to_none=True)
-        objective, metrics = self._objective(state.model.params(), y,
-                                             state.generator, row_weights)
+        objective, metrics = self._objective(
+            state.model.params(), self.on_device(y), state.generator,
+            row_weights, self.on_device(ctf))
         objective.backward()
         if self._mesh is not None:
             self._mesh.all_reduce_grads(state.model.parameters())
@@ -229,13 +241,14 @@ class Trainer:
 
     def eval_step(self, state: TrainState, y,
                   generator: Optional[torch.Generator] = None,
-                  row_weights: Optional[torch.Tensor] = None
-                  ) -> torch.Tensor:
-        """[elbo, log_p, kl] of the batch y, no gradient; noise from
-        `generator` (None: deterministic)."""
+                  row_weights: Optional[torch.Tensor] = None,
+                  ctf=None) -> torch.Tensor:
+        """[elbo, log_p, kl] of the batch y (with its CTF kernels ctf where
+        given), no gradient; noise from `generator` (None: deterministic)."""
         with torch.inference_mode():
             return self._objective(state.model.params(), self.on_device(y),
-                                   generator, row_weights)[1]
+                                   generator, row_weights,
+                                   self.on_device(ctf))[1]
 
     # batches per chunk whose metrics are read together when a progress
     # callback wants mid-epoch reports
@@ -243,9 +256,9 @@ class Trainer:
 
     def train_epoch(self, state: TrainState, data, ctf=None, progress=None,
                     ) -> Tuple[TrainState, Tuple[float, float, float]]:
-        """One epoch over `data` (N, H, W, C). Returns (state, (elbo,
-        gen_loss, kl)) with gen_loss = -log_p, matching the reference's
-        reported Error.
+        """One epoch over `data` (N, H, W, C) and its CTF kernels `ctf` (N,
+        kc, kc) where given. Returns (state, (elbo, gen_loss, kl)) with
+        gen_loss = -log_p, matching the reference's reported Error.
 
         The order is torch.randperm(N) drawn from state.generator (a state
         without one keeps the data's order); N // B full batches, then the
@@ -254,8 +267,7 @@ class Trainer:
         accumulators (train_mnist.py:326-345) every `progress_chunk`
         batches. A chunk's metrics are read once the next chunk's steps are
         queued."""
-        no_ctf(ctf)
-        data = self.on_device(data)
+        data, ctf = self.on_device(data), self.on_device(ctf)
         n = data.shape[0]
         b = min(self.batch, n)
         g = state.generator
@@ -268,8 +280,9 @@ class Trainer:
         metrics, weights = [], []
         pending, block = None, []
         for i in range(n_full):
-            state, m = self.train_step(
-                state, data.index_select(0, perm[i * b:(i + 1) * b]))
+            idx = perm[i * b:(i + 1) * b]
+            state, m = self.train_step(state, data.index_select(0, idx),
+                                       ctf=_rows(ctf, idx))
             block.append(m)
             if len(block) == chunk or i == n_full - 1:
                 if pending is not None:    # waits for the PREVIOUS chunk
@@ -284,7 +297,8 @@ class Trainer:
         rem = n - n_full * b
         if rem:
             tail, w = self._pad_tail(perm[n_full * b:], rem)
-            state, m = self.train_step(state, data.index_select(0, tail), w)
+            state, m = self.train_step(state, data.index_select(0, tail), w,
+                                       _rows(ctf, tail))
             _collect(m[None], rem, metrics, weights)
         return state, _weighted_mean(np.concatenate(metrics), weights)
 
@@ -303,15 +317,17 @@ class Trainer:
 
     def eval_epoch(self, state: TrainState, data, ctf=None, seed: int = 0,
                    ) -> Tuple[float, float, float]:
-        """(elbo, gen_loss, kl) over `data` in order, batches of B and the
-        tail, sampled with a generator seeded `seed`."""
-        no_ctf(ctf)
-        data = self.on_device(data)
+        """(elbo, gen_loss, kl) over `data` (and its CTF kernels `ctf`) in
+        order, batches of B and the tail, sampled with a generator seeded
+        `seed`."""
+        data, ctf = self.on_device(data), self.on_device(ctf)
         n = data.shape[0]
         b = min(self.batch, n)
         n_full = n // b
         gen = torch.Generator().manual_seed(seed)
-        out = [self.eval_step(state, data[i * b:(i + 1) * b], gen)
+        out = [self.eval_step(state, data[i * b:(i + 1) * b], gen,
+                              ctf=None if ctf is None
+                              else ctf[i * b:(i + 1) * b])
                for i in range(n_full)]
         weights = [float(b)] * n_full
         rem = n - n_full * b
@@ -319,15 +335,15 @@ class Trainer:
             tail, w = self._pad_tail(
                 torch.arange(n_full * b, n, device=data.device), rem)
             out.append(self.eval_step(state, data.index_select(0, tail), gen,
-                                      w))
+                                      w, _rows(ctf, tail)))
             weights.append(float(rem))
         return _weighted_mean(torch.stack(out).cpu().numpy(), weights)
 
-def no_ctf(ctf) -> None:
-    if ctf is not None:
-        raise NotImplementedError(
-            "per-image CTF kernels belong to the particles likelihood, which "
-            "is not ported yet (ROADMAP.md, queue 1, item 19)")
+
+def _rows(v: Optional[torch.Tensor], idx: torch.Tensor
+          ) -> Optional[torch.Tensor]:
+    """The rows idx of v (the CTF kernels), or None without v."""
+    return None if v is None else v.index_select(0, idx)
 
 
 def _collect(pending: torch.Tensor, b: int, metrics: list,

@@ -12,6 +12,7 @@ L2 on each gradient leaf); the epoch loop equals its steps bitwise (the same
 float32 operations on the CPU).
 """
 
+import dataclasses
 import math
 import os
 import types
@@ -330,17 +331,29 @@ def _logger(tmp_path, name):
     ("dp", 2, "item 23"), ("tp", 2, "item 23"), ("sp", True, "item 24"),
     ("ctf", None, "item 19")])
 def test_fit_refuses_what_is_not_ported(tmp_path, field, value, item):
+    """fit refuses each field that selects what the port does not run yet,
+    naming its ROADMAP item. The per-image CTF kernels (item 19) are
+    ported: fit takes them, puts them on the device beside the images and
+    trains a Gaussian CTF config through one epoch with finite metrics."""
     cfg = ModelConfig.from_json(_config().to_json())
-    model = TargetVAE(cfg, device="cpu")
     data = _images(4)
-    kw = {}
-    if field == "ctf":
-        train_cfg, kw = TrainConfig(), {"ctf_train": np.ones((4, 3, 3))}
-    else:
-        train_cfg = TrainConfig(**{field: value})
     lg = _logger(tmp_path, "run")
+    if field == "ctf":
+        cfg = dataclasses.replace(cfg, likelihood=dataclasses.replace(
+            cfg.likelihood, kind="gaussian", use_ctf=True))
+        kernels = np.random.default_rng(1).normal(size=(4, 13, 13)).astype(
+            np.float32) * 0.05
+        state = fit(TargetVAE(cfg, device="cpu"),
+                    TrainConfig(minibatch_size=4, num_epochs=1), lg, data,
+                    data, ctf_train=kernels, ctf_test=kernels)
+        lg.close()
+        log = open(os.path.join(lg.path_prefix, "train_log.txt")).read()
+        assert state.step == 1 and item not in log
+        assert "\ttrain\t" in log and "nan" not in log
+        return
+    model = TargetVAE(cfg, device="cpu")
     with pytest.raises(NotImplementedError, match=item):
-        fit(model, train_cfg, lg, data, data, **kw)
+        fit(model, TrainConfig(**{field: value}), lg, data, data)
     lg.close()
 
 

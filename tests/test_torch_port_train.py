@@ -268,7 +268,8 @@ def test_kernel_tier_elbo_heads_gradient_equals_the_plane_route(pair,
     monkeypatch.setattr(
         port_elbo, "reconstruct_log_prob",
         lambda params, cfg, x, y, theta, dx, z, compute_dtype=None,
-        row_weights=None: (torch.sin(theta).sum() + torch.cos(3 * dx).sum()
+        row_weights=None, ctf=None: (torch.sin(theta).sum()
+                                     + torch.cos(3 * dx).sum()
          + (z * z).sum()) / y.shape[0])
     grads, elbos = [], []
     for dt, module in ((torch.bfloat16, port_elbo), (None, port_enc)):
