@@ -100,14 +100,45 @@ from a seed):
      once a step, K7 and K8 at galaxy's depth 4 and n_out 3), then
      clustering_dsprites and clustering_galaxy; each config's bf16 train
      step on each encoder tier (img/s).
+ 17. the host feed at the EMPIAR shape (bf16, B = 100) on
+     tools/make_synthetic_particles_torch.py's stand-in of 2,050
+     particles with CTF (a 50-image tail): the native library's build
+     time (phase 1), load_mrc_f32 and gather_f32 bitwise numpy's; every
+     streamed row (y and CTF) and weight of an epoch on the float32 and
+     the bf16 wire against the numpy gather of the pipeline's own order
+     (per-row checksums on the card), the tail's 50 weights of 1/50 and 50
+     of zero; train_epoch_stream on the patch tier bitwise its
+     train_steps on the same batches, K11, K12, K3, K4, K7 and K8 once a
+     step; a 3-batch streamed epoch on the conv tier (K1, K2);
+     eval_epoch_stream against eval_epoch; resident against streamed
+     epoch img/s on each wire at EMPIAR and at the flagship (patch tier),
+     the consumer's wait and the copy's device time a batch, and, from one
+     profiler window, the host-to-device copies on the side stream that
+     overlap a kernel (at least one a step).
+ 18. ranks sharing the card over gloo (run_local): dp = 2 at EMPIAR
+     (patch tier, CTF) - one deterministic step against the one-process
+     step (PERF.md section 2's SP bounds), 10 sampled steps with the
+     parameters bitwise equal across the ranks, a ragged resident epoch of
+     1,025 particles (the tail of 25 padded to 26) at learning rate 0
+     against one process, a host-streamed epoch with each rank gathering
+     its rows; SP with tp = 2 at EMPIAR with CTF and a zero-weight pad
+     against the unsharded step, K5 and K6 once each a rank; dp = 2 x tp
+     = 2 SP on 4 ranks at the flagship against the unsharded step; then
+     torchrun --standalone --nproc_per_node 2 -m
+     targetvae_tpu_torch.cli.train_particles --dp 2 --host-stream
+     --stream-bf16 (1,050 / 250 particles with CTF, 2 epochs, patch tier:
+     one run directory, rank 0's, finite test ELBOs), and a single-process
+     --host-stream run resumed after 1 epoch, bitwise equal to 2 epochs at
+     once.
 
 Phases 2-8 cover both mode-C encoder tiers: the default "conv" tier (the
 cuDNN lift conv, K1/K2) and the fused patch encoder (K11/K12) that
 TARGETVAE_ENCODER_TIER=patch selects (phases 3, 4 and 7 drive each tier's
 embed, eval and train path; phases 2 and 6 also check K11 and K12 at the
 galaxy encoder's C = 3 shape). Each of phases 3, 4, 6 (the z_dim routes),
-7, 9, 10, 11, 12, 13, 15 and 16 sets the launch counts to 0 just before it
-drives its path and reads them just after (phase 10 in each rank). Every failed check exits
+7, 9, 10, 11, 12, 13, 15, 16, 17 and 18 sets the launch counts to 0 just
+before it drives its path and reads them just after (phases 10 and 18 in
+each rank). Every failed check exits
 non-zero. With no CUDA device, or outside a checkout, it fails without
 printing a result. Its last line is {"ok": true, "device": {...}}; the line
 before it is the kernels' JSON.
@@ -119,6 +150,7 @@ import contextlib
 import io
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -263,6 +295,18 @@ TOL_GRAD_EMPIAR_ENC = 0.35
 EMPIAR_CANCELLING = ("encoder.conv1.", "encoder.conv2.", "encoder.conv_r.")
 TOL_MU_EMPIAR = TOL_ELBO
 VERTICAL_REPS = 5    # train steps cuda_ms averages in phase 16, each tier
+STREAM_TOTAL = 2050  # phase 17's stand-in: 20 batches and a 50-image tail
+STREAM_TEST = 250    # its held-out stack (the CLI's test split)
+STREAM_CONV_BATCHES = 3   # the conv tier's streamed epoch
+FLAGSHIP_STREAM = 5000    # flagship images of phase 17's epoch rates
+RATE_REPS = 2        # readings of each epoch rate, taken in turns
+PROFILE_SKIP = 3     # streamed steps before phase 17's profiler window
+PROFILE_BATCHES = 20  # the batches of its epoch
+DP_RANKS = 2         # phase 18's dp ranks, sharing cuda:0 over gloo
+DP_STEPS = 10        # their sampled steps
+DP_RAGGED = 1025     # their ragged resident epoch: a tail of 25
+RANK_TIMEOUT = 600   # seconds for each of phase 18's spawns and runs
+CLI_DP_EPOCHS = 2    # epochs of phase 18's torchrun CLI run
 ROUTED_STEPS = 3     # its train steps
 # device_ms, the kernel timer: windows of at least 2 ms of replayed calls,
 # the median of 5; calls rotate over copies of their inputs so that 60 MB
@@ -1196,6 +1240,13 @@ def run(torch, dev) -> int:
     for line in lib.with_suffix(".log").read_text().splitlines():
         if "registers" in line or "spill" in line.lower():
             print("  ptxas:", line.strip(), flush=True)
+    from targetvae_tpu_torch.data import native
+    t0 = time.perf_counter()
+    fresh = not native.library_path().exists()
+    native_lib = native.build()
+    print(f"phase 1: {'built' if fresh else 'found'} the native data "
+          f"runtime {native_lib.name} (g++ -O3 -march=native) in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
 
     cfg = flagship_config()
     model = TargetVAE(cfg, device=dev)
@@ -1414,12 +1465,21 @@ def run(torch, dev) -> int:
     # ---- phase 16: dSprites and galaxy through their CLIs ----
     vertical_clis(torch, kernels, dev)
 
+    # ---- phases 17-18: the host feed; ranks sharing the card ----
+    import tempfile
+    with tempfile.TemporaryDirectory() as root:
+        stand = stand_in(torch, root)
+        stream_counts = host_feed_path(torch, kernels, dev, stand)
+        rank_sp_counts = rank_paths(torch, kernels, dev, stand)
+
     by_path = {"embed": embed_counts, "eval": eval_counts,
                "train": train_counts, "embed_patch": patch_counts["embed"],
                "eval_patch": patch_counts["eval"],
                "train_patch": patch_counts["train"], "decode": decode_counts,
                "train_sp": sp_counts, "train_cli": cli_counts["conv"],
-               "train_cli_patch": cli_counts["patch"]}
+               "train_cli_patch": cli_counts["patch"],
+               "train_stream_empiar": stream_counts,
+               "train_sp_ctf_empiar": rank_sp_counts}
     # each kernel's launches on the main path that runs it: the conv tier's
     # train step, the patch tier's (K11, K12), bf16 decode (K9, K10), the
     # SP train step's rank 0 (K5, K6)
@@ -3694,6 +3754,736 @@ def vertical_clis(torch, kernels, dev) -> dict:
             del trainer, st, yb
             torch.cuda.empty_cache()
     return all_counts
+
+
+# ---- phases 17-18: the host feed and the ranks ----
+
+def stand_in(torch, root: str) -> dict:
+    """The particles stand-in of phases 17-18 at 110 x 110:
+    tools/make_synthetic_particles_torch.py (a subprocess) writes
+    STREAM_TOTAL particles with their CTF table (and STREAM_TEST more);
+    they are read as train_particles --normalize reads them (the native
+    loader, the per-image standardisation, the CTF kernels of the table).
+    The preprocessed arrays are saved beside them for the ranks, and the
+    first CLI_TRAIN raw particles and their table rows are written as the
+    CLI's train stack. Returns the paths, arrays and the seconds taken."""
+    from targetvae_tpu_torch.cli.train_particles import _ctf_kernels
+    from targetvae_tpu_torch.data import mrc
+    from targetvae_tpu_torch.data.datasets import (load_particles,
+                                                   preprocess_particles)
+    here = os.path.dirname(os.path.abspath(__file__))
+    data = os.path.join(root, "particles")
+    t = time.perf_counter()
+    subprocess.run([sys.executable, os.path.join(
+        here, "tools", "make_synthetic_particles_torch.py"), "--out-root",
+        data, "--n-train", str(STREAM_TOTAL), "--n-test", str(STREAM_TEST),
+        "--image-dim", str(EMPIAR_DIM)], check=True, capture_output=True,
+        timeout=600)
+    gen_s = time.perf_counter() - t
+    path = lambda name: os.path.join(data, name)
+    t = time.perf_counter()
+    raw = load_particles(path("particles_train.mrcs"))
+    images = np.ascontiguousarray(
+        preprocess_particles(raw, 0, True)[..., None], dtype=np.float32)
+    ctf = np.ascontiguousarray(_ctf_kernels(path("ctf_train.txt"), EMPIAR_DIM,
+                                            EMPIAR_DIM, 1.0), np.float32)
+    load_s = time.perf_counter() - t
+    np.save(path("images.npy"), images)
+    np.save(path("ctf.npy"), ctf)
+    mrc.write(path("cli_train.mrcs"), raw[:CLI_TRAIN])
+    with open(path("ctf_train.txt")) as f:
+        rows = [line for line in f if line.strip()]
+    with open(path("cli_ctf_train.txt"), "w") as f:
+        f.writelines(rows[:CLI_TRAIN])
+    return {"dir": data, "path": path, "images": images, "ctf": ctf,
+            "gen_s": gen_s, "load_s": load_s}
+
+
+def row_sums(torch, t):
+    """Per-row checksums of a batch's bits (B, ...) -> (B,) int64 on t's
+    device: each element's bit pattern (int32 for float32, int16 for bf16)
+    weighted by its position in the row (1 + index mod 65,521), summed, so
+    that a stale, shifted or reordered row changes its sum."""
+    bits = t.reshape(t.shape[0], -1).view(
+        torch.int32 if t.dtype == torch.float32 else torch.int16)
+    pos = torch.arange(bits.shape[1], device=t.device) % 65521 + 1
+    return (bits.to(torch.int64) * pos).sum(1)
+
+
+def stream_reference(torch, pipe, images, ctf, epoch: int) -> list:
+    """What the pipeline must stream in `epoch`: the numpy gather of its own
+    order, B rows a batch, the tail wrapped around to B (on the bf16 wire
+    rounded by torch's cast on the host), as (y sums, ctf sums, w, n_real)
+    on the host."""
+    order, n = pipe.order(epoch), len(images)
+    out = []
+    for lo in range(0, n, B):
+        idx = order[lo:lo + B]
+        rem = len(idx)
+        idx = np.resize(idx, B)
+        w = np.zeros(B, np.float32)
+        w[:rem] = 1.0 / rem
+        y, c = (torch.from_numpy(v[idx]).to(pipe.wire)
+                for v in (images, ctf))
+        out.append((row_sums(torch, y), row_sums(torch, c),
+                    torch.from_numpy(w), rem))
+    return out
+
+
+def checked(torch, batches, sums: list, keep=None):
+    """Pass a streamed epoch's batches on, recording each batch's row sums
+    and weights on the device (and, with keep, a copy of the batch)."""
+    from targetvae_tpu_torch.data.pipeline import StreamBatch
+    for b in batches:
+        sums.append((row_sums(torch, b.y), row_sums(torch, b.ctf),
+                     b.w.clone(), b.n_real))
+        if keep is not None:
+            keep.append(StreamBatch(b.y.clone(), b.ctf.clone(), b.w.clone(),
+                                    b.n_real))
+        yield b
+
+
+def rows_agree(sums: list, ref: list) -> bool:
+    return len(sums) == len(ref) and all(
+        bool((a[0].cpu() == r[0]).all()) and bool((a[1].cpu() == r[1]).all())
+        and bool((a[2].cpu() == r[2]).all()) and a[3] == r[3]
+        for a, r in zip(sums, ref))
+
+
+def overlapping_copies(prof, tmp: str) -> dict:
+    """From a profiler window's trace: the host-to-device copies on streams
+    other than the compute stream (the one most kernels ran on), and how
+    many of them overlap a kernel on the compute stream in time."""
+    trace = os.path.join(tmp, "stream_trace.json")
+    prof.export_chrome_trace(trace)
+    with open(trace) as f:
+        events = [e for e in json.load(f).get("traceEvents", [])
+                  if e.get("ph") == "X"]
+    stream = lambda e: (e.get("args") or {}).get("stream")
+    kern = [e for e in events if str(e.get("cat", "")).lower() == "kernel"]
+    copies = [e for e in events if "memcpy" in str(e.get("cat", "")).lower()
+              and "HtoD" in e.get("name", "")]
+    if not kern:
+        return {"kernels": 0, "side_copies": 0, "overlapping": 0,
+                "categories": sorted({str(e.get("cat")) for e in events})}
+    streams = [stream(e) for e in kern]
+    compute = max(set(streams), key=streams.count)
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in kern
+                   if stream(e) == compute)
+    side = [e for e in copies if stream(e) != compute]
+    overlap = sum(any(a < e["ts"] + e["dur"] and e["ts"] < b
+                      for a, b in spans) for e in side)
+    return {"kernels": len(spans), "compute_stream": compute,
+            "side_copies": len(side), "overlapping": overlap,
+            "copy_streams": sorted({str(stream(e)) for e in side})}
+
+
+def card() -> str:
+    """The card's name and power limit as nvidia-smi reports them."""
+    try:
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True,
+                             text=True)
+    except OSError:
+        return "unknown"
+    lines = smi.stdout.strip().splitlines()
+    return lines[0] if lines else "unknown"
+
+
+def epoch_rate(torch, fn, n: int) -> float:
+    """img/s of fn() (an epoch of n images), host clock, the card idle
+    before and after."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return n / (time.perf_counter() - t)
+
+
+def host_feed_path(torch, kernels, dev, stand: dict) -> dict:
+    """Phase 17: the host feed at the EMPIAR shape (empiar_config, bf16,
+    B = 100) on the stand-in's STREAM_TOTAL particles and their CTF
+    kernels (a 50-image tail): the native loader and gather against numpy;
+    every streamed row (y and CTF) and weight of an epoch on the float32
+    and the bf16 wire against the numpy gather of the pipeline's order; the
+    streamed train epoch (patch tier) bitwise against its train_steps on
+    the same batches, each kernel once a step; a 3-batch streamed epoch on
+    the conv tier; eval_epoch_stream against eval_epoch; then resident and
+    streamed epoch img/s at EMPIAR and at the flagship (patch tier), the
+    consumer's wait and the copy's device time a batch, and, from one
+    profiler window, the copies on the side stream that overlap a kernel.
+    Returns the streamed epoch's launch counts."""
+    import tempfile
+    from torch.profiler import ProfilerActivity, profile
+    from targetvae_tpu_torch import TargetVAE
+    from targetvae_tpu_torch.data import native
+    from targetvae_tpu_torch.data.pipeline import HostDataPipeline
+    from targetvae_tpu_torch.train import Trainer
+    from targetvae_tpu_torch.train.loop import _weighted_mean
+    from targetvae_tpu_torch.utils.config import TrainConfig
+    images, ctf = stand["images"], stand["ctf"]
+    n = len(images)
+    stack = stand["path"]("particles_train.mrcs")
+    plain = native.load_mrc_f32(stack)
+    idx = np.random.RandomState(5).permutation(n)[:B]
+    check(np.array_equal(plain, native.load_mrc_f32(stack, native=False))
+          and np.array_equal(native.gather_f32(images, idx), images[idx])
+          and np.array_equal(native.gather_f32(ctf, idx), ctf[idx]),
+          f"phase 17: the native loader: load_mrc_f32 of the stand-in "
+          f"{plain.shape} bitwise numpy's read, gather_f32 of {B} rows of "
+          f"the particles and of their CTF kernels bitwise numpy's take "
+          f"(stand-in written in {stand['gen_s']:.1f} s, read and "
+          f"preprocessed in {stand['load_s']:.1f} s)")
+
+    cfg = empiar_config()
+    trainer = Trainer(TargetVAE(cfg, device=dev), TrainConfig(
+        compute_dtype="bfloat16", minibatch_size=B), device=dev)
+    pipe = lambda wire=None, m=n, **kw: HostDataPipeline(
+        images[:m], ctf[:m], batch_size=B, seed=0, device=dev,
+        wire_dtype=wire, timing=True, **kw)
+    tail = n % B
+    with encoder_tier("patch"):
+        state = trainer.init_state(0)
+        p32 = pipe()
+        sums, kept = [], []
+        kernels.reset_launch_counts()
+        state, means = trainer.train_epoch_stream(
+            state, checked(torch, p32.epoch(0), sums, kept))
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        digest = param_digest(trainer.model)
+        ref = stream_reference(torch, p32, images, ctf, 0)
+        last = sums[-1]
+        w_tail = last[2].cpu().numpy()
+        check(rows_agree(sums, ref) and last[3] == tail
+              and bool((w_tail[:tail] == np.float32(1 / tail)).all())
+              and bool((w_tail[tail:] == 0).all()),
+              f"phase 17: float32 wire: every row of the {len(sums)} "
+              f"streamed batches (y and CTF, per-row checksums on the card) "
+              f"bitwise the numpy gather of the pipeline's order, the "
+              f"weights 1/B, the tail's {tail} weights of 1/{tail} and "
+              f"{B - tail} of zero, n_real {last[3]}")
+        steps = len(kept)
+        used = ("lifted_encoder_fwd", "lifted_encoder_bwd", "posterior_fwd",
+                "posterior_bwd", "pose_decoder_fwd", "pose_decoder_bwd")
+        ref_tr = Trainer(TargetVAE(cfg, device=dev), TrainConfig(
+            compute_dtype="bfloat16", minibatch_size=B), device=dev)
+        ref_state = ref_tr.init_state(0)
+        ms = []
+        for b in kept:
+            ref_state, m = ref_tr.train_step(ref_state, b.y, b.w, b.ctf)
+            ms.append(m)
+        ref_means = _weighted_mean(torch.stack(ms).cpu().numpy(),
+                                   [float(b.n_real) for b in kept])
+        check(param_digest(ref_tr.model) == digest and ref_means == means
+              and ref_state.step == state.step == steps
+              and bool(np.isfinite(means).all()),
+              f"phase 17: patch tier: train_epoch_stream over {n} particles "
+              f"({steps} steps, the tail padded) bitwise its train_steps on "
+              f"the same batches from the same generator (parameters sha256 "
+              f"{digest[:16]}, means {np.round(means, 4).tolist()})")
+        check(counts == {k: steps if k in used else 0 for k in counts},
+              f"phase 17: patch tier: the streamed epoch's launches {counts} "
+              f"(K11, K12, K3, K4, K7, K8 once a step)")
+        del kept, ref_tr, ref_state
+        p16 = pipe("bfloat16")
+        sums16 = []
+        state, means16 = trainer.train_epoch_stream(
+            state, checked(torch, p16.epoch(1), sums16))
+        check(rows_agree(sums16, stream_reference(torch, p16, images, ctf, 1))
+              and bool(np.isfinite(means16).all()),
+              f"phase 17: bf16 wire: every row of the {len(sums16)} streamed "
+              f"batches bitwise the numpy gather of the pipeline's order "
+              f"rounded to bf16 on the host, weights and tail as on the "
+              f"float32 wire; the epoch's means "
+              f"{np.round(means16, 4).tolist()} finite")
+        # the streamed eval against the resident eval over one split
+        m_ev = 3 * B
+        ev_dev = [torch.from_numpy(v[:m_ev]).to(dev) for v in (images, ctf)]
+        resident = trainer.eval_epoch(state, *ev_dev, seed=7)
+        streamed = trainer.eval_epoch_stream(
+            state, pipe(m=m_ev, shuffle=False).epoch(0), seed=7)
+        rel = max(abs(a - b) / abs(b) for a, b in zip(streamed, resident))
+        check(rel <= 1e-5,
+              f"phase 17: eval_epoch_stream (shuffle=False, seed 7) over "
+              f"{m_ev} particles {np.round(streamed, 5).tolist()} vs "
+              f"eval_epoch {np.round(resident, 5).tolist()}: max rel "
+              f"{rel:.2e} <= 1e-5 (weighted sums of 1/B against means)")
+        del ev_dev
+    with encoder_tier("conv"):
+        st = trainer.init_state(0)
+        kernels.reset_launch_counts()
+        st, mc = trainer.train_epoch_stream(st, pipe(m=STREAM_CONV_BATCHES
+                                                     * B).epoch(0))
+        torch.cuda.synchronize()
+        cc = kernels.launch_counts()
+        used_c = ("mix_heads_fwd", "mix_heads_bwd", "posterior_fwd",
+                  "posterior_bwd", "pose_decoder_fwd", "pose_decoder_bwd")
+        check(cc == {k: STREAM_CONV_BATCHES if k in used_c else 0 for k in cc}
+              and bool(np.isfinite(mc).all()),
+              f"phase 17: conv tier: a {STREAM_CONV_BATCHES}-batch streamed "
+              f"epoch, means {np.round(mc, 4).tolist()}; launches {cc} (K1, "
+              f"K2 in place of K11, K12)")
+        del st
+
+    rates = {}
+    with encoder_tier("patch"), tempfile.TemporaryDirectory() as tmp:
+        # the profiler window: a streamed epoch of PROFILE_BATCHES
+        # batches, profiled from its 4th step on (the worker stages a few
+        # batches ahead, so the first copies precede the window)
+        state = trainer.init_state(0)
+        win = {"steps": 0}
+        prof = profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA])
+
+        def window(batches):
+            for i, b in enumerate(batches):
+                if i == PROFILE_SKIP:
+                    torch.cuda.synchronize()
+                    prof.__enter__()
+                if i >= PROFILE_SKIP:
+                    win["steps"] += 1
+                yield b
+        trainer.train_epoch_stream(state, window(pipe(
+            m=PROFILE_BATCHES * B).epoch(0)))
+        torch.cuda.synchronize()
+        prof.__exit__(None, None, None)
+        ov = overlapping_copies(prof, tmp)
+        check(ov["overlapping"] >= win["steps"],
+              f"phase 17: profiler window of {win['steps']} streamed steps: "
+              f"{ov['side_copies']} host-to-device copies on streams "
+              f"{ov.get('copy_streams')} (not the compute stream "
+              f"{ov.get('compute_stream')}), {ov['overlapping']} of them "
+              f"overlapping a kernel (>= one a step); {ov['kernels']} "
+              f"kernels on the compute stream"
+              + (f"; trace categories {ov['categories']}"
+                 if "categories" in ov else ""))
+        del prof
+
+        # resident against streamed img/s: EMPIAR, then the flagship
+        for label, c, ys, cs in (
+                ("EMPIAR", cfg, images, ctf),
+                ("flagship", flagship_config(),
+                 synthetic_images(FLAGSHIP_STREAM, 50, 11), None)):
+            tr = trainer if label == "EMPIAR" else Trainer(
+                TargetVAE(c, device=dev), TrainConfig(
+                    compute_dtype="bfloat16", minibatch_size=B), device=dev)
+            st = tr.init_state(0)
+            yd = torch.from_numpy(ys).to(dev)
+            cd = None if cs is None else torch.from_numpy(cs).to(dev)
+            m = len(ys)
+            pipes = {w: HostDataPipeline(ys, cs, batch_size=B, seed=0,
+                                         device=dev, wire_dtype=w,
+                                         timing=True)
+                     for w in (None, "bfloat16")}
+            out = {"resident": [], None: [], "bfloat16": []}
+            tr.train_epoch(st, yd[:2 * B], None if cd is None
+                           else cd[:2 * B])                   # warm-up
+            for rep in range(RATE_REPS):
+                out["resident"].append(epoch_rate(
+                    torch, lambda: tr.train_epoch(st, yd, cd), m))
+                for w, p in pipes.items():
+                    out[w].append(epoch_rate(
+                        torch, lambda p=p: tr.train_epoch_stream(
+                            st, p.epoch(rep)), m))
+            waits = {w: np.asarray(p.stats()["wait_s"]) * 1e3
+                     for w, p in pipes.items()}
+            copies = {w: np.asarray(p.stats()["copy_ms"])
+                      for w, p in pipes.items()}
+            rates[label] = out
+            res = float(np.mean(out["resident"]))
+            line = (f"phase 17: {label} patch tier, {m} images, B={B}, "
+                    f"{card()}: "
+                    f"resident train_epoch "
+                    f"{[round(v, 1) for v in out['resident']]} img/s; ")
+            for w, name in ((None, "float32"), ("bfloat16", "bf16")):
+                line += (f"streamed {name} wire "
+                         f"{[round(v, 1) for v in out[w]]} img/s "
+                         f"({float(np.mean(out[w])) / res:.3f} of resident), "
+                         f"consumer wait a batch median "
+                         f"{float(np.median(waits[w])):.3f} ms / max "
+                         f"{float(waits[w].max()):.3f} ms (host clock), copy "
+                         f"to the card a batch median "
+                         f"{float(np.median(copies[w])):.3f} ms (side-stream "
+                         f"events); ")
+            print(line.rstrip("; "), flush=True)
+            del yd, cd, st, pipes
+            if tr is not trainer:
+                del tr
+            torch.cuda.empty_cache()
+    del trainer
+    torch.cuda.empty_cache()
+    return counts
+
+
+def dp_rank(rank: int, world: int, device: str, data_dir: str) -> dict:
+    """Phase 18's EMPIAR work on one of DP_RANKS ranks sharing `device`
+    over gloo, patch tier, bf16: dp = 2 (one deterministic step's metrics
+    and gradients, DP_STEPS sampled steps, a ragged resident epoch of
+    DP_RAGGED particles, a host-streamed epoch of the stand-in, each rank
+    gathering its rows), then SP with tp = 2 on a CTF batch of B - 1
+    particles and one zero-weight pad."""
+    import torch
+    import targetvae_tpu_torch.kernels as kernels
+    from targetvae_tpu_torch import TargetVAE
+    from targetvae_tpu_torch.data.pipeline import HostDataPipeline
+    from targetvae_tpu_torch.train import Trainer
+    from targetvae_tpu_torch.utils.config import TrainConfig
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device)
+    images = np.load(os.path.join(data_dir, "images.npy"))
+    ctf = np.load(os.path.join(data_dir, "ctf.npy"))
+    cfg = empiar_config()
+    yd = torch.from_numpy(images[:DP_RAGGED]).to(dev)
+    cd = torch.from_numpy(ctf[:DP_RAGGED]).to(dev)
+    grads = lambda tr: {n: p.grad.detach().cpu()
+                        for n, p in tr.model.named_parameters()}
+    out = {}
+    with encoder_tier("patch"):
+        make = lambda **kw: Trainer(TargetVAE(cfg, device=dev), TrainConfig(
+            compute_dtype="bfloat16", minibatch_size=B, **kw), device=dev)
+        tr = make(dp=world)
+        state = tr.init_state(0)
+        generator, state.generator = state.generator, None
+        state, m = tr.train_step(state, yd[:B], ctf=cd[:B])
+        out["det"] = {"metrics": m.cpu().numpy(), "grads": grads(tr)}
+        state.generator = generator
+        metrics, secs = [], []
+        for i in range(DP_STEPS):
+            j = slice((i % TRAIN_BATCHES) * B, (i % TRAIN_BATCHES + 1) * B)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state, m = tr.train_step(state, yd[j], ctf=cd[j])
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t)
+            metrics.append(m)
+        out["sampled"] = {"metrics": torch.stack(metrics).cpu().numpy(),
+                          "digest": param_digest(tr.model), "step_s": secs}
+        tr = make(dp=world, learning_rate=0.0)
+        state = tr.init_state(0)
+        state.generator = None
+        t = time.perf_counter()
+        state, means = tr.train_epoch(state, yd, cd)
+        torch.cuda.synchronize()
+        out["ragged"] = {"means": means, "steps": state.step,
+                         "grads": grads(tr), "s": time.perf_counter() - t}
+        tr = make(dp=world)
+        state = tr.init_state(0)
+        pipe = HostDataPipeline(images, ctf, batch_size=B, seed=0, device=dev,
+                                rows=tr.batch_rows(B))
+        shapes = set()
+
+        def seen(batches):
+            for b in batches:
+                shapes.add(tuple(b.y.shape))
+                yield b
+        t = time.perf_counter()
+        state, means = tr.train_epoch_stream(state, seen(pipe.epoch(0)))
+        torch.cuda.synchronize()
+        out["stream"] = {"means": means, "steps": state.step,
+                         "digest": param_digest(tr.model),
+                         "shapes": sorted(shapes),
+                         "s": time.perf_counter() - t}
+        del tr, state, pipe
+        tr = make(tp=world, sp=True)
+        state = tr.init_state(0)
+        state.generator = None
+        rows = torch.cat([torch.arange(B - 1), torch.zeros(1, dtype=torch.long)]
+                         ).to(dev)
+        w = torch.cat([torch.full((B - 1,), 1.0 / (B - 1)), torch.zeros(1)]
+                      ).to(dev)
+        kernels.reset_launch_counts()
+        state, m = tr.train_step(state, yd[rows], w, cd[rows])
+        torch.cuda.synchronize()
+        out["sp"] = {"metrics": m.cpu().numpy(), "grads": grads(tr),
+                     "counts": kernels.launch_counts()}
+    return out
+
+
+def dp_sp_rank(rank: int, world: int, device: str) -> dict:
+    """Phase 18's dp = 2 x tp = 2 SP step at the flagship on one of 4
+    ranks sharing `device` (conv tier, bf16, deterministic): its metrics
+    and all-reduced gradients."""
+    import torch
+    from targetvae_tpu_torch.train import Trainer
+    from targetvae_tpu_torch.utils.config import TrainConfig
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device)
+    y = torch.from_numpy(synthetic_images(B, 50, 3)).to(dev)
+    with encoder_tier("conv"):
+        tr = Trainer(flagship_config(), TrainConfig(
+            compute_dtype="bfloat16", minibatch_size=B, dp=2, tp=world // 2,
+            sp=True), device=dev)
+        state = tr.init_state(0)
+        state.generator = None
+        t = time.perf_counter()
+        state, m = tr.train_step(state, y)
+        torch.cuda.synchronize()
+        return {"metrics": m.cpu().numpy(), "mesh": (tr.mesh.data_index,
+                                                      tr.mesh.rank),
+                "grads": {n: p.grad.detach().cpu()
+                          for n, p in tr.model.named_parameters()},
+                "s": time.perf_counter() - t}
+
+
+def unsharded(torch, cfg, dev, tier: str, y, ctf=None):
+    """The one-process deterministic bf16 step's metrics and gradients."""
+    from targetvae_tpu_torch.train import Trainer
+    from targetvae_tpu_torch.utils.config import TrainConfig
+    with encoder_tier(tier):
+        tr = Trainer(cfg, TrainConfig(compute_dtype="bfloat16",
+                                      minibatch_size=B), device=dev)
+        state = tr.init_state(0)
+        state.generator = None
+        _, m = tr.train_step(state, y, ctf=ctf)
+        out = {"metrics": m.cpu().numpy(), "grads": {
+            n: p.grad.detach().cpu() for n, p in tr.model.named_parameters()}}
+    del tr, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def held_to_bounds(got: dict, ref: dict, label: str) -> None:
+    """A sharded step against the unsharded one: the ELBO within
+    TOL_SP_LOSS relative, every gradient leaf within TOL_SP_GRAD relative
+    L2, the attention bias's gradient (exactly 0: rounding noise) below
+    1e-3 of the attention weight's."""
+    shift = "encoder.conv_a.b"
+    g, g1 = got["grads"], ref["grads"]
+    rels = {n: rel_l2(g[n], g1[n]) for n in g1 if n != shift}
+    worst = max(rels, key=rels.get)
+    e, e1 = float(got["metrics"][0]), float(ref["metrics"][0])
+    rel_loss = abs(e - e1) / abs(e1)
+    floor = 1e-3 * float(g1["encoder.conv_a.w"].norm())
+    check(rel_loss <= TOL_SP_LOSS and rels[worst] <= TOL_SP_GRAD
+          and float(g[shift].norm()) <= floor,
+          f"phase 18: {label}: ELBO {e:.5f} vs the unsharded bf16 step's "
+          f"{e1:.5f} (rel {rel_loss:.3e} <= {TOL_SP_LOSS}); gradients rel L2 "
+          f"worst {worst} {rels[worst]:.2e} <= {TOL_SP_GRAD} (median "
+          f"{float(np.median(list(rels.values()))):.2e}); {shift} |g| "
+          f"{float(g[shift].norm()):.2e} <= {floor:.2e}")
+
+
+def rank_paths(torch, kernels, dev, stand: dict) -> dict:
+    """Phase 18: ranks sharing the one card over gloo (run_local; not a
+    speed across GPUs). dp = 2 at EMPIAR (dp_rank) against one process;
+    SP with CTF and a zero-weight pad against the unsharded step; dp = 2 x
+    tp = 2 SP on 4 ranks at the flagship; then torchrun's 2-rank
+    train_particles --dp 2 --host-stream --stream-bf16 (one run directory,
+    written by rank 0), and a host-streamed single-process run resumed
+    after 1 epoch against 2 epochs at once, bitwise. Returns rank 0's
+    launch counts of the SP step."""
+    from targetvae_tpu_torch.parallel.distributed import run_local
+    from targetvae_tpu_torch.train import Trainer
+    from targetvae_tpu_torch.utils.config import TrainConfig
+    images, ctf = stand["images"], stand["ctf"]
+    cfg = empiar_config()
+    yd = torch.from_numpy(images[:DP_RAGGED]).to(dev)
+    cd = torch.from_numpy(ctf[:DP_RAGGED]).to(dev)
+    ref = unsharded(torch, cfg, dev, "patch", yd[:B], cd[:B])
+    ref_sp = unsharded(torch, cfg, dev, "patch", yd[:B - 1], cd[:B - 1])
+    # the ragged epoch at learning rate 0: every step of both runs sees the
+    # initial parameters, so the epoch's means and its last (tail) step's
+    # gradients face a single step's bounds (with Adam moving the weights,
+    # bf16 rounding differences compound from step to step)
+    with encoder_tier("patch"):
+        tr = Trainer(cfg, TrainConfig(compute_dtype="bfloat16",
+                                      minibatch_size=B, learning_rate=0.0),
+                     device=dev)
+        state = tr.init_state(0)
+        state.generator = None
+        state, ref_means = tr.train_epoch(state, yd, cd)
+        ref_tail = {"metrics": np.asarray(ref_means), "grads": {
+            n: p.grad.detach().cpu() for n, p in tr.model.named_parameters()}}
+    del tr, state, yd, cd
+    torch.cuda.empty_cache()
+
+    t = time.perf_counter()
+    ranks = run_local(dp_rank, DP_RANKS, backend="gloo",
+                      timeout=RANK_TIMEOUT, args=(str(dev), stand["dir"]))
+    print(f"phase 18: {DP_RANKS} ranks on {dev} over gloo ran the EMPIAR "
+          f"work in {time.perf_counter() - t:.1f} s (spawn included)",
+          flush=True)
+    for r, res in enumerate(ranks):
+        held_to_bounds(res["det"], ref, f"rank {r}: dp = 2, one "
+                       f"deterministic step at EMPIAR ({B // DP_RANKS} rows "
+                       f"a rank, CTF, patch tier)")
+    s = [res["sampled"] for res in ranks]
+    check(len({x["digest"] for x in s}) == 1
+          and all(np.isfinite(x["metrics"]).all() for x in s)
+          and np.array_equal(s[0]["metrics"], s[1]["metrics"]),
+          f"phase 18: dp = 2: {DP_STEPS} sampled steps: metrics finite and "
+          f"equal on the ranks, parameters bitwise equal across them "
+          f"(sha256 {s[0]['digest'][:16]}); ELBO per step "
+          f"{np.round(s[0]['metrics'][:, 0], 2).tolist()}")
+    step_ms = np.asarray(s[0]["step_s"][1:]) * 1e3
+    print(f"phase 18: dp = 2 train step at EMPIAR ({card()}), 2 ranks "
+          f"sharing one card "
+          f"over gloo (the collectives and the shared card, not dp's speed "
+          f"across GPUs): rank 0 {float(step_ms.mean()):.3f} ms/step host "
+          f"clock (mean of steps 2-{DP_STEPS}, min {float(step_ms.min()):.3f}, "
+          f"max {float(step_ms.max()):.3f})", flush=True)
+    steps = -(-DP_RAGGED // B)
+    for r, res in enumerate(ranks):
+        rg = res["ragged"]
+        rel_m = max(abs(a - b) / abs(b) for a, b in zip(rg["means"],
+                                                         ref_means))
+        check(rg["steps"] == steps and rel_m <= TOL_SP_LOSS,
+              f"phase 18: rank {r}: a ragged resident epoch of {DP_RAGGED} "
+              f"particles on dp = 2 ({steps} steps, the tail of "
+              f"{DP_RAGGED % B} padded to {DP_RAGGED % B + 1}), "
+              f"deterministic, learning rate 0, vs one process: means "
+              f"{np.round(rg['means'], 4).tolist()} vs "
+              f"{np.round(ref_means, 4).tolist()} (max rel {rel_m:.2e} <= "
+              f"{TOL_SP_LOSS})")
+        held_to_bounds({"metrics": np.asarray(rg["means"]),
+                        "grads": rg["grads"]}, ref_tail,
+                       f"rank {r}: the ragged epoch's tail step ({DP_RAGGED % B}"
+                       f" particles and a zero-weight pad over 2 ranks vs "
+                       f"the {DP_RAGGED % B} in one batch)")
+    st = [res["stream"] for res in ranks]
+    n = len(images)
+    check(len({x["digest"] for x in st}) == 1
+          and all(x["steps"] == -(-n // B) for x in st)
+          and all(x["shapes"] == [(B // DP_RANKS, EMPIAR_DIM, EMPIAR_DIM, 1)]
+                  for x in st)
+          and bool(np.isfinite(st[0]["means"]).all())
+          and st[0]["means"] == st[1]["means"],
+          f"phase 18: dp = 2: a host-streamed epoch of {n} particles, each "
+          f"rank gathering its {B // DP_RANKS} rows of every batch: "
+          f"{st[0]['steps']} steps in {st[0]['s']:.2f} s "
+          f"({n / st[0]['s']:.1f} img/s for the pair, one shared card), "
+          f"means {np.round(st[0]['means'], 4).tolist()}, parameters bitwise "
+          f"equal across the ranks")
+    for r, res in enumerate(ranks):
+        c = res["sp"]["counts"]
+        held_to_bounds(res["sp"], ref_sp, f"rank {r}: SP, tp = 2, at EMPIAR "
+                       f"with CTF: {B - 1} particles and a zero-weight pad "
+                       f"vs the unsharded step on the {B - 1}")
+        check(c["posterior_shard_fwd"] == 1 and c["posterior_shard_bwd"] == 1
+              and c["posterior_fwd"] == 0 and c["posterior_bwd"] == 0,
+              f"phase 18: rank {r}: SP step launches {c} (K5, K6 once; K3, "
+              f"K4 never)")
+    sp_counts = ranks[0]["sp"]["counts"]
+    del ranks
+    torch.cuda.empty_cache()
+
+    # dp = 2 x tp = 2 SP on 4 ranks at the flagship
+    y = torch.from_numpy(synthetic_images(B, 50, 3)).to(dev)
+    ref_f = unsharded(torch, flagship_config(), dev, "conv", y)
+    del y
+    t = time.perf_counter()
+    four = run_local(dp_sp_rank, 4, backend="gloo", timeout=RANK_TIMEOUT,
+                     args=(str(dev),))
+    print(f"phase 18: 4 ranks (dp = 2 x tp = 2) on {dev} over gloo ran in "
+          f"{time.perf_counter() - t:.1f} s (spawn included)", flush=True)
+    for r, res in enumerate(four):
+        check(res["mesh"] == (r // 2, r % 2),
+              f"phase 18: rank {r} at (data, model) {res['mesh']}")
+        held_to_bounds(res, ref_f, f"rank {r}: dp = 2 x tp = 2 SP at the "
+                       f"flagship ({B // 4} rows a rank, the exchange over "
+                       f"the data row's 2 ranks)")
+    del four
+    torch.cuda.empty_cache()
+
+    cli_dp(torch, stand)
+    resumed_stream(torch, kernels, stand)
+    return sp_counts
+
+
+def particles_args(stand: dict, logs: str, epochs: int) -> list:
+    """train_particles' flags for phase 18's runs on the stand-in:
+    CLI_TRAIN / STREAM_TEST particles with their CTF tables, streamed on
+    the bf16 wire, bf16."""
+    path = stand["path"]
+    return ["--train-path", path("cli_train.mrcs"), "--test-path",
+            path("particles_test.mrcs"), "--ctf-train",
+            path("cli_ctf_train.txt"), "--ctf-test", path("ctf_test.txt"),
+            "--mask-radius", "45", "--normalize", "--fourier-expansion",
+            "--compute-dtype", "bfloat16", "--host-stream", "--stream-bf16",
+            "--num-epochs", str(epochs), "--log-root", logs]
+
+
+def cli_dp(torch, stand: dict) -> None:
+    """torchrun --standalone --nproc_per_node 2 -m
+    targetvae_tpu_torch.cli.train_particles --dp 2 --host-stream
+    --stream-bf16 (patch tier) on the stand-in: one run directory, rank 0's,
+    with its epoch lines, a finite test ELBO and the backend named."""
+    import shutil
+    import tempfile
+    here = os.path.dirname(os.path.abspath(__file__))
+    runner = shutil.which("torchrun")
+    runner = [runner] if runner else [sys.executable, "-m",
+                                      "torch.distributed.run"]
+    with tempfile.TemporaryDirectory() as logs:
+        cmd = runner + ["--standalone", "--nproc_per_node", "2", "-m",
+                        "targetvae_tpu_torch.cli.train_particles", "--dp",
+                        "2"] + particles_args(stand, logs, CLI_DP_EPOCHS)
+        env = dict(os.environ, TARGETVAE_ENCODER_TIER="patch",
+                   PYTHONPATH=here + os.pathsep
+                   + os.environ.get("PYTHONPATH", ""))
+        t = time.perf_counter()
+        done = subprocess.run(cmd, cwd=here, env=env, capture_output=True,
+                              text=True, timeout=RANK_TIMEOUT)
+        secs = time.perf_counter() - t
+        runs = os.listdir(logs)
+        log = ""
+        if len(runs) == 1:
+            with open(os.path.join(logs, runs[0], "train_log.txt")) as f:
+                log = f.read()
+        tsv = tsv_rows(os.path.join(logs, runs[0])) if log else {}
+        tests = [v[0] for (ep, sp), v in tsv.items() if sp == "test"]
+        rates = re.findall(r"# epoch \d+: [\d.]+s, (\d+) images/sec",
+                           done.stderr)
+        check(done.returncode == 0 and len(runs) == 1
+              and sorted(tsv) == sorted((ep, sp) for ep in range(
+                  1, CLI_DP_EPOCHS + 1) for sp in ("train", "test"))
+              and len(tests) == CLI_DP_EPOCHS
+              and bool(np.isfinite(tests).all())
+              and "# mesh: data=2 model=1 (2 ranks, gloo backend)" in log
+              and "(bf16 wire)" in log,
+              f"phase 18: torchrun --standalone --nproc_per_node 2 -m "
+              f"targetvae_tpu_torch.cli.train_particles --dp 2 --host-stream "
+              f"--stream-bf16 --compute-dtype bfloat16, {CLI_TRAIN} / "
+              f"{STREAM_TEST} particles with CTF, patch tier "
+              f"(exit {done.returncode}, {secs:.1f} s): run directories "
+              f"{runs} (one, rank 0's), TSV lines "
+              f"{ {k: [round(v, 2) for v in tsv[k]] for k in sorted(tsv)} }, "
+              f"test ELBO finite, the mesh and the gloo backend logged; "
+              f"epoch img/s (rank 0's line) {rates}"
+              + ("" if done.returncode == 0 else
+                 f"; stderr tail: {done.stderr[-3000:]}"))
+
+
+def resumed_stream(torch, kernels, stand: dict) -> None:
+    """A host-streamed single-process train_particles run (patch tier):
+    1 epoch, then --resume for 1 more, against 2 epochs at once: the final
+    parameters and Adam moments bitwise equal."""
+    import tempfile
+    from targetvae_tpu_torch.cli import train_particles
+    with tempfile.TemporaryDirectory() as root, encoder_tier("patch"):
+        states = {}
+        for label, epochs in (("full", 2), ("half", 1)):
+            logs = os.path.join(root, label)
+            with contextlib.redirect_stderr(io.StringIO()):
+                states[label] = train_particles.main(
+                    particles_args(stand, logs, epochs))
+        half = os.path.join(root, "half")
+        run = os.path.join(half, os.listdir(half)[0])
+        with contextlib.redirect_stderr(io.StringIO()):
+            resumed = train_particles.main(
+                particles_args(stand, half, 2) + ["--resume", run])
+        full = states["full"]
+        a, b = state_arrays(torch, full), state_arrays(torch, resumed)
+        same = a.keys() == b.keys() and all(np.array_equal(a[k], b[k])
+                                            for k in a)
+        check(same and full.step == resumed.step,
+              f"phase 18: train_particles --host-stream --stream-bf16, 1 "
+              f"epoch then --resume for 1 more: {len(a)} parameter and Adam "
+              f"arrays bitwise those of 2 epochs at once, {resumed.step} "
+              f"steps")
 
 
 if __name__ == "__main__":

@@ -10,8 +10,11 @@ import sys
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 from ..models.targetvae import resolve_device
+from ..parallel.distributed import (initialize_from_env, launched_by_torchrun,
+                                    local_device)
 from ..utils.config import (
     EncoderConfig, GeneratorConfig, LikelihoodConfig, ModelConfig, TrainConfig,
     fourier_sigma_for)
@@ -82,8 +85,8 @@ def add_train_args(parser: argparse.ArgumentParser) -> None:
                         help="number of training epochs (default: 500)")
     parser.add_argument("-d", "--device", type=int, default=0,
                         help="compute device to use (default:0)")
-    # extensions of the JAX package (not in the reference); the flags that
-    # select what the port has not yet (mesh, SP, host stream) raise in fit
+    # extensions of the JAX package (not in the reference); --dp / --tp
+    # above 1 run under torchrun, one process a rank
     parser.add_argument("--compute-dtype", choices=["float32", "bfloat16"],
                         default="float32",
                         help="matmul/conv compute dtype; bfloat16 also enables "
@@ -132,9 +135,14 @@ def add_train_args(parser: argparse.ArgumentParser) -> None:
 
 def select_device(device_index: int) -> torch.device:
     """-1 -> the CPU; i -> cuda:i. Without CUDA, or with fewer devices, it
-    raises: it never falls back to the CPU, which -1 asks for."""
+    raises: it never falls back to the CPU, which -1 asks for. Under
+    torchrun each local rank takes cuda:(i + local rank) where the cards
+    suffice, else the ranks share cuda:i
+    (parallel.distributed.local_device)."""
     if device_index == -1:
         return torch.device("cpu")
+    if launched_by_torchrun():
+        device_index = torch.device(local_device(device_index)).index
     if not torch.cuda.is_available():
         resolve_device()                  # raises the package's message
     if not 0 <= device_index < torch.cuda.device_count():
@@ -173,17 +181,33 @@ def model_config_from_args(args, image_dim: int, n_out: int,
 
 def launch_training(args, model, train_cfg, run_name: str, y_train, y_test,
                     ctf_train=None, ctf_test=None):
-    """Shared tail of every train CLI: logger/run-dir setup (or resume into an
-    existing run dir), optional anomaly detection, then fit(), which puts
-    the data on the model's device."""
-    from ..train import RunLogger, fit
+    """Shared tail of every train CLI: the process group of a multi-rank run
+    (torchrun's environment), logger/run-dir setup on rank 0 (or resume
+    into an existing run dir, which every rank reads), optional anomaly
+    detection, then fit(), which puts the data on the model's device or,
+    with --host-stream, streams it from host RAM."""
+    from ..train import NullLogger, RunLogger, fit
 
     if args.debug_nans:
         torch.autograd.set_detect_anomaly(True)
 
-    resume_dir = None
-    if args.resume:
-        resume_dir = args.resume.rstrip("/")
+    ranks = train_cfg.dp * train_cfg.tp
+    joined = False
+    if ranks > 1 and not dist.is_initialized():
+        if not launched_by_torchrun():
+            raise SystemExit(
+                f"--dp {train_cfg.dp} x --tp {train_cfg.tp} runs {ranks} "
+                f"ranks, one process each: launch it as `torchrun "
+                f"--standalone --nproc_per_node {ranks} -m "
+                f"targetvae_tpu_torch.cli.<train CLI> ...`")
+        initialize_from_env(model.device)
+        joined = True
+    rank0 = not dist.is_initialized() or dist.get_rank() == 0
+
+    resume_dir = args.resume.rstrip("/") if args.resume else None
+    if not rank0:
+        logger = NullLogger()
+    elif resume_dir:
         logger = RunLogger(os.path.dirname(resume_dir) or ".",
                            os.path.basename(resume_dir), append=True)
     else:
@@ -195,6 +219,8 @@ def launch_training(args, model, train_cfg, run_name: str, y_train, y_test,
                    resume_dir=resume_dir, profile_dir=args.profile_dir)
     finally:
         logger.close()
+        if joined:
+            dist.destroy_process_group()
 
 
 def train_config_from_args(args, **overrides) -> TrainConfig:

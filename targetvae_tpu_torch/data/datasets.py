@@ -5,9 +5,9 @@ Same default paths as the reference loaders (train_mnist.py:440-470,
 train_dsprites.py:436, train_galaxy.py:438-442, train_particles.py:454-475),
 returning channels-last (N, H, W, C) float32 arrays (particles: (N, H, W)).
 Nothing is downloaded: plain MNIST is read from `mnist_{split}.npy` under
-the data root. Particle stacks are memory-mapped through mrc.read_mmap
-(the JAX package reads them through its native loader where that is
-built; the port has no such loader yet, ROADMAP.md, queue 1, item 22).
+the data root. MRC particle stacks are read by the native loader
+(data/native.py: memory-mapped, decoded on several threads), as the JAX
+package reads them.
 """
 
 from __future__ import annotations
@@ -17,7 +17,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-from . import mrc
+from . import native
 from .image import crop as crop_fn
 
 
@@ -83,8 +83,7 @@ def load_particles(path: str) -> np.ndarray:
     """A particle stack (N, H, W) float32: a .mrc/.mrcs/.npy file, or a
     directory of .mrc/.mrcs files read in name order and concatenated."""
     def _load_one(p: str) -> np.ndarray:
-        arr, _ = mrc.read_mmap(p)
-        return np.array(arr, dtype=np.float32)    # read into RAM, writable
+        return native.load_mrc_f32(p)     # mmap + multithreaded decode
 
     if os.path.isdir(path):
         stacks = [

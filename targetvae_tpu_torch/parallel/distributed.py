@@ -2,11 +2,14 @@
 targetvae_tpu/parallel/distributed.py and of the two-process pattern of
 __graft_entry__.dryrun_multichip / tests/_mp_worker.py).
 
-Nothing here picks a backend or an address: the caller names the backend
-("gloo" or "nccl"), the rendezvous (an init_method URL such as
-"tcp://localhost:<port>" or "file://<path>"), the rank and the world size.
-NCCL refuses two ranks on one device, so ranks that share one card run on
-gloo, which takes CUDA tensors in all_reduce and all_to_all_single.
+initialize takes the backend ("gloo" or "nccl"), the rendezvous (an
+init_method URL such as "tcp://localhost:<port>" or "file://<path>"), the
+rank and the world size from its caller; initialize_from_env takes them
+from torchrun's environment (env://; `torchrun --standalone` meets on
+localhost) and picks the backend: nccl where every rank has a card of its
+own, gloo where ranks share one (NCCL refuses two ranks on one device;
+gloo takes CUDA tensors in all_reduce and all_to_all_single) or run on
+the CPU.
 """
 
 from __future__ import annotations
@@ -41,6 +44,55 @@ def initialize(backend: str, init_method: str, rank: int, world_size: int,
         "timeout": datetime.timedelta(seconds=timeout)}
     dist.init_process_group(backend=backend, init_method=init_method,
                             rank=rank, world_size=world_size, **kw)
+
+
+TORCHRUN_VARS = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+                 "MASTER_PORT")
+
+
+def launched_by_torchrun() -> bool:
+    """Whether torchrun's environment (RANK, WORLD_SIZE, ...) is set."""
+    return all(v in os.environ for v in TORCHRUN_VARS)
+
+
+def local_device(device_index: int) -> str:
+    """This process's device under torchrun: cuda:(index + LOCAL_RANK) when
+    each local rank has a card of its own, else cuda:index, which the local
+    ranks then share (and talk over gloo); -1 is the CPU."""
+    if device_index < 0:
+        return "cpu"
+    local = int(os.environ.get("LOCAL_RANK", "0"))
+    local_world = int(os.environ.get("LOCAL_WORLD_SIZE",
+                                     os.environ.get("WORLD_SIZE", "1")))
+    if device_index + local_world <= torch.cuda.device_count():
+        return f"cuda:{device_index + local}"
+    return f"cuda:{device_index}"
+
+
+def initialize_from_env(device, timeout: Optional[float] = None) -> str:
+    """Join the default process group that torchrun describes in the
+    environment (env://; `torchrun --standalone` rendezvouses on
+    localhost). The backend is nccl when every rank's device is a card of
+    its own and gloo when ranks share one (NCCL refuses two ranks on one
+    device) or run on the CPU. Returns the backend's name."""
+    if not launched_by_torchrun():
+        raise RuntimeError(
+            "no torchrun environment (RANK, WORLD_SIZE, MASTER_ADDR, ...): "
+            "launch multi-rank runs with `torchrun --standalone "
+            "--nproc_per_node N -m targetvae_tpu_torch.cli.<cli> ...`")
+    device = torch.device(device)
+    world = int(os.environ["WORLD_SIZE"])
+    local_world = int(os.environ.get("LOCAL_WORLD_SIZE", str(world)))
+    # local_device's layout: rank i on cuda:(base + i) when the cards suffice
+    base = (device.index or 0) - int(os.environ["LOCAL_RANK"])
+    own_card = (device.type == "cuda" and local_world == world
+                and (world == 1 or (base >= 0 and base + local_world
+                                    <= torch.cuda.device_count())))
+    backend = "nccl" if own_card else "gloo"
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    initialize(backend, "env://", int(os.environ["RANK"]), world, timeout)
+    return backend
 
 
 def _rank_main(fn, rank: int, world_size: int, backend: str, init: str,

@@ -66,3 +66,23 @@ class RunLogger:
 
     def close(self) -> None:
         self.log_file.close()
+
+
+class NullLogger:
+    """RunLogger's surface writing nothing: what the ranks other than rank
+    0 log to, so that one run directory is written."""
+    path_prefix = None
+
+    def epoch(self, epoch: int, split: str, elbo: float, gen_loss: float,
+              kl: float) -> str:
+        return "\t".join([str(epoch), split, str(elbo), str(gen_loss),
+                          str(kl)])
+
+    def line(self, msg: str) -> None:
+        pass
+
+    def progress(self, msg: str) -> None:
+        pass
+
+    def close(self) -> None:
+        pass

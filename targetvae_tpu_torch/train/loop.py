@@ -1,30 +1,37 @@
-"""The training step and the epoch loop (mirror of
+"""The training step and the epoch loops (mirror of
 targetvae_tpu/train/loop.py: Trainer's _step_impl and _eval_impl over the
-plain compute_elbo loss, its grid-sharded _loss_fn_sp, train_epoch,
-eval_epoch and _pad_tail).
+plain compute_elbo loss, its data-parallel _loss_fn_dp and grid-sharded
+_loss_fn_sp, train_epoch, eval_epoch, the streamed train_epoch_stream and
+eval_epoch_stream, and _pad_tail).
 
 A step is eager PyTorch: the ELBO forward on the chosen tier, autograd
 backward (on the bf16 tier through the K2 or, on the patch encoder tier,
 K12, and the K4 and K8 backward kernels), and one in-place Adam step.
 
-An epoch takes its batches from a data tensor that lies on the model's
-device (fit() puts it there once), gathered by index_select in the order of
-torch.randperm drawn from the state's generator; the ragged tail runs as one
-smaller batch (drop_last=False), as the JAX package runs it on one device.
-Per-image CTF kernels (the particles' Gaussian likelihood), where given,
-lie on the device beside the data and are gathered by the same indices.
-The metrics stay on the device and are read once per chunk of
-progress_chunk batches, one chunk behind the steps being queued, so the
+A resident epoch takes its batches from a data tensor that lies on the
+model's device (fit() puts it there once), gathered by index_select in the
+order of torch.randperm drawn from the state's generator; the ragged tail
+runs as one smaller batch (drop_last=False), as the JAX package runs it on
+one device. Per-image CTF kernels (the particles' Gaussian likelihood),
+where given, lie on the device beside the data and are gathered by the same
+indices. A streamed epoch takes fixed-size StreamBatch(y, ctf, w, n_real)
+batches from a host feed (data/pipeline.py), the tail padded with
+zero-weight rows. The metrics stay on the device and are read once per chunk
+of progress_chunk batches, one chunk behind the steps being queued, so the
 host does not wait for the card after every step.
 
-With TrainConfig(sp=True, tp=T) the bf16 step runs on T ranks of an
-initialised torch.distributed process group (parallel/), each calling
-train_step with the same whole batch: the posterior's cells are sharded
-over the ranks (K5/K6, parallel/grid_softmax.py), and each rank runs the
-encoder and decoder on its B/T rows. Weighted rows and CTF kernels on that
-step (a ragged tail padded over the ranks; the particles' likelihood), host
-streams, dp > 1 and TP parameter sharding are not ported yet (ROADMAP.md,
-queue 1, items 22-24).
+Over ranks (parallel/mesh.py; an initialised torch.distributed process
+group of dp * tp ranks) every rank calls the same entry points with the
+same whole batch, or its data shard's rows of it (the epochs, the host
+feed), and gets the same metrics and parameters. dp > 1 splits each batch
+over the data axis: every rank runs the step with the kernels on its B / dp
+rows and the gradients are all-reduced. TrainConfig(sp=True, tp=T) runs the
+bf16 step grid-sharded over the model axis: the posterior's cells are
+sharded over the T ranks of a data row (K5/K6, parallel/grid_softmax.py),
+and each rank runs the encoder and decoder on its rows. A ragged tail is
+padded over the ranks with zero-weight rows; row weights and CTF kernels
+ride through every form of the step. TP parameter sharding (tp > 1 without
+sp) is not ported (ROADMAP.md, queue 1, item 23).
 """
 
 from __future__ import annotations
@@ -46,10 +53,46 @@ from ..parallel.mesh import make_mesh
 from ..utils.config import ModelConfig, TrainConfig
 from .state import TrainState, create_train_state
 
-_HOST_FEED = ("host_stream", "stream_bf16")
 # the per-rank cell shard is padded to a multiple of this, as the JAX
 # package's SP kernel tiles it, so that the shards match the JAX package's
 SP_CELL_UNIT = 1024
+# a rank's noise seed: the shared generator's draw (< 2**31) folded with the
+# rank's data index, so that the data shards draw apart and the ranks of one
+# data row alike (the JAX package's fold_in of the data index)
+_FOLD = 2 ** 31
+
+
+def check_train_config(model_cfg: ModelConfig, train_cfg: TrainConfig
+                       ) -> None:
+    """Raise on a TrainConfig the port does not run with this model: an
+    unknown compute dtype, sp outside mode C, below tp 2 or on the float32
+    tier, tp > 1 without sp (TP parameter sharding, item 23), dp < 1."""
+    if train_cfg.compute_dtype not in (None, "float32", "bfloat16"):
+        raise ValueError(
+            f"unsupported compute_dtype {train_cfg.compute_dtype!r}")
+    mode = model_cfg.encoder.mode
+    if train_cfg.sp and mode != "C":
+        raise NotImplementedError(
+            f"sp=True with encoder mode {mode}: the grid-sharded "
+            "posterior is ported for mode C only; mode B's waits "
+            "(ROADMAP.md, queue 1, item 24), and mode A has no grid to "
+            "shard")
+    if train_cfg.sp:
+        if train_cfg.tp <= 1:
+            raise ValueError("sp=True shards the posterior grid over the "
+                             "model axis; it requires tp > 1")
+        if train_cfg.compute_dtype != "bfloat16":
+            raise NotImplementedError(
+                "sp=True runs on the bf16 kernel tier; the float32 "
+                "tier's SP branch (compute_elbo(sp=...), "
+                "make_joint_posterior) is not ported (ROADMAP.md)")
+    elif train_cfg.tp != 1:
+        raise NotImplementedError(
+            f"TrainConfig tp={train_cfg.tp} without sp: tensor-parallel "
+            "parameter sharding is not ported yet (ROADMAP.md, queue 1, "
+            "item 23)")
+    if train_cfg.dp < 1:
+        raise ValueError(f"TrainConfig dp={train_cfg.dp}: dp >= 1")
 
 
 class Trainer:
@@ -57,45 +100,13 @@ class Trainer:
                  train_cfg: TrainConfig, device=None):
         """model: a TargetVAE, or a ModelConfig to build one on `device`
         (None means cuda:0, and raises without CUDA: pass device='cpu').
-        sp=True needs tp > 1, dp = 1, compute_dtype 'bfloat16' and a
-        process group of tp ranks (parallel.distributed.initialize)."""
-        if train_cfg.compute_dtype not in (None, "float32", "bfloat16"):
-            raise ValueError(
-                f"unsupported compute_dtype {train_cfg.compute_dtype!r}")
-        changed = [f for f in _HOST_FEED
-                   if getattr(train_cfg, f) != getattr(TrainConfig, f)]
-        if changed:
-            raise NotImplementedError(
-                f"TrainConfig fields {changed} select a host feed, which the "
-                "port does not have yet (ROADMAP.md, queue 1, item 22)")
-        if train_cfg.dp != 1:
-            raise NotImplementedError(
-                f"TrainConfig dp={train_cfg.dp}: data parallelism is not "
-                "ported yet (ROADMAP.md, queue 1, item 23)")
-        self._mesh = None
-        mode = (model if isinstance(model, ModelConfig)
-                else model.cfg).encoder.mode
-        if train_cfg.sp and mode != "C":
-            raise NotImplementedError(
-                f"sp=True with encoder mode {mode}: the grid-sharded "
-                "posterior is ported for mode C only; mode B's waits "
-                "(ROADMAP.md, queue 1, item 24), and mode A has no grid to "
-                "shard")
-        if train_cfg.sp:
-            if train_cfg.tp <= 1:
-                raise ValueError("sp=True shards the posterior grid over the "
-                                 "model axis; it requires tp > 1")
-            if train_cfg.compute_dtype != "bfloat16":
-                raise NotImplementedError(
-                    "sp=True runs on the bf16 kernel tier; the float32 "
-                    "tier's SP branch (compute_elbo(sp=...), "
-                    "make_joint_posterior) is not ported (ROADMAP.md)")
-            self._mesh = make_mesh(model=train_cfg.tp)
-        elif train_cfg.tp != 1:
-            raise NotImplementedError(
-                f"TrainConfig tp={train_cfg.tp} without sp: tensor-parallel "
-                "parameter sharding is not ported yet (ROADMAP.md, queue 1, "
-                "item 23)")
+        dp > 1 or sp=True needs an initialised process group of dp * tp
+        ranks (parallel.distributed.initialize); sp=True also tp > 1 and
+        compute_dtype 'bfloat16'."""
+        check_train_config(model if isinstance(model, ModelConfig)
+                           else model.cfg, train_cfg)
+        self._mesh = (make_mesh(data=train_cfg.dp, model=train_cfg.tp)
+                      if train_cfg.sp or train_cfg.dp > 1 else None)
         if isinstance(model, ModelConfig):
             model = TargetVAE(model, device)
         elif device is not None and resolve_device(device) != model.device:
@@ -107,6 +118,11 @@ class Trainer:
                               if train_cfg.compute_dtype == "bfloat16" else None)
         self._x_coord = model.base_grid()
 
+    @property
+    def mesh(self):
+        """The (data, model) rank layout, or None on one process."""
+        return self._mesh
+
     def init_state(self, seed: int = 0) -> TrainState:
         """Fresh parameters and Adam state. One generator seeded `seed` draws
         the parameters and then goes on to draw the training noise. Ranks
@@ -116,6 +132,24 @@ class Trainer:
         self.model.init(generator)
         return create_train_state(self.model, self.cfg.learning_rate,
                                   generator)
+
+    def batch_rows(self, b: int) -> slice:
+        """The rows of a global batch of b that this rank takes: its data
+        shard's (all of them on one process). A host feed for this Trainer
+        gathers these rows (HostDataPipeline(rows=...))."""
+        if self._mesh is None:
+            return slice(0, b)
+        if b % self._mesh.size:
+            raise ValueError(f"a batch of {b} does not split over the "
+                             f"{self._mesh.data} x {self._mesh.model} ranks")
+        return self._mesh.batch_rows(b)
+
+    def _rank_seed(self, generator: torch.Generator) -> int:
+        """The shared generator's next draw (the same on every rank) folded
+        with this rank's data index."""
+        seed = int(torch.randint(0, _FOLD - 1, (1,), generator=generator,
+                                 device=generator.device))
+        return seed + _FOLD * self._mesh.data_index
 
     def _loss_fn(self, params: dict, y: torch.Tensor,
                  generator: Optional[torch.Generator],
@@ -129,11 +163,26 @@ class Trainer:
                                        row_weights=w, ctf=ctf)
         return -elbo, log_p, kl
 
+    def _loss_fn_dp(self, params: dict, y: torch.Tensor,
+                    generator: Optional[torch.Generator],
+                    w: Optional[torch.Tensor] = None,
+                    ctf: Optional[torch.Tensor] = None):
+        """This rank's (-elbo, log_p, kl) over its data shard's rows y, with
+        the kernels, its noise from the shared generator's seed folded with
+        its data index (targetvae_tpu/train/loop.py::_loss_fn_dp)."""
+        if generator is not None:
+            generator = torch.Generator().manual_seed(
+                self._rank_seed(generator))
+        return self._loss_fn(params, y, generator, w, ctf)
+
     def _loss_fn_sp(self, params: dict, y: torch.Tensor,
-                    generator: Optional[torch.Generator]):
-        """This rank's (kl - log_p, log_p, kl), means over its own B/T rows
-        of the whole batch y, with the posterior grid-sharded over the
-        model axis (targetvae_tpu/train/loop.py::_loss_fn_sp)."""
+                    generator: Optional[torch.Generator],
+                    w: Optional[torch.Tensor] = None,
+                    ctf: Optional[torch.Tensor] = None):
+        """This rank's (kl - log_p, log_p, kl) over its own rows of its data
+        shard's rows y (and their weights w and CTF kernels ctf): means, or
+        sums weighted by w; the posterior grid-sharded over the model axis
+        (targetvae_tpu/train/loop.py::_loss_fn_sp)."""
         mesh = self._mesh
         t_n, t, group = mesh.model, mesh.rank, mesh.group
         cfg = self.model.cfg
@@ -157,16 +206,17 @@ class Trainer:
         planes = chunks_to_cells(heads_to_chunks(
             heads.reshape(b_l, -1, 3 + 2 * zd), const["bias"], t_n, c_loc),
             group)
-        # the Gumbel noise differs per rank (its generator's seed folded
-        # with the rank); the reparameterisation noise is drawn for all B
-        # rows and is the same on every rank, as the moments it scales
+        # the Gumbel noise differs per rank (the data row's seed folded with
+        # the model index); the reparameterisation noise is drawn for the
+        # data row's b rows and is the same on the ranks of the row, as the
+        # moments it scales
         if generator is None:
             noise = torch.zeros((b, c_loc), device=dev)
         else:
-            seed = int(torch.randint(0, 2 ** 31 - 1, (1,), generator=generator,
-                                     device=generator.device))
+            seed = self._rank_seed(generator)
             noise = gumbel_noise((b, c_loc), torch.Generator(
                 device=dev).manual_seed(seed + t), dev)
+            generator = torch.Generator().manual_seed(seed)
         out = sp_posterior(group, const["sig_r"], planes, noise, const["p"],
                            const["gx"], const["gy"], const["offs"])
         z_s = out[:, zd:2 * zd] * _normal_noise(generator, (b, zd), dev) \
@@ -174,12 +224,16 @@ class Trainer:
         theta = out[:, 2 * zd + 1] * _normal_noise(generator, (b,), dev) \
             + out[:, 2 * zd]
         # row s * b_l + r of the exchange is rank s's local row r
+        w_l = None if w is None else w[rows]
         log_p = reconstruct_log_prob(params, cfg, self._x_coord, y[rows],
                                      theta[rows],
                                      out[rows, 2 * zd + 2:2 * zd + 4],
                                      z_s[rows],
-                                     compute_dtype=self.compute_dtype)
-        kl = out[rows, 2 * zd + 4].mean()
+                                     compute_dtype=self.compute_dtype,
+                                     row_weights=w_l,
+                                     ctf=None if ctf is None else ctf[rows])
+        kl = out[rows, 2 * zd + 4]
+        kl = kl.mean() if w_l is None else w_l @ kl
         return kl - log_p, log_p, kl
 
     def _objective(self, params: dict, y: torch.Tensor,
@@ -187,35 +241,60 @@ class Trainer:
                    w: Optional[torch.Tensor] = None,
                    ctf: Optional[torch.Tensor] = None):
         """(the scalar this rank differentiates, the (3,) metrics [elbo,
-        log_p, kl] of the whole batch). With sp the objective is this
-        rank's loss divided by the number of ranks, so that the ranks'
-        objectives add up to the batch mean, and the metrics are
-        all-reduced."""
+        log_p, kl] of the whole batch); y, w and ctf are this rank's data
+        shard's rows. Over ranks an unweighted objective is this rank's
+        means divided by the number of ranks, and a weighted one its
+        weighted sums (the weights sum to 1 over the global batch), so
+        that the ranks' objectives add up to the batch's (the JAX
+        package's pmean against psum); the metrics are all-reduced."""
         if self._mesh is None:
             neg_elbo, log_p, kl = self._loss_fn(params, y, generator, w, ctf)
             return neg_elbo, torch.stack([-neg_elbo, log_p, kl]).detach()
-        if ctf is not None:
-            raise NotImplementedError(
-                "CTF kernels on the grid-sharded step are not ported yet "
-                "(ROADMAP.md, queue 1, item 24)")
-        if w is not None:
-            raise NotImplementedError(
-                "row weights on the grid-sharded step (a ragged tail padded "
-                "over the ranks) are not ported yet (ROADMAP.md, queue 1, "
-                "item 24)")
-        loss, log_p, kl = self._loss_fn_sp(params, y, generator)
-        t_n = self._mesh.model
-        metrics = torch.stack([-loss, log_p, kl]).detach() / t_n
-        dist.all_reduce(metrics, group=self._mesh.group)
-        return loss / t_n, metrics
+        loss_fn = self._loss_fn_sp if self.cfg.sp else self._loss_fn_dp
+        loss, log_p, kl = loss_fn(params, y, generator, w, ctf)
+        div = 1 if w is not None else self._mesh.size
+        metrics = torch.stack([-loss, log_p, kl]).detach() / div
+        dist.all_reduce(metrics)
+        return loss / div, metrics
 
     def on_device(self, y) -> Optional[torch.Tensor]:
         """y (an array or tensor) as float32 on the model's device, without
-        a copy where it already is; a bf16 batch (or bf16 CTF kernels) is
-        upcast, as the JAX loss does. None stays None."""
+        a copy where it already is; a bf16 batch (or bf16 CTF kernels, the
+        host feed's bf16 wire) is upcast, as the JAX loss does. None stays
+        None."""
         if y is None:
             return None
         return torch.as_tensor(y).to(self.model.device, torch.float32)
+
+    def _step(self, state: TrainState, y, w=None, ctf=None
+              ) -> Tuple[TrainState, torch.Tensor]:
+        """One Adam step on this rank's rows y (weights w, CTF kernels
+        ctf)."""
+        state.optimizer.zero_grad(set_to_none=True)
+        objective, metrics = self._objective(
+            state.model.params(), self.on_device(y), state.generator,
+            self.on_device(w), self.on_device(ctf))
+        objective.backward()
+        if self._mesh is not None:
+            self._mesh.all_reduce_grads(state.model.parameters())
+        state.optimizer.step()
+        state.step += 1
+        return state, metrics
+
+    def _eval(self, state: TrainState, y, generator, w=None, ctf=None
+              ) -> torch.Tensor:
+        with torch.inference_mode():
+            return self._objective(state.model.params(), self.on_device(y),
+                                   generator, self.on_device(w),
+                                   self.on_device(ctf))[1]
+
+    def _mine(self, *vs):
+        """This rank's rows of whole-batch arrays or tensors (None stays
+        None)."""
+        if self._mesh is None:
+            return vs
+        rows = self.batch_rows(vs[0].shape[0])
+        return tuple(None if v is None else v[rows] for v in vs)
 
     def train_step(self, state: TrainState, y,
                    row_weights: Optional[torch.Tensor] = None,
@@ -226,32 +305,23 @@ class Trainer:
         sums. Returns (state, metrics) with
         metrics the (3,) tensor [elbo, log_p, kl] on the model's device;
         reading it waits for the step. The parameters, Adam's moments and
-        state.step are updated in place. With sp every rank passes the same
-        y and gets the same metrics and parameters."""
-        state.optimizer.zero_grad(set_to_none=True)
-        objective, metrics = self._objective(
-            state.model.params(), self.on_device(y), state.generator,
-            row_weights, self.on_device(ctf))
-        objective.backward()
-        if self._mesh is not None:
-            self._mesh.all_reduce_grads(state.model.parameters())
-        state.optimizer.step()
-        state.step += 1
-        return state, metrics
+        state.step are updated in place. Over ranks every rank passes the
+        same whole batch (B a multiple of dp * tp) and gets the same
+        metrics and parameters."""
+        return self._step(state, *self._mine(y, row_weights, ctf))
 
     def eval_step(self, state: TrainState, y,
                   generator: Optional[torch.Generator] = None,
                   row_weights: Optional[torch.Tensor] = None,
                   ctf=None) -> torch.Tensor:
         """[elbo, log_p, kl] of the batch y (with its CTF kernels ctf where
-        given), no gradient; noise from `generator` (None: deterministic)."""
-        with torch.inference_mode():
-            return self._objective(state.model.params(), self.on_device(y),
-                                   generator, row_weights,
-                                   self.on_device(ctf))[1]
+        given), no gradient; noise from `generator` (None: deterministic).
+        Over ranks as train_step."""
+        y, row_weights, ctf = self._mine(y, row_weights, ctf)
+        return self._eval(state, y, generator, row_weights, ctf)
 
     # batches per chunk whose metrics are read together when a progress
-    # callback wants mid-epoch reports
+    # callback wants mid-epoch reports (and always in a streamed epoch)
     progress_chunk = 50
 
     def train_epoch(self, state: TrainState, data, ctf=None, progress=None,
@@ -262,53 +332,67 @@ class Trainer:
 
         The order is torch.randperm(N) drawn from state.generator (a state
         without one keeps the data's order); N // B full batches, then the
-        tail as one batch of N % B. progress: optional callback(images_seen,
-        elbo, gen_loss, kl) called with the reference's streaming-mean
-        accumulators (train_mnist.py:326-345) every `progress_chunk`
-        batches. A chunk's metrics are read once the next chunk's steps are
-        queued."""
+        tail as one batch of N % B (over ranks padded with zero-weight rows
+        to a multiple of them). Each rank takes its rows of each batch.
+        progress: optional callback(images_seen, elbo, gen_loss, kl) called
+        with the reference's streaming-mean accumulators
+        (train_mnist.py:326-345) every `progress_chunk` batches. A chunk's
+        metrics are read once the next chunk's steps are queued."""
         data, ctf = self.on_device(data), self.on_device(ctf)
         n = data.shape[0]
-        b = min(self.batch, n)
+        b = self._epoch_batch(n)
         g = state.generator
         perm = (torch.arange(n) if g is None
                 else torch.randperm(n, generator=g, device=g.device)
                 ).to(data.device)
         n_full = n // b
+        mine = self.batch_rows(b) if n_full else None
         chunk = n_full if progress is None else min(self.progress_chunk,
                                                     n_full)
         metrics, weights = [], []
         pending, block = None, []
         for i in range(n_full):
-            idx = perm[i * b:(i + 1) * b]
-            state, m = self.train_step(state, data.index_select(0, idx),
-                                       ctf=_rows(ctf, idx))
+            idx = perm[i * b:(i + 1) * b][mine]
+            state, m = self._step(state, data.index_select(0, idx),
+                                  ctf=_rows(ctf, idx))
             block.append(m)
             if len(block) == chunk or i == n_full - 1:
                 if pending is not None:    # waits for the PREVIOUS chunk
-                    _collect(pending, b, metrics, weights)
+                    _collect(pending, [float(b)] * len(pending), metrics,
+                             weights)
                     if progress is not None:
                         progress(int(sum(weights)),
                                  *_streaming_means(metrics, weights))
                 pending, block = torch.stack(block), []
         if pending is not None:
-            _collect(pending, b, metrics, weights)
+            _collect(pending, [float(b)] * len(pending), metrics, weights)
 
         rem = n - n_full * b
         if rem:
             tail, w = self._pad_tail(perm[n_full * b:], rem)
-            state, m = self.train_step(state, data.index_select(0, tail), w,
-                                       _rows(ctf, tail))
-            _collect(m[None], rem, metrics, weights)
+            tail, w = self._mine(tail, w)
+            state, m = self._step(state, data.index_select(0, tail), w,
+                                  _rows(ctf, tail))
+            _collect(m[None], [float(rem)], metrics, weights)
         return state, _weighted_mean(np.concatenate(metrics), weights)
+
+    def _epoch_batch(self, n: int) -> int:
+        """An epoch's batch size over n images: B, or n where n < B (the
+        JAX package's min(B, n)); over ranks that do not divide n < B, B,
+        so that the whole split runs as one tail padded over them."""
+        b = min(self.batch, n)
+        if self._mesh is not None and b % self._mesh.size:
+            return self.batch
+        return b
 
     def _pad_tail(self, tail: torch.Tensor, rem: int):
         """Pad a ragged tail's index vector to the next multiple of the
         ranks by repeating its first row with ZERO weight, the real rows
         carrying 1/rem (their loss, gradients and metrics equal the
         unpadded tail's batch means). With no mesh: (tail, None), the tail
-        runs as a smaller batch."""
-        pad = 0 if self._mesh is None else (-rem) % self._mesh.model
+        runs as a smaller batch. (The host feed pads by wrapping around
+        instead; both pads weigh zero.)"""
+        pad = 0 if self._mesh is None else (-rem) % self._mesh.size
         if not pad:
             return tail, None
         tail = torch.cat([tail, tail[:1].expand(pad)])
@@ -319,25 +403,99 @@ class Trainer:
                    ) -> Tuple[float, float, float]:
         """(elbo, gen_loss, kl) over `data` (and its CTF kernels `ctf`) in
         order, batches of B and the tail, sampled with a generator seeded
-        `seed`."""
+        `seed`. Each rank takes its rows of each batch."""
         data, ctf = self.on_device(data), self.on_device(ctf)
         n = data.shape[0]
-        b = min(self.batch, n)
+        b = self._epoch_batch(n)
         n_full = n // b
         gen = torch.Generator().manual_seed(seed)
-        out = [self.eval_step(state, data[i * b:(i + 1) * b], gen,
-                              ctf=None if ctf is None
-                              else ctf[i * b:(i + 1) * b])
-               for i in range(n_full)]
+        out = []
+        for i in range(n_full):
+            y, c = self._mine(data[i * b:(i + 1) * b],
+                              None if ctf is None else ctf[i * b:(i + 1) * b])
+            out.append(self._eval(state, y, gen, ctf=c))
         weights = [float(b)] * n_full
         rem = n - n_full * b
         if rem:
             tail, w = self._pad_tail(
                 torch.arange(n_full * b, n, device=data.device), rem)
-            out.append(self.eval_step(state, data.index_select(0, tail), gen,
-                                      w, _rows(ctf, tail)))
+            tail, w = self._mine(tail, w)
+            out.append(self._eval(state, data.index_select(0, tail), gen,
+                                  w, _rows(ctf, tail)))
             weights.append(float(rem))
         return _weighted_mean(torch.stack(out).cpu().numpy(), weights)
+
+    def _stream_rows(self, y) -> int:
+        """A bare (y, ctf) pair's count of global rows: y holds this rank's
+        data shard."""
+        return int(y.shape[0]) * (1 if self._mesh is None
+                                  else self._mesh.data)
+
+    def train_epoch_stream(self, state: TrainState, batches, progress=None,
+                           ) -> Tuple[TrainState, Tuple[float, float, float]]:
+        """One epoch over an iterator of StreamBatch(y, ctf, w, n_real)
+        batches (data/pipeline.HostDataPipeline, made with
+        rows=batch_rows(B) over ranks) or bare (y, ctf) pairs of this
+        rank's rows: the streaming path for datasets that do not fit on the
+        card. Every batch has the fixed batch size (the tail arrives padded
+        with zero-weight rows), so the whole epoch runs one step shape and,
+        over ranks, splits evenly. Each step's metrics weigh its n_real.
+
+        progress: optional callback(images_seen, elbo, gen_loss, kl) with
+        the reference's streaming means, called every progress_chunk
+        batches with the metrics one chunk behind the steps being queued,
+        as train_epoch reads them (the JAX package calls it after every
+        batch; reading then would make the host wait for each step: a
+        deviation of cadence only)."""
+        metrics, weights = [], []
+        pending, block = None, ([], [])
+        for item in batches:
+            y, ctf, w, n_real = _unpack_stream_batch(item)
+            if n_real is None:
+                n_real = self._stream_rows(y)
+            state, m = self._step(state, y, w, ctf)
+            block[0].append(m)
+            block[1].append(float(n_real))
+            if len(block[0]) == self.progress_chunk:
+                if pending is not None:    # waits for the PREVIOUS chunk
+                    _collect(*pending, metrics, weights)
+                    if progress is not None:
+                        progress(int(sum(weights)),
+                                 *_streaming_means(metrics, weights))
+                pending, block = (torch.stack(block[0]), block[1]), ([], [])
+        if pending is not None:
+            _collect(*pending, metrics, weights)
+        if block[0]:
+            _collect(torch.stack(block[0]), block[1], metrics, weights)
+        return state, _weighted_mean(np.concatenate(metrics), weights)
+
+    def eval_epoch_stream(self, state: TrainState, batches,
+                          seed: Optional[int] = 0,
+                          ) -> Tuple[float, float, float]:
+        """(elbo, gen_loss, kl) over an iterator of StreamBatch batches
+        (data/pipeline.HostDataPipeline with shuffle=False): the streaming
+        analogue of eval_epoch, sampled with a generator seeded `seed` (None:
+        no noise). Same fixed-size, zero-weight-tail contract as
+        train_epoch_stream."""
+        gen = None if seed is None else torch.Generator().manual_seed(seed)
+        out, weights = [], []
+        for item in batches:
+            y, ctf, w, n_real = _unpack_stream_batch(item)
+            out.append(self._eval(state, y, gen, w, ctf))
+            weights.append(float(self._stream_rows(y) if n_real is None
+                                 else n_real))
+        return _weighted_mean(torch.stack(out).cpu().numpy(), weights)
+
+
+def _unpack_stream_batch(b) -> Tuple:
+    """(y, ctf, w, n_real) from a StreamBatch (data/pipeline) or a bare
+    (y, ctf) pair (n_real None): the one place the streamed-batch contract
+    is decoded."""
+    if len(b) == 2:
+        y, ctf = b
+        return y, ctf, None, None
+    y, ctf, w, n_real = b
+    return y, ctf, w, int(n_real)
 
 
 def _rows(v: Optional[torch.Tensor], idx: torch.Tensor
@@ -346,13 +504,12 @@ def _rows(v: Optional[torch.Tensor], idx: torch.Tensor
     return None if v is None else v.index_select(0, idx)
 
 
-def _collect(pending: torch.Tensor, b: int, metrics: list,
+def _collect(pending: torch.Tensor, step_weights: list, metrics: list,
              weights: list) -> None:
     """Read a (k, 3) block of step metrics to the host, each step weighing
-    its batch size b."""
-    host = pending.cpu().numpy()
-    metrics.append(host)
-    weights += [float(b)] * host.shape[0]
+    its count of real images."""
+    metrics.append(pending.cpu().numpy())
+    weights += step_weights
 
 
 def _weighted_mean(metrics: np.ndarray, weights) -> Tuple[float, float, float]:

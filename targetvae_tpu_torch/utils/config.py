@@ -90,10 +90,10 @@ class ModelConfig:
 @dataclass(frozen=True)
 class TrainConfig:
     """Training hyperparameters, as the JAX package's TrainConfig. Of the
-    mesh and host-feed fields the port's Trainer takes sp=True with tp > 1
-    (the grid-sharded bf16 step over a process group of tp ranks) and
-    raises on dp > 1, tp > 1 without sp, host_stream and stream_bf16
-    (ROADMAP.md, queue 1, slices 7-8)."""
+    mesh and host-feed fields the port takes dp (data shards over a process
+    group of dp * tp ranks), sp=True with tp > 1 (the grid-sharded bf16
+    step), host_stream and stream_bf16 (fit's host feed); tp > 1 without sp
+    raises (TP parameter sharding, ROADMAP.md, queue 1, item 23)."""
     learning_rate: float = 2e-4
     minibatch_size: int = 100
     num_epochs: int = 500

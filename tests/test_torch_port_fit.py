@@ -305,14 +305,14 @@ def test_eval_epoch_equals_its_eval_steps():
 
 def test_pad_tail_matches_jax():
     """Without a mesh the tail stays as it is (no weights); over ranks it is
-    padded with zero-weight copies of its first row, as the JAX package
-    pads to its mesh's size."""
+    padded with zero-weight copies of its first row to a multiple of the
+    mesh's size (data x model ranks), as the JAX package pads."""
     tr, _ = _trainer()
     jtr = jax_loop.Trainer(JaxTargetVAE(_config()), jcfg.TrainConfig())
     tail = torch.arange(7, 12)
     got, w = tr._pad_tail(tail, 5)
     assert w is None and torch.equal(got, tail)
-    tr._mesh = types.SimpleNamespace(model=4)
+    tr._mesh = types.SimpleNamespace(data=2, model=2, size=4)
     jtr._mesh = types.SimpleNamespace(size=4)
     got, w = tr._pad_tail(tail, 5)
     ref, rw = jtr._pad_tail(jnp.arange(7, 12), 5)
@@ -326,35 +326,78 @@ def _logger(tmp_path, name):
     return RunLogger(str(tmp_path), name)
 
 
+@pytest.fixture(scope="module")
+def fit_ranks(tmp_path_factory):
+    """fit on 2 gloo ranks for one epoch: dp = 2 (float32) and sp with tp =
+    2 (bf16), each rank 2 of the 4 images; one spawn for the module."""
+    from targetvae_tpu_torch.parallel.distributed import run_local
+    import torch_port_ranks
+    cfg = _config().to_json()
+    out = {}
+    for field, kw in (("dp", {"dp": 2}),
+                      ("sp", {"sp": True, "tp": 2,
+                              "compute_dtype": "bfloat16"})):
+        root = str(tmp_path_factory.mktemp(field))
+        out[field] = run_local(
+            torch_port_ranks.fit_one_epoch, 2, backend="gloo", timeout=300,
+            args=(cfg, dict(kw, minibatch_size=4), root,
+                  (_images(4), _images(4))))
+    return out
+
+
 @pytest.mark.parametrize("field,value,item", [
     ("host_stream", True, "item 22"), ("stream_bf16", True, "item 22"),
     ("dp", 2, "item 23"), ("tp", 2, "item 23"), ("sp", True, "item 24"),
     ("ctf", None, "item 19")])
-def test_fit_refuses_what_is_not_ported(tmp_path, field, value, item):
-    """fit refuses each field that selects what the port does not run yet,
-    naming its ROADMAP item. The per-image CTF kernels (item 19) are
-    ported: fit takes them, puts them on the device beside the images and
-    trains a Gaussian CTF config through one epoch with finite metrics."""
+def test_fit_refuses_what_is_not_ported(tmp_path, field, value, item,
+                                        fit_ranks):
+    """fit runs each field whose ROADMAP item is ported: the host feed
+    (item 22: host_stream, and stream_bf16, which without host_stream is
+    noted and ignored), dp > 1 (item 23's data axis) and sp (item 24) on 2
+    gloo ranks, and the per-image CTF kernels (item 19) on a Gaussian CTF
+    config: one epoch each with finite metrics, the item's refusal gone
+    from the log. TP parameter sharding (tp without sp, item 23) is still
+    refused, naming its item."""
     cfg = ModelConfig.from_json(_config().to_json())
     data = _images(4)
-    lg = _logger(tmp_path, "run")
-    if field == "ctf":
-        cfg = dataclasses.replace(cfg, likelihood=dataclasses.replace(
-            cfg.likelihood, kind="gaussian", use_ctf=True))
-        kernels = np.random.default_rng(1).normal(size=(4, 13, 13)).astype(
-            np.float32) * 0.05
-        state = fit(TargetVAE(cfg, device="cpu"),
-                    TrainConfig(minibatch_size=4, num_epochs=1), lg, data,
-                    data, ctf_train=kernels, ctf_test=kernels)
+    if field == "tp":
+        lg = _logger(tmp_path, "run")
+        with pytest.raises(NotImplementedError, match=item):
+            fit(TargetVAE(cfg, device="cpu"), TrainConfig(**{field: value}),
+                lg, data, data)
+        lg.close()
+        return
+    if field in ("dp", "sp"):
+        ranks = fit_ranks[field]
+        log = ranks[0]["log"]
+        assert ranks[1]["log"] is None and [r["step"] for r in ranks] == [1, 1]
+        for name, v in ranks[0]["params"].items():
+            np.testing.assert_array_equal(ranks[1]["params"][name], v)
+    else:
+        kw, ctf = {"minibatch_size": 4, "num_epochs": 1}, {}
+        if field == "ctf":
+            cfg = dataclasses.replace(cfg, likelihood=dataclasses.replace(
+                cfg.likelihood, kind="gaussian", use_ctf=True))
+            kernels = np.random.default_rng(1).normal(
+                size=(4, 13, 13)).astype(np.float32) * 0.05
+            ctf = {"ctf_train": kernels, "ctf_test": kernels}
+        else:
+            kw[field] = value
+        lg = _logger(tmp_path, "run")
+        state = fit(TargetVAE(cfg, device="cpu"), TrainConfig(**kw), lg,
+                    data, data, **ctf)
         lg.close()
         log = open(os.path.join(lg.path_prefix, "train_log.txt")).read()
-        assert state.step == 1 and item not in log
-        assert "\ttrain\t" in log and "nan" not in log
-        return
-    model = TargetVAE(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match=item):
-        fit(model, TrainConfig(**{field: value}), lg, data, data)
-    lg.close()
+        assert state.step == 1
+        if field == "host_stream":
+            assert "# host-streaming train data (4 images; test 4)" in log
+        if field == "stream_bf16":
+            assert "--stream-bf16 only affects --host-stream runs" in log
+    assert item not in log
+    rows = [l.split("\t") for l in log.splitlines()
+            if "\ttrain\t" in l or "\ttest\t" in l]
+    assert len(rows) == 2
+    assert all(np.isfinite([float(v) for v in r[2:]]).all() for r in rows)
 
 
 def _controller_lines(path):

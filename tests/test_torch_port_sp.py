@@ -141,6 +141,20 @@ def _rank_work(rank, world):
     out["eval"] = trainer.eval_step(state, _images()).numpy()
     out["params"] = params()
     out["counts"] = dict(counts)
+
+    # the host feed: a streamed epoch of the SP trainer with host_stream
+    import hashlib
+    import torch_port_ranks
+    trainer = Trainer(_model_config(), _sp_config(host_stream=True,
+                                                  minibatch_size=4),
+                      device="cpu")
+    state = trainer.init_state(1)
+    means = torch_port_ranks.sp_stream_epoch(trainer, state, _images(10), 4)
+    h = hashlib.sha256()
+    for p in trainer.model.parameters():
+        h.update(p.detach().numpy().tobytes())
+    out["stream"] = {"means": means, "digest": h.hexdigest(),
+                     "steps": state.step}
     return out
 
 
@@ -415,18 +429,60 @@ def test_sp_step_runs_the_shard_kernels_only(ranks):
 
 @pytest.mark.parametrize("kw, error, match", [
     ({"sp": True, "tp": 1, "compute_dtype": "bfloat16"}, ValueError, "tp > 1"),
-    ({"sp": True, "tp": 2, "dp": 2, "compute_dtype": "bfloat16"},
-     NotImplementedError, "dp"),
     ({"sp": True, "tp": 2}, NotImplementedError, "float32"),
     ({"tp": 2, "compute_dtype": "bfloat16"}, NotImplementedError, "tensor"),
     ({"sp": True, "tp": 2, "compute_dtype": "bfloat16"}, RuntimeError,
      "process group"),
-    ({"sp": True, "tp": 2, "compute_dtype": "bfloat16", "host_stream": True},
-     NotImplementedError, "host"),
 ])
 def test_sp_config_validation(kw, error, match):
-    """sp needs tp > 1, dp = 1, the bf16 tier and a process group of tp
-    ranks (none is initialised in this process); tp > 1 without sp and the
-    host feed are not ported."""
+    """sp needs tp > 1, the bf16 tier and a process group of dp * tp ranks
+    (none is initialised in this process); tp > 1 without sp is not ported.
+    sp with dp > 1 and with the host feed run: test_sp_config_runs."""
     with pytest.raises(error, match=match):
         Trainer(_model_config(), TrainConfig(**kw), device="cpu")
+
+
+def _dp_sp_stream_work(rank, world):
+    """Trainer(sp=True, tp=2, dp=2, host_stream=True) on 4 ranks: a
+    host-streamed epoch of 10 images at B = 4 (each rank gathers its data
+    row's 2 rows of every batch, the tail wrapped around with zero
+    weights), sampled: the epoch's means and a digest of the parameters."""
+    import hashlib
+    import torch_port_ranks
+    trainer = Trainer(_model_config(), _sp_config(dp=2, host_stream=True,
+                                                  minibatch_size=4),
+                      device="cpu")
+    state = trainer.init_state(0)
+    means = torch_port_ranks.sp_stream_epoch(trainer, state, _images(10), 4)
+    h = hashlib.sha256()
+    for p in trainer.model.parameters():
+        h.update(p.detach().numpy().tobytes())
+    return {"means": means, "digest": h.hexdigest(), "steps": state.step,
+            "mesh": (trainer.mesh.data, trainer.mesh.model)}
+
+
+@pytest.fixture(scope="module")
+def dp_sp_stream():
+    from targetvae_tpu_torch.parallel.distributed import run_local
+    return run_local(_dp_sp_stream_work, 4, backend="gloo",
+                     timeout=SPAWN_TIMEOUT)
+
+
+@pytest.mark.parametrize("case", ["dp", "host_stream"])
+def test_sp_config_runs(case, ranks, dp_sp_stream):
+    """What test_sp_config_validation refused before the data axis and
+    the host feed were ported now runs. dp: sp with tp = 2 and dp = 2 on 4
+    ranks, a (2, 2) mesh, takes a streamed epoch of 3 sampled steps,
+    finite, the ranks bitwise equal. host_stream: the 2-rank SP trainer
+    with host_stream=True takes a streamed epoch (each rank gathers its
+    rows), finite, the ranks agreeing."""
+    if case == "dp":
+        runs = dp_sp_stream
+        assert all(r["mesh"] == (2, 2) for r in runs)
+    else:
+        runs = [r["stream"] for r in ranks]
+    assert all(r["steps"] == runs[0]["steps"] for r in runs)
+    assert runs[0]["steps"] > 1
+    assert len({r["digest"] for r in runs}) == 1
+    assert len({r["means"] for r in runs}) == 1
+    assert np.isfinite(runs[0]["means"]).all()

@@ -522,7 +522,8 @@ def test_encoder_routes_to_the_kernels_where_they_take_the_shape(
 
 def test_entry_points_default_to_cuda():
     """TargetVAE and Trainer run on cuda:0 unless told otherwise; without a
-    CUDA device they raise rather than fall back to the CPU."""
+    CUDA device they raise rather than fall back to the CPU. A dp = 2
+    Trainer told device='cpu' runs on the CPU, on 2 gloo ranks."""
     cfg = ModelConfig.from_json(_model_config().to_json())
     if torch.cuda.is_available():
         assert TargetVAE(cfg).device == torch.device("cuda", 0)
@@ -532,8 +533,16 @@ def test_entry_points_default_to_cuda():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Trainer(cfg, TrainConfig())
     assert Trainer(cfg, TrainConfig(), device="cpu").model.device.type == "cpu"
-    with pytest.raises(NotImplementedError, match="dp"):
-        Trainer(cfg, TrainConfig(dp=2), device="cpu")
+    import torch_port_ranks
+    from targetvae_tpu_torch.parallel.distributed import run_local
+    y = np.random.default_rng(0).uniform(0, 1, (4, 14, 14, 1)).astype(
+        np.float32)
+    ranks = run_local(torch_port_ranks.dp_trainer_step, 2, backend="gloo",
+                      timeout=300, args=(cfg.to_json(), y))
+    for r in ranks:
+        assert r["device"] == "cpu" and r["step"] == 1
+        np.testing.assert_array_equal(r["metrics"], ranks[0]["metrics"])
+        assert np.isfinite(r["metrics"]).all()
 
 
 def test_trainer_accepts_any_name_of_the_model_device():
