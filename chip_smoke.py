@@ -130,15 +130,40 @@ from a seed):
      one run directory, rank 0's, finite test ELBOs), and a single-process
      --host-stream run resumed after 1 epoch, bitwise equal to 2 epochs at
      once.
+ 19. the rest of the (data, model) mesh on ranks sharing the card over
+     gloo: (a) dp = 2 x tp = 2 (4 ranks; the parameters and Adam's moments
+     sharded over the model axis) at the flagship, bf16, each encoder
+     tier: one deterministic step against the one-process step (section
+     2's SP bounds), TP_STEPS sampled steps (finite, rising ELBO, each
+     kernel of the tier once a step on each rank, the gathered parameters
+     bitwise equal across the ranks), each rank's bytes of whole
+     parameters, their gradients and Adam's moments against one
+     process's; (b) a ragged
+     epoch of 2 B - 1 images there at learning rate 0 against one process
+     (two steps, the tail's weights); the multichip dry run's four
+     scenarios at the JAX dry run's shapes on the same ranks; then on 2
+     ranks (tp = 2): (c) mode B at mnist-b width with the Gaussian
+     likelihood, 49 x 49 CTF kernels and the mask, TP-sharded, one
+     deterministic step against one process, then sampled steps; (d)
+     mode B's bf16 SP step at mnist-b and mnist-b-p8: K5/K6 at R = 1 on
+     the 100 x 2,048-cell shard against their plain versions and timed,
+     the deterministic step against the unsharded step, MODE_B_SP_STEPS
+     sampled steps with K5/K6 once a step and K3/K4 never; (e) the float32
+     SP step at the flagship, deterministic and sampled, against the
+     unsharded float32 step from the same generator state; (f) torchrun
+     --standalone --nproc-per-node 4 -m targetvae_tpu_torch.cli.
+     train_mnist --dp 2 --tp 2 (phase 12's synthetic split, 2 epochs),
+     then its checkpoint resumed in one process, the loaded parameters and
+     Adam moments bitwise the saved ones.
 
 Phases 2-8 cover both mode-C encoder tiers: the default "conv" tier (the
 cuDNN lift conv, K1/K2) and the fused patch encoder (K11/K12) that
 TARGETVAE_ENCODER_TIER=patch selects (phases 3, 4 and 7 drive each tier's
 embed, eval and train path; phases 2 and 6 also check K11 and K12 at the
 galaxy encoder's C = 3 shape). Each of phases 3, 4, 6 (the z_dim routes),
-7, 9, 10, 11, 12, 13, 15, 16, 17 and 18 sets the launch counts to 0 just
-before it drives its path and reads them just after (phases 10 and 18 in
-each rank). Every failed check exits
+7, 9, 10, 11, 12, 13, 15, 16, 17, 18 and 19 sets the launch counts to 0
+just before it drives its path and reads them just after (phases 10, 18
+and 19 in each rank). Every failed check exits
 non-zero. With no CUDA device, or outside a checkout, it fails without
 printing a result. Its last line is {"ok": true, "device": {...}}; the line
 before it is the kernels' JSON.
@@ -307,6 +332,11 @@ DP_STEPS = 10        # their sampled steps
 DP_RAGGED = 1025     # their ragged resident epoch: a tail of 25
 RANK_TIMEOUT = 600   # seconds for each of phase 18's spawns and runs
 CLI_DP_EPOCHS = 2    # epochs of phase 18's torchrun CLI run
+TP_STEPS = 10        # phase 19 (a): sampled dp = 2 x tp = 2 steps a tier
+SCENARIO4_STEPS = 5  # phase 19 (c): sampled steps of mode B with CTF, TP
+SCENARIO4_MASK = 20  # its mask radius at 50 x 50 (EMPIAR's 45 at 110)
+MODE_B_SP_STEPS = 20  # phase 19 (d): sampled mode-B SP steps a config
+CLI_TP_EPOCHS = 2    # phase 19 (f): epochs of the torchrun --tp 2 run
 ROUTED_STEPS = 3     # its train steps
 # device_ms, the kernel timer: windows of at least 2 ms of replayed calls,
 # the median of 5; calls rotate over copies of their inputs so that 60 MB
@@ -1472,6 +1502,9 @@ def run(torch, dev) -> int:
         stream_counts = host_feed_path(torch, kernels, dev, stand)
         rank_sp_counts = rank_paths(torch, kernels, dev, stand)
 
+    # ---- phase 19: TP, mode B's SP, the float32 SP, the dry run ----
+    mesh_rows, mesh_counts = mesh_paths(torch, kernels, dev)
+
     by_path = {"embed": embed_counts, "eval": eval_counts,
                "train": train_counts, "embed_patch": patch_counts["embed"],
                "eval_patch": patch_counts["eval"],
@@ -1479,7 +1512,7 @@ def run(torch, dev) -> int:
                "train_sp": sp_counts, "train_cli": cli_counts["conv"],
                "train_cli_patch": cli_counts["patch"],
                "train_stream_empiar": stream_counts,
-               "train_sp_ctf_empiar": rank_sp_counts}
+               "train_sp_ctf_empiar": rank_sp_counts, **mesh_counts}
     # each kernel's launches on the main path that runs it: the conv tier's
     # train step, the patch tier's (K11, K12), bf16 decode (K9, K10), the
     # SP train step's rank 0 (K5, K6)
@@ -1500,7 +1533,8 @@ def run(torch, dev) -> int:
     # the R = 1 forms (phase 13) on their config's train steps, and the
     # particles path's kernels at the EMPIAR shape (phase 15)
     entries += [kernel_entry(key, row)
-                for key, row in (mode_rows | vertical_rows).items()]
+                for key, row in (mode_rows | vertical_rows
+                                 | mesh_rows).items()]
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2222,8 +2256,9 @@ def as_planes(args):
     return (norms, pack_planes(attn, th, z), noise, *consts)
 
 
-def check_shard_kernels(torch, args, sig_r, g, label, pad=0) -> tuple:
-    """Phase 10: K5 on the planes and K6 through posterior_shard_partials
+def check_shard_kernels(torch, args, sig_r, g, label, pad=0,
+                        phase="10") -> tuple:
+    """Phase 10 (and 19, at R = 1): K5 on the planes and K6 through posterior_shard_partials
     (the JAX package's contract) against their plain versions on one
     shard: each value within TOL_K5 per unit of max(1, |ref|), K6's
     per-cell cotangents each within TOL_K4_SCALED of its own magnitude,
@@ -2259,14 +2294,15 @@ def check_shard_kernels(torch, args, sig_r, g, label, pad=0) -> tuple:
         tail = slice(attn.shape[1] - pad, None)
         zero = not any(bool(t[..., tail].any())
                        for t in (dq, dth, dz, d_attn))
-        check(zero, f"phase 10: K6 {label}: d_q, theta, z and d_attn "
+        check(zero, f"phase {phase}: K6 {label}: d_q, theta, z and d_attn "
               f"exactly 0 on its {pad} pads")
         dead = f"{pad} pads"
     check(bool(torch.isfinite(out).all()) and ef <= TOL_K5
           and eb <= TOL_K5 and sb <= TOL_K4_SCALED
           and torch.equal(out, again)
           and all(torch.equal(a, b) for a, b in zip(got, got2)),
-          f"phase 10: K5/K6 {label} {tuple(args[1].shape)} zd={zd} ({dead}):"
+          f"phase {phase}: K5/K6 {label} {tuple(args[1].shape)} zd={zd} "
+          f"({dead}):"
           f" fwd max err {ef:.3e}, bwd {eb:.3e} <= {TOL_K5} * max(1, |ref|);"
           f" bwd's per-cell cotangents, each element {sb:.3e} <= "
           f"{TOL_K4_SCALED} * (|ref| + {K4_FLOOR} * max |ref|); reruns "
@@ -4228,15 +4264,18 @@ def dp_sp_rank(rank: int, world: int, device: str) -> dict:
                 "s": time.perf_counter() - t}
 
 
-def unsharded(torch, cfg, dev, tier: str, y, ctf=None):
-    """The one-process deterministic bf16 step's metrics and gradients."""
+def unsharded(torch, cfg, dev, tier: str, y, ctf=None,
+              compute_dtype="bfloat16", sampled=False):
+    """The one-process step's metrics and gradients: deterministic, or
+    sampled from the initial state's generator."""
     from targetvae_tpu_torch.train import Trainer
     from targetvae_tpu_torch.utils.config import TrainConfig
     with encoder_tier(tier):
-        tr = Trainer(cfg, TrainConfig(compute_dtype="bfloat16",
+        tr = Trainer(cfg, TrainConfig(compute_dtype=compute_dtype,
                                       minibatch_size=B), device=dev)
         state = tr.init_state(0)
-        state.generator = None
+        if not sampled:
+            state.generator = None
         _, m = tr.train_step(state, y, ctf=ctf)
         out = {"metrics": m.cpu().numpy(), "grads": {
             n: p.grad.detach().cpu() for n, p in tr.model.named_parameters()}}
@@ -4245,7 +4284,7 @@ def unsharded(torch, cfg, dev, tier: str, y, ctf=None):
     return out
 
 
-def held_to_bounds(got: dict, ref: dict, label: str) -> None:
+def held_to_bounds(got: dict, ref: dict, label: str, phase="18") -> None:
     """A sharded step against the unsharded one: the ELBO within
     TOL_SP_LOSS relative, every gradient leaf within TOL_SP_GRAD relative
     L2, the attention bias's gradient (exactly 0: rounding noise) below
@@ -4259,7 +4298,7 @@ def held_to_bounds(got: dict, ref: dict, label: str) -> None:
     floor = 1e-3 * float(g1["encoder.conv_a.w"].norm())
     check(rel_loss <= TOL_SP_LOSS and rels[worst] <= TOL_SP_GRAD
           and float(g[shift].norm()) <= floor,
-          f"phase 18: {label}: ELBO {e:.5f} vs the unsharded bf16 step's "
+          f"phase {phase}: {label}: ELBO {e:.5f} vs the unsharded step's "
           f"{e1:.5f} (rel {rel_loss:.3e} <= {TOL_SP_LOSS}); gradients rel L2 "
           f"worst {worst} {rels[worst]:.2e} <= {TOL_SP_GRAD} (median "
           f"{float(np.median(list(rels.values()))):.2e}); {shift} |g| "
@@ -4484,6 +4523,510 @@ def resumed_stream(torch, kernels, stand: dict) -> None:
               f"epoch then --resume for 1 more: {len(a)} parameter and Adam "
               f"arrays bitwise those of 2 epochs at once, {resumed.step} "
               f"steps")
+
+# ---- phase 19: the (data, model) mesh ----
+
+def _grads_cpu(tr) -> dict:
+    return {n: p.grad.detach().cpu() for n, p in tr.model.named_parameters()}
+
+
+def _timed_steps(torch, kernels, tr, state, data, steps, ctf=None) -> dict:
+    """`steps` sampled train steps cycling over the batches of `data` (and
+    its CTF kernels), the launch counts set to 0 just before and read just
+    after: the metrics, the counts, each step's host seconds and a digest
+    of the parameters after them."""
+    n = data.shape[0] // B
+    metrics, secs = [], []
+    kernels.reset_launch_counts()
+    for i in range(steps):
+        j = slice((i % n) * B, (i % n + 1) * B)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, m = tr.train_step(state, data[j],
+                                 ctf=None if ctf is None else ctf[j])
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t)
+        metrics.append(m)
+    return {"metrics": torch.stack(metrics).cpu().numpy(),
+            "counts": kernels.launch_counts(), "step_s": secs,
+            "digest": param_digest(tr.model)}
+
+
+def tp_rank(rank: int, world: int, device: str) -> dict:
+    """Phase 19 (a) and (b) on one of 4 ranks (dp = 2 x tp = 2) sharing
+    `device` over gloo, bf16 at the flagship: on each encoder tier one
+    deterministic step's metrics and all-reduced gradients, then TP_STEPS
+    sampled steps, the rank's bytes; a ragged epoch of 2 B - 1 images at
+    learning rate 0 (conv tier); then the multichip dry run's four
+    scenarios at the JAX dry run's shapes."""
+    import torch
+    import targetvae_tpu_torch.kernels as kernels
+    from targetvae_tpu_torch.parallel.dryrun import dryrun_rank
+    from targetvae_tpu_torch.train import Trainer
+    from targetvae_tpu_torch.utils.config import TrainConfig
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device)
+    data = torch.from_numpy(synthetic_images(TRAIN_BATCHES * B, 50, 3)).to(dev)
+    make = lambda **kw: Trainer(flagship_config(), TrainConfig(
+        compute_dtype="bfloat16", minibatch_size=B, dp=2, tp=world // 2,
+        **kw), device=dev)
+    out = {}
+    for tier in ("conv", "patch"):
+        with encoder_tier(tier):
+            tr = make()
+            state = tr.init_state(0)
+            generator, state.generator = state.generator, None
+            state, m = tr.train_step(state, data[:B])
+            out[tier] = {"det": {"metrics": m.cpu().numpy(),
+                                 "grads": _grads_cpu(tr)},
+                         "mesh": (tr.mesh.data_index, tr.mesh.rank),
+                         "rows": tr.batch_rows(B)}
+            state.generator = generator
+            out[tier].update(_timed_steps(torch, kernels, tr, state, data,
+                                          TP_STEPS))
+            out[tier]["bytes"] = state.shards.nbytes(state.optimizer)
+            del tr, state
+            torch.cuda.empty_cache()
+    with encoder_tier("conv"):
+        tr = make(learning_rate=0.0)
+        state = tr.init_state(0)
+        state.generator = None
+        tail, w = tr._pad_tail(torch.arange(B - 1), B - 1)
+        state, means = tr.train_epoch(state, data[:2 * B - 1])
+        out["ragged"] = {"means": means, "steps": state.step,
+                         "grads": _grads_cpu(tr), "tail": tail.numpy(),
+                         "w": w.cpu().numpy()}
+        del tr, state
+    torch.cuda.empty_cache()
+    out["dryrun"] = dryrun_rank(rank, world, device)
+    return out
+
+
+def scenario4_config():
+    """Phase 19 (c): mnist-b's width (50 x 50, one 50 x 50 conv of 128
+    kernels, hidden 512) with the Gaussian likelihood, CTF kernels and a
+    mask, as the multichip dry run's scenario 4."""
+    import dataclasses
+    from targetvae_tpu_torch.utils.config import LikelihoodConfig
+    return dataclasses.replace(mode_config("mnist-b"), likelihood=(
+        LikelihoodConfig(kind="gaussian", use_ctf=True,
+                         mask_radius=SCENARIO4_MASK)))
+
+
+def scenario4_inputs(torch, dev):
+    """TRAIN_BATCHES batches of 50 x 50 images, each standardised by its
+    own mean and std (train_particles --normalize), and their 49 x 49 CTF
+    kernels over empiar_ctf's spread (1.0-2.5 um, cs 2.0, 300 kV, 1.5
+    A/px, 7 %)."""
+    from targetvae_tpu_torch.data.datasets import preprocess_particles
+    from targetvae_tpu_torch.parallel.dryrun import ctf_kernels
+    n = TRAIN_BATCHES * B
+    imgs = preprocess_particles(synthetic_images(n, 50, 19)[..., 0], 0, True)
+    y = torch.from_numpy(np.ascontiguousarray(imgs[..., None],
+                                              dtype=np.float32)).to(dev)
+    ctf = torch.from_numpy(np.concatenate(
+        [ctf_kernels(B, 50, 1.5)] * TRAIN_BATCHES)).to(dev)
+    return y, ctf
+
+
+def mode_b_rank(rank: int, world: int, device: str) -> dict:
+    """Phase 19 (c), (d) and (e) on one of 2 ranks (tp = 2) sharing
+    `device` over gloo: (c) mode B with CTF and the mask, TP-sharded,
+    bf16; (d) mode B's bf16 SP step at mnist-b and mnist-b-p8; (e) the
+    float32 SP step at the flagship. Each: one deterministic step's
+    metrics and gradients, then sampled steps (e: one, from the initial
+    generator's state)."""
+    import torch
+    import targetvae_tpu_torch.kernels as kernels
+    from targetvae_tpu_torch.train import Trainer
+    from targetvae_tpu_torch.utils.config import TrainConfig
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device)
+    out = {}
+    runs = [("scenario4", scenario4_config(), "bfloat16", False,
+             SCENARIO4_STEPS)]
+    runs += [(name, mode_config(name), "bfloat16", True, MODE_B_SP_STEPS)
+             for name in ("mnist-b", "mnist-b-p8")]
+    runs += [("f32_sp", flagship_config(), None, True, 0)]
+    y4, ctf4 = scenario4_inputs(torch, dev)
+    data = torch.from_numpy(synthetic_images(TRAIN_BATCHES * B, 50, 3)).to(dev)
+    for key, cfg, dtype, sp, steps in runs:
+        y, ctf = (y4, ctf4) if key == "scenario4" else (data, None)
+        tr = Trainer(cfg, TrainConfig(compute_dtype=dtype, minibatch_size=B,
+                                      tp=world, sp=sp), device=dev)
+        state = tr.init_state(0)
+        generator, state.generator = state.generator, None
+        kernels.reset_launch_counts()
+        state, m = tr.train_step(state, y[:B],
+                                 ctf=None if ctf is None else ctf[:B])
+        torch.cuda.synchronize()
+        out[key] = {"det": {"metrics": m.cpu().numpy(),
+                            "grads": _grads_cpu(tr)},
+                    "det_counts": kernels.launch_counts()}
+        if steps:
+            state.generator = generator
+            out[key].update(_timed_steps(torch, kernels, tr, state, y, steps,
+                                         ctf))
+        else:
+            state = tr.init_state(0)
+            state, m = tr.train_step(state, y[:B])
+            out[key]["sampled"] = {"metrics": m.cpu().numpy(),
+                                   "grads": _grads_cpu(tr)}
+        del tr, state
+        torch.cuda.empty_cache()
+    return out
+
+
+def r1_shard_inputs(torch, cfg, dev):
+    """K5/K6's inputs on mode B's SP step at tp = 2: B images of the 2,601
+    cells padded to 2 x 2,048 (-1e30 logits and log-prior), seeded planes
+    and Gumbel noise, the mode's constants (the translation prior, zero
+    offsets, sig_r = theta_prior) and the normalisers over the whole padded
+    grid. Returns the two shards' argument tuples and the pads."""
+    from targetvae_tpu_torch.losses.elbo import SP_CELL_UNIT, posterior_constants
+    from targetvae_tpu_torch.ops.gumbel import gumbel_noise
+    const = posterior_constants(cfg.encoder, dev)
+    cells, zd = const["grid"].shape[0], cfg.encoder.z_dim
+    total = -(-cells // (2 * SP_CELL_UNIT)) * 2 * SP_CELL_UNIT
+    g = torch.Generator(device=dev).manual_seed(23)
+    rn = lambda *sh: torch.randn(sh, generator=g, device=dev)
+    pad = lambda v, value: torch.cat([v, torch.full(
+        (total - cells,), value, device=dev)])
+    attn = rn(B, total) * 2
+    attn[:, cells:] = -1e30
+    noise = gumbel_noise((B, total), g, dev)
+    th, z = rn(B, 2, total) * 0.5, rn(B, 2, zd, total) * 0.5
+    p = pad(const["p_tr"].reshape(-1), -1e30)
+    gx, gy = pad(const["grid"][:, 0], 0.0), pad(const["grid"][:, 1], 0.0)
+    offs = torch.zeros(total, device=dev)
+    lse = lambda x: [x.amax(1, keepdim=True), torch.log(torch.exp(
+        x - x.amax(1, keepdim=True)).sum(1, keepdim=True))]
+    norms = torch.cat(lse(attn) + lse(attn + noise), dim=1)
+    c = total // 2
+    cut = lambda v, i: v[..., i * c:(i + 1) * c].contiguous()
+    return [(norms, *(cut(v, i) for v in (attn, noise, th, z, p, gx, gy,
+                                          offs))) for i in range(2)], \
+        total - cells
+
+
+def r1_shard_checks(torch, cfg, dev) -> dict:
+    """Phase 19 (d): K5 and K6 at mode B's SP shard (B = 100, 2,048 cells,
+    R = 1, sig_r = pi, zero offsets) against their plain versions on both
+    shards (the second ends in pads), then timed on the first (plain,
+    kernel, kernel, plain), each beside its bound. Returns their rows."""
+    from targetvae_tpu_torch.kernels.posterior import (
+        posterior_shard_bwd, posterior_shard_bwd_plain, posterior_shard_fwd,
+        posterior_shard_plain, shard_schedule)
+    sig_r = float(cfg.encoder.theta_prior)
+    zd = cfg.encoder.z_dim
+    g = torch.randn(B, 2 * zd + 5, generator=torch.Generator(
+        device=dev).manual_seed(24), device=dev)
+    rows = {}
+    with torch.inference_mode():
+        shards, pads = r1_shard_inputs(torch, cfg, dev)
+        c = shards[0][1].shape[1]
+        errs = [check_shard_kernels(
+            torch, shards[i], sig_r, g, f"R = 1 (mode B, 2,601 cells, "
+            f"shard {i} of 2, grid {shard_schedule(c)})",
+            pads if i else 0, phase="19")[0] for i in range(2)]
+        bounds = kernel_bounds(cfg, B * 2601, c)
+        args = shards[0]
+        pa = as_planes(args)
+        for i, (name, kfn, pfn) in enumerate((
+                ("posterior_shard_fwd",
+                 lambda *a: posterior_shard_fwd(*a, sig_r),
+                 lambda *a: posterior_shard_plain(*a, sig_r)),
+                ("posterior_shard_bwd",
+                 lambda *a: posterior_shard_bwd(*a, sig_r, g),
+                 lambda *a: posterior_shard_bwd_plain(*a, sig_r, g)))):
+            key = f"{name}[R=1]"
+            rows[key] = {"max_abs_err": max(e[i] for e in errs),
+                         "bound_ms": bounds[name][0],
+                         "bound_by": bounds[name][1]}
+            time_kernel(rows, key, "19", kfn, pa, pfn, args)
+            print(f"phase 19: {key}: bound {bounds[name][0]:.4f} ms "
+                  f"({bounds[name][1]}) at {tuple(args[1].shape)} ({card()})",
+                  flush=True)
+    return rows
+
+
+def cli_tp(torch, cfg) -> None:
+    """Phase 19 (f): torchrun --standalone --nproc-per-node 4 -m
+    targetvae_tpu_torch.cli.train_mnist --dp 2 --tp 2 on phase 12's
+    synthetic split (conv tier, bf16, CLI_TP_EPOCHS epochs): one run
+    directory, finite TSV lines, the mesh logged; then the run resumed in
+    one process (train_mnist.main --resume, one more epoch), the loaded
+    parameters and Adam moments bitwise the saved ones."""
+    import importlib
+    import shutil
+    import tempfile
+    from targetvae_tpu_torch.cli import train_mnist
+    fit_mod = importlib.import_module("targetvae_tpu_torch.train.fit")
+    here = os.path.dirname(os.path.abspath(__file__))
+    images = np.round(synthetic_images(CLI_TRAIN + CLI_TEST,
+                                       cfg.encoder.image_dim, 12)[..., 0]
+                      * 255).astype(np.uint8)
+    runner = shutil.which("torchrun")
+    runner = [runner] if runner else [sys.executable, "-m",
+                                      "torch.distributed.run"]
+    with tempfile.TemporaryDirectory() as root:
+        data = os.path.join(root, "data")
+        os.makedirs(os.path.join(data, "mnist_U"))
+        for split, part in (("train", images[:CLI_TRAIN]),
+                            ("test", images[CLI_TRAIN:])):
+            np.save(os.path.join(data, "mnist_U", f"images_{split}.npy"),
+                    part)
+        logs = os.path.join(root, "logs")
+        args = ["--dataset", "mnist-U", "--data-root", data,
+                "--fourier-expansion", "--compute-dtype", "bfloat16",
+                "--minibatch-size", str(B), "--log-root", logs]
+        cmd = runner + ["--standalone", "--nproc-per-node", "4", "-m",
+                        "targetvae_tpu_torch.cli.train_mnist", "--dp", "2",
+                        "--tp", "2", "--num-epochs", str(CLI_TP_EPOCHS)] + args
+        env = dict(os.environ, TARGETVAE_ENCODER_TIER="conv",
+                   PYTHONPATH=here + os.pathsep
+                   + os.environ.get("PYTHONPATH", ""))
+        t = time.perf_counter()
+        done = subprocess.run(cmd, cwd=here, env=env, capture_output=True,
+                              text=True, timeout=RANK_TIMEOUT)
+        secs = time.perf_counter() - t
+        runs = os.listdir(logs) if os.path.isdir(logs) else []
+        run = os.path.join(logs, runs[0]) if len(runs) == 1 else None
+        log = open(os.path.join(run, "train_log.txt")).read() if run else ""
+        tsv = tsv_rows(run) if log else {}
+        rates = re.findall(r"# epoch \d+: [\d.]+s, (\d+) images/sec",
+                           done.stderr)
+        check(done.returncode == 0 and run is not None
+              and sorted(tsv) == sorted((ep, sp) for ep in range(
+                  1, CLI_TP_EPOCHS + 1) for sp in ("train", "test"))
+              and bool(np.isfinite(list(tsv.values())).all())
+              and "# mesh: data=2 model=2 (4 ranks, gloo backend)" in log
+              and os.path.exists(os.path.join(run, "training_state.sav")),
+              f"phase 19: torchrun --standalone --nproc-per-node 4 -m "
+              f"targetvae_tpu_torch.cli.train_mnist --dp 2 --tp 2, "
+              f"{CLI_TRAIN} / {CLI_TEST} images, {CLI_TP_EPOCHS} epochs, "
+              f"conv tier, bf16 (exit {done.returncode}, {secs:.1f} s, "
+              f"{card()}): run directories {runs} (one, rank 0's), TSV "
+              f"lines { {k: [round(v, 2) for v in tsv[k]] for k in sorted(tsv)} }"
+              f", the mesh and the gloo backend logged; epoch img/s (rank "
+              f"0's line) {rates}" + ("" if done.returncode == 0 else
+                                       f"; stderr tail: {done.stderr[-3000:]}"))
+        # the file as the TP run left it, before the resume rewrites it
+        from targetvae_tpu_torch import TargetVAE
+        from targetvae_tpu_torch.train import load_checkpoint
+        path = os.path.join(run, "training_state.sav")
+        model = TargetVAE(load_checkpoint(path)[1], device="cpu")
+        model.init(torch.Generator())
+        on_disk = file_arrays(path, dict(model.named_parameters()))
+        loaded = {}
+        load = fit_mod.load_train_state
+
+        def spy(*a, **kw):
+            out = load(*a, **kw)
+            loaded.update(state_arrays(torch, out[0]))
+            return out
+        fit_mod.load_train_state = spy
+        try:
+            with encoder_tier("conv"), contextlib.redirect_stderr(
+                    io.StringIO()):
+                state = train_mnist.main(args + [
+                    "--num-epochs", str(CLI_TP_EPOCHS + 1), "--resume", run])
+        finally:
+            fit_mod.load_train_state = load
+        differ = [k for k in on_disk
+                  if not np.array_equal(loaded.get(k), on_disk[k])]
+        rows = tsv_rows(run)
+        check(len(loaded) == len(on_disk) > 0 and not differ
+              and state.step > 0 and sorted(rows)[-2:] == [(CLI_TP_EPOCHS + 1, "test"),
+                                        (CLI_TP_EPOCHS + 1, "train")],
+              f"phase 19: the --dp 2 --tp 2 run's training_state.sav "
+              f"(written by rank 0 from the gathered shards) resumed in one "
+              f"process for epoch {CLI_TP_EPOCHS + 1}: the {len(loaded)} "
+              f"arrays it loaded (parameters and Adam moments) bitwise the "
+              f"file's (differ: {differ}); {sorted(rows)[-2:]} appended")
+
+
+def mesh_paths(torch, kernels, dev) -> tuple:
+    """Phase 19: the rest of the (data, model) mesh on ranks sharing the
+    card over gloo (run_local; not a speed across GPUs). Returns the K5/K6
+    rows at R = 1 (their launches on mode B's SP step) and the launch
+    counts of the new paths by name."""
+    from targetvae_tpu_torch.parallel.distributed import run_local
+    from targetvae_tpu_torch.parallel.dryrun import check_reports
+    t0 = time.perf_counter()
+    flag = flagship_config()
+    data = torch.from_numpy(synthetic_images(TRAIN_BATCHES * B, 50, 3)).to(dev)
+    refs = {tier: unsharded(torch, flag, dev, tier, data[:B])
+            for tier in ("conv", "patch")}
+    with encoder_tier("conv"):
+        from targetvae_tpu_torch.train import Trainer
+        from targetvae_tpu_torch.utils.config import TrainConfig
+        tr = Trainer(flag, TrainConfig(compute_dtype="bfloat16",
+                                       minibatch_size=B, learning_rate=0.0),
+                     device=dev)
+        state = tr.init_state(0)
+        state.generator = None
+        state, ref_means = tr.train_epoch(state, data[:2 * B - 1])
+        ref_tail = {"metrics": np.asarray(ref_means), "grads": _grads_cpu(tr)}
+        one_bytes = sum(p.numel() * p.element_size()
+                        for p in tr.model.parameters())
+        del tr, state
+    torch.cuda.empty_cache()
+
+    # (a), (b) and the dry run on 4 ranks
+    t = time.perf_counter()
+    ranks = run_local(tp_rank, 4, backend="gloo", timeout=RANK_TIMEOUT,
+                      args=(str(dev),))
+    print(f"phase 19: 4 ranks (dp = 2 x tp = 2) on {dev} over gloo ran in "
+          f"{time.perf_counter() - t:.1f} s (spawn included; {card()})",
+          flush=True)
+    used = {"conv": ("mix_heads_fwd", "mix_heads_bwd"),
+            "patch": ("lifted_encoder_fwd", "lifted_encoder_bwd")}
+    for tier in ("conv", "patch"):
+        run = [r[tier] for r in ranks]
+        for i, res in enumerate(run):
+            check(res["mesh"] == (i // 2, i % 2)
+                  and res["rows"] == slice(25 * i, 25 * i + 25),
+                  f"phase 19: {tier} tier: rank {i} at (data, model) "
+                  f"{res['mesh']}, rows {res['rows']}")
+            held_to_bounds(res["det"], refs[tier], f"{tier} tier: rank {i}: "
+                           f"dp = 2 x tp = 2 (25 rows a rank, the parameters "
+                           f"and Adam's moments sharded over tp), one "
+                           f"deterministic step at the flagship", phase="19")
+            kern = used[tier] + ("posterior_fwd", "posterior_bwd",
+                                 "pose_decoder_fwd", "pose_decoder_bwd")
+            expect = {k: TP_STEPS if k in kern else 0 for k in res["counts"]}
+            check(res["counts"] == expect,
+                  f"phase 19: {tier} tier: rank {i}: {TP_STEPS} sampled "
+                  f"steps launch {res['counts']} (each kernel of the tier "
+                  f"once a step)")
+        m = run[0]["metrics"][:, 0]
+        check(len({x["digest"] for x in run}) == 1
+              and all(np.array_equal(x["metrics"], run[0]["metrics"])
+                      for x in run)
+              and bool(np.isfinite(m).all()) and m[-3:].mean() > m[:3].mean(),
+              f"phase 19: {tier} tier: dp = 2 x tp = 2: {TP_STEPS} sampled "
+              f"steps, metrics finite, equal on the 4 ranks and rising (ELBO "
+              f"{np.round(m, 2).tolist()}); the gathered parameters bitwise "
+              f"equal across the ranks (sha256 {run[0]['digest'][:16]})")
+        ms = np.asarray(run[0]["step_s"][1:]) * 1e3
+        b = run[0]["bytes"]
+        print(f"phase 19: {tier} tier: dp = 2 x tp = 2 train step at the "
+              f"flagship ({card()}), 4 ranks sharing one card over gloo (the "
+              f"collectives and the shared card, not a speed across GPUs): "
+              f"rank 0 {float(ms.mean()):.3f} ms/step host clock (mean of "
+              f"steps 2-{TP_STEPS}, min {float(ms.min()):.3f}, max "
+              f"{float(ms.max()):.3f}); bytes a rank: whole parameters "
+              f"{b['params']:,}, their gradients {b['grads']:,}, Adam's "
+              f"moments {b['adam']:,} (one process: {one_bytes:,}, "
+              f"{one_bytes:,}, {2 * one_bytes:,}; TP cuts the moments "
+              f"alone)", flush=True)
+    for i, r in enumerate(ranks):
+        rg = r["ragged"]
+        rel_m = max(abs(a - b) / abs(b) for a, b in zip(rg["means"],
+                                                         ref_means))
+        n_tail = B - 1
+        check(rg["steps"] == 2 and rel_m <= TOL_SP_LOSS
+              and np.array_equal(rg["tail"], list(range(n_tail)) + [0])
+              and bool((rg["w"][:n_tail] == np.float32(1.0 / n_tail)).all())
+              and rg["w"][n_tail] == 0.0,
+              f"phase 19: rank {i}: a ragged epoch of {2 * B - 1} images on "
+              f"dp = 2 x tp = 2 (2 steps, the tail of {n_tail} padded to "
+              f"{B} with a zero-weight copy of its first row, weights "
+              f"1/{n_tail}), learning rate 0, vs one process: means "
+              f"{np.round(rg['means'], 4).tolist()} vs "
+              f"{np.round(ref_means, 4).tolist()} (max rel {rel_m:.2e} <= "
+              f"{TOL_SP_LOSS})")
+        held_to_bounds({"metrics": np.asarray(rg["means"]),
+                        "grads": rg["grads"]}, ref_tail,
+                       f"rank {i}: the ragged epoch's tail step", phase="19")
+    for line in check_reports([r["dryrun"] for r in ranks]):
+        print(f"phase 19: the dry run's scenarios at the JAX dry run's "
+              f"shapes on {dev} (4 ranks): {line}", flush=True)
+    counts = {"train_tp": ranks[0]["conv"]["counts"],
+              "train_tp_patch": ranks[0]["patch"]["counts"]}
+    del ranks
+    torch.cuda.empty_cache()
+
+    # (c), (d), (e) on 2 ranks
+    y4, ctf4 = scenario4_inputs(torch, dev)
+    refs = {"scenario4": unsharded(torch, scenario4_config(), dev, "conv",
+                                   y4[:B], ctf4[:B])}
+    for name in ("mnist-b", "mnist-b-p8"):
+        refs[name] = unsharded(torch, mode_config(name), dev, "conv",
+                               data[:B])
+    refs["f32_sp"] = unsharded(torch, flag, dev, "conv", data[:B],
+                               compute_dtype=None)
+    ref_f32_sampled = unsharded(torch, flag, dev, "conv", data[:B],
+                                compute_dtype=None, sampled=True)
+    del y4, ctf4
+    rows = r1_shard_checks(torch, mode_config("mnist-b"), dev)
+    t = time.perf_counter()
+    pair = run_local(mode_b_rank, 2, backend="gloo", timeout=RANK_TIMEOUT,
+                     args=(str(dev),))
+    print(f"phase 19: 2 ranks (tp = 2) on {dev} over gloo ran in "
+          f"{time.perf_counter() - t:.1f} s (spawn included; {card()})",
+          flush=True)
+    labels = {"scenario4": "mode B at mnist-b width with the Gaussian "
+                           "likelihood, 49 x 49 CTF kernels and mask radius "
+                           f"{SCENARIO4_MASK}, tp = 2 (parameters sharded)",
+              "mnist-b": "mnist-b's bf16 SP step (tp = 2)",
+              "mnist-b-p8": "mnist-b-p8's bf16 SP step (tp = 2)",
+              "f32_sp": "the float32 SP step at the flagship (tp = 2)"}
+    for key, label in labels.items():
+        for i, r in enumerate(pair):
+            held_to_bounds(r[key]["det"], refs[key], f"rank {i}: {label}, "
+                           f"deterministic", phase="19")
+    sp_kern = ("mix_heads_r1_fwd", "mix_heads_r1_bwd", "posterior_shard_fwd",
+               "posterior_shard_bwd", "pose_decoder_fwd", "pose_decoder_bwd")
+    tp_kern = ("mix_heads_r1_fwd", "mix_heads_r1_bwd", "posterior_fwd",
+               "posterior_bwd", "pose_decoder_fwd", "pose_decoder_bwd")
+    for key, steps, kern in (("scenario4", SCENARIO4_STEPS, tp_kern),
+                             ("mnist-b", MODE_B_SP_STEPS, sp_kern),
+                             ("mnist-b-p8", MODE_B_SP_STEPS, sp_kern)):
+        run = [r[key] for r in pair]
+        m = run[0]["metrics"][:, 0]
+        expect = {k: steps if k in kern else 0 for k in run[0]["counts"]}
+        check(all(x["counts"] == expect for x in run)
+              and len({x["digest"] for x in run}) == 1
+              and bool(np.isfinite(m).all()) and m[-3:].mean() > m[:3].mean(),
+              f"phase 19: {labels[key]}: {steps} sampled steps, each rank "
+              f"launching {run[0]['counts']} (K5/K6 on the SP steps, never "
+              f"K3/K4; K3/K4 on the TP steps), ELBO finite and rising "
+              f"{np.round(m, 2).tolist()}, parameters bitwise equal across "
+              f"the ranks; rank 0 "
+              f"{float(np.mean(run[0]['step_s'][1:])) * 1e3:.3f} ms/step "
+              f"host clock ({card()})")
+    for i, r in enumerate(pair):
+        got = r["f32_sp"]["sampled"]
+        held_to_bounds(got, ref_f32_sampled, f"rank {i}: the float32 SP step "
+                       f"at the flagship, sampled from the initial "
+                       f"generator's state (the Gumbel noise one draw for "
+                       f"the whole grid: the unsharded step's sample)",
+                       phase="19")
+        c = r["f32_sp"]["det_counts"]
+        check(not any(c.values()),
+              f"phase 19: rank {i}: the float32 SP step launches no kernel "
+              f"({c})")
+    for name in ("mnist-b", "mnist-b-p8"):
+        counts["train_sp_" + name] = pair[0][name]["counts"]
+    for key in rows:
+        name = key.split("[")[0]
+        rows[key]["launches"] = counts["train_sp_mnist-b"][name]
+        rows[key]["launches_by_path"] = {
+            p: counts[p][name] for p in ("train_sp_mnist-b",
+                                         "train_sp_mnist-b-p8")}
+    del pair
+    torch.cuda.empty_cache()
+
+    # (f) the torchrun CLI, then a one-process resume
+    cli_tp(torch, flag)
+    print(f"phase 19: {time.perf_counter() - t0:.1f} s ({card()})",
+          flush=True)
+    return rows, counts
+
 
 
 if __name__ == "__main__":

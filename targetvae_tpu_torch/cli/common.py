@@ -100,8 +100,8 @@ def add_train_args(parser: argparse.ArgumentParser) -> None:
                              "(default: 1 = single device)")
     parser.add_argument("--tp", type=int, default=1,
                         help="tensor-parallel devices: shard the encoder "
-                             "kernel / generator hidden axes over 'model' "
-                             "(default: 1)")
+                             "kernel / generator hidden axes over 'model', "
+                             "or with --sp the posterior grid (default: 1)")
     parser.add_argument("--sp", action="store_true",
                         help="sequence parallelism: shard the joint "
                              "R*H'*W' posterior grid over the 'model' mesh "

@@ -23,6 +23,14 @@ Sampling: with a torch.Generator the posterior sample is Gumbel-perturbed and
 theta and z are reparameterised with normal noise, all drawn from it. With
 generator=None there is no noise: the sample is the posterior itself and the
 reparameterisation noise is zero (deterministic evaluation).
+
+compute_elbo(sp=group) shards the posterior's cells over the ranks of a
+process group (modes B and C; the JAX package's compute_elbo(sp=(mesh,
+axis)) and the Trainer's kernel SP step): each rank runs the encoder on
+its own rows, the raw heads cross to a cell split in one exchange, the
+posterior runs on the rank's cells (bf16: the K5/K6 kernels,
+parallel/grid_softmax.py::sp_posterior; float32: posterior_block in plain
+PyTorch) and each rank decodes its own rows.
 """
 
 from __future__ import annotations
@@ -32,6 +40,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..kernels import kernel_tier, needs_grad
 from ..kernels.decoder_pose import fused_pose_decoder, pose_decoder_supported
@@ -39,8 +48,11 @@ from ..kernels.posterior import fused_posterior, posterior_kernel_supported
 from ..models.encoders import (attn_dim_for, encoder_apply, encoder_heads,
                                rotation_constants)
 from ..models.generator import generator_apply
+from ..ops.gumbel import gumbel_noise
 from ..ops.coords import attention_grid, transform_coords
 from ..ops.kl import guarded_moments, normal_kl
+from ..parallel.grid_softmax import (chunks_to_cells, heads_to_chunks,
+                                     posterior_block, sp_posterior)
 from ..utils.config import ModelConfig
 from .likelihoods import reconstruction_log_prob
 
@@ -57,21 +69,29 @@ def _translation_log_prior(grid: np.ndarray) -> np.ndarray:
     return lp.astype(np.float32)
 
 
+# the bf16 step's per-rank cell shard is padded to a multiple of this, as
+# the JAX package's SP kernel tiles it, so that the shards match the JAX
+# package's; the float32 step's to a multiple of R (whole positions)
+SP_CELL_UNIT = 1024
+
+
 @functools.lru_cache(maxsize=32)
 def sp_shard_constants(ecfg, device: torch.device, ranks: int, rank: int,
                        unit: int) -> dict:
     """The grid-sharded posterior's constants for rank `rank` of `ranks`,
     made once for each config and device (outside inference mode, so that
     autograd may use them). The R*M cells, r-minor as the heads' (the JAX
-    package's losses/elbo.py::sp_cell_views), padded to a multiple of
-    ranks * unit, so that each shard holds c = "c_loc" cells; the pads carry
-    a -1e30 log-prior and zero constants. "bias" (D, R): log p(r) for the
-    logit, the offsets for theta's mean, 0 for the rest, which the exchange
-    adds to the heads; "p" (c,) the shard of the joint log-prior (globally
-    log-softmaxed, posterior_constants' p_tr), "gx", "gy" the attention
-    grid and "offs" the offsets of its cells; "sig_r"."""
+    package's losses/elbo.py::sp_cell_views; mode B: R = 1), padded to a
+    multiple of ranks * unit (unit a multiple of R), so that each shard
+    holds c = "c_loc" cells; the pads carry a -1e30 log-prior and zero
+    constants. "bias" (D, R): log p(r) for the logit, the offsets for
+    theta's mean, 0 for the rest, which the exchange adds to the heads
+    (mode B: zeros); "p" (c,) the shard of the joint log-prior (globally
+    log-softmaxed, posterior_constants' p_tr; mode B the translation prior
+    alone), "gx", "gy" the attention grid and "offs" the offsets of its
+    cells (mode B: 0); "sig_r" (pi / R; mode B theta_prior); "cells"."""
     const = posterior_constants(ecfg, device)
-    R, zd = ecfg.groupconv, ecfg.z_dim
+    R, zd = const["p_r"].numel(), ecfg.z_dim
     cells = const["p_tr"].numel()
     c = -(-cells // (ranks * unit)) * unit
     shard = slice(rank * c, (rank + 1) * c)
@@ -81,8 +101,8 @@ def sp_shard_constants(ecfg, device: torch.device, ranks: int, rank: int,
         bias = torch.zeros((3 + 2 * zd, R), device=device)
         bias[0], bias[1] = const["p_r"], const["offsets"]
         grid = const["grid"].repeat_interleave(R, dim=0)
-        return {"c_loc": c, "sig_r": float(np.pi / R), "bias": bias,
-                "p": pad(const["p_tr"].reshape(-1), -1e30),
+        return {"c_loc": c, "cells": cells, "sig_r": const["sig_r"],
+                "bias": bias, "p": pad(const["p_tr"].reshape(-1), -1e30),
                 "gx": pad(grid[:, 0], 0.0), "gy": pad(grid[:, 1], 0.0),
                 "offs": pad(const["offsets"].repeat(cells // R), 0.0)}
 
@@ -182,7 +202,7 @@ def compute_elbo(params: dict, cfg: ModelConfig, x_coord: torch.Tensor,
                  y: torch.Tensor, generator: Optional[torch.Generator] = None,
                  compute_dtype: Optional[torch.dtype] = None,
                  row_weights: Optional[torch.Tensor] = None,
-                 ctf: Optional[torch.Tensor] = None,
+                 ctf: Optional[torch.Tensor] = None, sp=None,
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Returns scalar (elbo, log_p_x_g_z, kl_div), batch means.
     x_coord: (N, 2) base pixel coordinates; y: (B, H, W, C) images; ctf:
@@ -190,7 +210,21 @@ def compute_elbo(params: dict, cfg: ModelConfig, x_coord: torch.Tensor,
 
     row_weights: optional (B,) weights turning every batch mean into a
     weighted SUM (caller-normalised), as the JAX package's _wmean: the
-    Trainer's zero-weight padding of a ragged tail batch."""
+    Trainer's zero-weight padding of a ragged tail batch.
+
+    sp: None, or the process group over whose ranks the posterior's cells
+    are sharded (modes B and C): every rank of the group calls with its own
+    rows y (as many on each rank; row_weights and ctf its rows' too) of the
+    group's batch, rank s holding rows s * b .. (s + 1) * b - 1 of it, and
+    gets its own rows' (elbo, log_p, kl). `generator` is the group's,
+    the same on every rank: on the float32 tier the Gumbel noise is drawn
+    once for the whole grid and batch, then z's and theta's, as the
+    unsharded call on the group's batch draws them, so that the sample is
+    the unsharded one; on the bf16 tier each rank draws its cells' noise
+    from a seed the generator gives, as the posterior kernels do."""
+    if sp is not None:
+        return _sp_elbo(params, cfg, x_coord, y, generator, compute_dtype,
+                        row_weights, ctf, sp)
     ecfg = cfg.encoder
     b = y.shape[0]
     zd = ecfg.z_dim
@@ -266,3 +300,63 @@ def compute_elbo(params: dict, cfg: ModelConfig, x_coord: torch.Tensor,
                                  compute_dtype=compute_dtype,
                                  row_weights=row_weights, ctf=ctf)
     return log_p - kl_div, log_p, kl_div
+
+
+def _sp_elbo(params: dict, cfg: ModelConfig, x_coord: torch.Tensor,
+             y: torch.Tensor, generator: Optional[torch.Generator],
+             compute_dtype: Optional[torch.dtype],
+             row_weights: Optional[torch.Tensor],
+             ctf: Optional[torch.Tensor], group):
+    """compute_elbo(sp=group): this rank's rows' (elbo, log_p, kl) with the
+    posterior's cells sharded over `group` (the JAX package's
+    train/loop.py::_loss_fn_sp and compute_elbo's SP branch)."""
+    ecfg = cfg.encoder
+    if ecfg.mode == "A":
+        raise NotImplementedError(
+            "sp with encoder mode A: the unimodal posterior has no grid to "
+            "shard")
+    zd = ecfg.z_dim
+    t_n, t = dist.get_world_size(group), dist.get_rank(group)
+    b_l = y.shape[0]
+    b = t_n * b_l
+    dev = y.device
+    kernels = kernel_tier(compute_dtype)
+    R = 1 if ecfg.mode == "B" else ecfg.groupconv
+    const = sp_shard_constants(ecfg, dev, t_n, t,
+                               SP_CELL_UNIT if kernels else R)
+    c = const["c_loc"]
+    heads = encoder_heads(params["encoder"], ecfg, y, compute_dtype)
+    # batch-split -> cell-split: the raw heads, log p(r) and the offsets
+    # added and the cells padded to t_n * c (-1e30 logits, zero moments;
+    # the pads carry exactly zero posterior mass and gradient) in one pass
+    # into the send buffer, one exchange of all 3 + 2 zd planes; row s *
+    # b_l + r of the result is rank s's row r
+    planes = chunks_to_cells(heads_to_chunks(
+        heads.reshape(b_l, -1, 3 + 2 * zd), const["bias"], t_n, c), group)
+    if generator is None:
+        noise = torch.zeros((b, c), device=dev)
+    elif kernels:
+        # each rank's cells draw apart, from the group's seed and its rank
+        seed = int(torch.randint(0, 2 ** 31 - 1, (1,), generator=generator,
+                                 device=generator.device))
+        noise = gumbel_noise((b, c), torch.Generator(device=dev).manual_seed(
+            seed + t), dev)
+    else:
+        # the whole grid's draw (the unsharded encoder's), this rank's cells
+        full = gumbel_noise((b, const["cells"]), generator, dev)
+        noise = torch.nn.functional.pad(
+            full, (0, t_n * c - const["cells"]))[:, t * c:(t + 1) * c]
+    out = (sp_posterior if kernels else posterior_block)(
+        group, const["sig_r"], planes, noise, const["p"], const["gx"],
+        const["gy"], const["offs"])
+    z_s = out[:, zd:2 * zd] * _normal_noise(generator, (b, zd), dev) \
+        + out[:, :zd]
+    theta = out[:, 2 * zd + 1] * _normal_noise(generator, (b,), dev) \
+        + out[:, 2 * zd]
+    rows = slice(t * b_l, (t + 1) * b_l)
+    log_p = reconstruct_log_prob(params, cfg, x_coord, y, theta[rows],
+                                 out[rows, 2 * zd + 2:2 * zd + 4], z_s[rows],
+                                 compute_dtype=compute_dtype,
+                                 row_weights=row_weights, ctf=ctf)
+    kl = _wmean(out[rows, 2 * zd + 4], row_weights)
+    return log_p - kl, log_p, kl

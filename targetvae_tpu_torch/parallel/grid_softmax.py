@@ -20,8 +20,14 @@ divided by the number of ranks). So the cotangent of a rank's partials is
 the SUM over ranks of the output's cotangents, and every collective here
 is a SUM whose transpose is a SUM, as shard_map's psum.
 
-The float32 tier's SP branch (make_joint_posterior, sharded_gumbel_softmax,
-sharded_weighted_moments, make_sharded_posterior) is not ported (ROADMAP.md).
+The float32 tier's SP branch is plain PyTorch (the JAX package's
+sharded_log_softmax, sharded_gumbel_softmax, sharded_weighted_moments and
+_posterior_block, which its make_joint_posterior runs under shard_map):
+posterior_block computes the same (B, 2zd+5) outputs as sp_posterior from
+the same planes, with MAX and differentiable SUM all-reduces over the
+group; it runs no kernel, on the card as on the CPU. Its Gumbel noise is
+the caller's shard of one draw for the whole grid, so that a sampled
+float32 SP step samples as the unsharded step does.
 """
 
 from __future__ import annotations
@@ -31,6 +37,9 @@ import torch.distributed as dist
 
 from ..kernels.posterior import (pack_planes, posterior_shard_bwd,
                                  posterior_shard_fwd)
+from ..ops.kl import guarded_moments, normal_kl
+
+_EPS = 1e-6
 
 
 def _global_norms(logits, group) -> torch.Tensor:
@@ -205,3 +214,95 @@ def heads_to_chunks(heads, bias, t: int, c: int) -> torch.Tensor:
         raise ValueError(f"chunks of {c} cells split positions of "
                          f"{bias.shape[1]} rotations")
     return _HeadsToChunks.apply(heads, bias, t, c)
+
+
+# ---- the float32 tier: the posterior block in plain PyTorch ----
+
+class _AllReduceSum(torch.autograd.Function):
+    """A SUM all-reduce over `group`; under the gradient convention above
+    its transpose is the SUM all-reduce of the cotangent (shard_map's
+    psum)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        out = x.contiguous().clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """The differentiable SUM of x over the ranks of `group`."""
+    return _AllReduceSum.apply(x, group)
+
+
+def sharded_log_softmax(logits: torch.Tensor, group) -> torch.Tensor:
+    """log_softmax over the last axis, sharded over the ranks of `group`:
+    (B, C_local) -> this rank's shard of the globally normalised log
+    posterior. The MAX all-reduce of the local maxima is only a shift, so
+    no gradient flows through it (the JAX package stops it); the SUM of the
+    exponentials under it is differentiable."""
+    with torch.no_grad():
+        gmax = logits.amax(dim=-1, keepdim=True)
+        dist.all_reduce(gmax, op=dist.ReduceOp.MAX, group=group)
+    gsum = all_reduce_sum(torch.exp(logits - gmax).sum(dim=-1, keepdim=True),
+                          group)
+    return logits - (torch.log(gsum) + gmax)
+
+
+def sharded_gumbel_softmax(logits: torch.Tensor, noise: torch.Tensor,
+                           group) -> torch.Tensor:
+    """The Gumbel-softmax sample over the sharded cell axis: softmax(logits
+    + noise) under the cross-rank normaliser. noise (B, C_local) is this
+    rank's shard of the Gumbel noise (the JAX package draws it per shard
+    from a folded key; the SP step passes a shard of one draw for the
+    whole grid)."""
+    return torch.exp(sharded_log_softmax(logits + noise, group))
+
+
+def sharded_weighted_moments(weights: torch.Tensor, values: torch.Tensor,
+                             group) -> torch.Tensor:
+    """E_w[v] over the sharded cell axis: weights (B, C_local), values
+    (B, C_local, D) -> (B, D), summed over the ranks."""
+    return all_reduce_sum(torch.einsum("bm,bmd->bd", weights, values), group)
+
+
+def posterior_block(group, sig_r: float, planes, noise, p, gx, gy,
+                    offs) -> torch.Tensor:
+    """The float32 grid-sharded posterior (the JAX package's
+    _posterior_block) with sp_posterior's contract: planes (B, 3 + 2 zd,
+    C_local) [attn, theta_mu, theta_logstd, z_mu (zd), z_logstd (zd)] as
+    the exchange leaves them, noise (B, C_local) this rank's shard of the
+    Gumbel noise, p (C,) the globally log-softmaxed log-prior shard (a
+    constant, so its sharded log-softmax is the shard itself), gx, gy,
+    offs (C,). Returns (B, 2zd+5) [z_mu_e, z_std_e, th_mu_e, th_std_e, dx0,
+    dx1, kl], the same on every rank, differentiable in the planes. The
+    KL is the discrete joint KL plus the expected conditional KLs under
+    the NaN-guarded moments; the sample's moments cross ranks in one SUM
+    all-reduce and the KL in another (the JAX package's psums, gathered).
+    Padded cells (-1e30 logits and log-prior, zero moments) carry exactly
+    zero mass."""
+    zd = (planes.shape[1] - 3) // 2
+    attn, th_mu, th_ls = planes[:, 0], planes[:, 1], planes[:, 2]
+    z_mu, z_ls = planes[:, 3:3 + zd], planes[:, 3 + zd:]           # (B,zd,C)
+    q = sharded_log_softmax(attn, group)
+    a = sharded_gumbel_softmax(attn, noise, group)
+    z_std = torch.exp(z_ls) + _EPS
+    th_std = torch.exp(th_ls) + _EPS
+    zg_mu, zg_std = guarded_moments(q[:, None], z_mu, z_std)
+    tg_mu, tg_std = guarded_moments(q, th_mu, th_std)
+    kl_z = normal_kl(zg_mu, zg_std, 0.0, 1.0).sum(dim=1)
+    kl_th = normal_kl(tg_mu, tg_std, offs, sig_r)
+    grid = torch.stack([gx, gy]).expand(attn.shape[0], 2, -1)
+    values = torch.cat([z_mu, z_std, th_mu[:, None], th_std[:, None], grid],
+                       dim=1)                                 # (B, 2zd+4, C)
+    moments = sharded_weighted_moments(a, values.transpose(1, 2), group)
+    kl = sharded_weighted_moments(torch.exp(q), (q - p + kl_th + kl_z)[
+        ..., None], group)
+    return torch.cat([moments, kl], dim=1)

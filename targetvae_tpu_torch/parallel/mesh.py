@@ -6,8 +6,13 @@ package reshapes its devices into a (data, model) array. The data axis
 shards each batch (dp: every rank runs the step on its B / data rows); the
 model axis shards the SP step's posterior cells, its exchange running over
 the ranks of one data row (`group`). Gradients are all-reduced over the
-whole world. The tensor-parallel parameter layout of the JAX package's
-_spec_for_param is not ported (ROADMAP.md, queue 1, item 23).
+whole world. tp > 1 without sp shards parameters instead (the JAX
+package's tensor-parallel layout, _spec_for_param and param_shardings, here
+spec_for_param and param_layout): the wide channel axes of the encoder's
+lift, mixing and heads and of the generator's layers split over the ranks
+of a data row (parallel/pjit.py), and each batch splits over all dp * tp
+ranks, rank d * tp + t taking the rows of flattened shard d * tp + t
+(flat_rows), as the JAX package's _loss_fn_dp splits it over both axes.
 """
 
 from __future__ import annotations
@@ -31,6 +36,20 @@ class Mesh:
     @property
     def size(self) -> int:
         return self.data * self.model
+
+    @property
+    def flat_index(self) -> int:
+        """This rank's index over both axes, data-major: d * model + t."""
+        return self.data_index * self.model + self.rank
+
+    def flat_rows(self, b: int) -> slice:
+        """The rows of a global batch of b that this rank takes when the
+        batch splits over both axes (dp and tp without sp)."""
+        if b % self.size:
+            raise ValueError(f"a batch of {b} does not split over the "
+                             f"{self.data} x {self.model} ranks")
+        n = b // self.size
+        return slice(self.flat_index * n, (self.flat_index + 1) * n)
 
     def batch_rows(self, b: int) -> slice:
         """The rows of a global batch of b that this rank's data shard
@@ -71,6 +90,60 @@ class Mesh:
             raise RuntimeError(
                 "ranks disagree on values that must be equal on every rank: "
                 + str([v.cpu().tolist() for v in every]))
+
+
+def spec_for_param(path: str, ndim: int) -> Optional[int]:
+    """The tensor-parallel layout of the JAX package's _spec_for_param: the
+    axis of a parameter leaf (its pytree path, "encoder/conv1/w", of ndim
+    dimensions) that shards over the model axis, or None (replicated).
+    conv1's out axis (the K kernels) of the 5-D group-conv weight; the K
+    rows of the 1x1 mixing and heads (conv2, conv_a, conv_r, conv_z); the
+    columns of the generator's coord_linear and latent_linear (its hidden
+    units); the rows of its hidden and out layers."""
+    if ndim == 0:
+        return None
+    if "encoder/conv1/w" in path and ndim == 5:
+        return 0
+    if any(f"{h}/w" in path for h in ("conv2", "conv_a", "conv_r", "conv_z")
+           ) and ndim == 2:
+        return 0
+    if ("generator/coord_linear/w" in path
+            or "generator/latent_linear/w" in path) and ndim == 2:
+        return 1
+    if ("generator/hidden" in path or "generator/out/w" in path) and ndim == 2:
+        return 0
+    return None
+
+
+def shard_axis(path: str, shape: Sequence[int], model: int) -> Optional[int]:
+    """spec_for_param's axis under the JAX package's param_shardings guard:
+    a leaf whose axis does not divide by the model axis's size stays
+    whole (None)."""
+    axis = spec_for_param(path, len(shape))
+    if axis is None or shape[axis] % model:
+        return None
+    return axis
+
+
+def leaf_paths(tree, prefix: str = ""):
+    """(path, leaf) over a params dict of nested dicts and lists, the path
+    "/"-joined keys and list indices, as the JAX package's _path_str."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from leaf_paths(v, f"{prefix}{k}/")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from leaf_paths(v, f"{prefix}{i}/")
+    else:
+        yield prefix[:-1], tree
+
+
+def param_layout(params, model: int) -> dict:
+    """{path: shard axis or None} for every leaf of a TargetVAE params dict
+    on a model axis of `model` ranks: the JAX package's param_shardings
+    (targetvae_tpu/parallel/mesh.py) as axes."""
+    return {path: shard_axis(path, tuple(leaf.shape), model)
+            for path, leaf in leaf_paths(params)}
 
 
 def make_mesh(data: Optional[int] = None, model: int = 1) -> Mesh:

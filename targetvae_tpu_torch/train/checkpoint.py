@@ -25,6 +25,13 @@ The resume file adds under "extra":
 The optimizer updates the parameters and Adam's moments in place, so every
 save copies what it writes to the host before it returns; AsyncCheckpointer
 writes only the bytes on its thread.
+
+A tensor-parallel state (state.shards, parallel/pjit.py) is saved whole:
+every rank calls the save, the ranks of each data row gather Adam's moment
+shards, and rank 0 alone writes, in the same format; a file loads into a
+sharded state by cutting each rank's shards from the whole arrays. So a TP
+run's checkpoint loads on one process (either package), and one process's
+loads sharded.
 """
 
 from __future__ import annotations
@@ -36,6 +43,7 @@ from typing import Any, Callable, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..utils import msgpack
 from ..utils.config import ModelConfig
@@ -127,8 +135,12 @@ def _moments(state: TrainState, key: str):
     """exp_avg or exp_avg_sq in the params tree's layout, on the host; zeros
     where Adam holds none (the Fourier buffers, or before the first step)."""
     opt_state = state.optimizer.state
+    whole = ({} if state.shards is None
+             else state.shards.whole_moments(state.optimizer, key))
 
     def leaf(t):
+        if id(t) in whole:
+            return _to_host(whole[id(t)])
         st = opt_state.get(t) if isinstance(t, torch.nn.Parameter) else None
         return (_to_host(st[key]) if st
                 else np.zeros(tuple(t.shape), np.float32))
@@ -167,9 +179,19 @@ def _resume_extra(state: TrainState, host_state: dict) -> dict:
 def save_train_state(path: str, state: TrainState, cfg: ModelConfig,
                      host_state: Optional[dict] = None) -> None:
     """Full resume checkpoint: params + optimizer state + the generator +
-    host-side controller state (epoch, scheduler, early stopping)."""
-    save_checkpoint(path, state.model.params(), cfg, step=int(state.step),
-                    extra=_resume_extra(state, host_state or {}))
+    host-side controller state (epoch, scheduler, early stopping). A
+    tensor-parallel state: every rank calls it (the moments are gathered),
+    rank 0 writes."""
+    extra = _resume_extra(state, host_state or {})
+    if _writes(state):
+        save_checkpoint(path, state.model.params(), cfg,
+                        step=int(state.step), extra=extra)
+
+
+def _writes(state: TrainState) -> bool:
+    """Whether this rank writes a save of `state`: always, but of a
+    tensor-parallel state only rank 0 (every rank gathers)."""
+    return state.shards is None or dist.get_rank() == 0
 
 
 class AsyncCheckpointer:
@@ -178,18 +200,22 @@ class AsyncCheckpointer:
     parameters and moments in place, so they must be copied out first); only
     the disk write runs on a background thread, so the epoch loop never
     blocks on IO. wait() joins the write in flight and re-raises its error;
-    a new save joins the previous one first."""
+    a new save joins the previous one first. A tensor-parallel state: every
+    rank calls save (the snapshot gathers its moments), rank 0 writes; the
+    others may give no path."""
 
     def __init__(self):
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
 
-    def save(self, path: str, state: TrainState, cfg: ModelConfig,
+    def save(self, path: Optional[str], state: TrainState, cfg: ModelConfig,
              host_state: Optional[dict] = None) -> None:
         self.wait()
-        blob = msgpack.packb(_payload(
-            state.model.params(), cfg, int(state.step),
-            _resume_extra(state, host_state or {})))
+        payload = _payload(state.model.params(), cfg, int(state.step),
+                           _resume_extra(state, host_state or {}))
+        if path is None or not _writes(state):
+            return
+        blob = msgpack.packb(payload)
 
         def write():
             try:
@@ -218,7 +244,9 @@ def load_train_state(path: str, template_state: TrainState,
     the parameters are copied into its model's, Adam's moments, step and
     learning rate into its optimizer. Returns (state, cfg, host_state). A
     file without this package's generator state draws fresh noise from a
-    generator seeded with its JAX key, and says so through `log`."""
+    generator seeded with its JAX key, and says so through `log`. A
+    tensor-parallel template takes its rank's shards of the file's whole
+    parameters and moments."""
     params, cfg, payload = load_checkpoint(path)
     extra = payload["extra"]
     state = template_state
@@ -227,6 +255,11 @@ def load_train_state(path: str, template_state: TrainState,
     with torch.no_grad():
         for t, v in pairs:
             t.copy_(torch.from_numpy(np.asarray(v, np.float32)))
+    # the optimizer's parameter for each of the model's, and the cut of a
+    # whole moment to it (the identity without shards)
+    targets = {id(t): (t, lambda v: v) for t, _ in pairs}
+    if state.shards is not None:
+        targets.update(state.shards.targets())
 
     opt = extra["opt_state"]
     inner = opt["inner_state"]["0"]
@@ -236,10 +269,14 @@ def load_train_state(path: str, template_state: TrainState,
     sd = state.optimizer.state_dict()
     index = {id(p): i for i, p in enumerate(
         p for g in state.optimizer.param_groups for p in g["params"])}
-    sd["state"] = {index[k]: {"step": step.clone(),
-                              "exp_avg": torch.from_numpy(np.asarray(mu)),
-                              "exp_avg_sq": torch.from_numpy(np.asarray(nu))}
-                   for k, (mu, nu) in moments.items() if k in index}
+    moment = lambda cut, v: cut(torch.from_numpy(np.asarray(v))).clone()
+    sd["state"] = {}
+    for k, (mu, nu) in moments.items():
+        p, cut = targets[k]
+        if id(p) in index:
+            sd["state"][index[id(p)]] = {"step": step.clone(),
+                                         "exp_avg": moment(cut, mu),
+                                         "exp_avg_sq": moment(cut, nu)}
     state.optimizer.load_state_dict(sd)
     set_learning_rate(state, float(opt["hyperparams"]["learning_rate"]))
     state.step = int(payload["step"])

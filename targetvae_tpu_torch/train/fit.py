@@ -9,8 +9,9 @@ periodic epoch snapshots every save_interval epochs. Adds what the reference
 lacks: a full resume checkpoint (optimizer state + generator + controller
 state), per-epoch throughput logging, and a torch.profiler trace of one
 epoch. As the JAX package's fit it runs on one device or over ranks (dp
-data shards, tp grid shards with sp; only rank 0 writes), with both splits
-on the card or streamed from host RAM (host_stream, stream_bf16).
+data shards; tp parameter shards, or grid shards with sp; only rank 0
+writes), with both splits on the card or streamed from host RAM
+(host_stream, stream_bf16).
 """
 
 from __future__ import annotations
@@ -197,9 +198,10 @@ def fit(model: TargetVAE, train_cfg: TrainConfig, logger: RunLogger,
                         scheduler.num_bad, stopper.max_elbo, stopper.counter,
                         float(stopper.early_stop)], model.device)
 
-        if rank0:
+        if rank0 or state.shards is not None:   # TP: every rank gathers
             ckpt.save(
-                os.path.join(logger.path_prefix, RESUME_FILE), state,
+                os.path.join(logger.path_prefix, RESUME_FILE) if rank0
+                else None, state,
                 model.cfg,
                 host_state={
                     "epoch": epoch + 1, "lr": scheduler.lr,

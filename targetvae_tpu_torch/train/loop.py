@@ -25,13 +25,17 @@ group of dp * tp ranks) every rank calls the same entry points with the
 same whole batch, or its data shard's rows of it (the epochs, the host
 feed), and gets the same metrics and parameters. dp > 1 splits each batch
 over the data axis: every rank runs the step with the kernels on its B / dp
-rows and the gradients are all-reduced. TrainConfig(sp=True, tp=T) runs the
-bf16 step grid-sharded over the model axis: the posterior's cells are
-sharded over the T ranks of a data row (K5/K6, parallel/grid_softmax.py),
-and each rank runs the encoder and decoder on its rows. A ragged tail is
-padded over the ranks with zero-weight rows; row weights and CTF kernels
-ride through every form of the step. TP parameter sharding (tp > 1 without
-sp) is not ported (ROADMAP.md, queue 1, item 23).
+rows and the gradients are all-reduced. tp > 1 without sp shards the
+parameters and Adam's moments over the model axis (parallel/pjit.py) and
+splits each batch over all dp * tp ranks, as the JAX package's _loss_fn_dp
+splits it over both axes; the noise seed folds the flattened rank index.
+TrainConfig(sp=True, tp=T) runs the step grid-sharded over the model axis
+(losses/elbo.py::compute_elbo(sp=...)): the posterior's cells are sharded
+over the T ranks of a data row (bf16: K5/K6; float32: the plain
+posterior_block of parallel/grid_softmax.py), modes B and C, and each rank
+runs the encoder and decoder on its rows. A ragged tail is padded over the
+ranks with zero-weight rows; row weights and CTF kernels ride through every
+form of the step.
 """
 
 from __future__ import annotations
@@ -42,55 +46,40 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..losses.elbo import (_normal_noise, compute_elbo, reconstruct_log_prob,
-                           sp_shard_constants)
-from ..models.encoders import encoder_heads
+# SP_CELL_UNIT is read from here by chip_smoke.py, whose timing tool runs
+# it against older checkouts too, where it was defined here
+from ..losses.elbo import SP_CELL_UNIT, compute_elbo  # noqa: F401
 from ..models.targetvae import TargetVAE, resolve_device
-from ..ops.gumbel import gumbel_noise
-from ..parallel.grid_softmax import (chunks_to_cells, heads_to_chunks,
-                                     sp_posterior)
 from ..parallel.mesh import make_mesh
+from ..parallel.pjit import shard_state
 from ..utils.config import ModelConfig, TrainConfig
 from .state import TrainState, create_train_state
 
-# the per-rank cell shard is padded to a multiple of this, as the JAX
-# package's SP kernel tiles it, so that the shards match the JAX package's
-SP_CELL_UNIT = 1024
 # a rank's noise seed: the shared generator's draw (< 2**31) folded with the
-# rank's data index, so that the data shards draw apart and the ranks of one
-# data row alike (the JAX package's fold_in of the data index)
+# rank's index over the batch's shards (the data index under sp, so that
+# the ranks of one data row draw alike; the flattened index otherwise), as
+# the JAX package folds its key
 _FOLD = 2 ** 31
 
 
 def check_train_config(model_cfg: ModelConfig, train_cfg: TrainConfig
                        ) -> None:
     """Raise on a TrainConfig the port does not run with this model: an
-    unknown compute dtype, sp outside mode C, below tp 2 or on the float32
-    tier, tp > 1 without sp (TP parameter sharding, item 23), dp < 1."""
+    unknown compute dtype, sp in mode A (no grid to shard) or below tp 2,
+    tp or dp below 1."""
     if train_cfg.compute_dtype not in (None, "float32", "bfloat16"):
         raise ValueError(
             f"unsupported compute_dtype {train_cfg.compute_dtype!r}")
     mode = model_cfg.encoder.mode
-    if train_cfg.sp and mode != "C":
+    if train_cfg.sp and mode == "A":
         raise NotImplementedError(
-            f"sp=True with encoder mode {mode}: the grid-sharded "
-            "posterior is ported for mode C only; mode B's waits "
-            "(ROADMAP.md, queue 1, item 24), and mode A has no grid to "
-            "shard")
-    if train_cfg.sp:
-        if train_cfg.tp <= 1:
-            raise ValueError("sp=True shards the posterior grid over the "
-                             "model axis; it requires tp > 1")
-        if train_cfg.compute_dtype != "bfloat16":
-            raise NotImplementedError(
-                "sp=True runs on the bf16 kernel tier; the float32 "
-                "tier's SP branch (compute_elbo(sp=...), "
-                "make_joint_posterior) is not ported (ROADMAP.md)")
-    elif train_cfg.tp != 1:
-        raise NotImplementedError(
-            f"TrainConfig tp={train_cfg.tp} without sp: tensor-parallel "
-            "parameter sharding is not ported yet (ROADMAP.md, queue 1, "
-            "item 23)")
+            "sp=True with encoder mode A: the unimodal posterior has no "
+            "grid to shard (sp takes modes B and C)")
+    if train_cfg.sp and train_cfg.tp <= 1:
+        raise ValueError("sp=True shards the posterior grid over the "
+                         "model axis; it requires tp > 1")
+    if train_cfg.tp < 1:
+        raise ValueError(f"TrainConfig tp={train_cfg.tp}: tp >= 1")
     if train_cfg.dp < 1:
         raise ValueError(f"TrainConfig dp={train_cfg.dp}: dp >= 1")
 
@@ -100,13 +89,15 @@ class Trainer:
                  train_cfg: TrainConfig, device=None):
         """model: a TargetVAE, or a ModelConfig to build one on `device`
         (None means cuda:0, and raises without CUDA: pass device='cpu').
-        dp > 1 or sp=True needs an initialised process group of dp * tp
+        dp > 1 or tp > 1 needs an initialised process group of dp * tp
         ranks (parallel.distributed.initialize); sp=True also tp > 1 and
-        compute_dtype 'bfloat16'."""
+        an attention mode (B or C)."""
         check_train_config(model if isinstance(model, ModelConfig)
                            else model.cfg, train_cfg)
         self._mesh = (make_mesh(data=train_cfg.dp, model=train_cfg.tp)
-                      if train_cfg.sp or train_cfg.dp > 1 else None)
+                      if train_cfg.dp * train_cfg.tp > 1 else None)
+        # tensor parallelism: the parameters sharded over the model axis
+        self._tp = train_cfg.tp > 1 and not train_cfg.sp
         if isinstance(model, ModelConfig):
             model = TargetVAE(model, device)
         elif device is not None and resolve_device(device) != model.device:
@@ -127,29 +118,43 @@ class Trainer:
         """Fresh parameters and Adam state. One generator seeded `seed` draws
         the parameters and then goes on to draw the training noise. Ranks
         given the same seed hold the same parameters and draw the same
-        noise."""
+        noise. Under tensor parallelism each rank keeps its shards
+        (parallel/pjit.py::shard_state)."""
         generator = torch.Generator().manual_seed(seed)
         self.model.init(generator)
-        return create_train_state(self.model, self.cfg.learning_rate,
-                                  generator)
+        state = create_train_state(self.model, self.cfg.learning_rate,
+                                   generator)
+        return shard_state(state, self._mesh) if self._tp else state
 
     def batch_rows(self, b: int) -> slice:
         """The rows of a global batch of b that this rank takes: its data
-        shard's (all of them on one process). A host feed for this Trainer
-        gathers these rows (HostDataPipeline(rows=...))."""
+        shard's under sp (the model axis splits them inside the step), its
+        flattened shard's otherwise (all of them on one process). A host
+        feed for this Trainer gathers these rows
+        (HostDataPipeline(rows=...))."""
         if self._mesh is None:
             return slice(0, b)
         if b % self._mesh.size:
             raise ValueError(f"a batch of {b} does not split over the "
                              f"{self._mesh.data} x {self._mesh.model} ranks")
-        return self._mesh.batch_rows(b)
+        if self.cfg.sp:
+            return self._mesh.batch_rows(b)
+        return self._mesh.flat_rows(b)
+
+    def _row_shards(self) -> int:
+        """The shards a batch's rows split into before the step: the data
+        rows under sp, every rank otherwise."""
+        return self._mesh.data if self.cfg.sp else self._mesh.size
 
     def _rank_seed(self, generator: torch.Generator) -> int:
         """The shared generator's next draw (the same on every rank) folded
-        with this rank's data index."""
+        with this rank's shard of the batch: its data index under sp, its
+        flattened index otherwise."""
         seed = int(torch.randint(0, _FOLD - 1, (1,), generator=generator,
                                  device=generator.device))
-        return seed + _FOLD * self._mesh.data_index
+        mesh = self._mesh
+        return seed + _FOLD * (mesh.data_index if self.cfg.sp
+                               else mesh.flat_index)
 
     def _loss_fn(self, params: dict, y: torch.Tensor,
                  generator: Optional[torch.Generator],
@@ -167,9 +172,10 @@ class Trainer:
                     generator: Optional[torch.Generator],
                     w: Optional[torch.Tensor] = None,
                     ctf: Optional[torch.Tensor] = None):
-        """This rank's (-elbo, log_p, kl) over its data shard's rows y, with
-        the kernels, its noise from the shared generator's seed folded with
-        its data index (targetvae_tpu/train/loop.py::_loss_fn_dp)."""
+        """This rank's (-elbo, log_p, kl) over its rows y (its shard over
+        both axes), with the kernels, its noise from the shared generator's
+        seed folded with its flattened index
+        (targetvae_tpu/train/loop.py::_loss_fn_dp)."""
         if generator is not None:
             generator = torch.Generator().manual_seed(
                 self._rank_seed(generator))
@@ -179,62 +185,29 @@ class Trainer:
                     generator: Optional[torch.Generator],
                     w: Optional[torch.Tensor] = None,
                     ctf: Optional[torch.Tensor] = None):
-        """This rank's (kl - log_p, log_p, kl) over its own rows of its data
+        """This rank's (-elbo, log_p, kl) over its own rows of its data
         shard's rows y (and their weights w and CTF kernels ctf): means, or
         sums weighted by w; the posterior grid-sharded over the model axis
-        (targetvae_tpu/train/loop.py::_loss_fn_sp)."""
+        (compute_elbo(sp=...); targetvae_tpu/train/loop.py::_loss_fn_sp).
+        The data row's generator: the shared one on a single data row, so
+        that the float32 step samples as the unsharded step; else one seeded
+        from it, folded with the data index."""
         mesh = self._mesh
-        t_n, t, group = mesh.model, mesh.rank, mesh.group
-        cfg = self.model.cfg
-        ecfg = cfg.encoder
-        zd = ecfg.z_dim
         b = y.shape[0]
-        if b % t_n:
-            raise ValueError(f"a batch of {b} does not split over {t_n} ranks")
-        b_l = b // t_n
-        rows = slice(t * b_l, (t + 1) * b_l)
-        dev = y.device
-        const = sp_shard_constants(ecfg, dev, t_n, t, SP_CELL_UNIT)
-        c_loc = const["c_loc"]
-        heads = encoder_heads(params["encoder"], ecfg, y[rows],
-                              self.compute_dtype)
-        # batch-split -> cell-split: the raw heads, log p(r) and the offsets
-        # added and the cells padded to t_n * c_loc (-1e30 logits, zero
-        # moments; the pads carry exactly zero posterior mass and gradient)
-        # in one pass into the send buffer, one exchange of all 3 + 2 zd
-        # planes; K5/K6 read the received planes where they lie
-        planes = chunks_to_cells(heads_to_chunks(
-            heads.reshape(b_l, -1, 3 + 2 * zd), const["bias"], t_n, c_loc),
-            group)
-        # the Gumbel noise differs per rank (the data row's seed folded with
-        # the model index); the reparameterisation noise is drawn for the
-        # data row's b rows and is the same on the ranks of the row, as the
-        # moments it scales
-        if generator is None:
-            noise = torch.zeros((b, c_loc), device=dev)
-        else:
-            seed = self._rank_seed(generator)
-            noise = gumbel_noise((b, c_loc), torch.Generator(
-                device=dev).manual_seed(seed + t), dev)
-            generator = torch.Generator().manual_seed(seed)
-        out = sp_posterior(group, const["sig_r"], planes, noise, const["p"],
-                           const["gx"], const["gy"], const["offs"])
-        z_s = out[:, zd:2 * zd] * _normal_noise(generator, (b, zd), dev) \
-            + out[:, :zd]
-        theta = out[:, 2 * zd + 1] * _normal_noise(generator, (b,), dev) \
-            + out[:, 2 * zd]
-        # row s * b_l + r of the exchange is rank s's local row r
-        w_l = None if w is None else w[rows]
-        log_p = reconstruct_log_prob(params, cfg, self._x_coord, y[rows],
-                                     theta[rows],
-                                     out[rows, 2 * zd + 2:2 * zd + 4],
-                                     z_s[rows],
-                                     compute_dtype=self.compute_dtype,
-                                     row_weights=w_l,
-                                     ctf=None if ctf is None else ctf[rows])
-        kl = out[rows, 2 * zd + 4]
-        kl = kl.mean() if w_l is None else w_l @ kl
-        return kl - log_p, log_p, kl
+        if b % mesh.model:
+            raise ValueError(f"a batch of {b} does not split over "
+                             f"{mesh.model} ranks")
+        b_l = b // mesh.model
+        rows = slice(mesh.rank * b_l, (mesh.rank + 1) * b_l)
+        if generator is not None and mesh.data > 1:
+            generator = torch.Generator().manual_seed(
+                self._rank_seed(generator))
+        elbo, log_p, kl = compute_elbo(
+            params, self.model.cfg, self._x_coord, y[rows], generator,
+            compute_dtype=self.compute_dtype,
+            row_weights=None if w is None else w[rows],
+            ctf=None if ctf is None else ctf[rows], sp=mesh.group)
+        return -elbo, log_p, kl
 
     def _objective(self, params: dict, y: torch.Tensor,
                    generator: Optional[torch.Generator],
@@ -269,15 +242,21 @@ class Trainer:
     def _step(self, state: TrainState, y, w=None, ctf=None
               ) -> Tuple[TrainState, torch.Tensor]:
         """One Adam step on this rank's rows y (weights w, CTF kernels
-        ctf)."""
+        ctf). Under tensor parallelism Adam steps this rank's shards, which
+        the ranks of its data row then gather into the whole parameters."""
         state.optimizer.zero_grad(set_to_none=True)
+        state.model.zero_grad(set_to_none=True)
         objective, metrics = self._objective(
             state.model.params(), self.on_device(y), state.generator,
             self.on_device(w), self.on_device(ctf))
         objective.backward()
         if self._mesh is not None:
             self._mesh.all_reduce_grads(state.model.parameters())
+        if state.shards is not None:
+            state.shards.take_grads()
         state.optimizer.step()
+        if state.shards is not None:
+            state.shards.gather_params()
         state.step += 1
         return state, metrics
 
@@ -427,9 +406,9 @@ class Trainer:
 
     def _stream_rows(self, y) -> int:
         """A bare (y, ctf) pair's count of global rows: y holds this rank's
-        data shard."""
+        rows (batch_rows)."""
         return int(y.shape[0]) * (1 if self._mesh is None
-                                  else self._mesh.data)
+                                  else self._row_shards())
 
     def train_epoch_stream(self, state: TrainState, batches, progress=None,
                            ) -> Tuple[TrainState, Tuple[float, float, float]]:

@@ -9,12 +9,17 @@ parameters and Adam's moments where they lie, and Trainer.train_step returns
 the same TrainState with its step advanced. The learning rate lives in the
 optimizer's param_groups, where a host-side controller can change it between
 epochs.
+
+A tensor-parallel state (tp > 1 without sp, parallel/pjit.py::shard_state)
+holds `shards`: the optimizer then steps this rank's shards of the sharded
+leaves (and the replicated leaves whole), and the model's whole parameters
+are rebuilt from the shards after each step.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Iterable, Optional
+from typing import Any, Iterable, Optional
 
 import torch
 
@@ -27,6 +32,7 @@ class TrainState:
     model: TargetVAE                       # its modules hold the parameters
     optimizer: torch.optim.Adam
     generator: Optional[torch.Generator]   # sampling noise; None: no noise
+    shards: Optional[Any] = None           # parallel.pjit.ParamShards (TP)
 
 
 def make_optimizer(params: Iterable[torch.Tensor],

@@ -89,11 +89,11 @@ class ModelConfig:
 
 @dataclass(frozen=True)
 class TrainConfig:
-    """Training hyperparameters, as the JAX package's TrainConfig. Of the
-    mesh and host-feed fields the port takes dp (data shards over a process
-    group of dp * tp ranks), sp=True with tp > 1 (the grid-sharded bf16
-    step), host_stream and stream_bf16 (fit's host feed); tp > 1 without sp
-    raises (TP parameter sharding, ROADMAP.md, queue 1, item 23)."""
+    """Training hyperparameters, as the JAX package's TrainConfig. The mesh
+    fields run over a process group of dp * tp ranks: dp data shards; tp >
+    1 shards the parameters and Adam's moments over the model axis, or with
+    sp=True (modes B and C, either tier) the posterior's grid; host_stream
+    and stream_bf16 are fit's host feed."""
     learning_rate: float = 2e-4
     minibatch_size: int = 100
     num_epochs: int = 500

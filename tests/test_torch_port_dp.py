@@ -353,17 +353,23 @@ def test_dp_sp_step_on_four_ranks_matches_unsharded(dp_sp_ranks):
 
 
 def test_batch_rows_split_the_data_axis():
-    """A rank's rows of a batch: its data shard's, in rank order; a batch
-    the ranks do not divide is refused."""
+    """A rank's rows of a batch on a (2, 2) layout: under sp its data
+    shard's, in rank order (the model axis splits them inside the step);
+    without sp (tensor parallelism) its flattened shard's, d * 2 + t; a
+    batch the ranks do not divide is refused."""
+    import dataclasses
     from targetvae_tpu_torch.parallel.mesh import Mesh
     tr, _ = _single(_config(), TrainConfig())
     assert tr.batch_rows(6) == slice(0, 6)
     for d in range(2):
         tr._mesh = Mesh(data=2, model=2, data_index=d, rank=1, group=None,
                         data_group=None)
-        assert tr.batch_rows(8) == slice(4 * d, 4 * d + 4)
-        with pytest.raises(ValueError, match="does not split"):
-            tr.batch_rows(6)
+        for sp, rows in ((True, slice(4 * d, 4 * d + 4)),
+                         (False, slice(4 * d + 2, 4 * d + 4))):
+            tr.cfg = dataclasses.replace(tr.cfg, sp=sp)
+            assert tr.batch_rows(8) == rows
+            with pytest.raises(ValueError, match="does not split"):
+                tr.batch_rows(6)
 
 
 @pytest.mark.parametrize("world,local,cards,device,backend", [

@@ -328,13 +328,14 @@ def _logger(tmp_path, name):
 
 @pytest.fixture(scope="module")
 def fit_ranks(tmp_path_factory):
-    """fit on 2 gloo ranks for one epoch: dp = 2 (float32) and sp with tp =
-    2 (bf16), each rank 2 of the 4 images; one spawn for the module."""
+    """fit on 2 gloo ranks for one epoch: dp = 2 (float32), tp = 2 (float32,
+    the parameters sharded) and sp with tp = 2 (bf16), each rank 2 of the 4
+    images under dp and tp (sp: the data row's 4); a spawn for each."""
     from targetvae_tpu_torch.parallel.distributed import run_local
     import torch_port_ranks
     cfg = _config().to_json()
     out = {}
-    for field, kw in (("dp", {"dp": 2}),
+    for field, kw in (("dp", {"dp": 2}), ("tp", {"tp": 2}),
                       ("sp", {"sp": True, "tp": 2,
                               "compute_dtype": "bfloat16"})):
         root = str(tmp_path_factory.mktemp(field))
@@ -354,20 +355,13 @@ def test_fit_refuses_what_is_not_ported(tmp_path, field, value, item,
     """fit runs each field whose ROADMAP item is ported: the host feed
     (item 22: host_stream, and stream_bf16, which without host_stream is
     noted and ignored), dp > 1 (item 23's data axis) and sp (item 24) on 2
-    gloo ranks, and the per-image CTF kernels (item 19) on a Gaussian CTF
-    config: one epoch each with finite metrics, the item's refusal gone
-    from the log. TP parameter sharding (tp without sp, item 23) is still
-    refused, naming its item."""
+    gloo ranks, TP parameter sharding (tp without sp, item 23) likewise,
+    and the per-image CTF kernels (item 19) on a Gaussian CTF config: one
+    epoch each with finite metrics, the item's refusal gone from the
+    log."""
     cfg = ModelConfig.from_json(_config().to_json())
     data = _images(4)
-    if field == "tp":
-        lg = _logger(tmp_path, "run")
-        with pytest.raises(NotImplementedError, match=item):
-            fit(TargetVAE(cfg, device="cpu"), TrainConfig(**{field: value}),
-                lg, data, data)
-        lg.close()
-        return
-    if field in ("dp", "sp"):
+    if field in ("dp", "tp", "sp"):
         ranks = fit_ranks[field]
         log = ranks[0]["log"]
         assert ranks[1]["log"] is None and [r["step"] for r in ranks] == [1, 1]

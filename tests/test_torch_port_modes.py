@@ -219,7 +219,8 @@ def _config_json(mode):
 
 def test_mode_errors_match_jax(monkeypatch):
     """Bad groupconv values raise the JAX package's ValueErrors; mode B on
-    the patch tier and SP for modes A and B raise NotImplementedError."""
+    the patch tier and SP for mode A raise NotImplementedError; SP for mode
+    B, ported, wants its ranks."""
     from targetvae_tpu_torch.train import Trainer
     cfg = ModelConfig.from_json(_config_json("B0"))
     bad = ModelConfig.from_json(_config_json("B0").replace(
@@ -231,8 +232,11 @@ def test_mode_errors_match_jax(monkeypatch):
     monkeypatch.setenv("TARGETVAE_ENCODER_TIER", "patch")
     with pytest.raises(NotImplementedError, match="no mode-B route"):
         tm.embed(params, torch.from_numpy(_images(2)), torch.bfloat16)
-    for mode in ("A", "B0"):
-        with pytest.raises(NotImplementedError, match="item 24"):
+    # mode A has no grid to shard; mode B's grid-sharded step is ported,
+    # and then needs the process group of its 2 ranks
+    for mode, error, match in (("A", NotImplementedError, "no grid"),
+                               ("B0", RuntimeError, "process group")):
+        with pytest.raises(error, match=match):
             Trainer(ModelConfig.from_json(_config_json(mode)),
                     TrainConfig(compute_dtype="bfloat16", tp=2, sp=True),
                     device="cpu")

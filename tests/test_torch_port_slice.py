@@ -118,9 +118,10 @@ def test_bf16_kernel_tier_tracks_f32_tier(pair):
 
 
 def test_port_runs_without_jax(tmp_path):
-    """The package, its train and clustering CLIs, modes A and B and its
-    checkpoints with jax, flax, optax, msgpack, scikit-learn, matplotlib
-    and the JAX package all blocked from import."""
+    """The package, its train and clustering CLIs, modes A and B, its
+    checkpoints and the mesh's modules (the TP state, the float32 SP
+    posterior, the dry run) with jax, flax, optax, msgpack, scikit-learn,
+    matplotlib and the JAX package all blocked from import."""
     code = (
         "import os, sys\n"
         "for m in ('jax', 'jaxlib', 'flax', 'optax', 'msgpack', "
@@ -138,6 +139,10 @@ def test_port_runs_without_jax(tmp_path):
         "p = m.init(torch.Generator().manual_seed(0))\n"
         "out = m.embed(p, torch.rand(2, 14, 14, 1))\n"
         "assert out['z_content'].shape == (2, 4)\n"
+        "import targetvae_tpu_torch.parallel.pjit\n"
+        "import targetvae_tpu_torch.parallel.dryrun\n"
+        "from targetvae_tpu_torch.parallel.grid_softmax import "
+        "posterior_block, sharded_log_softmax\n"
         "from targetvae_tpu_torch.train import Trainer\n"
         "from targetvae_tpu_torch.utils.config import TrainConfig\n"
         "tr = Trainer(m, TrainConfig(compute_dtype='bfloat16'))\n"

@@ -87,8 +87,8 @@ def _images(n=4, d=18):
 
 
 def _sp_config(**kw):
-    return TrainConfig(learning_rate=LR, compute_dtype="bfloat16", tp=T,
-                       sp=True, **kw)
+    return TrainConfig(**{"learning_rate": LR, "compute_dtype": "bfloat16",
+                          "tp": T, "sp": True, **kw})
 
 
 def _counting(module, names):
@@ -141,6 +141,21 @@ def _rank_work(rank, world):
     out["eval"] = trainer.eval_step(state, _images()).numpy()
     out["params"] = params()
     out["counts"] = dict(counts)
+
+    # the float32 tier's SP step (posterior_block), deterministic, then
+    # sampled from the initial generator's state
+    f32 = {}
+    for sampled in (False, True):
+        trainer = Trainer(_model_config(), _sp_config(compute_dtype=None),
+                          device="cpu")
+        state = trainer.init_state(0)
+        if not sampled:
+            state.generator = None
+        _, m = trainer.train_step(state, _images())
+        f32[sampled] = {"metrics": m.numpy(), "grads": {
+            n: p.grad.numpy().copy()
+            for n, p in trainer.model.named_parameters()}}
+    out["f32"] = f32
 
     # the host feed: a streamed epoch of the SP trainer with host_stream
     import hashlib
@@ -391,6 +406,36 @@ def test_sp_step_equals_single_process_step(ranks):
             assert rel <= 1e-5, (name, rel)
 
 
+@pytest.mark.parametrize("sampled", [False, True])
+def test_f32_sp_step_equals_unsharded_step(ranks, sampled):
+    """The float32 tier's SP step (TrainConfig(sp=True, tp=2), the plain
+    posterior_block) on a single data row against the unsharded float32
+    step from the same initial state: deterministic, and sampled from the
+    same generator state (the Gumbel noise drawn once for the whole grid:
+    the same sample). Metrics at 1e-5 relative; each gradient leaf at the
+    SP bound, 1e-2 relative L2 (a rounding step in theta or dx flips the
+    generator's leaky-ReLU slope at the odd pixel: tests/
+    test_torch_port_sp_modes.py), the attention bias, exactly 0, below 1e-3
+    of the attention weight's."""
+    trainer = Trainer(_model_config(), TrainConfig(learning_rate=LR),
+                      device="cpu")
+    state = trainer.init_state(0)
+    if not sampled:
+        state.generator = None
+    _, m = trainer.train_step(state, _images())
+    grads = {n: p.grad.numpy() for n, p in trainer.model.named_parameters()}
+    floor = 1e-3 * np.linalg.norm(grads["encoder.conv_a.w"])
+    for r in ranks:
+        got = r["f32"][sampled]
+        np.testing.assert_allclose(got["metrics"], m.numpy(), rtol=1e-5)
+        for name, g in grads.items():
+            rel = (np.linalg.norm(got["grads"][name]) / floor
+                   if name == "encoder.conv_a.b" else
+                   np.linalg.norm(got["grads"][name] - g) / np.linalg.norm(g))
+            assert rel <= (1.0 if name == "encoder.conv_a.b" else 1e-2), (
+                name, rel)
+
+
 def test_sp_ranks_stay_bitwise_identical(ranks):
     """Every rank takes the same Adam step on all-reduced gradients: after
     one deterministic and three sampled steps the parameters are bitwise
@@ -429,15 +474,16 @@ def test_sp_step_runs_the_shard_kernels_only(ranks):
 
 @pytest.mark.parametrize("kw, error, match", [
     ({"sp": True, "tp": 1, "compute_dtype": "bfloat16"}, ValueError, "tp > 1"),
-    ({"sp": True, "tp": 2}, NotImplementedError, "float32"),
-    ({"tp": 2, "compute_dtype": "bfloat16"}, NotImplementedError, "tensor"),
+    ({"sp": True, "tp": 2}, RuntimeError, "process group"),
+    ({"tp": 2, "compute_dtype": "bfloat16"}, RuntimeError, "process group"),
     ({"sp": True, "tp": 2, "compute_dtype": "bfloat16"}, RuntimeError,
      "process group"),
 ])
 def test_sp_config_validation(kw, error, match):
-    """sp needs tp > 1, the bf16 tier and a process group of dp * tp ranks
-    (none is initialised in this process); tp > 1 without sp is not ported.
-    sp with dp > 1 and with the host feed run: test_sp_config_runs."""
+    """sp needs tp > 1 and a process group of dp * tp ranks (none is
+    initialised in this process), on either tier; so does tp > 1 without
+    sp (tensor parallelism). sp with dp > 1 and with the host feed run:
+    test_sp_config_runs."""
     with pytest.raises(error, match=match):
         Trainer(_model_config(), TrainConfig(**kw), device="cpu")
 
