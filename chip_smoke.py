@@ -155,13 +155,28 @@ from a seed):
      train_mnist --dp 2 --tp 2 (phase 12's synthetic split, 2 epochs),
      then its checkpoint resumed in one process, the loaded parameters and
      Adam moments bitwise the saved ones.
+ 20. the reference's pickled .sav files, the serving tools and the
+     figures: each mode's encoder at full width (the flagship's mode C,
+     mnist-a, mnist-b, mnist-b-p8) exported as the reference's
+     inference.sav and imported bitwise (config and parameters), its bf16
+     embed_dataset through load_encoder bitwise the original's with the
+     encoder kernel once a batch (K1 and K11; K1 at R = 1 in mode B);
+     embed_stack on a 1,000-image flagship .mrcs and on phase 17's 2,050
+     EMPIAR particles on each tier, bitwise embed_dataset's, img/s with
+     the MRC read; export_torch_checkpoint of phase 12's run directory,
+     read back bitwise; clustering_mnist on the exported inference.sav
+     with its PNG figures; reconstruct on the exported pair (its PNG's
+     size, its float32 decode against the CPU's); the t-SNE on the card at
+     N = 1,000 and 10,000, timed, its P against the CPU's. Phases 14-16
+     also check each clustering CLI's PNG figures (signature, CRC, size)
+     and that no "not written" line appears.
 
 Phases 2-8 cover both mode-C encoder tiers: the default "conv" tier (the
 cuDNN lift conv, K1/K2) and the fused patch encoder (K11/K12) that
 TARGETVAE_ENCODER_TIER=patch selects (phases 3, 4 and 7 drive each tier's
 embed, eval and train path; phases 2 and 6 also check K11 and K12 at the
 galaxy encoder's C = 3 shape). Each of phases 3, 4, 6 (the z_dim routes),
-7, 9, 10, 11, 12, 13, 15, 16, 17, 18 and 19 sets the launch counts to 0
+7, 9, 10, 11, 12, 13, 15, 16, 17, 18, 19 and 20 sets the launch counts to 0
 just before it drives its path and reads them just after (phases 10, 18
 and 19 in each rank). Every failed check exits
 non-zero. With no CUDA device, or outside a checkout, it fails without
@@ -337,6 +352,16 @@ SCENARIO4_STEPS = 5  # phase 19 (c): sampled steps of mode B with CTF, TP
 SCENARIO4_MASK = 20  # its mask radius at 50 x 50 (EMPIAR's 45 at 110)
 MODE_B_SP_STEPS = 20  # phase 19 (d): sampled mode-B SP steps a config
 CLI_TP_EPOCHS = 2    # phase 19 (f): epochs of the torchrun --tp 2 run
+EMBED_STACK_N = 1000  # phase 20's flagship .mrcs and each mode's .sav embed
+RECON_N = 8          # images phase 20's reconstruct decodes
+# reconstruct's float32 decode on the card against the same on the CPU,
+# max abs on sigmoid outputs in [0, 1]: the two devices' float32 sums in
+# other orders (TF32 off), through embed, the pose and the decoder
+TOL_RECON = 1e-4
+TSNE_SIZES = (1000, 10000)   # phase 20's t-SNE runs on the card
+# the t-SNE's P on the card against the CPU's: float64 throughout (the
+# neighbours' distances, the perplexity search), entries ~1e-5
+TOL_TSNE_P = 1e-12
 ROUTED_STEPS = 3     # its train steps
 # device_ms, the kernel timer: windows of at least 2 ms of replayed calls,
 # the median of 5; calls rotate over copies of their inputs so that 60 MB
@@ -1480,7 +1505,11 @@ def run(torch, dev) -> int:
     routed_generator_path(torch, kernels, cfg, dev, data)
 
     # ---- phase 12: the training run through the CLI, each tier ----
-    cli_counts = cli_training_path(torch, kernels, cfg, dev, step_rates)
+    import tempfile
+    work = tempfile.TemporaryDirectory()    # phase 12's run and 17's stand-in
+    phase12_run = os.path.join(work.name, "phase12_run")
+    cli_counts = cli_training_path(torch, kernels, cfg, dev, step_rates,
+                                   keep=phase12_run)
 
     # ---- phase 13: modes A and B at full width; K1-K4 at R = 1 ----
     mode_rows = mode_paths(torch, kernels, dev)
@@ -1496,14 +1525,16 @@ def run(torch, dev) -> int:
     vertical_clis(torch, kernels, dev)
 
     # ---- phases 17-18: the host feed; ranks sharing the card ----
-    import tempfile
-    with tempfile.TemporaryDirectory() as root:
-        stand = stand_in(torch, root)
-        stream_counts = host_feed_path(torch, kernels, dev, stand)
-        rank_sp_counts = rank_paths(torch, kernels, dev, stand)
+    stand = stand_in(torch, work.name)
+    stream_counts = host_feed_path(torch, kernels, dev, stand)
+    rank_sp_counts = rank_paths(torch, kernels, dev, stand)
 
     # ---- phase 19: TP, mode B's SP, the float32 SP, the dry run ----
     mesh_rows, mesh_counts = mesh_paths(torch, kernels, dev)
+
+    # ---- phase 20: .sav interop, the serving tools, the figures ----
+    tool_counts = interop_tools_path(torch, kernels, dev, stand, phase12_run)
+    work.cleanup()
 
     by_path = {"embed": embed_counts, "eval": eval_counts,
                "train": train_counts, "embed_patch": patch_counts["embed"],
@@ -1512,7 +1543,8 @@ def run(torch, dev) -> int:
                "train_sp": sp_counts, "train_cli": cli_counts["conv"],
                "train_cli_patch": cli_counts["patch"],
                "train_stream_empiar": stream_counts,
-               "train_sp_ctf_empiar": rank_sp_counts, **mesh_counts}
+               "train_sp_ctf_empiar": rank_sp_counts, **mesh_counts,
+               **tool_counts}
     # each kernel's launches on the main path that runs it: the conv tier's
     # train step, the patch tier's (K11, K12), bf16 decode (K9, K10), the
     # SP train step's rank 0 (K5, K6)
@@ -2702,13 +2734,16 @@ def host_step_ms(torch, cfg, dev, tier, images) -> float:
     return (time.perf_counter() - t) / CLI_STEP_REPS * 1e3
 
 
-def cli_training_path(torch, kernels, cfg, dev, step_rates) -> dict:
+def cli_training_path(torch, kernels, cfg, dev, step_rates,
+                      keep: str) -> dict:
     """Phase 12: targetvae_tpu_torch.cli.train_mnist.main, in-process so that
     the launch counts see it, on an MNIST-U directory of synthetic images
     at the flagship's flags, on each encoder tier; then a resume of the
-    conv tier's run. Returns each tier's launch counts."""
+    conv tier's run, whose run directory is copied to `keep` (phase 20).
+    Returns each tier's launch counts."""
     import importlib
     import re
+    import shutil
     import tempfile
     from targetvae_tpu_torch.cli import train_mnist
     from targetvae_tpu_torch.cli.clustering_common import load_encoder
@@ -2827,6 +2862,7 @@ def cli_training_path(torch, kernels, cfg, dev, step_rates) -> dict:
               f"appends {sorted(rows)[-2:]}; the {len(saved)} arrays (parameters and "
               f"Adam moments) it loaded equal, bitwise, those the run ended "
               f"with and saved (differ: {differ})")
+        shutil.copytree(runs["conv"], keep)
     return counts
 
 
@@ -3161,13 +3197,18 @@ def clustering_path(torch, kernels, dev) -> None:
                                  + flags)
             run = os.path.join(logs, os.listdir(logs)[0])
             t = time.perf_counter()
-            res = clustering_mnist.main([
-                "--dataset", "mnist-U", "--data-root", data,
-                "--path-to-encoder", os.path.join(run, "inference.sav"),
-                "--path-to-labels", os.path.join(data, "mnist_U",
-                                                 "labels_test.npy"),
-                "--n-clusters", "5", "--compute-dtype", "bfloat16"])
+            tee = _Tee(sys.stderr)
+            with contextlib.redirect_stderr(tee):
+                res = clustering_mnist.main([
+                    "--dataset", "mnist-U", "--data-root", data,
+                    "--path-to-encoder", os.path.join(run, "inference.sav"),
+                    "--path-to-labels", os.path.join(data, "mnist_U",
+                                                     "labels_test.npy"),
+                    "--n-clusters", "5", "--compute-dtype", "bfloat16"])
             secs = time.perf_counter() - t
+            check_figures(run, {"tsne.png": (1000, 1000),
+                                "confusion_matrix.png": None},
+                          "".join(tee.parts), f"phase 14: {label}")
             text = open(os.path.join(run, "results.txt")).read()
             vals = [res["acc"], res["rot_corr"], *res["tr_corr"]]
             check("accuracy for clustering" in text
@@ -3635,13 +3676,19 @@ def particles_cli(torch, kernels, dev, rows: dict) -> dict:
                   f"({evals}); epoch img/s (the CLI's line) {rates}")
         run = runs[""][0]
         t = time.perf_counter()
-        res = clustering_particles.main([
-            "--test-path", os.path.join(data, "particles_test.mrcs"),
-            "--path-to-encoder", os.path.join(run, "inference.sav"),
-            "--path-to-transformations",
-            os.path.join(data, "transforms_test.npy"), "--normalize",
-            "--n-clusters", "3", "--compute-dtype", "bfloat16"])
+        tee = _Tee(sys.stderr)
+        with contextlib.redirect_stderr(tee):
+            res = clustering_particles.main([
+                "--test-path", os.path.join(data, "particles_test.mrcs"),
+                "--path-to-encoder", os.path.join(run, "inference.sav"),
+                "--path-to-transformations",
+                os.path.join(data, "transforms_test.npy"), "--normalize",
+                "--n-clusters", "3", "--compute-dtype", "bfloat16"])
         secs = time.perf_counter() - t
+        check_figures(run, {"tsne.png": (1000, 1000),
+                            "rotation_hist.png": (500, 800),
+                            "translation_hist.png": (500, 800)},
+                      "".join(tee.parts), "phase 15: clustering_particles")
         cluster = np.load(os.path.join(run, "cluster_assignments.npy"))
         _, acc = cluster_acc(np.load(os.path.join(data, "labels_test.npy")),
                              cluster)
@@ -3741,7 +3788,7 @@ def vertical_clis(torch, kernels, dev) -> dict:
                   f"({evals})")
             all_counts[label] = counts
             enc = os.path.join(run, "inference.sav")
-            with contextlib.redirect_stderr(io.StringIO()):
+            with contextlib.redirect_stderr(io.StringIO()) as err:
                 if label == "dSprites":
                     res = clustering_dsprites.main([
                         *paths, "--train-labels",
@@ -3771,6 +3818,12 @@ def vertical_clis(torch, kernels, dev) -> dict:
                            f"{res['cluster'].shape}")
             check(ok, f"phase 16: {label}: the clustering CLI (bf16, Ward): "
                       + msg)
+            check_figures(run, {"tsne.png": (1000, 1000),
+                                ("confusion_matrix.png" if label == "dSprites"
+                                 else "z_vals.png"):
+                                (None if label == "dSprites"
+                                 else (1000, 1000))},
+                          err.getvalue(), f"phase 16: {label}")
             yb = torch.from_numpy(np.load(train_npy)[:B].astype(np.float32)
                                   * scale).to(dev)
             if yb.dim() == 3:
@@ -5026,6 +5079,348 @@ def mesh_paths(torch, kernels, dev) -> tuple:
     print(f"phase 19: {time.perf_counter() - t0:.1f} s ({card()})",
           flush=True)
     return rows, counts
+
+
+# ---- phase 20: reference .sav interop, the serving tools, the figures ----
+
+def check_figures(run: str, sizes: dict, err: str, label: str) -> None:
+    """The figures a clustering CLI wrote beside its encoder: each a PNG
+    (signature and IHDR CRC, utils/png.py::png_size) of the size given
+    (None: any), no .jpg, and no line of the CLI's standard error saying a
+    figure was not written."""
+    from targetvae_tpu_torch.utils.png import png_size
+    got = {}
+    for name in sizes:
+        try:
+            got[name] = png_size(os.path.join(run, name))
+        except (OSError, ValueError) as e:
+            got[name] = f"{type(e).__name__}: {e}"
+    ok = all(isinstance(got[n], tuple) and (s is None or got[n] == s)
+             for n, s in sizes.items())
+    jpg = [f for f in os.listdir(run) if f.endswith(".jpg")]
+    check(ok and not jpg and "not written" not in err,
+          f"{label}: figures (height, width) {got}, expected "
+          f"{ {n: s or 'a PNG' for n, s in sizes.items()} }; no .jpg "
+          f"({jpg}), no 'not written' line")
+
+
+def tsne_points(n: int, seed: int = 21) -> np.ndarray:
+    """n points of ten Gaussian clusters in 4 dimensions (a z_dim-2 model's
+    [z_mu; z_std] rows), float32."""
+    rng = np.random.default_rng(seed)
+    centres = rng.normal(size=(10, 4)) * 3
+    return (centres[rng.integers(0, 10, n)]
+            + rng.normal(size=(n, 4))).astype(np.float32)
+
+
+def sav_round_trips(torch, kernels, dev, root: str) -> dict:
+    """Phase 20 (a): each mode's encoder at full width (mode C at the
+    flagship; mnist-a, mnist-b, mnist-b-p8) written as the reference's
+    pickled inference.sav by utils/torch_export.py and read back by
+    utils/torch_import.py: the config and every parameter bitwise; then
+    load_encoder on the file and bf16 embed_dataset of EMBED_STACK_N images
+    bitwise the original parameters' embed, the encoder's kernel once a
+    batch (mode C: K1 on the conv tier, K11 on the patch tier; mode B: K1 at
+    R = 1; mode A: none, its MLP is float32 on both tiers). Returns the
+    flagship's .sav path."""
+    from targetvae_tpu_torch import TargetVAE
+    from targetvae_tpu_torch.cli.clustering_common import (embed_dataset,
+                                                           load_encoder)
+    from targetvae_tpu_torch.utils import torch_export, torch_import
+    from targetvae_tpu_torch.utils.jax_params import params_to_jax
+    images = synthetic_images(EMBED_STACK_N, 50, 20)
+    batches = -(-EMBED_STACK_N // B)
+    cases = (("mode C (flagship)", flagship_config(),
+              (("conv", "mix_heads_fwd"), ("patch", "lifted_encoder_fwd"))),
+             ("mode A (mnist-a)", mode_config("mnist-a"), (("conv", None),)),
+             ("mode B (mnist-b)", mode_config("mnist-b"),
+              (("conv", "mix_heads_r1_fwd"),)),
+             ("mode B (mnist-b-p8)", mode_config("mnist-b-p8"),
+              (("conv", "mix_heads_r1_fwd"),)))
+    paths = {}
+    for k, (label, cfg, tiers) in enumerate(cases):
+        model = TargetVAE(cfg, dev)
+        params = model.init(torch.Generator().manual_seed(30 + k))
+        path = os.path.join(root, f"inference_{k}.sav")
+        t = time.perf_counter()
+        torch_export.export_encoder_sav(path, cfg.encoder, params["encoder"])
+        write_s = time.perf_counter() - t
+        t = time.perf_counter()
+        got_cfg, got = torch_import.encoder_from_sav(path)
+        read_s = time.perf_counter() - t
+        want = params_to_jax(params["encoder"])
+        differ = trees_differ(got, want, "encoder")
+        n_params = sum(int(np.prod(v.shape)) for v in leaves(want))
+        check(got_cfg == cfg.encoder and not differ,
+              f"phase 20: {label}: export_encoder_sav ({os.path.getsize(path)}"
+              f" bytes, {write_s:.2f} s) then encoder_from_sav ({read_s:.2f} "
+              f"s): config equal, {n_params} parameters bitwise (differ: "
+              f"{differ})")
+        with contextlib.redirect_stderr(io.StringIO()) as err:
+            imported, iparams = load_encoder(path, dev)
+        check("reference torch checkpoint, importing" in err.getvalue(),
+              f"phase 20: {label}: load_encoder says it imports a reference "
+              f"file")
+        for tier, kernel in tiers:
+            with encoder_tier(tier):
+                ref = embed_dataset(model, params, images, B, "bfloat16")
+                kernels.reset_launch_counts()
+                out = embed_dataset(imported, iparams, images, B, "bfloat16")
+                torch.cuda.synchronize()
+                counts = kernels.launch_counts()
+            expect = {n: (batches if n == kernel else 0) for n in counts}
+            check(all(np.array_equal(a, r) for a, r in zip(out, ref)),
+                  f"phase 20: {label}, {tier} tier: bf16 embed_dataset of "
+                  f"{EMBED_STACK_N} images through the imported .sav bitwise "
+                  f"the original parameters' (z, rotation, translation)")
+            check(counts == expect,
+                  f"phase 20: {label}, {tier} tier: launches {counts} == "
+                  f"{kernel or 'no kernel'} once a batch ({batches})")
+        paths[label] = path
+        del model, params, imported, iparams
+        torch.cuda.empty_cache()
+    return paths
+
+
+def leaves(tree) -> list:
+    """The arrays of a nested dict / list."""
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in leaves(v)]
+    if isinstance(tree, list):
+        return [x for v in tree for x in leaves(v)]
+    return [tree]
+
+
+def trees_differ(a, b, name: str) -> list:
+    """The paths at which two nested dicts / lists of arrays differ in
+    structure, dtype or any bit."""
+    if isinstance(a, dict) or isinstance(b, dict):
+        if not (isinstance(a, dict) and isinstance(b, dict)
+                and set(a) == set(b)):
+            return [name]
+        return [p for k in a for p in trees_differ(a[k], b[k],
+                                                   f"{name}.{k}")]
+    if isinstance(a, list) or isinstance(b, list):
+        if not (isinstance(a, list) and isinstance(b, list)
+                and len(a) == len(b)):
+            return [name]
+        return [p for i, (x, y) in enumerate(zip(a, b))
+                for p in trees_differ(x, y, f"{name}[{i}]")]
+    a, b = np.asarray(a), np.asarray(b)
+    return [] if a.dtype == b.dtype and np.array_equal(a, b) else [name]
+
+
+def embed_stack_rates(torch, kernels, dev, root: str, flagship_sav: str,
+                      stand: dict) -> dict:
+    """Phase 20 (b): embed_stack, in-process so that the launch counts see
+    it, on a 1,000-image flagship .mrcs (through the reference .sav of (a))
+    and on phase 17's EMPIAR stand-in of STREAM_TOTAL particles with
+    --normalize (through a checkpoint of this package), on each encoder
+    tier, bf16: the files bitwise embed_dataset's arrays on the same
+    preprocessed images, the encoder's kernel once a batch; img/s of the
+    whole call (MRC read and files included, host clock), of its embed
+    alone, and of embed_dataset just after. Returns the launch counts by
+    path."""
+    from targetvae_tpu_torch import TargetVAE
+    from targetvae_tpu_torch.cli import embed_stack
+    from targetvae_tpu_torch.cli.clustering_common import (embed_dataset,
+                                                           load_encoder)
+    from targetvae_tpu_torch.data import mrc
+    from targetvae_tpu_torch.train.checkpoint import save_model_pair
+    flagship = os.path.join(root, "flagship.mrcs")
+    images = synthetic_images(EMBED_STACK_N, 50, 22)
+    mrc.write(flagship, images[..., 0])
+    cfg = empiar_config()
+    params = TargetVAE(cfg, dev).init(torch.Generator().manual_seed(40))
+    empiar_dir = os.path.join(root, "empiar_run")
+    os.makedirs(empiar_dir)
+    save_model_pair(empiar_dir, params, cfg)
+    del params
+    kernel = {"conv": "mix_heads_fwd", "patch": "lifted_encoder_fwd"}
+    by_path = {}
+    for shape, stack, enc, flags, ref_images in (
+            ("flagship", flagship, flagship_sav, [], images),
+            ("EMPIAR", stand["path"]("particles_train.mrcs"),
+             os.path.join(empiar_dir, "inference.sav"), ["--normalize"],
+             stand["images"])):
+        n = len(ref_images)
+        batches = -(-n // B)
+        with contextlib.redirect_stderr(io.StringIO()):
+            model, params = load_encoder(enc, dev)
+        for tier in ("conv", "patch"):
+            out = os.path.join(root, f"{shape}_{tier}")
+            with encoder_tier(tier):
+                embed_dataset(model, params, ref_images[:B], B, "bfloat16")
+                torch.cuda.synchronize()
+                kernels.reset_launch_counts()
+                t = time.perf_counter()
+                with contextlib.redirect_stderr(io.StringIO()):
+                    res = embed_stack.main(["--input", stack,
+                                            "--path-to-encoder", enc,
+                                            "--out", out, "-d", "0"] + flags)
+                torch.cuda.synchronize()
+                whole = time.perf_counter() - t
+                counts = kernels.launch_counts()
+                t = time.perf_counter()
+                ref = embed_dataset(model, params, ref_images, B, "bfloat16")
+                torch.cuda.synchronize()
+                ref_s = time.perf_counter() - t
+            files = [np.load(f"{out}_{p}.npy") for p in ("z", "rot", "trans")]
+            expect = {k: (batches if k == kernel[tier] else 0) for k in counts}
+            label = (f"phase 20: embed_stack {shape} ({n} x "
+                     f"{ref_images.shape[1]} x {ref_images.shape[2]}), "
+                     f"{tier} tier, bf16")
+            check(all(np.array_equal(a, r) for a, r in zip(files, ref))
+                  and files[0].shape == (n, 2 * cfg.encoder.z_dim),
+                  f"{label}: <out>_{{z,rot,trans}}.npy bitwise "
+                  f"embed_dataset's")
+            check(counts == expect, f"{label}: launches {counts} == "
+                  f"{kernel[tier]} once a batch ({batches})")
+            print(f"phase 20: embed_stack {shape}, {tier} tier: "
+                  f"{n / whole:.1f} img/s (the whole call: MRC read, "
+                  f"preprocessing, embed, files; host clock), "
+                  f"{n / res['seconds']:.1f} img/s (its embed alone); "
+                  f"embed_dataset just after {n / ref_s:.1f} img/s", flush=True)
+            by_path[f"embed_stack_{shape}_{tier}"] = counts
+        del model, params
+        torch.cuda.empty_cache()
+    return by_path
+
+
+def interop_tools_path(torch, kernels, dev, stand: dict,
+                       phase12_run: str) -> dict:
+    """Phase 20: (a) sav_round_trips; (b) embed_stack_rates; (c)
+    export_torch_checkpoint on phase 12's conv-tier run directory, the
+    pair read back bitwise; (d) clustering_mnist on that pair's
+    inference_torch.sav (tools/make_synthetic_shapes.py's labelled test
+    split, bf16, k-means, 5 clusters): results.txt, the figures; (e)
+    reconstruct on the pair: its PNG's size, no kernel launched, its
+    float32 decode on the card against the same on the CPU; (f) the t-SNE
+    on the card at N = 1,000 and 10,000, timed, its P at N = 1,000 against
+    the CPU's. Returns the launch counts of (b) by path."""
+    import tempfile
+    from targetvae_tpu_torch.cli import (clustering_mnist,
+                                         export_torch_checkpoint, reconstruct)
+    from targetvae_tpu_torch.cli.tsne import joint_probabilities, tsne
+    from targetvae_tpu_torch.train.checkpoint import load_checkpoint
+    from targetvae_tpu_torch.utils import torch_import
+    from targetvae_tpu_torch.utils.png import png_size
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        savs = sav_round_trips(torch, kernels, dev, root)
+        by_path = embed_stack_rates(torch, kernels, dev, root,
+                                    savs["mode C (flagship)"], stand)
+
+        # (c) phase 12's run as the reference's pair, read back
+        pair_dir = os.path.join(root, "pair")
+        with contextlib.redirect_stderr(io.StringIO()):
+            written = export_torch_checkpoint.main([phase12_run, "--out-dir",
+                                                    pair_dir])
+        eparams, ecfg, _ = load_checkpoint(os.path.join(phase12_run,
+                                                        "inference.sav"))
+        gparams, _, _ = load_checkpoint(os.path.join(phase12_run,
+                                                     "generator.sav"))
+        got_e = torch_import.encoder_from_sav(written[0])
+        got_g = torch_import.generator_from_sav(written[1])
+        differ = (trees_differ(got_e[1], eparams["encoder"], "encoder")
+                  + trees_differ(got_g[1], gparams["generator"], "generator"))
+        sigma = float(np.float32(ecfg.generator.fourier_sigma))
+        check([os.path.basename(p) for p in written]
+              == ["inference_torch.sav", "generator_torch.sav"]
+              and got_e[0] == ecfg.encoder and not differ
+              and got_g[0].fourier_sigma == sigma
+              and got_g[0].hidden_dim == ecfg.generator.hidden_dim,
+              f"phase 20: export_torch_checkpoint of phase 12's run "
+              f"directory: {[os.path.basename(p) for p in written]} read "
+              f"back by torch_import: configs equal (fourier_sigma as its "
+              f"float32, {sigma!r}), every parameter bitwise (differ: "
+              f"{differ})")
+
+        # (d) clustering_mnist on the pair's inference_torch.sav
+        data = os.path.join(root, "shapes")
+        subprocess.run([sys.executable, os.path.join(
+            here, "tools", "make_synthetic_shapes.py"), "--out-root", data,
+            "--n-train", "50", "--n-test", str(CLI_TEST)], check=True,
+            capture_output=True, timeout=300)
+        tee = _Tee(sys.stderr)
+        t = time.perf_counter()
+        with contextlib.redirect_stderr(tee):
+            res = clustering_mnist.main([
+                "--dataset", "mnist-U", "--data-root", data,
+                "--path-to-encoder", written[0], "--path-to-labels",
+                os.path.join(data, "mnist_U", "labels_test.npy"),
+                "--n-clusters", "5", "--compute-dtype", "bfloat16"])
+        secs = time.perf_counter() - t
+        err = "".join(tee.parts)
+        text = open(os.path.join(pair_dir, "results.txt")).read()
+        vals = [res["acc"], res["rot_corr"], *res["tr_corr"]]
+        check("reference torch checkpoint, importing" in err
+              and "accuracy for clustering" in text
+              and bool(np.isfinite(np.asarray(vals, float)).all()),
+              f"phase 20: clustering_mnist on the exported "
+              f"inference_torch.sav (bf16, k-means, 5 clusters, "
+              f"{CLI_TEST} shapes) in {secs:.1f} s: read as a reference "
+              f"file; accuracy {res['acc']:.4f}, correlations "
+              f"{res['rot_corr']:.4f}, {res['tr_corr'][0]:.4f}, "
+              f"{res['tr_corr'][1]:.4f} (finite)")
+        check_figures(pair_dir, {"tsne.png": (1000, 1000),
+                                 "confusion_matrix.png": None}, err,
+                      "phase 20: clustering_mnist")
+
+        # (e) reconstruct on the pair
+        out = os.path.join(root, "reconstructions.png")
+        shapes = os.path.join(data, "mnist_U", "images_test.npy")
+        kernels.reset_launch_counts()
+        with contextlib.redirect_stderr(io.StringIO()):
+            rec = reconstruct.main([
+                "--path-to-encoder", written[0], "--path-to-generator",
+                written[1], "--images", shapes, "--n", str(RECON_N),
+                "--scale255", "--out", out])
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        imgs = (np.load(shapes)[:RECON_N, ..., None] / 255.0).astype(
+            np.float32)
+        cpu_model, cpu_params = reconstruct.load_model(written[0],
+                                                       written[1], "cpu")
+        cpu = reconstruct.reconstruct(cpu_model, cpu_params, imgs)
+        err_r = max(float(np.abs(a - b).max()) for a, b in
+                    zip((rec["recon"], rec["canon"]), cpu))
+        gap, d = reconstruct.GAP, 50
+        size = (gap + 3 * (d + gap), gap + RECON_N * (d + gap))
+        check(png_size(out) == size and not any(counts.values())
+              and err_r <= TOL_RECON
+              and all(bool(np.isfinite(a).all()) for a in cpu),
+              f"phase 20: reconstruct on the pair, {RECON_N} images: PNG "
+              f"{png_size(out)} == {size}; float32 decode (no kernel: "
+              f"{counts}) on the card vs on the CPU max abs diff "
+              f"{err_r:.3e} <= {TOL_RECON}")
+
+    # (f) the t-SNE on the card
+    pts = tsne_points(max(TSNE_SIZES))
+    r1, c1, v1 = joint_probabilities(torch.from_numpy(pts[:1000]).to(dev))
+    r2, c2, v2 = joint_probabilities(torch.from_numpy(pts[:1000]))
+    p_err = (float((v1.cpu() - v2).abs().max())
+             if torch.equal(r1.cpu(), r2) and torch.equal(c1.cpu(), c2)
+             else float("inf"))
+    check(p_err <= TOL_TSNE_P,
+          f"phase 20: t-SNE P at N = 1,000 on the card vs on the CPU: the "
+          f"same {len(v2)} entries, max abs diff {p_err:.3e} <= {TOL_TSNE_P}")
+    tsne(pts[:200], device=dev, max_iter=300)          # warm-up
+    for n in TSNE_SIZES:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        emb, kl = tsne(pts[:n], device=dev)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        check(emb.shape == (n, 2) and bool(np.isfinite(emb).all())
+              and 0 < kl < 10,
+              f"phase 20: t-SNE of N = {n} points (4-D, ten clusters) on the "
+              f"card: {secs:.2f} s (host clock, P and 1,000 iterations), "
+              f"final KL {kl:.4f}, embedding finite")
+    print(f"phase 20: {time.perf_counter() - t0:.1f} s ({card()})",
+          flush=True)
+    return by_path
 
 
 

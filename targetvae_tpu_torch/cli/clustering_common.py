@@ -3,12 +3,10 @@ pose correlations for the clustering CLIs (mirror of
 targetvae_tpu/cli/clustering_common.py), in numpy, scipy and torch.
 
 The clustering itself runs on cli/clustering_algorithms.py (k-means on the
-device, Ward on the host) where the JAX package calls scikit-learn. Not
-ported yet (ROADMAP.md, queue 1): the figures (item 15: the t-SNE and
-confusion-matrix figures, the particles' rotation and translation
-histograms, the galaxy z-scatter; scikit-learn's TSNE and matplotlib are
-not on the card), and the reading of the reference's pickled torch .sav
-files (item 26).
+device, Ward on the host) where the JAX package calls scikit-learn; the
+figures on cli/tsne.py and cli/figures.py where it calls scikit-learn's
+TSNE and matplotlib. load_encoder reads this package's checkpoints and the
+reference's pickled torch .sav files (utils/torch_import.py).
 """
 
 from __future__ import annotations
@@ -23,6 +21,7 @@ import torch
 from ..models.targetvae import TargetVAE
 from ..train.checkpoint import load_checkpoint
 from ..utils.jax_params import params_from_jax
+from ..utils.torch_import import is_torch_checkpoint, model_from_savs
 from .clustering_algorithms import kmeans, ward
 
 
@@ -65,16 +64,16 @@ def add_clustering_args(parser: argparse.ArgumentParser,
 
 
 def load_encoder(path_to_encoder: str, device=None) -> Tuple[TargetVAE, dict]:
-    """Load an inference.sav checkpoint written by either package ->
-    (model, params): the model on `device` (None: cuda:0) and params
-    {"encoder": tensors there}, which model.embed takes."""
-    with open(path_to_encoder, "rb") as f:
-        head = f.read(2)
-    if head == b"PK" or head[:1] == b"\x80":
-        raise NotImplementedError(
-            f"{path_to_encoder} is a reference torch checkpoint; reading "
-            "those is not ported yet (ROADMAP.md, queue 1, item 26)")
-    params, cfg, _ = load_checkpoint(path_to_encoder)
+    """Load an inference.sav written by either package, or the reference's
+    pickled torch inference.sav (utils/torch_import.py) -> (model, params):
+    the model on `device` (None: cuda:0) and params {"encoder": tensors
+    there[, "generator": ...]}, which model.embed takes."""
+    if is_torch_checkpoint(path_to_encoder):
+        print(f"# {path_to_encoder}: reference torch checkpoint, importing",
+              file=sys.stderr)
+        cfg, params = model_from_savs(path_to_encoder)
+    else:
+        params, cfg, _ = load_checkpoint(path_to_encoder)
     model = TargetVAE(cfg, device)
     return model, params_from_jax(params, model.device)
 
@@ -139,14 +138,6 @@ def embed_dataset(model: TargetVAE, params: dict, images: np.ndarray,
             outs.append((out["z_content"], out["theta_mu"], out["dx"]))
     zs, rots, trs = (torch.cat(parts).cpu().numpy() for parts in zip(*outs))
     return zs, rots, trs
-
-
-def figures_not_written(*names: str) -> None:
-    """One stderr line naming the JAX CLI's figures this CLI does not
-    write."""
-    print(f"# {', '.join(names)} not written: the figures need "
-          "matplotlib (and t-SNE scikit-learn), which the card does not have "
-          "(ROADMAP.md, queue 1, item 15)", file=sys.stderr)
 
 
 def cluster_acc(y_true: np.ndarray, y_pred: np.ndarray):

@@ -12,8 +12,8 @@ the CPU):
 It embeds the train and test images, measures the rotation's circular and
 the translation's Pearson correlations against the latent labels (columns
 3 and 4:), clusters the content latents, matches the clusters to the shape
-labels (column 1) and writes results.txt beside the encoder. The t-SNE and
-confusion-matrix figures are not written.
+labels (column 1) and writes results.txt and the t-SNE (coloured by shape)
+and confusion-matrix PNG figures (cli/figures.py) beside the encoder.
 """
 
 from __future__ import annotations
@@ -25,10 +25,10 @@ import sys
 import numpy as np
 
 from .clustering_common import (add_clustering_args, circular_corrcoef,
-                                cluster_acc, embed_dataset,
-                                figures_not_written, load_encoder,
+                                cluster_acc, embed_dataset, load_encoder,
                                 run_clustering, write_results)
 from .common import select_device
+from .figures import save_confusion_matrix, save_tsne
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -73,9 +73,12 @@ def main(argv=None) -> dict:
 
     cluster = run_clustering(z_values, args.clustering, args.n_clusters,
                              device=device)
-    _, acc = cluster_acc(shape_labels, cluster)
+    mapping, acc = cluster_acc(shape_labels, cluster)
 
-    figures_not_written("tsne.jpg", "confusion_matrix.jpg")
+    save_tsne(os.path.join(path_prefix, "tsne.png"), z_values, shape_labels,
+              device=device)
+    save_confusion_matrix(os.path.join(path_prefix, "confusion_matrix.png"),
+                          shape_labels, cluster, mapping)
     write_results(os.path.join(path_prefix, "results.txt"),
                   args.path_to_encoder, acc=acc, rot_corr=r_corr,
                   tr_corr=t_corr)

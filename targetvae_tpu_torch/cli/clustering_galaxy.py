@@ -9,8 +9,9 @@ for cuda:i, -d -1 for the CPU):
 
 It embeds the train and test images, clusters the content latents and
 writes cluster_assignments.npy, z_values.npy (for scoring against an
-external label set) and results.txt beside the encoder. The t-SNE figure
-and the z-scatter are not written.
+external label set), results.txt and the t-SNE (coloured by cluster) and,
+at z_dim 2, the z-scatter as PNG figures (cli/figures.py) beside the
+encoder.
 """
 
 from __future__ import annotations
@@ -22,9 +23,9 @@ import sys
 import numpy as np
 
 from .clustering_common import (add_clustering_args, embed_dataset,
-                                figures_not_written, load_encoder,
-                                run_clustering, write_results)
+                                load_encoder, run_clustering, write_results)
 from .common import select_device
+from .figures import save_tsne, save_z_scatter
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -60,7 +61,11 @@ def main(argv=None) -> dict:
     # the embeddings are kept so that external label sets can score them
     np.save(os.path.join(path_prefix, "cluster_assignments.npy"), cluster)
     np.save(os.path.join(path_prefix, "z_values.npy"), z_values)
-    figures_not_written("tsne.jpg", "z_vals.jpg")
+    save_tsne(os.path.join(path_prefix, "tsne.png"), z_values, cluster,
+              device=device)
+    if args.z_dim == 2 and z_values.shape[1] >= 2:
+        save_z_scatter(os.path.join(path_prefix, "z_vals.png"), z_values,
+                       cluster)
     write_results(os.path.join(path_prefix, "results.txt"),
                   args.path_to_encoder)
     print("# done", file=sys.stderr)

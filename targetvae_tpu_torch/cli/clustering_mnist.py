@@ -11,7 +11,8 @@ predictions by those on the plain images (mnist_test.npy), measures the
 rotation's circular and the translation's Pearson correlations against
 transforms_test.npy, clusters the content latents (k-means on the device or
 Ward's), matches the clusters to the labels and writes results.txt beside
-the encoder. The t-SNE and confusion-matrix figures are not written yet.
+the encoder, with the confusion matrix (where there are labels) and the
+t-SNE of the content latents as PNG figures (cli/figures.py).
 """
 
 from __future__ import annotations
@@ -25,10 +26,11 @@ import numpy as np
 
 from ..data.datasets import load_mnist
 from .clustering_common import (add_clustering_args, cluster_acc,
-                                embed_dataset, figures_not_written,
-                                load_encoder, measure_correlations,
-                                run_clustering, write_results)
+                                embed_dataset, load_encoder,
+                                measure_correlations, run_clustering,
+                                write_results)
 from .common import select_device
+from .figures import save_confusion_matrix, save_tsne
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -105,8 +107,12 @@ def main(argv=None) -> dict:
     labels = _load_labels(args)
     acc = None
     if labels is not None:
-        _, acc = cluster_acc(labels, cluster)
-    figures_not_written("tsne.jpg", "confusion_matrix.jpg")
+        mapping, acc = cluster_acc(labels, cluster)
+        save_confusion_matrix(os.path.join(path_prefix,
+                                           "confusion_matrix.png"),
+                              labels, cluster, mapping)
+    save_tsne(os.path.join(path_prefix, "tsne.png"), z_values, labels,
+              device=device)
     write_results(os.path.join(path_prefix, "results.txt"),
                   args.path_to_encoder, acc=acc, rot_corr=rot_corr,
                   tr_corr=tr_corr)

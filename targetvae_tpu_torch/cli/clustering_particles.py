@@ -11,9 +11,9 @@ It preprocesses the stack as the training run did (--downsample, --crop,
 --normalize), embeds it (argmax posterior cell), measures the rotation's
 circular and the translation's Pearson correlations against
 --path-to-transformations where given, clusters the content latents (Ward's
-or k-means on the device) and writes cluster_assignments.npy and
-results.txt beside the encoder. The rotation and translation histograms
-and the t-SNE figure are not written.
+or k-means on the device) and writes cluster_assignments.npy, results.txt
+and the t-SNE (coloured by cluster), rotation and translation histograms
+as PNG figures (cli/figures.py) beside the encoder.
 """
 
 from __future__ import annotations
@@ -26,10 +26,10 @@ import numpy as np
 
 from ..data.datasets import load_particles, preprocess_particles
 from .clustering_common import (add_clustering_args, embed_dataset,
-                                figures_not_written, load_encoder,
-                                measure_correlations, run_clustering,
-                                write_results)
+                                load_encoder, measure_correlations,
+                                run_clustering, write_results)
 from .common import select_device
+from .figures import save_histograms, save_tsne
 from .train_particles import maybe_downsample
 
 
@@ -74,8 +74,12 @@ def main(argv=None) -> dict:
 
     cluster = run_clustering(z_values, args.clustering, args.n_clusters,
                              device=device)
-    figures_not_written("tsne.jpg", "rotation_hist.jpg",
-                        "translation_hist.jpg")
+    save_tsne(os.path.join(path_prefix, "tsne.png"), z_values, cluster,
+              device=device)
+    save_histograms(os.path.join(path_prefix, "rotation_hist.png"),
+                    [rot_pred])
+    save_histograms(os.path.join(path_prefix, "translation_hist.png"),
+                    [tr_pred[:, 0], tr_pred[:, 1]])
     np.save(os.path.join(path_prefix, "cluster_assignments.npy"), cluster)
     write_results(os.path.join(path_prefix, "results.txt"),
                   args.path_to_encoder, rot_corr=rot_corr, tr_corr=tr_corr)

@@ -189,9 +189,14 @@ def test_jax_model_pair_loads_in_port(jax_run, tmp_path):
 
 
 def test_load_encoder_refuses_a_reference_torch_sav(tmp_path):
+    """A torch file is read as the reference's pickled inference network
+    (utils/torch_import.py); one that holds no such network (here a dict)
+    is refused with its class named, as the JAX package's encoder_from_sav
+    refuses it."""
     path = str(tmp_path / "inference.sav")
     torch.save({"w": torch.zeros(2)}, path)
-    with pytest.raises(NotImplementedError, match="item 26"):
+    with pytest.raises(ValueError, match="holds dict, not a reference "
+                       "inference network"):
         load_encoder(path, device="cpu")
 
 

@@ -118,14 +118,17 @@ def test_bf16_kernel_tier_tracks_f32_tier(pair):
 
 
 def test_port_runs_without_jax(tmp_path):
-    """The package, its train and clustering CLIs, modes A and B, its
-    checkpoints and the mesh's modules (the TP state, the float32 SP
-    posterior, the dry run) with jax, flax, optax, msgpack, scikit-learn,
-    matplotlib and the JAX package all blocked from import."""
+    """The package, its train and clustering CLIs (with their PNG figures
+    and t-SNE), modes A and B, its checkpoints, the reference .sav import
+    and export, the serving tools (embed_stack, reconstruct,
+    export_torch_checkpoint) and the mesh's modules (the TP state, the
+    float32 SP posterior, the dry run) with jax, flax, optax, msgpack,
+    scikit-learn, matplotlib, PIL and the JAX package all blocked from
+    import."""
     code = (
         "import os, sys\n"
         "for m in ('jax', 'jaxlib', 'flax', 'optax', 'msgpack', "
-        "'targetvae_tpu', 'sklearn', 'matplotlib'):\n"
+        "'targetvae_tpu', 'sklearn', 'matplotlib', 'PIL'):\n"
         "    sys.modules[m] = None\n"
         "import numpy as np, torch\n"
         "from targetvae_tpu_torch import TargetVAE, ModelConfig\n"
@@ -182,6 +185,24 @@ def test_port_runs_without_jax(tmp_path):
         "'--path-to-labels', root + '/labels.npy', '--n-clusters', '2', "
         "'-d', '-1'])\n"
         "assert res['acc'] >= 0.5 and os.path.exists(run + '/results.txt')\n"
+        "from targetvae_tpu_torch.utils.png import png_size\n"
+        "assert png_size(run + '/tsne.png') == (1000, 1000)\n"
+        "assert png_size(run + '/confusion_matrix.png')[0] > 0\n"
+        "from targetvae_tpu_torch.cli import (embed_stack, reconstruct, "
+        "export_torch_checkpoint)\n"
+        "sav, gsav = export_torch_checkpoint.main([run, '--out-dir', "
+        "root + '/ref'])\n"
+        "rm, rp = load_encoder(sav, device='cpu')\n"
+        "assert torch.equal(rm.embed(rp, y)['dx'], em.embed(ep, y)['dx'])\n"
+        "np.save(root + '/y.npy', np.random.default_rng(2).uniform(size=("
+        "6, 12, 12)).astype(np.float32))\n"
+        "out = embed_stack.main(['--input', root + '/y.npy', "
+        "'--path-to-encoder', sav, '--out', root + '/emb/a', '-d', '-1'])\n"
+        "assert np.load(root + '/emb/a_z.npy').shape == (6, 4)\n"
+        "rec = reconstruct.main(['--path-to-encoder', sav, "
+        "'--path-to-generator', gsav, '--images', root + '/y.npy', "
+        "'--n', '3', '-d', '-1'])\n"
+        "assert png_size(rec['out']) == (44, 44)\n"
         "for t, g in (('unimodal', 4), ('attention', 0), ('attention', 8)):\n"
         "    mb = TargetVAE(ModelConfig(GeneratorConfig(hidden_dim=64, "
         "fourier_expansion=True, embedding_dim=64), EncoderConfig("

@@ -223,6 +223,8 @@ def test_train_and_cluster_particles(particles):
     results = open(os.path.join(run, "results.txt")).read()
     assert "circular correlation" in results and "Pearson" in results
     assert not os.path.exists(os.path.join(run, "rotation_hist.jpg"))
+    for name in ("tsne.png", "rotation_hist.png", "translation_hist.png"):
+        assert os.path.getsize(os.path.join(run, name)) > 0, name
 
 
 def test_train_and_cluster_particles_downsampled(particles):
