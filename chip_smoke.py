@@ -170,13 +170,25 @@ from a seed):
      N = 1,000 and 10,000, timed, its P against the CPU's. Phases 14-16
      also check each clustering CLI's PNG figures (signature, CRC, size)
      and that no "not written" line appears.
+ 21. the measurement layer: tools/bench_config_torch.py's bf16 train step
+     of each of its nine configs (tools/bench_config.py's: the flagship,
+     P16, modes A and B, dSprites, galaxy, particles with and without CTF)
+     at its default batch, mode C on each encoder tier: ms/step (median of
+     BENCH_WINDOWS windows of BENCH_STEPS steps between CUDA events),
+     img/s, TFLOP/step (targetvae_tpu_torch/utils/flops.py::step_flops)
+     and MFU against the bf16 peak, each in (0, 1), each kernel of the
+     step launched once a step; then one step each of the flagship (each
+     tier), mnist-b-p8 and particles-ctf under FlopCounterMode, whose
+     count of cuDNN's and cuBLAS's products plus the kernels' own
+     (flops.kernel_products over the step's launches, the recomputed
+     products left out) equals step_flops within TOL_FLOPS.
 
 Phases 2-8 cover both mode-C encoder tiers: the default "conv" tier (the
 cuDNN lift conv, K1/K2) and the fused patch encoder (K11/K12) that
 TARGETVAE_ENCODER_TIER=patch selects (phases 3, 4 and 7 drive each tier's
 embed, eval and train path; phases 2 and 6 also check K11 and K12 at the
 galaxy encoder's C = 3 shape). Each of phases 3, 4, 6 (the z_dim routes),
-7, 9, 10, 11, 12, 13, 15, 16, 17, 18, 19 and 20 sets the launch counts to 0
+7, 9, 10, 11, 12, 13, 15, 16, 17, 18, 19, 20 and 21 sets the launch counts to 0
 just before it drives its path and reads them just after (phases 10, 18
 and 19 in each rank). Every failed check exits
 non-zero. With no CUDA device, or outside a checkout, it fails without
@@ -371,10 +383,15 @@ TIMER_WINDOW_MS = 2.0
 TIMER_WINDOWS = 5
 TIMER_COLD_BYTES = 60_000_000
 TIMER_MAX_COPIES = 32
-# The H100 SXM's published peaks (NVIDIA H100 datasheet), for bound_ms
-HBM_BPS = 3.35e12
-PEAK_BF16 = 989e12
-PEAK_F32 = 67e12
+BENCH_STEPS = 4      # phase 21: steps a timed window of each config
+BENCH_WINDOWS = 3    # its windows (the median is the reading)
+# Phase 21's count on the card: FlopCounterMode's (cuDNN, cuBLAS) plus the
+# kernels' products against step_flops, relative. What neither side counts
+# is named: the filter bank's bilinear rotation (a 4-tap product that only
+# FlopCounterMode sees: 7e-6 of the flagship's step, 1e-5 of mnist-b-p8's,
+# 8e-6 of particles-ctf's) and the CTF's FFTs (which step_flops counts and
+# FlopCounterMode does not see: 5.5e-5 of particles-ctf's)
+TOL_FLOPS = 1e-4
 
 
 class CheckFailed(Exception):
@@ -732,101 +749,6 @@ def pose_inputs(torch, pg, gcfg, n: int, dev):
           torch.stack([h["b"] for h in pg["hidden"]]), pg["out"]["w"],
           pg["out"]["b"])
     return k7, (theta, dx, wf, pg["fourier"]["b"]), z
-
-
-def bound(nbytes: float, ops: float, peak: float):
-    """(bound_ms, bound_by): the larger of the bytes over the HBM rate and
-    the operations over the peak rate of their type."""
-    t_mem, t_ops = nbytes / HBM_BPS, ops / peak
-    return (max(t_mem, t_ops) * 1e3,
-            "bytes" if t_mem >= t_ops else "operations")
-
-
-def kernel_bounds(cfg, n_pos: int, shard_cells: int) -> dict:
-    """Each kernel's least time on the H100 at this run's shapes: every input
-    read once, every output written once; the operations its arithmetic
-    needs (matrix products at the bf16 tensor-core peak; the posterior's
-    elementwise float32 math at the f32 peak, about 40 + 16 zd operations a
-    cell forward and twice that backward). K5/K6 at phase 10's shard of
-    `shard_cells` cells for all B images."""
-    e, g = cfg.encoder, cfg.generator
-    R, K, zd, D = e.groupconv, e.kernels_num, e.z_dim, 3 + 2 * e.z_dim
-    n, F, H, L = e.image_dim, g.embedding_dim, g.hidden_dim, g.num_layers
-    cells = n_pos // B * R              # R * M cells an image; n_pos = B * M
-    px = B * n * n
-    bf, f4 = 2, 4
-    w_mix = (K * K + K * D) * bf + (R * K + K + D) * f4
-    w_dec = (F * H + (L - 1) * H * H + H * g.n_out) * bf + (L * H + 1) * f4
-    planes = (3 + 2 * zd) * B * cells * f4
-    tables = 4 * B * n * F * f4
-    sp_planes = (4 + 2 * zd) * B * shard_cells * f4
-    ck = e.in_channels * e.kernels_size ** 2
-    w_lift = ck * R * K * bf + w_mix
-    mlp_fwd_ops = 2 * px * (F * H + (L - 1) * H * H + H * g.n_out)
-    w_mlp = w_dec + 3 * F * f4 + B * H * f4     # + wf, bf and hz
-    return {
-        # the patch encoder: P read, heads out (serving: no h1 written)
-        "lifted_encoder_fwd": bound(n_pos * ck * bf + w_lift
-                                    + n_pos * R * D * f4,
-                                    2 * n_pos * (ck * R * K
-                                                 + R * (K * K + K * D)),
-                                    PEAK_BF16),
-        # P, h1 and g read; dWc and the small gradients out; dWc's product
-        # and K2's chain (h2 recomputed, dW2, dh1, dWh, dh2)
-        "lifted_encoder_bwd": bound(n_pos * ck * bf + n_pos * R * K * bf
-                                    + n_pos * R * D * f4 + w_mix
-                                    + (ck * R * K + K * K + K * D + K + D
-                                       + R * K) * f4,
-                                    2 * n_pos * (ck * R * K
-                                                 + R * (3 * K * K
-                                                        + 2 * K * D)),
-                                    PEAK_BF16),
-        "decoder_mlp_fwd": bound(px * 2 * f4 + w_mlp + px * g.n_out * f4,
-                                 mlp_fwd_ops, PEAK_BF16),
-        # no residuals: the forward is part of the function (3 products a
-        # layer: the forward's, the weight gradient, the input gradient)
-        "decoder_mlp_bwd": bound(px * 2 * f4 + px * g.n_out * f4 + w_mlp
-                                 + px * 2 * f4 + B * H * f4
-                                 + (F * H + (L - 1) * H * H + H * g.n_out
-                                    + L * H + g.n_out) * f4,
-                                 3 * mlp_fwd_ops, PEAK_BF16),
-        # K5, K6: one cell shard's partials given the global normalisers
-        # (B, 4). In: attn, noise, theta (2), z (2 zd) planes and four
-        # per-cell constants; out: the (B, 2 zd + 5) partials, or backward
-        # (with the cotangent in) the same planes' cotangents and the (B, 2)
-        # softmax partials; K3's / K4's elementwise math
-        "posterior_shard_fwd": bound(sp_planes + 4 * shard_cells * f4
-                                     + 4 * B * f4 + B * (2 * zd + 5) * f4,
-                                     B * shard_cells * (40 + 16 * zd),
-                                     PEAK_F32),
-        "posterior_shard_bwd": bound(2 * sp_planes + 4 * shard_cells * f4
-                                     + 4 * B * f4 + B * (2 * zd + 5) * f4
-                                     + 2 * B * f4,
-                                     B * shard_cells * 2 * (40 + 16 * zd),
-                                     PEAK_F32),
-        "mix_heads_fwd": bound(n_pos * R * K * bf + w_mix
-                               + n_pos * R * D * f4,
-                               2 * n_pos * R * (K * K + K * D), PEAK_BF16),
-        "mix_heads_bwd": bound(n_pos * R * K * bf + n_pos * R * D * f4 + w_mix
-                               + n_pos * R * K * bf
-                               + (K * K + K * D + K + D + R * K) * f4,
-                               2 * n_pos * R * (3 * K * K + 2 * K * D),
-                               PEAK_BF16),
-        "posterior_fwd": bound(planes + B * (2 * zd + 5) * f4,
-                               B * cells * (40 + 16 * zd), PEAK_F32),
-        "posterior_bwd": bound(2 * planes + B * (2 * zd + 5) * f4,
-                               B * cells * 2 * (40 + 16 * zd), PEAK_F32),
-        "pose_decoder_fwd": bound(tables + w_dec + B * H * f4
-                                  + px * g.n_out * f4,
-                                  2 * px * (F * H + (L - 1) * H * H
-                                            + H * g.n_out), PEAK_BF16),
-        "pose_decoder_bwd": bound(tables + L * px * H * bf + px * g.n_out * f4
-                                  + w_dec + 3 * B * F * f4 + B * H * f4
-                                  + (F * H + (L - 1) * H * H + H * g.n_out
-                                     + L * H + g.n_out) * f4,
-                                  2 * px * (2 * F * H + 2 * (L - 1) * H * H
-                                            + 2 * H * g.n_out), PEAK_BF16),
-    }
 
 
 def rel_l2(a, b) -> float:
@@ -1271,6 +1193,7 @@ def run(torch, dev) -> int:
     from targetvae_tpu_torch.kernels.lifted_encoder import (
         build_patches, lifted_encoder_fwd, lifted_encoder_plain)
     from targetvae_tpu_torch.models.encoders import attn_dim_for, lift_rows
+    from targetvae_tpu_torch.utils.flops import kernel_bounds
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1536,6 +1459,9 @@ def run(torch, dev) -> int:
     tool_counts = interop_tools_path(torch, kernels, dev, stand, phase12_run)
     work.cleanup()
 
+    # ---- phase 21: each config's train step, its FLOPs and MFU ----
+    bench_counts = measurement_path(torch, kernels, dev)
+
     by_path = {"embed": embed_counts, "eval": eval_counts,
                "train": train_counts, "embed_patch": patch_counts["embed"],
                "eval_patch": patch_counts["eval"],
@@ -1544,7 +1470,7 @@ def run(torch, dev) -> int:
                "train_cli_patch": cli_counts["patch"],
                "train_stream_empiar": stream_counts,
                "train_sp_ctf_empiar": rank_sp_counts, **mesh_counts,
-               **tool_counts}
+               **tool_counts, **bench_counts}
     # each kernel's launches on the main path that runs it: the conv tier's
     # train step, the patch tier's (K11, K12), bf16 decode (K9, K10), the
     # SP train step's rank 0 (K5, K6)
@@ -1553,7 +1479,7 @@ def run(torch, dev) -> int:
                  "decoder_mlp_fwd": "decode", "decoder_mlp_bwd": "decode",
                  "posterior_shard_fwd": "train_sp",
                  "posterior_shard_bwd": "train_sp"}
-    bounds = kernel_bounds(cfg, k1[0].shape[0], shard_cells)
+    bounds = kernel_bounds(cfg, B, shard_cells)
     entries = [
         kernel_entry(name, {
             "launches": by_path[main_path.get(name, "train")][name],
@@ -2891,31 +2817,6 @@ def mode_config(name: str):
                        likelihood=LikelihoodConfig(kind="bernoulli"))
 
 
-def r1_bounds(n: int, ki: int, K: int, D: int, b: int, m: int,
-              zd: int) -> dict:
-    """The least time of the R = 1 kernels on the H100 at this run's shapes,
-    as kernel_bounds counts them: K1 reads pre1 (n, ki) bf16 and the
-    weights and writes (n, D) f32, 2 n (ki K + K D) bf16 operations; K2
-    reads pre1, g and the weights and writes dpre1 (n, ki) bf16 and the
-    weight gradients, 2 n (3 ki K + 2 K D) operations (pre2 recomputed,
-    dW2, dh1; dWh, dh2); K3 / K4 over b images of m cells, as
-    kernel_bounds' posterior rows at R = 1."""
-    bf, f4 = 2, 4
-    w = (ki * K + K * D) * bf + (ki + K + D) * f4
-    planes = (3 + 2 * zd) * b * m * f4
-    return {
-        "mix_heads_r1_fwd": bound(n * ki * bf + w + n * D * f4,
-                                  2 * n * (ki * K + K * D), PEAK_BF16),
-        "mix_heads_r1_bwd": bound(n * ki * bf + n * D * f4 + w + n * ki * bf
-                                  + (ki * K + K * D + K + D + ki) * f4,
-                                  2 * n * (3 * ki * K + 2 * K * D),
-                                  PEAK_BF16),
-        "posterior_fwd": bound(planes + b * (2 * zd + 5) * f4,
-                               b * m * (40 + 16 * zd), PEAK_F32),
-        "posterior_bwd": bound(2 * planes + b * (2 * zd + 5) * f4,
-                               b * m * 2 * (40 + 16 * zd), PEAK_F32)}
-
-
 def r1_kernel_checks(torch, name, cfg, params, y, rows_out: dict) -> None:
     """Phase 13: K1 and K2 at R = 1 on the lift rows of the config's own
     mode-B encoder (N = B * 51 * 51 positions, KI = R_lift K), each against
@@ -2926,6 +2827,7 @@ def r1_kernel_checks(torch, name, cfg, params, y, rows_out: dict) -> None:
         mix_heads_r1_bwd, mix_heads_r1_fwd)
     from targetvae_tpu_torch.models.encoders import (
         conv_rows, head_weights, mode_b_matrices)
+    from targetvae_tpu_torch.utils.flops import r1_bounds
     e = cfg.encoder
     K, D, bf = e.kernels_num, 3 + 2 * e.z_dim, torch.bfloat16
     w, bc, mix_w, mix_b = mode_b_matrices(params["encoder"], e)
@@ -2985,6 +2887,7 @@ def r1_posterior_checks(torch, cfg, dev, rows_out: dict) -> None:
         philox_gumbel, posterior_bwd, posterior_bwd_plain, posterior_fwd,
         posterior_plain)
     from targetvae_tpu_torch.losses.elbo import posterior_constants
+    from targetvae_tpu_torch.utils.flops import r1_bounds
     e = cfg.encoder
     const = posterior_constants(e, dev)
     m, zd = const["grid"].shape[0], e.z_dim
@@ -3332,6 +3235,7 @@ def empiar_kernel_checks(torch, cfg, params, dev) -> dict:
         k3_schedule, k4_schedule, philox_gumbel, posterior_bwd,
         posterior_bwd_plain, posterior_fwd, posterior_plain)
     from targetvae_tpu_torch.models.encoders import attn_dim_for
+    from targetvae_tpu_torch.utils.flops import kernel_bounds
     e = cfg.encoder
     R, K, zd, n = e.groupconv, e.kernels_num, e.z_dim, e.image_dim
     gen = torch.Generator(device=dev).manual_seed(21)
@@ -3346,7 +3250,7 @@ def empiar_kernel_checks(torch, cfg, params, dev) -> dict:
           f"{tuple(k11[0].shape)} ({k11[0].numel()} elements); K3 grid "
           f"(cluster, chunk) {k3_schedule(m, R)}, K4 (cluster, chunk, sub) "
           f"{k4_schedule(m, R, 3 + 2 * zd)}", flush=True)
-    bounds = kernel_bounds(cfg, n_pos, 0)
+    bounds = kernel_bounds(cfg, B)
 
     def timed(name, label, kfn, kargs, pfn, pargs, row, bnd=bounds):
         rows[key(name, label)] = dict(row, bound_ms=bnd[name][0],
@@ -3407,7 +3311,7 @@ def empiar_kernel_checks(torch, cfg, params, dev) -> dict:
         g7 = rn(*y7k.shape)
         del y7k, y7p
         err8, hs = check_k8(torch, k7_, pose_, g7, label, "15")
-        bnd = kernel_bounds(c, n_pos, 0)
+        bnd = kernel_bounds(c, B)
         timed("pose_decoder_fwd", label, fused_pose_decoder_tables, k7_,
               pose_decoder_plain, k7_, {"max_abs_err": err7}, bnd)
         bwd7 = (*k7_[:4], hs, k7_[5], k7_[7], k7_[9], g7)
@@ -4772,6 +4676,7 @@ def r1_shard_checks(torch, cfg, dev) -> dict:
     from targetvae_tpu_torch.kernels.posterior import (
         posterior_shard_bwd, posterior_shard_bwd_plain, posterior_shard_fwd,
         posterior_shard_plain, shard_schedule)
+    from targetvae_tpu_torch.utils.flops import shard_bounds
     sig_r = float(cfg.encoder.theta_prior)
     zd = cfg.encoder.z_dim
     g = torch.randn(B, 2 * zd + 5, generator=torch.Generator(
@@ -4784,7 +4689,7 @@ def r1_shard_checks(torch, cfg, dev) -> dict:
             torch, shards[i], sig_r, g, f"R = 1 (mode B, 2,601 cells, "
             f"shard {i} of 2, grid {shard_schedule(c)})",
             pads if i else 0, phase="19")[0] for i in range(2)]
-        bounds = kernel_bounds(cfg, B * 2601, c)
+        bounds = shard_bounds(B, zd, c)
         args = shards[0]
         pa = as_planes(args)
         for i, (name, kfn, pfn) in enumerate((
@@ -5423,6 +5328,105 @@ def interop_tools_path(torch, kernels, dev, stand: dict,
     return by_path
 
 
+
+# ---- phase 21: the measurement layer ----
+
+def bench_tool():
+    """tools/bench_config_torch.py of this checkout, as a module."""
+    import importlib.util
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
+                        "bench_config_torch.py")
+    spec = importlib.util.spec_from_file_location("bench_config_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def step_kernels(cfg, tier: str) -> set:
+    """The kernels a bf16 train step of cfg launches on the encoder tier
+    `tier`, each once."""
+    e = cfg.encoder
+    out = {"pose_decoder_fwd", "pose_decoder_bwd"}
+    if e.mode == "A":
+        return out
+    enc = ("mix_heads_r1" if e.mode == "B"
+           else "lifted_encoder" if tier == "patch" else "mix_heads")
+    return out | {"posterior_fwd", "posterior_bwd", enc + "_fwd",
+                  enc + "_bwd"}
+
+
+def counted_flops(torch, kernels, tool, name: str, tier: str, dev) -> dict:
+    """One bf16 train step of the bench's config `name` on `tier` (after one
+    step not counted) under FlopCounterMode, which sees cuDNN's and
+    cuBLAS's products but not the hand-written kernels'; the kernels' own
+    products (flops.kernel_products over the step's launches, less the
+    forward products each recomputes); step_flops; the launches."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from targetvae_tpu_torch.utils import flops
+    step, cfg, batch, ctf_dim = tool.make_step(name, device=dev)
+    with tool.encoder_tier(tier):
+        step()
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        with FlopCounterMode(display=False) as fc:
+            step()
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in kernels.launch_counts().items() if v}
+    products = flops.kernel_products(cfg, batch)
+    return {"counter": fc.get_total_flops(),
+            "kernels": sum(v * (products[k][0] - products[k][1])
+                           for k, v in counts.items() if k in products),
+            "unknown": sorted(set(counts) - set(products)),
+            "step_flops": flops.step_flops(cfg, batch, ctf_dim)["total"],
+            "launches": counts, "expected": step_kernels(cfg, tier),
+            "batch": batch}
+
+
+def measurement_path(torch, kernels, dev) -> dict:
+    """Phase 21 (the module's docstring). Returns the launch counts of each
+    config's timed windows, by path ("bench_<config>_<tier>")."""
+    tool = bench_tool()
+    t0 = time.perf_counter()
+    by_path = {}
+    for name in tool.CONFIGS:
+        cfg = tool.build(name)[0]
+        mode = cfg.encoder.mode
+        for tier in ("conv", "patch") if mode == "C" else ("conv",):
+            torch.cuda.empty_cache()
+            r = tool.bench(name, steps=BENCH_STEPS, windows=BENCH_WINDOWS,
+                           tier=tier, device=dev)
+            per_step = r["launches_per_step"]
+            want = step_kernels(cfg, tier)
+            check(0 < r["mfu"] < 1
+                  and per_step == {k: 1.0 for k in want},
+                  f"phase 21: {name}{' ' + tier if mode == 'C' else ''} "
+                  f"(mode {mode}), B = {r['batch']}, bf16: "
+                  f"{r['ms_per_step']:.3f} ms/step (windows "
+                  f"{[round(m, 3) for m in r['ms_windows']]}), "
+                  f"{r['images_per_sec']:.1f} img/s, "
+                  f"{r['tflops_per_step']:.4f} TFLOP/step, MFU "
+                  f"{r['mfu']:.4f} in (0, 1); each of {sorted(want)} once a "
+                  f"step ({card()})")
+            by_path[f"bench_{name}_{tier}"] = {
+                k: round(per_step.get(k, 0) * BENCH_STEPS * BENCH_WINDOWS)
+                for k in kernels.WRAPPERS}
+    for name, tier in (("mnist", "conv"), ("mnist", "patch"),
+                       ("mnist-b-p8", "conv"), ("particles-ctf", "conv")):
+        torch.cuda.empty_cache()
+        c = counted_flops(torch, kernels, tool, name, tier, dev)
+        got = c["counter"] + c["kernels"]
+        rel = abs(got - c["step_flops"]) / c["step_flops"]
+        check(not c["unknown"] and set(c["launches"]) == c["expected"]
+              and all(v == 1 for v in c["launches"].values())
+              and rel <= TOL_FLOPS,
+              f"phase 21: {name} {tier}, B = {c['batch']}, one bf16 step: "
+              f"FlopCounterMode {c['counter']:.6e} + the kernels' products "
+              f"{c['kernels']:.6e} = {got:.6e} against step_flops "
+              f"{c['step_flops']:.6e}: rel {rel:.2e} <= {TOL_FLOPS}; "
+              f"launches {c['launches']}")
+    print(f"phase 21: {time.perf_counter() - t0:.1f} s ({card()})",
+          flush=True)
+    return by_path
 
 if __name__ == "__main__":
     sys.exit(main())

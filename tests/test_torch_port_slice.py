@@ -124,7 +124,9 @@ def test_port_runs_without_jax(tmp_path):
     export_torch_checkpoint) and the mesh's modules (the TP state, the
     float32 SP posterior, the dry run) with jax, flax, optax, msgpack,
     scikit-learn, matplotlib, PIL and the JAX package all blocked from
-    import."""
+    import; then the measurement layer (utils/flops.py, utils/bench_log.py,
+    the configs and CTF table of tools/bench_config_torch.py,
+    tools/score_clusters_torch.py)."""
     code = (
         "import os, sys\n"
         "for m in ('jax', 'jaxlib', 'flax', 'optax', 'msgpack', "
@@ -214,6 +216,25 @@ def test_port_runs_without_jax(tmp_path):
         "    tb = Trainer(mb, TrainConfig(compute_dtype='bfloat16'))\n"
         "    sb, mt = tb.train_step(tb.init_state(0), torch.rand(2, 14, 14, 1))\n"
         "    assert bool(torch.isfinite(mt).all())\n"
+        "from targetvae_tpu_torch.utils import bench_log, flops\n"
+        "import importlib.util\n"
+        "def tool(name):\n"
+        "    spec = importlib.util.spec_from_file_location(name, "
+        "'tools/' + name + '.py')\n"
+        "    mod = importlib.util.module_from_spec(spec)\n"
+        "    spec.loader.exec_module(mod)\n"
+        "    return mod\n"
+        "bct = tool('bench_config_torch')\n"
+        "for name in bct.CONFIGS:\n"
+        "    c, n, ch, with_ctf = bct.build(name)\n"
+        "    tf = flops.step_flops(c, 100, n - 1 if with_ctf else None)\n"
+        "    assert tf['total'] > 0 and flops.kernel_products(c, 100)\n"
+        "assert bct.ctf_table(3, 110).shape == (3, 109, 109)\n"
+        "bench_log.record({'config': 'x', 'batch': 1, 'dtype': 'float32', "
+        "'tier': 'conv', 'device': 'cpu'}, root + '/h.jsonl')\n"
+        "assert len(bench_log.load_history(root + '/h.jsonl')) == 1\n"
+        "assert tool('score_clusters_torch').main([root + '/labels.npy', "
+        "root + '/labels.npy']) == 0\n"
         "print('ok')\n")
     res = subprocess.run([sys.executable, "-c", code, str(tmp_path)],
                          cwd=REPO, capture_output=True, text=True,
