@@ -72,6 +72,15 @@ __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
 }
 
+// a 4-byte shared-memory load the compiler keeps in place among the other
+// volatile ones: a run of them goes out together, ahead of the stores that
+// follow (which it could not otherwise prove apart from them)
+__device__ __forceinline__ uint32_t lds_u32(const void* p) {
+  uint32_t v;
+  asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(v) : "r"(smem_u32(p)));
+  return v;
+}
+
 // ---- ordering between the threads' stores and the async proxy ----
 // after shared-memory stores that wgmma or a TMA store will read
 __device__ __forceinline__ void fence_async_smem() {

@@ -21,36 +21,74 @@
 // 0.07 TFLOP at KI = 1,024, ~0.07 ms at the bf16 peak.
 //
 // Design: csrc/lifted_encoder.cu's lift mainloop (K11), with pre1 in P's
-// place and the mixing in Wc's: KI streams, so that a W2 of any KI fits
-// (1,024 x 128 bf16 is 256 KB, more than a block's shared memory):
-//  - forward: a persistent grid over 128-position tiles (kernels/
-//    mix_heads.py::fwd_schedule); one TMA thread keeps a ring of 64-channel
-//    stages in flight, each the tile's two 64 x 64 slices of pre1 and the
-//    matching 64 rows of W2 (both from 2-D maps, 128-byte swizzled, zero
-//    past KI, N and K); consumer warpgroup w turns its slice into h1 in
-//    place (bias, act, rows past N and channels past KI zero), then
-//    accumulates pre2 = h1 W2 on m64n128k16 across the stages;
-//    csrc/encoder_chain.cuh's fwd_heads finishes h2 and the heads, which
-//    leave as one bulk copy a warpgroup;
+// place and the mixing in Wc's.
+//  - forward, W2 resident (KI <= 256, at most 64 KB; groupconv 0): a
+//    persistent grid over 64-position tiles (kernels/mix_heads.py::
+//    r1_fwd_schedule); one TMA thread loads each tile's KI channels of pre1
+//    as one ring stage, and three consumer warpgroups take the block's
+//    tiles in turn, each on its own: h1 in place (both 64-channel slices'
+//    loads issued together), pre2 = h1 W2 on m64n128k16 against the
+//    resident W2, then r1_heads (b2 held in registers) with h2 over h1 in
+//    the stage, which goes back to the producer once the heads' product has
+//    read it. One warpgroup's epilogue overlaps the others' loads and
+//    mainloops: three tiles in flight a block, where the streaming form,
+//    its two warpgroups on one tile, has one (tools/probe_encoder_fwd.py
+//    --r1);
+//  - forward, W2 streamed (KI > 256: 1,024 x 128 bf16 is 256 KB, more than
+//    a block's shared memory): a persistent grid over 128-position tiles;
+//    one TMA thread keeps a ring of 64-channel stages in flight, each the
+//    tile's two 64 x 64 slices of pre1 and the matching 64 rows of W2 (both
+//    from 2-D maps, 128-byte swizzled, zero past KI, N and K); consumer
+//    warpgroup w turns its slice into h1 in place (bias, act, rows past N
+//    and channels past KI zero; the slice's loads all issued before any
+//    store), then accumulates pre2 = h1 W2 on m64n128k16 across the
+//    stages; fwd_heads finishes h2 and the heads, which leave as one bulk
+//    copy a warpgroup;
 //  - backward, two kernels and the in-order sums of their partials: the
 //    head pass recomputes pre2 on the forward's mainloop, then h2, dh2 =
 //    g16 Wh^T (g16^T a 16 x 64 tile from registers loaded before the
 //    mainloop), dWh (registers across the block's tiles), dpre2, db2 and
-//    dbh (fixed-order sums in shared memory), and writes bf16(dpre2) (N, K)
-//    by TMA; the channel pass gives each block one 64-channel chunk of KI
+//    dbh (a thread's running sums, added in a fixed order at the end), and
+//    writes bf16(dpre2) (N, K) by TMA; the channel pass gives each block one 64-channel chunk of KI
 //    (its 64 rows of W2 resident) and a run of 128-position tiles
 //    (kernels/mix_heads.py::r1_channel_schedule), streams pre1's slice and
 //    bf16(dpre2)'s rows, and computes dh1 = bf16(dpre2) W2_c^T (m64n64),
 //    dpre1 with dbc's sums, and dW2_c += h1^T bf16(dpre2) (m64n128,
 //    registers across the run). Each warpgroup writes its own row of
 //    partials; csrc/reduce.cu adds the rows in order: no atomics, reruns
-//    bitwise equal. pre1 is read twice in the backward (once a pass).
+//    bitwise equal. pre1 is read twice in the backward (once a pass). A
+//    one-pass form (a thread-block cluster a tile, KI split over its CTAs,
+//    the partial pre2 exchanged through distributed shared memory) read
+//    pre1 once but ran slower at both of mode B's shapes (PERF.md,
+//    section 6): each tile's chain of exchanges, heads and epilogues was
+//    longer than the two passes' streams.
 // The mode-C kernels (csrc/mix_heads.cu, R in 4, 8, 16 and a square W2)
 // are untouched: these are kernels of their own.
 #include "encoder_chain.cuh"
 
 namespace {
 namespace chain {
+
+// The R = 1 kernels' clock64 probe (-DTVAE_PROBE, tools/probe_encoder_fwd.py
+// --r1): for kernel k (0 K1, 1 K2's head pass, 2 K2's channel pass),
+// r1_probe[6 k ..] sums over the blocks the work items and five segments
+// of cycles of thread 0 of consumer warpgroup 0: waiting for ring stages,
+// the mainloop (waits left out), the epilogue, the stores (issue and the
+// waits for their reads) and, for the channel pass, the wait for dW2's
+// product.
+#ifdef TVAE_PROBE
+__device__ unsigned long long r1_probe[18];
+__device__ __forceinline__ void r1_probe_add(int k, bool rec, long long items,
+                                             long long a, long long b,
+                                             long long c, long long d,
+                                             long long e) {
+  if (rec) {
+    const long long v[6] = {items, a, b, c, d, e};
+    for (int j = 0; j < 6; ++j)
+      atomicAdd(&r1_probe[6 * k + j], (unsigned long long)v[j]);
+  }
+}
+#endif
 
 constexpr int Q_STAGES = 4;
 constexpr int Q_STAGE = 4 * TILE;        // pre1: two 64 x 64; W2 rows: 64 x 128
@@ -75,36 +113,68 @@ constexpr int Q_HB = Q_BARS + 2 * Q_STAGES * 8;     // the heads, 128 D f32
 // h1 = bf16(act(pre1 + bc)) in place over a 64 x 64 slice of pre1 (channels
 // c0.., positions p0..), rows past N and channels past KI zero; a
 // warpgroup's 128 threads take 4 16-byte pieces each (KI % 8 == 0: a piece
-// is in or out whole)
+// is in or out whole), all read before any is written. FULL: the slice
+// lies inside N and KI, and no piece is checked (so that no branch holds
+// back the loads).
+template <int ACT, bool FULL, int NB>
+__device__ __forceinline__ void to_h1_pieces(unsigned char* tile,
+                                             const float* __restrict__ bc,
+                                             int c0, int KI, int p0, int N,
+                                             int t) {
+  uint4 raw[4 * NB];
+  float4 b0[4 * NB], b1[4 * NB];
+#pragma unroll
+  for (int e = 0; e < 4 * NB; ++e) {
+    const int idx = t + 128 * (e & 3), p = idx >> 3, cc = idx & 7;
+    const int cb = c0 + (e >> 2) * 64 + cc * 8;
+    const int ch = FULL || cb < KI ? cb : 0;
+    raw[e] = *reinterpret_cast<const uint4*>(tile + (e >> 2) * TILE + swz(p, cc));
+    b0[e] = __ldg(reinterpret_cast<const float4*>(bc + ch));
+    b1[e] = __ldg(reinterpret_cast<const float4*>(bc + ch + 4));
+  }
+#pragma unroll
+  for (int e = 0; e < 4 * NB; ++e) {
+    const int idx = t + 128 * (e & 3), p = idx >> 3, cc = idx & 7;
+    const __nv_bfloat162* x = reinterpret_cast<const __nv_bfloat162*>(&raw[e]);
+    const float b[8] = {b0[e].x, b0[e].y, b0[e].z, b0[e].w,
+                        b1[e].x, b1[e].y, b1[e].z, b1[e].w};
+    uint4 o;
+    uint32_t* ov = reinterpret_cast<uint32_t*>(&o);
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      ov[k] = pack2(act_fn(__low2float(x[k]) + b[2 * k], ACT),
+                    act_fn(__high2float(x[k]) + b[2 * k + 1], ACT));
+    if (!FULL && (p0 + p >= N || c0 + (e >> 2) * 64 + cc * 8 >= KI))
+      o = make_uint4(0u, 0u, 0u, 0u);
+    *reinterpret_cast<uint4*>(tile + (e >> 2) * TILE + swz(p, cc)) = o;
+  }
+}
 template <int ACT>
 __device__ __forceinline__ void to_h1(unsigned char* tile,
                                       const float* __restrict__ bc, int c0,
                                       int KI, int p0, int N, int t) {
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    const int idx = t + 128 * e, p = idx >> 3, cc = idx & 7, ch = c0 + cc * 8;
-    uint4* q = reinterpret_cast<uint4*>(tile + swz(p, cc));
-    uint4 o = make_uint4(0u, 0u, 0u, 0u);
-    if (p0 + p < N && ch < KI) {
-      const uint4 raw = *q;
-      const __nv_bfloat162* x = reinterpret_cast<const __nv_bfloat162*>(&raw);
-      const float4 b0 = __ldg(reinterpret_cast<const float4*>(bc + ch));
-      const float4 b1 = __ldg(reinterpret_cast<const float4*>(bc + ch + 4));
-      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-      uint32_t* ov = reinterpret_cast<uint32_t*>(&o);
-#pragma unroll
-      for (int k = 0; k < 4; ++k)
-        ov[k] = pack2(act_fn(__low2float(x[k]) + b[2 * k], ACT),
-                      act_fn(__high2float(x[k]) + b[2 * k + 1], ACT));
-    }
-    *q = o;
-  }
+  if (p0 + TM <= N && c0 + 64 <= KI)
+    to_h1_pieces<ACT, true, 1>(tile, bc, c0, KI, p0, N, t);
+  else
+    to_h1_pieces<ACT, false, 1>(tile, bc, c0, KI, p0, N, t);
+}
+// h1 over two neighbouring 64 x 64 slices (channels c0 .. c0 + 127, the
+// second slice a tile further on), their 8 pieces a thread read together
+template <int ACT>
+__device__ __forceinline__ void to_h1_pair(unsigned char* tile,
+                                           const float* __restrict__ bc,
+                                           int c0, int KI, int p0, int N,
+                                           int t) {
+  if (p0 + TM <= N && c0 + 128 <= KI)
+    to_h1_pieces<ACT, true, 2>(tile, bc, c0, KI, p0, N, t);
+  else
+    to_h1_pieces<ACT, false, 2>(tile, bc, c0, KI, p0, N, t);
 }
 
-// The forward's and the head pass's producer: the TMA thread streams, for
-// each 128-position tile of [i0, i1), its nch 64-channel stages: the two
-// 64 x 64 slices of pre1 below N and the one or two 64 x 64 boxes of W2's
-// rows, completing on full[s].
+// The streaming forward's and the head pass's producer: the TMA thread
+// streams, for each 128-position tile of [i0, i1), its nch 64-channel
+// stages: the two 64 x 64 slices of pre1 below N and the one or two 64 x
+// 64 boxes of W2's rows, completing on full[s].
 __device__ __forceinline__ void stream_tiles(const CUtensorMap* map_p,
                                              const CUtensorMap* map_w,
                                              unsigned char* ring,
@@ -137,12 +207,13 @@ __device__ __forceinline__ void pre2_mainloop(float* acc, unsigned char* ring,
                                               const float* __restrict__ bc,
                                               int& it, int nch, int KI,
                                               int p0w, int N, int t, int w,
-                                              int bar) {
-  const int lane = t & 31;
+                                              int bar, long long& pw) {
   for (int c = 0; c < nch; ++c, ++it) {
     const int s = it % Q_STAGES;
     unsigned char* st = ring + s * Q_STAGE;
+    PROBE(long long cw = clock64();)
     mbar_wait(&full[s], (it / Q_STAGES) & 1);
+    PROBE(pw += clock64() - cw;)
     to_h1<ACT>(st + w * TILE, bc, c * 64, KI, p0w, N, t);
     fence_async_smem();
     bar_sync(bar, 128);
@@ -156,11 +227,13 @@ __device__ __forceinline__ void pre2_mainloop(float* acc, unsigned char* ring,
     wgmma_commit();
     wgmma_wait<1>();
     acc_fence<64>(acc);
-    if (c > 0 && lane == 0) mbar_arrive(&empty[(it - 1) % Q_STAGES]);
+    // every consumer thread arrives (no branch on the lane beside a
+    // product in flight)
+    if (c > 0) mbar_arrive(&empty[(it - 1) % Q_STAGES]);
   }
   wgmma_wait<0>();
   acc_fence<64>(acc);
-  if (lane == 0) mbar_arrive(&empty[(it - 1) % Q_STAGES]);
+  mbar_arrive(&empty[(it - 1) % Q_STAGES]);
 }
 
 // The maps of pre1 (KI, N) and W2 (K, KI), boxes of 64 x 64.
@@ -198,7 +271,7 @@ __device__ __forceinline__ void r1_setup(unsigned char* base,
   if (tid == 0) {
     for (int s = 0; s < Q_STAGES; ++s) {
       mbar_init(&full[s], 1);
-      mbar_init(&full[Q_STAGES + s], 8);
+      mbar_init(&full[Q_STAGES + s], 256);
     }
     mbar_init_fence();
   }
@@ -243,16 +316,197 @@ __global__ void __launch_bounds__(Q_THREADS, 1) r1_fwd_kernel(
   float acc[64], hd[8];
   long long seg[4] = {0, 0, 0, 0};
   int it = 0;
+  long long pw = 0;
+  PROBE(long long pm = 0, pe = 0, ps = 0;)
   for (int i = i0; i < i1; ++i) {
     const int p0w = i * FWD_TM + w * TM;
+    PROBE(long long c = clock64();)
     if (i > i0) reuse_heads(t, bar);
+    PROBE(ps += clock64() - c; c = clock64();)
     pre2_mainloop<ACT>(acc, ring, full, empty, bc, it, nch, KI, p0w, N, t, w,
-                       bar);
+                       bar, pw);
+    PROBE(pm += clock64() - c; c = clock64();)
     fwd_heads(acc, hd, h, base + Q_WHT, b2s, nk, t, ACT, false, bar, seg);
     put_heads(hd, hb, out, bhs, p0w, 0, N, 1, D, t);
+    PROBE(pe += clock64() - c; c = clock64();)
     flush_heads(hb, out, p0w, 0, 0, N, 1, D, t, bar);
+    PROBE(ps += clock64() - c;)
   }
   if (t == 0) tma_store_wait_all();
+  PROBE(r1_probe_add(0, t == 0 && w == 0, i1 - i0, pw, pm - pw, pe, ps, 0);)
+}
+
+// ---- K1 at R = 1 with W2 resident (KI <= 256: at most 64 KB) ----
+// Where all of W2 fits beside the ring, a stage is a whole 64-position
+// tile of pre1 (KI channels), and each of three consumer warpgroups runs
+// its own tiles (the block's tiles k = w, w + 3, ...): h1 in place, pre2 on
+// m64n128 against the resident W2, then r1_heads with h2 over h1 in the
+// stage, which goes back to the producer as soon as the heads' product
+// has read it. The streaming form's epilogue took as long as its
+// mainloop at KI = 128, with nothing beside it (tools/probe_encoder_fwd.py
+// --r1); here one warpgroup's epilogue overlaps the others' loads and
+// mainloops.
+constexpr int F_TP = 64;
+constexpr int F_MAXKI = 256;
+constexpr int F_NST = 4;
+constexpr int F_WGS = 3;
+constexpr int F_THREADS = 128 * (F_WGS + 1);
+constexpr int F_CONS_REGS = (65536 - 128 * Q_PROD_REGS) / (128 * F_WGS) / 8 * 8;
+
+// the resident forward's shared memory past the 1,024-aligned base: W2 as
+// [K half][nch 64 rows][64], the ring, Wh^T, b2, bh, the barriers, then
+// three warpgroups' heads (64 D f32 each). Four stages: six (room for them
+// at KI <= 192) ran slower at KI = 128.
+__host__ __device__ __forceinline__ int f_stage(int nch) {
+  return (nch > 2 ? nch : 2) * TILE;
+}
+__host__ __device__ __forceinline__ int f_wht(int nch) {
+  return 2 * nch * TILE + F_NST * f_stage(nch);
+}
+__host__ __device__ __forceinline__ int f_heads(int nch) {
+  return f_wht(nch) + WHT + KP * 4 + 16 * 4 + 2 * F_NST * 8;
+}
+
+// The resident forward's tail from pre2 = h1 W2 in acc: h2 = bf16(act(pre2
+// + b2)) into h (b2 at the thread's 32 columns held in b2r, so that h2's
+// stores wait on no shared-memory load), then the heads h2 Wh into hd (bh
+// not added), all eight k16 steps of K: h2's columns past K are act(0) = 0
+// and Wh^T's zero, and a branch between the products would make ptxas
+// serialise them.
+template <int ACT>
+__device__ __forceinline__ void r1_heads(float* acc, float* hd,
+                                         unsigned char* h,
+                                         const unsigned char* wht,
+                                         const float* b2r, int t, int bar) {
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int n = 8 * j + 2 * (t & 3);
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int x = 4 * j + 2 * hh;
+      *reinterpret_cast<uint32_t*>(h + (n >> 6) * TILE + at(acc_row(t, x), n & 63)) =
+          pack2(act_fn(acc[x] + b2r[2 * j], ACT),
+                act_fn(acc[x + 1] + b2r[2 * j + 1], ACT));
+    }
+  }
+  fence_async_smem();
+  bar_sync(bar, 128);                    // the whole h2 tile is written
+  float hd2[8];
+  acc_fence<8>(hd);
+  acc_fence<8>(hd2);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+    wgmma<16, 0, 0>(kk < 4 ? hd : hd2,
+                    gmma_desc(h + (kk >> 2) * TILE + (kk & 3) * 32, 16, 1024),
+                    gmma_desc(wht + (kk >> 2) * 2048 + (kk & 3) * 32, 16, 1024),
+                    kk & 3);
+  wgmma_commit();
+  wgmma_wait<0>();
+  acc_fence<8>(hd);
+  acc_fence<8>(hd2);
+#pragma unroll
+  for (int x = 0; x < 8; ++x) hd[x] += hd2[x];
+}
+
+template <int ACT>
+__global__ void __launch_bounds__(F_THREADS, 1) r1_fwd_resident_kernel(
+    const __grid_constant__ CUtensorMap map_p, const float* __restrict__ bc,
+    const __nv_bfloat16* __restrict__ w2, const float* __restrict__ b2,
+    const __nv_bfloat16* __restrict__ wh, const float* __restrict__ bh,
+    float* __restrict__ out, int N, int KI, int K, int D, int chunk) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = align1024(smem_raw);
+  const int nch = (KI + 63) / 64, sb = f_stage(nch), half = nch * TILE;
+  unsigned char* w2s = base;
+  unsigned char* ring = base + 2 * half;
+  unsigned char* wht = base + f_wht(nch);
+  float* b2s = reinterpret_cast<float*>(wht + WHT);
+  float* bhs = b2s + KP;
+  uint64_t* full = reinterpret_cast<uint64_t*>(bhs + 16);
+  uint64_t* empty = full + F_NST;
+  float* hbase = reinterpret_cast<float*>(base + f_heads(nch));
+  const int tid = threadIdx.x;
+  const int tiles = (N + F_TP - 1) / F_TP;
+  const int i0 = blockIdx.x * chunk, n = min(tiles, i0 + chunk) - i0;
+  for (int idx = tid; idx < nch * 64 * 16; idx += F_THREADS) {
+    const int i = idx >> 4, cc = idx & 15;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (i < KI && cc * 8 < K)
+      v = *reinterpret_cast<const uint4*>(w2 + (size_t)i * K + cc * 8);
+    *reinterpret_cast<uint4*>(w2s + (cc >> 3) * half + swz(i, cc & 7)) = v;
+  }
+  stage_wht(wht, wh, K, D, tid, F_THREADS);
+  for (int c = tid; c < KP; c += F_THREADS) b2s[c] = c < K ? b2[c] : 0.f;
+  if (tid < 16) bhs[tid] = tid < D ? bh[tid] : 0.f;
+  if (tid == 0) {
+    for (int s = 0; s < F_NST; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 1);
+    }
+    mbar_init_fence();
+  }
+  fence_async_smem();
+  __syncthreads();
+
+  if (tid >= 128 * F_WGS) {
+    reg_dealloc<Q_PROD_REGS>();
+    if (tid == 128 * F_WGS)
+      for (int k = 0; k < n; ++k) {
+        const int s = k % F_NST;
+        mbar_wait(&empty[s], ((k / F_NST) & 1) ^ 1);
+        mbar_expect_tx(&full[s], nch * TILE);
+        for (int cb = 0; cb < nch; ++cb)
+          tma_load_2d(ring + s * sb + cb * TILE, &map_p, &full[s], cb * 64,
+                      (i0 + k) * F_TP);
+      }
+    return;
+  }
+
+  reg_alloc<F_CONS_REGS>();
+  const int t = tid & 127, w = tid >> 7, bar = 2 + w;
+  float* hb = hbase + w * F_TP * D;
+  float acc[64], hd[8], b2r[32];
+#pragma unroll
+  for (int x = 0; x < 32; ++x) b2r[x] = b2s[acc_col(t, 2 * x) + (x & 1)];
+  PROBE(long long pw = 0, pm = 0, pe = 0, ps = 0, items = 0;)
+  for (int k = w; k < n; k += F_WGS) {
+    const int s = k % F_NST, p0 = (i0 + k) * F_TP;
+    unsigned char* st = ring + s * sb;
+    PROBE(long long c = clock64();)
+    if (k > w) reuse_heads(t, bar);
+    PROBE(ps += clock64() - c; c = clock64();)
+    mbar_wait(&full[s], (k / F_NST) & 1);
+    PROBE(pw += clock64() - c; c = clock64();)
+    for (int cb = 0; cb + 1 < nch; cb += 2)
+      to_h1_pair<ACT>(st + cb * TILE, bc, cb * 64, KI, p0, N, t);
+    if (nch & 1) to_h1<ACT>(st + (nch - 1) * TILE, bc, (nch - 1) * 64, KI, p0, N, t);
+    fence_async_smem();
+    bar_sync(bar, 128);
+    acc_fence<64>(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int cb = 0; cb < F_MAXKI / 64; ++cb)
+      if (cb < nch)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma<128, 0, 1>(acc, gmma_desc(st + cb * TILE + kk * 32, 16, 1024),
+                           gmma_desc(w2s + cb * TILE + kk * 2048, half, 1024),
+                           cb > 0 || kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    acc_fence<64>(acc);
+    PROBE(pm += clock64() - c; c = clock64();)
+    // h2 over h1 in the stage's first two tiles; then the stage is free
+    r1_heads<ACT>(acc, hd, st, wht, b2r, t, bar);
+    if (t == 0) mbar_arrive(&empty[s]);
+    put_heads(hd, hb, out, bhs, p0, 0, N, 1, D, t);
+    PROBE(pe += clock64() - c; c = clock64();)
+    flush_heads(hb, out, p0, 0, 0, N, 1, D, t, bar);
+    PROBE(ps += clock64() - c; ++items;)
+  }
+  if (t == 0) tma_store_wait_all();
+  PROBE(r1_probe_add(0, t == 0 && w == 0, items, pw, pm, pe, ps, 0);)
 }
 
 // ---- K2 at R = 1, the head pass ----
@@ -307,23 +561,34 @@ __global__ void __launch_bounds__(Q_THREADS, 1) r1_head_kernel(
   const float* b2s = reinterpret_cast<const float*>(base + Q_B2);
   // g: thread t holds heads 8 (t >> 6) .. + 7 of position t & 63
   const int gp = t & 63, gd0 = (t >> 6) * 8;
-  float acc[64], dwh[2][8], gv[8];
-  float db2 = 0.f, dbh = 0.f;            // columns t (db2) and t < 16 (dbh)
+  // b2 at the thread's 32 columns of the accumulator; the running sums of
+  // dbh (its g) and of db2 (its columns), reduced once at the end
+  float acc[64], dwh[2][8], gv[8], b2r[32], gacc[8], cs2[32];
 #pragma unroll
-  for (int x = 0; x < 8; ++x) dwh[0][x] = dwh[1][x] = 0.f;
+  for (int x = 0; x < 8; ++x) dwh[0][x] = dwh[1][x] = gacc[x] = 0.f;
+#pragma unroll
+  for (int x = 0; x < 32; ++x) {
+    b2r[x] = b2s[acc_col(t, 2 * x) + (x & 1)];
+    cs2[x] = 0.f;
+  }
   int it = 0;
+  long long pw = 0;
+  PROBE(long long pm = 0, pe = 0, ps = 0;)
   for (int i = i0; i < i1; ++i) {
     const int p0w = i * FWD_TM + w * TM;
+    PROBE(long long c = clock64();)
 #pragma unroll
     for (int e = 0; e < 8; ++e)
       gv[e] = p0w + gp < N && gd0 + e < D
                   ? __ldg(g + (size_t)(p0w + gp) * D + gd0 + e) : 0.f;
     pre2_mainloop<ACT>(acc, ring, full, empty, bc, it, nch, KI, p0w, N, t, w,
-                       bar);
+                       bar, pw);
+    PROBE(pm += clock64() - c; c = clock64();)
     // the last tile's bf16(dpre2) has left h
     if (t == 0) tma_store_wait_read();
     bar_sync(bar, 128);
-    // h2 = bf16(act(pre2 + b2)) into h; g16^T and g into their tiles
+    PROBE(ps += clock64() - c; c = clock64();)
+    // h2 = bf16(act(pre2 + b2)) into h; g16^T into its tile
 #pragma unroll
     for (int j = 0; j < 16; ++j) {
       const int n = 8 * j + 2 * (t & 3);
@@ -331,14 +596,15 @@ __global__ void __launch_bounds__(Q_THREADS, 1) r1_head_kernel(
       for (int hh = 0; hh < 2; ++hh) {
         const int x = 4 * j + 2 * hh;
         *reinterpret_cast<uint32_t*>(h + (n >> 6) * TILE + at(acc_row(t, x), n & 63)) =
-            pack2(act_fn(acc[x] + b2s[n], ACT), act_fn(acc[x + 1] + b2s[n + 1], ACT));
+            pack2(act_fn(acc[x] + b2r[2 * j], ACT),
+                  act_fn(acc[x + 1] + b2r[2 * j + 1], ACT));
       }
     }
 #pragma unroll
     for (int e = 0; e < 8; ++e) {
       *reinterpret_cast<__nv_bfloat16*>(gt + at(gd0 + e, gp)) =
           __float2bfloat16(gv[e]);
-      gf[gp * 16 + gd0 + e] = gv[e];
+      gacc[e] += gv[e];
     }
     fence_async_smem();
     bar_sync(bar, 128);
@@ -357,50 +623,61 @@ __global__ void __launch_bounds__(Q_THREADS, 1) r1_head_kernel(
     acc_fence<64>(acc);
     acc_fence<8>(dwh[0]);
     acc_fence<8>(dwh[1]);
-    if (t < 16) {
-      float s = 0.f;
-      for (int p = 0; p < 64; ++p) s += gf[p * 16 + t];
-      dbh += s;
+    // dpre2 = dh2 act'(h2) over h2 in place, as bf16 (h2's words all read
+    // before any is written); db2's running sums
+    uint32_t hv[32];
+#pragma unroll
+    for (int x = 0; x < 32; ++x) {
+      const int n = acc_col(t, 2 * x);
+      hv[x] = lds_u32(h + (n >> 6) * TILE + at(acc_row(t, 2 * x), n & 63));
     }
-    // dpre2 = dh2 act'(h2) over h2 in place, as bf16; db2's sums
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      const int n = 8 * j + 2 * (t & 3);
-      float s0 = 0.f, s1 = 0.f;
+    for (int x = 0; x < 32; ++x) {
+      const __nv_bfloat162 hb = *reinterpret_cast<const __nv_bfloat162*>(&hv[x]);
+      const float e0 = acc[2 * x] * dact_from_h(__low2float(hb), ACT);
+      const float e1 = acc[2 * x + 1] * dact_from_h(__high2float(hb), ACT);
+      hv[x] = pack2(e0, e1);
+      cs2[(x >> 1) * 2] += e0;
+      cs2[(x >> 1) * 2 + 1] += e1;
+    }
 #pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int x = 4 * j + 2 * hh;
-        uint32_t* hp = reinterpret_cast<uint32_t*>(
-            h + (n >> 6) * TILE + at(acc_row(t, x), n & 63));
-        const uint32_t hv = *hp;
-        const __nv_bfloat162 hb = *reinterpret_cast<const __nv_bfloat162*>(&hv);
-        const float e0 = acc[x] * dact_from_h(__low2float(hb), ACT);
-        const float e1 = acc[x + 1] * dact_from_h(__high2float(hb), ACT);
-        *hp = pack2(e0, e1);
-        s0 += e0;
-        s1 += e1;
-      }
-#pragma unroll
-      for (int off = 4; off < 32; off <<= 1) {
-        s0 += __shfl_xor_sync(0xffffffffu, s0, off);
-        s1 += __shfl_xor_sync(0xffffffffu, s1, off);
-      }
-      if (lane < 4) {
-        red[q * 128 + n] = s0;
-        red[q * 128 + n + 1] = s1;
-      }
+    for (int x = 0; x < 32; ++x) {
+      const int n = acc_col(t, 2 * x);
+      *reinterpret_cast<uint32_t*>(
+          h + (n >> 6) * TILE + at(acc_row(t, 2 * x), n & 63)) = hv[x];
     }
     fence_async_smem();
     bar_sync(bar, 128);
+    PROBE(pe += clock64() - c; c = clock64();)
     if (t == 0 && p0w < N) {
       for (int a = 0; a < (K > 64 ? 2 : 1); ++a)
         tma_store_3d(&map_dp, h + a * TILE, a * 64, 0, p0w);
       tma_store_commit();
     }
-    db2 += ((red[t] + red[128 + t]) + red[256 + t]) + red[384 + t];
-    bar_sync(bar, 128);                  // red and gf are read
+    PROBE(ps += clock64() - c;)
   }
   if (t == 0) tma_store_wait_all();
+  PROBE(r1_probe_add(1, t == 0 && w == 0, i1 - i0, pw, pm - pw, pe, ps, 0);)
+
+  // db2: the thread's column sums over the warp's eight row pairs, then
+  // the four warps' in order; dbh: the 64 positions' g sums in order
+#pragma unroll
+  for (int off = 4; off < 32; off <<= 1)
+#pragma unroll
+    for (int x = 0; x < 32; ++x)
+      cs2[x] += __shfl_xor_sync(0xffffffffu, cs2[x], off);
+  if (lane < 4)
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+      *reinterpret_cast<float2*>(red + q * 128 + 8 * j + 2 * lane) =
+          make_float2(cs2[2 * j], cs2[2 * j + 1]);
+#pragma unroll
+  for (int e = 0; e < 8; ++e) gf[gp * 16 + gd0 + e] = gacc[e];
+  bar_sync(bar, 128);
+  const float db2 = ((red[t] + red[128 + t]) + red[256 + t]) + red[384 + t];
+  float dbh = 0.f;
+  if (t < 16)
+    for (int p = 0; p < 64; ++p) dbh += gf[p * 16 + t];
 
   // this warpgroup's partials: [dWh K*D | db2 K | dbh D]
   float* pb = part + (size_t)(2 * blockIdx.x + w) * SP;
@@ -495,12 +772,15 @@ __global__ void __launch_bounds__(Q_THREADS, 1) r1_channel_kernel(
 #pragma unroll
   for (int x = 0; x < 16; ++x) cs[x] = 0.f;
   int it = 0;
+  PROBE(long long pw = 0, pm = 0, pe = 0, ps = 0, px = 0;)
   for (int i = i0; i < i1; ++i, ++it) {
     const int s = it % C_STAGES, p0w = i * FWD_TM + w * TM;
     unsigned char* st = ring + s * C_STAGE;
     unsigned char* h1 = st + w * TILE;
     const unsigned char* dp = st + (2 + 2 * w) * TILE;
+    PROBE(long long c = clock64();)
     mbar_wait(&full[s], (it / C_STAGES) & 1);
+    PROBE(pw += clock64() - c; c = clock64();)
     to_h1<ACT>(h1, bc, c0, KI, p0w, N, t);
     fence_async_smem();
     bar_sync(bar, 128);
@@ -522,38 +802,46 @@ __global__ void __launch_bounds__(Q_THREADS, 1) r1_channel_kernel(
     wgmma_commit();
     wgmma_wait<1>();
     acc_fence<32>(dh);
+    PROBE(pm += clock64() - c; c = clock64();)
     // the last tile's dpre1 has left outw
     if (t == 0) tma_store_wait_read();
     bar_sync(bar, 128);
-    // dpre1 = dh1 act'(h1) (rows past N zero) into the bf16 out tile; dbc
+    PROBE(ps += clock64() - c; c = clock64();)
+    // dpre1 = dh1 act'(h1) (rows past N zero: a factor, not a branch) into
+    // the bf16 out tile, h1's words all read first; dbc
+    uint32_t hv[16];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int n = 8 * j + 2 * (t & 3);
+    for (int x = 0; x < 16; ++x)
+      hv[x] = lds_u32(h1 + at(acc_row(t, 2 * x), acc_col(t, 2 * x)));
+    const float in0 = p0w + acc_row(t, 0) < N ? 1.f : 0.f;
+    const float in1 = p0w + acc_row(t, 2) < N ? 1.f : 0.f;
 #pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int x = 4 * j + 2 * hh, row = acc_row(t, x);
-        const __nv_bfloat162 hb =
-            *reinterpret_cast<const __nv_bfloat162*>(h1 + at(row, n));
-        const bool in = p0w + row < N;
-        const float e0 = in ? dh[x] * dact_from_h(__low2float(hb), ACT) : 0.f;
-        const float e1 = in ? dh[x + 1] * dact_from_h(__high2float(hb), ACT) : 0.f;
-        *reinterpret_cast<uint32_t*>(outw + at(row, n)) = pack2(e0, e1);
-        cs[2 * j] += e0;
-        cs[2 * j + 1] += e1;
-      }
+    for (int x = 0; x < 16; ++x) {
+      const float in = x & 1 ? in1 : in0;
+      const __nv_bfloat162 hb = *reinterpret_cast<const __nv_bfloat162*>(&hv[x]);
+      const float e0 = (dh[2 * x] * in) * dact_from_h(__low2float(hb), ACT);
+      const float e1 = (dh[2 * x + 1] * in) * dact_from_h(__high2float(hb), ACT);
+      *reinterpret_cast<uint32_t*>(
+          outw + at(acc_row(t, 2 * x), acc_col(t, 2 * x))) = pack2(e0, e1);
+      cs[(x >> 1) * 2] += e0;
+      cs[(x >> 1) * 2 + 1] += e1;
     }
     fence_async_smem();
     bar_sync(bar, 128);
+    PROBE(pe += clock64() - c; c = clock64();)
     if (t == 0 && p0w < N) {
       tma_store_3d(&map_out, outw, c0, 0, p0w);
       tma_store_commit();
     }
+    PROBE(ps += clock64() - c; c = clock64();)
     wgmma_wait<0>();
     acc_fence<64>(dm);
+    PROBE(px += clock64() - c;)
     __syncwarp();
     if (lane == 0) mbar_arrive(&empty[s]);
   }
   if (t == 0) tma_store_wait_all();
+  PROBE(r1_probe_add(2, t == 0 && w == 0, i1 - i0, pw, pm, pe, ps, px);)
 
   // this warpgroup's partials: rows c0.. of [dW2 KI*K | dbc KI]
   float* pb = part + (size_t)(2 * run + w) * SP;
@@ -592,6 +880,16 @@ int launch_r1_fwd(const void* pre1, const void* bc, const void* w2,
   CUtensorMap m_p, m_w;
   int err;
   if ((err = make_r1_maps(&m_p, &m_w, pre1, w2, N, KI, K))) return err;
+  if (KI <= F_MAXKI) {
+    const int nch = (KI + 63) / 64;
+    const size_t smem = 1024 + f_heads(nch) + (size_t)F_WGS * F_TP * D * 4;
+    if ((err = allow_smem(r1_fwd_resident_kernel<ACT>, smem))) return err;
+    r1_fwd_resident_kernel<ACT><<<G, F_THREADS, smem, stream>>>(
+        m_p, (const float*)bc, (const __nv_bfloat16*)w2, (const float*)b2,
+        (const __nv_bfloat16*)wh, (const float*)bh, (float*)out, N, KI, K, D,
+        chunk);
+    return (int)cudaGetLastError();
+  }
   const size_t smem = 1024 + Q_HB + (size_t)FWD_TM * D * 4;
   if ((err = allow_smem(r1_fwd_kernel<ACT>, smem))) return err;
   r1_fwd_kernel<ACT><<<G, Q_THREADS, smem, stream>>>(
@@ -638,15 +936,27 @@ int launch_r1_bwd(const void* pre1, const void* bc, const void* w2,
 }  // namespace chain
 }  // namespace
 
+#ifdef TVAE_PROBE
+// Copies the R = 1 probe's 18 sums out and zeroes them.
+extern "C" int tvae_probe_mix_heads_r1(void* host) {
+  int e = (int)cudaMemcpyFromSymbol(host, chain::r1_probe,
+                                    sizeof(chain::r1_probe));
+  const unsigned long long z[18] = {};
+  return e ? e : (int)cudaMemcpyToSymbol(chain::r1_probe, z, sizeof(z));
+}
+#endif
+
 // K1 at R = 1. pre1 (N, KI) bf16, KI % 8 == 0; bc (KI,), b2 (K,), bh (D,)
 // f32; w2 (KI, K), wh (K, D) bf16; out (N, D) f32. G blocks of `chunk`
-// 128-position tiles (kernels/mix_heads.py::fwd_schedule at R = 1).
+// tiles of 64 positions with W2 resident (KI <= 256), else of 128
+// positions with W2 streamed (kernels/mix_heads.py::r1_fwd_schedule).
 extern "C" int tvae_mix_heads_r1_fwd(const void* pre1, const void* bc,
                                      const void* w2, const void* b2,
                                      const void* wh, const void* bh, void* out,
                                      int N, int KI, int K, int D, int G,
                                      int chunk, int act, void* stream) {
-  const long long tiles = (long long)(N + chain::FWD_TM - 1) / chain::FWD_TM;
+  const int tile = KI <= chain::F_MAXKI ? chain::F_TP : chain::FWD_TM;
+  const long long tiles = (long long)(N + tile - 1) / tile;
   if (KI % 8 || KI < 8 || (K != 16 && K != 32 && K != 64 && K != 128) ||
       D < 1 || D > 16 || G < 1 || chunk < 1 || (long long)G * chunk < tiles ||
       (long long)(G - 1) * chunk >= tiles)

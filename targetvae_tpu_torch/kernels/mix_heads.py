@@ -20,8 +20,9 @@ dbh in float32. _LiftActMixHeads joins the two as one autograd Function.
 Mode B runs the same function at R = 1 with a rectangular mixing W2 (KI, K),
 KI = R_lift K its lifted channels (fc_r folded into conv2, the JAX package's
 _mode_b_fast): mix_heads_r1_fwd / mix_heads_r1_bwd launch their own kernels
-(csrc/mix_heads_r1.cu), which stream KI, and _MixHeadsR1 joins them. The
-plain versions take either shape.
+(csrc/mix_heads_r1.cu: the forward holds W2 up to KI = 256 and streams it
+past that, the backward streams KI in two passes), and _MixHeadsR1 joins
+them. The plain versions take either shape.
 """
 
 from __future__ import annotations
@@ -276,12 +277,27 @@ def _r1_check(pre1, w2, wh, K: int):
     return n, ki, d
 
 
+R1_TILE = 64           # positions of a tile of K1 at R = 1 with W2 resident
+R1_RESIDENT_KI = 256   # K1 at R = 1 keeps W2 resident up to this KI
+
+
+def r1_fwd_schedule(n: int, ki: int, sms: int):
+    """The persistent grid of K1 at R = 1: chain_schedule over tiles of
+    R1_TILE positions where W2 is resident (KI <= R1_RESIDENT_KI; three
+    consumer warpgroups a block, a tile each in turn), else of FWD_TILE_POS
+    (W2 streamed with pre1, the block's two consumer warpgroups on a tile's
+    halves). Block b takes tiles [b chunk, min(tiles, (b + 1) chunk)).
+    Returns (blocks, chunk)."""
+    tile = R1_TILE if ki <= R1_RESIDENT_KI else FWD_TILE_POS
+    return chain_schedule(max(n, 1), 1, sms, tile=tile)
+
+
 def mix_heads_r1_fwd(pre1, bc, w2, b2, wh, bh, *, K: int,
                      act_kind: str = "leakyrelu") -> torch.Tensor:
     """K1 at R = 1 over KI lifted channels: pre1 (N, KI) bf16; bc (KI,); w2
     (KI, K); b2 (K,); wh (K, D); bh (D,). Returns (N, D) float32. A CPU
     pre1 takes the plain version; a CUDA one launches csrc/mix_heads_r1.cu
-    on fwd_schedule's grid of 128-position items."""
+    on r1_fwd_schedule's grid."""
     if pre1.device.type == "cpu":
         return lift_act_mix_heads_plain(pre1, bc, w2, b2, wh, bh, R=1, K=K,
                                         act_kind=act_kind)
@@ -293,7 +309,9 @@ def mix_heads_r1_fwd(pre1, bc, w2, b2, wh, bh, *, K: int,
     _build.check_cuda(*args, dtypes=(bf, f32, bf, f32, bf, f32))
     out = torch.empty((n, d), dtype=f32, device=pre1.device)
     if n:
-        blocks, chunk = fwd_schedule(n, 1, pre1.device)
+        sms = torch.cuda.get_device_properties(
+            pre1.device).multi_processor_count
+        blocks, chunk = r1_fwd_schedule(n, ki, sms)
         _build.launch("tvae_mix_heads_r1_fwd",
                       *(t.data_ptr() for t in args), out.data_ptr(),
                       n, ki, K, d, blocks, chunk, ACT_CODES[act_kind],

@@ -27,8 +27,9 @@ import targetvae_tpu_torch.kernels as kernels
 from targetvae_tpu_torch import TargetVAE
 from targetvae_tpu_torch.kernels.mix_heads import (
     fused_mix_heads_r1, lift_act_mix_heads_bwd_plain,
-    lift_act_mix_heads_plain, mix_heads_r1_bwd, mix_heads_r1_fwd,
-    r1_channel_schedule)
+    FWD_TILE_POS, R1_RESIDENT_KI, R1_TILE, lift_act_mix_heads_plain,
+    mix_heads_r1_bwd, mix_heads_r1_fwd, r1_channel_schedule,
+    r1_fwd_schedule)
 from targetvae_tpu_torch.kernels.posterior import (
     fused_posterior, k3_schedule, k4_schedule, philox_gumbel,
     posterior_bwd, posterior_bwd_plain, posterior_fwd, posterior_plain)
@@ -253,7 +254,9 @@ def _r1_inputs(KI=64, K=16, D=7, N=90, seed=0):
 
 @pytest.mark.parametrize("KI, K, act", [(16, 16, "leakyrelu"),
                                         (64, 16, "tanh"),
-                                        (128, 32, "leakyrelu")])
+                                        (128, 32, "leakyrelu"),
+                                        (8, 16, "tanh"),
+                                        (136, 32, "leakyrelu")])
 def test_r1_mix_heads_plain_matches_pallas(jx, KI, K, act):
     """K1's and K2's plain versions at R = 1 with a rectangular (KI, K)
     mixing against fused_lift_act_mix_heads(..., R=1, interpret=True),
@@ -373,6 +376,40 @@ def test_r1_schedules():
     runs, per = r1_channel_schedule(260_100, 1024, 132)
     assert runs * per >= -(-260_100 // 128) and runs == 8
     assert r1_channel_schedule(5, 128, 132) == (1, 1)
+
+
+@pytest.mark.parametrize("n, ki, sms", [
+    (260_100, 128, 132), (260_100, 1024, 132), (1000, 136, 132),
+    (130, 264, 132), (1, 8, 132), (300, 2048, 132), (4097, 1024, 7),
+    (64, 136, 1)])
+def test_r1_schedules_cover_each_position_and_channel_once(n, ki, sms):
+    """K1's and K2's grids at R = 1, by the kernels' own index arithmetic:
+    K1 (r1_fwd_schedule: 64-position tiles where W2 is resident, KI <= 256,
+    else 128) gives every position to one block, no more blocks than SMs;
+    K2's channel pass (r1_channel_schedule) gives every (position, 64-channel
+    chunk of KI) to one block, the last chunk short where 64 does not
+    divide KI."""
+    blocks, chunk = r1_fwd_schedule(n, ki, sms)
+    tile = R1_TILE if ki <= R1_RESIDENT_KI else FWD_TILE_POS
+    tiles = -(-max(n, 1) // tile)
+    assert blocks <= max(1, min(sms, tiles))
+    seen = np.zeros(max(n, 1), np.int64)
+    for b in range(blocks):
+        i0, i1 = b * chunk, min(tiles, (b + 1) * chunk)
+        assert i0 < i1
+        seen[i0 * tile:min(n, i1 * tile)] += 1
+    assert (seen[:n] == 1).all()
+    runs, per = r1_channel_schedule(n, ki, sms)
+    tiles = -(-max(n, 1) // FWD_TILE_POS)
+    nc = -(-ki // 64)
+    cover = np.zeros((max(n, 1), ki), np.int64)
+    for blk in range(nc * runs):
+        c, run = blk % nc, blk // nc
+        i0, i1 = run * per, min(tiles, (run + 1) * per)
+        assert i0 < i1
+        cover[i0 * FWD_TILE_POS:min(n, i1 * FWD_TILE_POS),
+              c * 64:min(ki, c * 64 + 64)] += 1
+    assert (cover[:n] == 1).all()
 
 
 # ---- the ELBO, its gradients, embed ----
@@ -581,7 +618,9 @@ def test_train_mnist_one_epoch(tmp_path, mode, flags):
 
 R1_CASES = [(128, 128, 700, "leakyrelu", 7), (128, 1024, 2000, "tanh", 7),
             (64, 512, 65, "leakyrelu", 16), (16, 32, 1, "tanh", 5),
-            (128, 2048, 300, "leakyrelu", 7), (32, 264, 130, "leakyrelu", 7)]
+            (128, 2048, 300, "leakyrelu", 7), (32, 264, 130, "leakyrelu", 7),
+            (128, 1024, 4000, "leakyrelu", 7), (128, 128, 3000, "tanh", 7),
+            (128, 136, 2500, "leakyrelu", 7), (64, 136, 129, "tanh", 3)]
 
 
 @pytest.mark.parametrize("K, KI, N, act, D", R1_CASES)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time the port's kernels on the card with chip_smoke.py's device timer.
 
-    python3 tools/time_kernels.py [--root DIR]
+    python3 tools/time_kernels.py [--root DIR] [--r1-only]
 
 Builds flagship-shape inputs (random weights, synthetic images and seeded
 tensors, as chip_smoke.py makes them) for the port found under --root (a
@@ -22,8 +22,9 @@ chip_smoke.sp_posterior_stage). chip_smoke.py times this checkout's
 kernels with the same timer; this tool exists to time another checkout's
 beside it in one call, the parent of a change. K5/K6 take the checkout's
 contract: the exchanged planes (B, 3 + 2 zd, C), or the JAX package's
-separate attn, th and z of the checkouts before it. Prints one JSON line
-with the card's name and power limit. Needs a CUDA device.
+separate attn, th and z of the checkouts before it. With --r1-only it times
+the R = 1 kernels alone (a few seconds after the build). Prints one JSON
+line with the card's name and power limit. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -120,6 +121,8 @@ def r1_kernels(cs, torch, dev, rn, time) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=HERE)
+    ap.add_argument("--r1-only", action="store_true",
+                    help="time only K1-K4 at R = 1 (mode B)")
     args = ap.parse_args()
     # this checkout's chip_smoke (its timer and its inputs), then the
     # package of the checkout at --root, which chip_smoke imports at call
@@ -171,6 +174,13 @@ def main() -> int:
         print(f"{name}: " + json.dumps({k: round(v, 5) for k, v in row.items()}),
               flush=True)
 
+    if args.r1_only:
+        with torch.inference_mode():
+            r1_kernels(cs, torch, dev, rn, time)
+        print(json.dumps({"root": os.path.abspath(args.root), "card": smi,
+                          "device": torch.cuda.get_device_name(0),
+                          "kernels": res}), flush=True)
+        return 0
     with torch.inference_mode():
         k1, _, k7, _, k9, _, k11, _ = cs.kernel_inputs(params, cfg, dev)
         heads_args = cs.posterior_inputs(torch, ecfg, cs.B, dev)
