@@ -1,0 +1,6 @@
+"""mfu.train in the cells that train on particle stacks, which report
+train_img_s.particles: the same reading as metrics/mfu.train.py."""
+
+from benchmark import spec
+
+read = spec.metric_reader("mfu.train").read
