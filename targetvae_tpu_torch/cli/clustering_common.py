@@ -22,6 +22,7 @@ from ..models.targetvae import TargetVAE
 from ..train.checkpoint import load_checkpoint
 from ..utils.jax_params import params_from_jax
 from ..utils.torch_import import is_torch_checkpoint, model_from_savs
+from ..utils.trace import span
 from .clustering_algorithms import kmeans, ward
 
 
@@ -129,14 +130,19 @@ def embed_dataset(model: TargetVAE, params: dict, images: np.ndarray,
     n = len(images)
     b = minibatch_size
     starts = list(range(0, n - n % b, b)) + ([n - n % b] if n % b else [])
-    staging = _Staging(images, b, model.device)
-    outs = []
-    with torch.inference_mode():
-        for i in starts:
-            out = model.embed(params, staging.batch(i, min(b, n - i)),
-                              compute_dtype=dt)
-            outs.append((out["z_content"], out["theta_mu"], out["dx"]))
-    zs, rots, trs = (torch.cat(parts).cpu().numpy() for parts in zip(*outs))
+    with span("tvae.embed"):
+        staging = _Staging(images, b, model.device)
+        outs = []
+        with torch.inference_mode():
+            for i in starts:
+                with span("tvae.embed.stage"):
+                    y = staging.batch(i, min(b, n - i))
+                with span("tvae.embed.batch"):
+                    out = model.embed(params, y, compute_dtype=dt)
+                outs.append((out["z_content"], out["theta_mu"], out["dx"]))
+        with span("tvae.embed.out"):
+            zs, rots, trs = (torch.cat(parts).cpu().numpy()
+                             for parts in zip(*outs))
     return zs, rots, trs
 
 

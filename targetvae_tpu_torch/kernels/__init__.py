@@ -15,7 +15,11 @@ or raises. The backward wrappers are joined to their forwards by
 torch.autograd.Functions (one per module), which the model code reaches
 whenever autograd wants a gradient. Each wrapper counts its launches in a
 plain integer attribute (`launches`), which launch_counts /
-reset_launch_counts read and clear.
+reset_launch_counts read and clear. Beside them the kernel tier counts each
+dispatch at which a kernel did not take the config (a `*_supported` check
+said no) and the plain path ran: the keys "fallback.<site>" of
+launch_counts, one site each for the encoder, the posterior, the pose
+decoder and the decoder.
 """
 
 from __future__ import annotations
@@ -46,6 +50,15 @@ WRAPPERS = {"mix_heads_fwd": mix_heads_fwd,
             "decoder_mlp_bwd": decoder_mlp_bwd,
             "lifted_encoder_fwd": lifted_encoder_fwd,
             "lifted_encoder_bwd": lifted_encoder_bwd}
+
+
+FALLBACKS = dict.fromkeys(("encoder", "posterior", "pose_decoder",
+                           "decoder"), 0)
+
+
+def count_fallback(site: str) -> None:
+    """One dispatch of the kernel tier at `site` that ran the plain path."""
+    FALLBACKS[site] += 1
 
 
 def kernel_tier(compute_dtype) -> bool:
@@ -79,9 +92,13 @@ def needs_grad(*trees) -> bool:
 
 
 def launch_counts() -> dict:
-    return {name: fn.launches for name, fn in WRAPPERS.items()}
+    counts = {name: fn.launches for name, fn in WRAPPERS.items()}
+    counts.update((f"fallback.{site}", n) for site, n in FALLBACKS.items())
+    return counts
 
 
 def reset_launch_counts() -> None:
     for fn in WRAPPERS.values():
         fn.launches = 0
+    for site in FALLBACKS:
+        FALLBACKS[site] = 0

@@ -42,7 +42,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..kernels import kernel_tier, needs_grad
+from ..kernels import count_fallback, kernel_tier, needs_grad
 from ..kernels.decoder_pose import fused_pose_decoder, pose_decoder_supported
 from ..kernels.posterior import fused_posterior, posterior_kernel_supported
 from ..models.encoders import (attn_dim_for, encoder_apply, encoder_heads,
@@ -54,6 +54,7 @@ from ..ops.kl import guarded_moments, normal_kl
 from ..parallel.grid_softmax import (chunks_to_cells, heads_to_chunks,
                                      posterior_block, sp_posterior)
 from ..utils.config import ModelConfig
+from ..utils.trace import span
 from .likelihoods import reconstruction_log_prob
 
 _EPS = 1e-6
@@ -138,18 +139,24 @@ def reconstruct_log_prob(params: dict, cfg: ModelConfig, x_coord: torch.Tensor,
     both tiers (the CTF by FFT, likelihoods.ctf_apply)."""
     gcfg, ecfg, lcfg = cfg.generator, cfg.encoder, cfg.likelihood
     grad = needs_grad(params["generator"], theta, dx, z)
-    if kernel_tier(compute_dtype) and pose_decoder_supported(gcfg, grad):
-        y_hat = fused_pose_decoder(theta, dx, z, params["generator"], gcfg,
-                                   ecfg.image_dim)
-    else:
-        x_t = transform_coords(x_coord, dx, theta)
-        y_hat = generator_apply(params["generator"], gcfg, x_t,
-                                z if gcfg.z_dim > 0 else None,
-                                compute_dtype=compute_dtype)
-    return reconstruction_log_prob(
-        y_hat, y, lcfg.kind, fit_noise=lcfg.fit_noise, ctf=ctf, dx=dx,
-        mask_radius=lcfg.mask_radius,
-        btw_pixels_space=2.0 / (ecfg.image_dim - 1), row_weights=row_weights)
+    with span("tvae.decoder"):
+        kernels = kernel_tier(compute_dtype)
+        if kernels and pose_decoder_supported(gcfg, grad):
+            y_hat = fused_pose_decoder(theta, dx, z, params["generator"],
+                                       gcfg, ecfg.image_dim)
+        else:
+            if kernels:
+                count_fallback("pose_decoder")
+            x_t = transform_coords(x_coord, dx, theta)
+            y_hat = generator_apply(params["generator"], gcfg, x_t,
+                                    z if gcfg.z_dim > 0 else None,
+                                    compute_dtype=compute_dtype)
+    with span("tvae.likelihood"):
+        return reconstruction_log_prob(
+            y_hat, y, lcfg.kind, fit_noise=lcfg.fit_noise, ctf=ctf, dx=dx,
+            mask_radius=lcfg.mask_radius,
+            btw_pixels_space=2.0 / (ecfg.image_dim - 1),
+            row_weights=row_weights)
 
 
 @functools.lru_cache(maxsize=32)
@@ -185,17 +192,18 @@ def _mode_a_posterior(params: dict, ecfg, y: torch.Tensor,
     and the closed-form KL: theta's against N(0, theta_prior), the unit
     normal's over the translations and the content (:82-83)."""
     enc = encoder_apply(params["encoder"], ecfg, y)
-    z_mu, z_logstd = enc["z_mu"], enc["z_logstd"]
-    z_std = torch.exp(z_logstd)
-    zfull = z_std * _normal_noise(generator, z_mu.shape, y.device) + z_mu
-    sigma = ecfg.theta_prior
-    kl_theta = (-z_logstd[:, 0] + np.log(sigma)
-                + (z_std[:, 0] ** 2 + z_mu[:, 0] ** 2) / (2 * sigma ** 2)
-                - 0.5)
-    z_kl = (-z_logstd[:, 1:] + 0.5 * z_std[:, 1:] ** 2
-            + 0.5 * z_mu[:, 1:] ** 2 - 0.5)
-    kl_div = _wmean(kl_theta + z_kl.sum(dim=1), row_weights)
-    return zfull[:, 0], zfull[:, 1:3] * 0.1, zfull[:, 3:], kl_div
+    with span("tvae.posterior"):
+        z_mu, z_logstd = enc["z_mu"], enc["z_logstd"]
+        z_std = torch.exp(z_logstd)
+        zfull = z_std * _normal_noise(generator, z_mu.shape, y.device) + z_mu
+        sigma = ecfg.theta_prior
+        kl_theta = (-z_logstd[:, 0] + np.log(sigma)
+                    + (z_std[:, 0] ** 2 + z_mu[:, 0] ** 2) / (2 * sigma ** 2)
+                    - 0.5)
+        z_kl = (-z_logstd[:, 1:] + 0.5 * z_std[:, 1:] ** 2
+                + 0.5 * z_mu[:, 1:] ** 2 - 0.5)
+        kl_div = _wmean(kl_theta + z_kl.sum(dim=1), row_weights)
+        return zfull[:, 0], zfull[:, 1:3] * 0.1, zfull[:, 3:], kl_div
 
 
 def compute_elbo(params: dict, cfg: ModelConfig, x_coord: torch.Tensor,
@@ -242,60 +250,70 @@ def compute_elbo(params: dict, cfg: ModelConfig, x_coord: torch.Tensor,
     grid = const["grid"]
     sig_r = const["sig_r"]
 
-    if kernel_tier(compute_dtype) and posterior_kernel_supported(ecfg):
+    fused = kernel_tier(compute_dtype) and posterior_kernel_supported(ecfg)
+    if fused:
         # the encoder's raw heads go to the posterior kernels as they lie
         # (B, M, R, D); K3 adds log p(r) and the offsets itself, and K4
         # returns their cotangent in the same layout (mode B: R = 1, p(r)
         # and the offset 0)
-        heads = encoder_heads(params["encoder"], ecfg, y, compute_dtype)
-        seed = (0 if generator is None else int(torch.randint(
-            0, 2 ** 31 - 1, (1,), generator=generator, device=generator.device)))
-        post = fused_posterior(
-            seed, heads.reshape(b, M, R, -1), const["p_r"], const["offsets"],
-            const["p_tr"], grid, sig_r, deterministic=generator is None)
-        z_mu_e, z_std_e = post["z_mu_e"], post["z_std_e"]
-        th_mu_e, th_std_e = post["theta_mu_e"], post["theta_std_e"]
-        dx = post["dx"]
-        kl_div = _wmean(post["kl"], row_weights)
+        with span("tvae.encoder"):
+            heads = encoder_heads(params["encoder"], ecfg, y, compute_dtype)
     else:
+        if kernel_tier(compute_dtype):
+            count_fallback("posterior")
         enc = encoder_apply(params["encoder"], ecfg, y, generator,
                             compute_dtype)
-        if ecfg.mode == "B":
-            # one rotation cell: the (B, H', W', 1) layout of mode C
-            enc = {k: v.unsqueeze(3) for k, v in enc.items()}
-            enc["q"] = torch.log_softmax(enc["attn"].reshape(b, -1),
-                                         dim=1).reshape(enc["attn"].shape)
-            enc["offsets"] = const["offsets"]
-        q = enc["q"]                                              # (B,H',W',R)
-        a_s4 = (enc["a_sampled"] if generator is not None
-                else torch.softmax(enc["attn"].reshape(b, -1), dim=1)
-                .reshape(enc["attn"].shape))
-        a_s = a_s4.reshape(b, -1)                                 # H'W'R cells
-        a_locs = a_s4.sum(dim=3).reshape(b, -1)                   # (B, M)
-        z_mu = enc["z_mu"].reshape(b, -1, zd)
-        z_std = torch.exp(enc["z_logstd"]).reshape(b, -1, zd) + _EPS
-        z_mu_e = torch.einsum("bmz,bm->bz", z_mu, a_s)
-        z_std_e = torch.einsum("bmz,bm->bz", z_std, a_s)
-        dx = a_locs @ grid
-        th_mu = enc["theta_mu"].reshape(b, -1)
-        th_std = torch.exp(enc["theta_logstd"]).reshape(b, -1) + _EPS
-        th_mu_e = (th_mu * a_s).sum(dim=1)
-        th_std_e = (th_std * a_s).sum(dim=1)
+    with span("tvae.posterior"):
+        if fused:
+            seed = (0 if generator is None else int(torch.randint(
+                0, 2 ** 31 - 1, (1,), generator=generator,
+                device=generator.device)))
+            post = fused_posterior(
+                seed, heads.reshape(b, M, R, -1), const["p_r"],
+                const["offsets"], const["p_tr"], grid, sig_r,
+                deterministic=generator is None)
+            z_mu_e, z_std_e = post["z_mu_e"], post["z_std_e"]
+            th_mu_e, th_std_e = post["theta_mu_e"], post["theta_std_e"]
+            dx = post["dx"]
+            kl_div = _wmean(post["kl"], row_weights)
+        else:
+            if ecfg.mode == "B":
+                # one rotation cell: the (B, H', W', 1) layout of mode C
+                enc = {k: v.unsqueeze(3) for k, v in enc.items()}
+                enc["q"] = torch.log_softmax(enc["attn"].reshape(b, -1),
+                                             dim=1).reshape(enc["attn"].shape)
+                enc["offsets"] = const["offsets"]
+            q = enc["q"]                                          # (B,H',W',R)
+            a_s4 = (enc["a_sampled"] if generator is not None
+                    else torch.softmax(enc["attn"].reshape(b, -1), dim=1)
+                    .reshape(enc["attn"].shape))
+            a_s = a_s4.reshape(b, -1)                             # H'W'R cells
+            a_locs = a_s4.sum(dim=3).reshape(b, -1)               # (B, M)
+            z_mu = enc["z_mu"].reshape(b, -1, zd)
+            z_std = torch.exp(enc["z_logstd"]).reshape(b, -1, zd) + _EPS
+            z_mu_e = torch.einsum("bmz,bm->bz", z_mu, a_s)
+            z_std_e = torch.einsum("bmz,bm->bz", z_std, a_s)
+            dx = a_locs @ grid
+            th_mu = enc["theta_mu"].reshape(b, -1)
+            th_std = torch.exp(enc["theta_logstd"]).reshape(b, -1) + _EPS
+            th_mu_e = (th_mu * a_s).sum(dim=1)
+            th_std_e = (th_std * a_s).sum(dim=1)
 
-        # joint prior p(t, r) = log_softmax(p_t + p_r) over (H', W', R) cells
-        p_tr_flat = const["p_tr"].reshape(-1)
-        qf = q.reshape(b, -1)
-        val1 = (torch.exp(qf) * (qf - p_tr_flat)).sum(dim=1)
-        zq_mu, zq_std = guarded_moments(qf[..., None], z_mu, z_std)
-        tq_mu, tq_std = guarded_moments(qf, th_mu, th_std)
-        kl_z = normal_kl(zq_mu, zq_std, 0.0, 1.0).sum(dim=-1)
-        offs_cells = enc["offsets"].repeat(M)                     # r-minor
-        kl_th = normal_kl(tq_mu, tq_std, offs_cells, sig_r)
-        val2 = (torch.exp(qf) * (kl_th + kl_z)).sum(dim=1)
-        kl_div = _wmean(val1 + val2, row_weights)
+            # joint prior p(t, r) = log_softmax(p_t + p_r) over (H', W', R)
+            # cells
+            p_tr_flat = const["p_tr"].reshape(-1)
+            qf = q.reshape(b, -1)
+            val1 = (torch.exp(qf) * (qf - p_tr_flat)).sum(dim=1)
+            zq_mu, zq_std = guarded_moments(qf[..., None], z_mu, z_std)
+            tq_mu, tq_std = guarded_moments(qf, th_mu, th_std)
+            kl_z = normal_kl(zq_mu, zq_std, 0.0, 1.0).sum(dim=-1)
+            offs_cells = enc["offsets"].repeat(M)                 # r-minor
+            kl_th = normal_kl(tq_mu, tq_std, offs_cells, sig_r)
+            val2 = (torch.exp(qf) * (kl_th + kl_z)).sum(dim=1)
+            kl_div = _wmean(val1 + val2, row_weights)
 
-    z = z_std_e * _normal_noise(generator, (b, zd), dev) + z_mu_e
-    theta = th_std_e * _normal_noise(generator, (b,), dev) + th_mu_e
+        z = z_std_e * _normal_noise(generator, (b, zd), dev) + z_mu_e
+        theta = th_std_e * _normal_noise(generator, (b,), dev) + th_mu_e
     log_p = reconstruct_log_prob(params, cfg, x_coord, y, theta, dx, z,
                                  compute_dtype=compute_dtype,
                                  row_weights=row_weights, ctf=ctf)
@@ -325,34 +343,39 @@ def _sp_elbo(params: dict, cfg: ModelConfig, x_coord: torch.Tensor,
     const = sp_shard_constants(ecfg, dev, t_n, t,
                                SP_CELL_UNIT if kernels else R)
     c = const["c_loc"]
-    heads = encoder_heads(params["encoder"], ecfg, y, compute_dtype)
-    # batch-split -> cell-split: the raw heads, log p(r) and the offsets
-    # added and the cells padded to t_n * c (-1e30 logits, zero moments;
-    # the pads carry exactly zero posterior mass and gradient) in one pass
-    # into the send buffer, one exchange of all 3 + 2 zd planes; row s *
-    # b_l + r of the result is rank s's row r
-    planes = chunks_to_cells(heads_to_chunks(
-        heads.reshape(b_l, -1, 3 + 2 * zd), const["bias"], t_n, c), group)
-    if generator is None:
-        noise = torch.zeros((b, c), device=dev)
-    elif kernels:
-        # each rank's cells draw apart, from the group's seed and its rank
-        seed = int(torch.randint(0, 2 ** 31 - 1, (1,), generator=generator,
-                                 device=generator.device))
-        noise = gumbel_noise((b, c), torch.Generator(device=dev).manual_seed(
-            seed + t), dev)
-    else:
-        # the whole grid's draw (the unsharded encoder's), this rank's cells
-        full = gumbel_noise((b, const["cells"]), generator, dev)
-        noise = torch.nn.functional.pad(
-            full, (0, t_n * c - const["cells"]))[:, t * c:(t + 1) * c]
-    out = (sp_posterior if kernels else posterior_block)(
-        group, const["sig_r"], planes, noise, const["p"], const["gx"],
-        const["gy"], const["offs"])
-    z_s = out[:, zd:2 * zd] * _normal_noise(generator, (b, zd), dev) \
-        + out[:, :zd]
-    theta = out[:, 2 * zd + 1] * _normal_noise(generator, (b,), dev) \
-        + out[:, 2 * zd]
+    with span("tvae.encoder"):
+        heads = encoder_heads(params["encoder"], ecfg, y, compute_dtype)
+    with span("tvae.posterior"):
+        # batch-split -> cell-split: the raw heads, log p(r) and the offsets
+        # added and the cells padded to t_n * c (-1e30 logits, zero
+        # moments; the pads carry exactly zero posterior mass and gradient)
+        # in one pass into the send buffer, one exchange of all 3 + 2 zd
+        # planes; row s * b_l + r of the result is rank s's row r
+        planes = chunks_to_cells(heads_to_chunks(
+            heads.reshape(b_l, -1, 3 + 2 * zd), const["bias"], t_n, c), group)
+        if generator is None:
+            noise = torch.zeros((b, c), device=dev)
+        elif kernels:
+            # each rank's cells draw apart, from the group's seed and its rank
+            seed = int(torch.randint(0, 2 ** 31 - 1, (1,),
+                                     generator=generator,
+                                     device=generator.device))
+            noise = gumbel_noise(
+                (b, c), torch.Generator(device=dev).manual_seed(seed + t),
+                dev)
+        else:
+            # the whole grid's draw (the unsharded encoder's), this rank's
+            # cells
+            full = gumbel_noise((b, const["cells"]), generator, dev)
+            noise = torch.nn.functional.pad(
+                full, (0, t_n * c - const["cells"]))[:, t * c:(t + 1) * c]
+        out = (sp_posterior if kernels else posterior_block)(
+            group, const["sig_r"], planes, noise, const["p"], const["gx"],
+            const["gy"], const["offs"])
+        z_s = out[:, zd:2 * zd] * _normal_noise(generator, (b, zd), dev) \
+            + out[:, :zd]
+        theta = out[:, 2 * zd + 1] * _normal_noise(generator, (b,), dev) \
+            + out[:, 2 * zd]
     rows = slice(t * b_l, (t + 1) * b_l)
     log_p = reconstruct_log_prob(params, cfg, x_coord, y, theta[rows],
                                  out[rows, 2 * zd + 2:2 * zd + 4], z_s[rows],

@@ -45,7 +45,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..kernels import encoder_tier, kernel_tier, needs_grad
+from ..kernels import (count_fallback, encoder_tier, kernel_tier,
+                       needs_grad)
 from ..kernels.decoder_pose import _act
 from ..kernels.lifted_encoder import build_patches, fused_lifted_encoder
 from ..kernels.mix_heads import (fused_lift_act_mix_heads,
@@ -56,6 +57,7 @@ from ..ops.gumbel import gumbel_softmax
 from ..ops.rotate import rotate_filter_bank
 from ..utils.config import EncoderConfig
 from ..utils.initializers import conv2d_init, groupconv_init, linear_init
+from ..utils.trace import span
 
 
 def _check_groupconv(cfg: EncoderConfig) -> None:
@@ -154,8 +156,9 @@ def lift_rows(params: dict, cfg: EncoderConfig, y: torch.Tensor):
     """The raw bf16 mode-C lift conv (no bias, no activation) as
     (B*H'*W', R*K) rows with r-major channels, the mix_heads kernel's input;
     returns (rows, H'). conv_rows does the work."""
-    w = lifted_weight(params["conv1"]["w"], cfg.groupconv)
-    return conv_rows(w, y, cfg.padding)
+    with span("tvae.lift"):
+        w = lifted_weight(params["conv1"]["w"], cfg.groupconv)
+        return conv_rows(w, y, cfg.padding)
 
 
 def conv_rows(w: torch.Tensor, y: torch.Tensor, padding: int):
@@ -223,11 +226,12 @@ def _mode_c_patch_tier(params: dict, cfg: EncoderConfig, y: torch.Tensor):
     R, K, pad = cfg.groupconv, cfg.kernels_num, cfg.padding
     hp = attn_dim_for(cfg)
     wc, bc, wh, bh = mode_c_matrices(params, cfg)
-    xp = F.pad(y, (0, 0, pad, pad, pad, pad))
+    with span("tvae.patches"):
+        xp = F.pad(y, (0, 0, pad, pad, pad, pad))
+        patches = build_patches(xp, cfg.kernels_size, hp, hp)
     return fused_lifted_encoder(
-        build_patches(xp, cfg.kernels_size, hp, hp), wc, bc,
-        params["conv2"]["w"], params["conv2"]["b"], wh, bh, R=R, K=K,
-        act_kind=cfg.activation)
+        patches, wc, bc, params["conv2"]["w"], params["conv2"]["b"], wh, bh,
+        R=R, K=K, act_kind=cfg.activation)
 
 
 def _mode_c_f32(params: dict, cfg: EncoderConfig, y: torch.Tensor):
@@ -264,8 +268,9 @@ def _mode_b_kernel_tier(params: dict, cfg: EncoderConfig, y: torch.Tensor):
     """The bf16 lift conv, then the mixing and heads at R = 1 over the
     R_lift K lifted channels: K1 at R = 1 (mix_heads_r1_fwd, K2 at R = 1
     under autograd). (B*H'*W', D) heads."""
-    w, bc, mix_w, mix_b = mode_b_matrices(params, cfg)
-    rows, _ = conv_rows(w, y, cfg.image_dim // 2)
+    with span("tvae.lift"):
+        w, bc, mix_w, mix_b = mode_b_matrices(params, cfg)
+        rows, _ = conv_rows(w, y, cfg.image_dim // 2)
     wh, bh = head_weights(params)
     return fused_mix_heads_r1(rows, bc, mix_w, mix_b, wh, bh,
                               K=cfg.kernels_num, act_kind=cfg.activation)
@@ -339,6 +344,7 @@ def encoder_heads(params: dict, cfg: EncoderConfig, y: torch.Tensor,
     if kernel_tier(compute_dtype):
         tier = encoder_tier()
         if not encoder_kernel_supported(cfg, tier, needs_grad(params, y)):
+            count_fallback("encoder")
             out = _mode_c_bf16_recipe(params, cfg, y)
         elif tier == "patch":
             out = _mode_c_patch_tier(params, cfg, y)
@@ -404,34 +410,36 @@ def encoder_apply(params: dict, cfg: EncoderConfig, y: torch.Tensor,
     offsets added. Mode B returns attn (B, H', W'), theta_mu, theta_logstd,
     z_mu, z_logstd (B, H', W', zd) and a_sampled, as the JAX package's;
     mode A z_mu and z_logstd (B, z_dim + 3)."""
-    if cfg.mode == "A":
-        _check_groupconv(cfg)
-        return _mode_a(params, cfg, y)
-    heads = encoder_heads(params, cfg, y, compute_dtype)
-    b = y.shape[0]
-    if cfg.mode == "B":
+    with span("tvae.encoder"):
+        if cfg.mode == "A":
+            _check_groupconv(cfg)
+            return _mode_a(params, cfg, y)
+        heads = encoder_heads(params, cfg, y, compute_dtype)
+        b = y.shape[0]
+        if cfg.mode == "B":
+            attn, theta_mu, theta_logstd, z_mu, z_logstd = _split_heads(
+                heads.squeeze(3), cfg.z_dim)
+            out = {"attn": attn, "theta_mu": theta_mu,
+                   "theta_logstd": theta_logstd, "z_mu": z_mu,
+                   "z_logstd": z_logstd}
+            if generator is not None:
+                out["a_sampled"] = gumbel_softmax(
+                    attn.reshape(b, -1), generator).reshape(attn.shape)
+            return out
         attn, theta_mu, theta_logstd, z_mu, z_logstd = _split_heads(
-            heads.squeeze(3), cfg.z_dim)
-        out = {"attn": attn, "theta_mu": theta_mu,
-               "theta_logstd": theta_logstd, "z_mu": z_mu,
-               "z_logstd": z_logstd}
+            heads, cfg.z_dim)
+        p_r, offsets = rotation_constants(cfg, y.device)
+        attn = attn + p_r
+        flat = attn.reshape(b, -1)
+        q = torch.log_softmax(flat, dim=-1).reshape(attn.shape)
+        theta_mu = theta_mu + offsets
+        out = {"attn": attn, "q": q, "p_r": p_r, "offsets": offsets,
+               "theta_mu": theta_mu, "theta_logstd": theta_logstd,
+               "z_mu": z_mu, "z_logstd": z_logstd}
         if generator is not None:
-            out["a_sampled"] = gumbel_softmax(
-                attn.reshape(b, -1), generator).reshape(attn.shape)
+            out["a_sampled"] = gumbel_softmax(flat, generator).reshape(
+                attn.shape)
         return out
-    attn, theta_mu, theta_logstd, z_mu, z_logstd = _split_heads(heads,
-                                                                cfg.z_dim)
-    p_r, offsets = rotation_constants(cfg, y.device)
-    attn = attn + p_r
-    flat = attn.reshape(b, -1)
-    q = torch.log_softmax(flat, dim=-1).reshape(attn.shape)
-    theta_mu = theta_mu + offsets
-    out = {"attn": attn, "q": q, "p_r": p_r, "offsets": offsets,
-           "theta_mu": theta_mu, "theta_logstd": theta_logstd,
-           "z_mu": z_mu, "z_logstd": z_logstd}
-    if generator is not None:
-        out["a_sampled"] = gumbel_softmax(flat, generator).reshape(attn.shape)
-    return out
 
 
 def _param_dict(sub: dict) -> nn.ParameterDict:

@@ -22,7 +22,7 @@ from typing import Optional
 import torch
 import torch.nn as nn
 
-from ..kernels import kernel_tier, needs_grad
+from ..kernels import count_fallback, kernel_tier, needs_grad
 from ..kernels.decoder_mlp import decoder_kernel_supported, fused_decoder_mlp
 from ..kernels.decoder_pose import _act, bf16_round
 from ..ops.fourier import fourier_apply, fourier_init
@@ -60,9 +60,10 @@ def generator_apply(params: dict, cfg: GeneratorConfig, x: torch.Tensor,
     if compute_dtype is not None and not kernel_tier(compute_dtype):
         raise ValueError(f"unsupported compute_dtype {compute_dtype}")
     bf16 = kernel_tier(compute_dtype)
-    if bf16 and z is not None and decoder_kernel_supported(
-            cfg, needs_grad(params, x, z)):
-        return fused_decoder_mlp(x, z, params, cfg)
+    if bf16 and z is not None:
+        if decoder_kernel_supported(cfg, needs_grad(params, x, z)):
+            return fused_decoder_mlp(x, z, params, cfg)
+        count_fallback("decoder")
     # the bf16 recipe's matmul: bf16 operands, float32 accumulation
     mm = ((lambda a, w: bf16_round(a) @ bf16_round(w)) if bf16
           else (lambda a, w: a @ w))

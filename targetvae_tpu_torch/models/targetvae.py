@@ -20,6 +20,7 @@ import torch.nn as nn
 
 from ..ops.coords import attention_grid, image_grid
 from ..utils.config import ModelConfig
+from ..utils.trace import span
 from .encoders import Encoder, encoder_apply, encoder_init
 from .generator import SpatialGenerator, generator_apply, generator_init
 
@@ -86,8 +87,9 @@ class TargetVAE(nn.Module):
 
     def decode(self, params: dict, x_coord: torch.Tensor, z: torch.Tensor,
                compute_dtype=None) -> torch.Tensor:
-        return generator_apply(params["generator"], self.cfg.generator,
-                               x_coord, z, compute_dtype=compute_dtype)
+        with span("tvae.decoder"):
+            return generator_apply(params["generator"], self.cfg.generator,
+                                   x_coord, z, compute_dtype=compute_dtype)
 
     def base_grid(self) -> torch.Tensor:
         return torch.as_tensor(image_grid(self.cfg.encoder.image_dim),

@@ -13,6 +13,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ..utils.trace import span
 from .rotate import rotate_filter_bank
 
 
@@ -22,11 +23,12 @@ def conv2d(x: torch.Tensor, weight: torch.Tensor,
     """Plain 2-D conv, channels last: x (B, H, W, C_in), weight (out, in, k,
     k). Returns (B, H', W', out) float32; with a compute dtype the conv runs
     in it and its output is cast back (as the JAX tier does)."""
-    xc, w = x.permute(0, 3, 1, 2), weight
-    if compute_dtype is not None:
-        xc, w = xc.to(compute_dtype), w.to(compute_dtype)
-    y = F.conv2d(xc, w, padding=padding).float().permute(0, 2, 3, 1)
-    return y if bias is None else y + bias
+    with span("tvae.lift"):
+        xc, w = x.permute(0, 3, 1, 2), weight
+        if compute_dtype is not None:
+            xc, w = xc.to(compute_dtype), w.to(compute_dtype)
+        y = F.conv2d(xc, w, padding=padding).float().permute(0, 2, 3, 1)
+        return y if bias is None else y + bias
 
 
 def lifted_weight(weight: torch.Tensor, R: int) -> torch.Tensor:
@@ -46,13 +48,14 @@ def lifted_conv2d(x: torch.Tensor, weight: torch.Tensor,
     in it and its output is cast back to float32 (as the JAX tier does).
     """
     out = weight.shape[0]
-    w = lifted_weight(weight, R)
-    xc = x.permute(0, 3, 1, 2)
-    if compute_dtype is not None:
-        xc, w = xc.to(compute_dtype), w.to(compute_dtype)
-    y = F.conv2d(xc, w, padding=padding).float()     # (B, R*out, H', W')
-    b_, _, hp, wp = y.shape
-    y = y.permute(0, 2, 3, 1).reshape(b_, hp, wp, R, out)
-    if bias is not None:
-        y = y + bias
-    return y
+    with span("tvae.lift"):
+        w = lifted_weight(weight, R)
+        xc = x.permute(0, 3, 1, 2)
+        if compute_dtype is not None:
+            xc, w = xc.to(compute_dtype), w.to(compute_dtype)
+        y = F.conv2d(xc, w, padding=padding).float()  # (B, R*out, H', W')
+        b_, _, hp, wp = y.shape
+        y = y.permute(0, 2, 3, 1).reshape(b_, hp, wp, R, out)
+        if bias is not None:
+            y = y + bias
+        return y

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from .. import kernels
 from ..data.pipeline import HostDataPipeline
 from ..models.targetvae import TargetVAE
 from ..utils.config import TrainConfig
@@ -145,6 +146,7 @@ def fit(model: TargetVAE, train_cfg: TrainConfig, logger: RunLogger,
             profiler.start()
 
         t0 = time.time()
+        before = kernels.launch_counts()
 
         # per-chunk streaming-mean progress, the reference's \r stderr line
         # (train_mnist.py:340-343)
@@ -171,6 +173,12 @@ def fit(model: TargetVAE, train_cfg: TrainConfig, logger: RunLogger,
             elbo_t, gen_loss_t, kl_t = trainer.eval_epoch(
                 state, y_test, ctf_test, seed=epoch)
         logger.epoch(epoch + 1, "test", elbo_t, gen_loss_t, kl_t)
+        fallbacks = {k.split(".", 1)[1]: n - before[k]
+                     for k, n in kernels.launch_counts().items()
+                     if k.startswith("fallback.") and n > before[k]}
+        if fallbacks:
+            logger.line("# kernel fallbacks: " + ", ".join(
+                f"{site} {n}" for site, n in fallbacks.items()))
 
         if profiler is not None and epoch == start_epoch + 1:
             profiler.stop()

@@ -53,6 +53,7 @@ from ..models.targetvae import TargetVAE, resolve_device
 from ..parallel.mesh import make_mesh
 from ..parallel.pjit import shard_state
 from ..utils.config import ModelConfig, TrainConfig
+from ..utils.trace import span
 from .state import TrainState, create_train_state
 
 # a rank's noise seed: the shared generator's draw (< 2**31) folded with the
@@ -244,19 +245,23 @@ class Trainer:
         """One Adam step on this rank's rows y (weights w, CTF kernels
         ctf). Under tensor parallelism Adam steps this rank's shards, which
         the ranks of its data row then gather into the whole parameters."""
-        state.optimizer.zero_grad(set_to_none=True)
-        state.model.zero_grad(set_to_none=True)
-        objective, metrics = self._objective(
-            state.model.params(), self.on_device(y), state.generator,
-            self.on_device(w), self.on_device(ctf))
-        objective.backward()
-        if self._mesh is not None:
-            self._mesh.all_reduce_grads(state.model.parameters())
-        if state.shards is not None:
-            state.shards.take_grads()
-        state.optimizer.step()
-        if state.shards is not None:
-            state.shards.gather_params()
+        with span("tvae.step"):
+            state.optimizer.zero_grad(set_to_none=True)
+            state.model.zero_grad(set_to_none=True)
+            with span("tvae.forward"):
+                objective, metrics = self._objective(
+                    state.model.params(), self.on_device(y), state.generator,
+                    self.on_device(w), self.on_device(ctf))
+            with span("tvae.backward"):
+                objective.backward()
+                if self._mesh is not None:
+                    self._mesh.all_reduce_grads(state.model.parameters())
+            with span("tvae.optimizer"):
+                if state.shards is not None:
+                    state.shards.take_grads()
+                state.optimizer.step()
+                if state.shards is not None:
+                    state.shards.gather_params()
         state.step += 1
         return state, metrics
 
@@ -317,43 +322,45 @@ class Trainer:
         with the reference's streaming-mean accumulators
         (train_mnist.py:326-345) every `progress_chunk` batches. A chunk's
         metrics are read once the next chunk's steps are queued."""
-        data, ctf = self.on_device(data), self.on_device(ctf)
-        n = data.shape[0]
-        b = self._epoch_batch(n)
-        g = state.generator
-        perm = (torch.arange(n) if g is None
-                else torch.randperm(n, generator=g, device=g.device)
-                ).to(data.device)
-        n_full = n // b
-        mine = self.batch_rows(b) if n_full else None
-        chunk = n_full if progress is None else min(self.progress_chunk,
-                                                    n_full)
-        metrics, weights = [], []
-        pending, block = None, []
-        for i in range(n_full):
-            idx = perm[i * b:(i + 1) * b][mine]
-            state, m = self._step(state, data.index_select(0, idx),
-                                  ctf=_rows(ctf, idx))
-            block.append(m)
-            if len(block) == chunk or i == n_full - 1:
-                if pending is not None:    # waits for the PREVIOUS chunk
-                    _collect(pending, [float(b)] * len(pending), metrics,
-                             weights)
-                    if progress is not None:
-                        progress(int(sum(weights)),
-                                 *_streaming_means(metrics, weights))
-                pending, block = torch.stack(block), []
-        if pending is not None:
-            _collect(pending, [float(b)] * len(pending), metrics, weights)
+        with span("tvae.epoch"):
+            data, ctf = self.on_device(data), self.on_device(ctf)
+            n = data.shape[0]
+            b = self._epoch_batch(n)
+            g = state.generator
+            perm = (torch.arange(n) if g is None
+                    else torch.randperm(n, generator=g, device=g.device)
+                    ).to(data.device)
+            n_full = n // b
+            mine = self.batch_rows(b) if n_full else None
+            chunk = n_full if progress is None else min(self.progress_chunk,
+                                                        n_full)
+            metrics, weights = [], []
+            pending, block = None, []
+            for i in range(n_full):
+                idx = perm[i * b:(i + 1) * b][mine]
+                state, m = self._step(state, data.index_select(0, idx),
+                                      ctf=_rows(ctf, idx))
+                block.append(m)
+                if len(block) == chunk or i == n_full - 1:
+                    if pending is not None:    # waits for the PREVIOUS chunk
+                        _collect(pending, [float(b)] * len(pending),
+                                 metrics, weights)
+                        if progress is not None:
+                            progress(int(sum(weights)),
+                                     *_streaming_means(metrics, weights))
+                    pending, block = torch.stack(block), []
+            if pending is not None:
+                _collect(pending, [float(b)] * len(pending), metrics,
+                         weights)
 
-        rem = n - n_full * b
-        if rem:
-            tail, w = self._pad_tail(perm[n_full * b:], rem)
-            tail, w = self._mine(tail, w)
-            state, m = self._step(state, data.index_select(0, tail), w,
-                                  _rows(ctf, tail))
-            _collect(m[None], [float(rem)], metrics, weights)
-        return state, _weighted_mean(np.concatenate(metrics), weights)
+            rem = n - n_full * b
+            if rem:
+                tail, w = self._pad_tail(perm[n_full * b:], rem)
+                tail, w = self._mine(tail, w)
+                state, m = self._step(state, data.index_select(0, tail), w,
+                                      _rows(ctf, tail))
+                _collect(m[None], [float(rem)], metrics, weights)
+            return state, _weighted_mean(np.concatenate(metrics), weights)
 
     def _epoch_batch(self, n: int) -> int:
         """An epoch's batch size over n images: B, or n where n < B (the
@@ -426,27 +433,29 @@ class Trainer:
         as train_epoch reads them (the JAX package calls it after every
         batch; reading then would make the host wait for each step: a
         deviation of cadence only)."""
-        metrics, weights = [], []
-        pending, block = None, ([], [])
-        for item in batches:
-            y, ctf, w, n_real = _unpack_stream_batch(item)
-            if n_real is None:
-                n_real = self._stream_rows(y)
-            state, m = self._step(state, y, w, ctf)
-            block[0].append(m)
-            block[1].append(float(n_real))
-            if len(block[0]) == self.progress_chunk:
-                if pending is not None:    # waits for the PREVIOUS chunk
-                    _collect(*pending, metrics, weights)
-                    if progress is not None:
-                        progress(int(sum(weights)),
-                                 *_streaming_means(metrics, weights))
-                pending, block = (torch.stack(block[0]), block[1]), ([], [])
-        if pending is not None:
-            _collect(*pending, metrics, weights)
-        if block[0]:
-            _collect(torch.stack(block[0]), block[1], metrics, weights)
-        return state, _weighted_mean(np.concatenate(metrics), weights)
+        with span("tvae.epoch"):
+            metrics, weights = [], []
+            pending, block = None, ([], [])
+            for item in batches:
+                y, ctf, w, n_real = _unpack_stream_batch(item)
+                if n_real is None:
+                    n_real = self._stream_rows(y)
+                state, m = self._step(state, y, w, ctf)
+                block[0].append(m)
+                block[1].append(float(n_real))
+                if len(block[0]) == self.progress_chunk:
+                    if pending is not None:    # waits for the PREVIOUS chunk
+                        _collect(*pending, metrics, weights)
+                        if progress is not None:
+                            progress(int(sum(weights)),
+                                     *_streaming_means(metrics, weights))
+                    pending = (torch.stack(block[0]), block[1])
+                    block = ([], [])
+            if pending is not None:
+                _collect(*pending, metrics, weights)
+            if block[0]:
+                _collect(torch.stack(block[0]), block[1], metrics, weights)
+            return state, _weighted_mean(np.concatenate(metrics), weights)
 
     def eval_epoch_stream(self, state: TrainState, batches,
                           seed: Optional[int] = 0,
@@ -487,7 +496,8 @@ def _collect(pending: torch.Tensor, step_weights: list, metrics: list,
              weights: list) -> None:
     """Read a (k, 3) block of step metrics to the host, each step weighing
     its count of real images."""
-    metrics.append(pending.cpu().numpy())
+    with span("tvae.collect"):
+        metrics.append(pending.cpu().numpy())
     weights += step_weights
 
 
