@@ -1,0 +1,8 @@
+"""K13's share of its roofline in an embed (the conv tier's lift forward,
+benchmark/lift.py)."""
+
+from benchmark import lift
+
+
+def read(trace):
+    return lift.roofline(trace, "embed")

@@ -16,7 +16,10 @@ from a seed):
   4. evaluates the held-out ELBO over a few batches in bf16, and against the
      float32 tier with deterministic noise;
   5. times each forward kernel against its plain version (device_ms: CUDA
-     graph replays, inputs cold in L2), embed and eval img/s;
+     graph replays, inputs cold in L2), embed and eval img/s; K13 (the
+     conv tier's lift) at the flagship and at mnist-b-p8's image-sized
+     lift held against the float32 sums of its plain version and timed
+     beside its bound and cuDNN's bf16 conv (library_ms);
   6. holds each backward kernel (K2, K4, K8, K10, K12) and K7's
      save-residuals mode against its plain version at flagship shapes (K12
      also at the galaxy encoder's C = 3 shape), the sampled K4 against its
@@ -70,7 +73,8 @@ from a seed):
      float32), one deterministic step's gradients against float32, 20
      sampled train steps (each of the mode's kernels launched once a
      step: mode A K7, K8; mode B K1-K4 at R = 1, K7, K8), and train, eval
-     and embed img/s (mode B also the cuDNN lift's share);
+     and embed img/s (mode B also the lift's share: K13 and its cuDNN
+     weight gradient);
  14. clustering through the CLIs: tools/make_synthetic_shapes.py writes a
      labelled MNIST-U directory (1,050 train, 250 test images), train_mnist
      trains 2 epochs in mode C (conv tier) and in mode B (groupconv 0),
@@ -86,8 +90,8 @@ from a seed):
      and its CTF-filtered decoded mean against float32, one deterministic
      step's gradients (the CTF tables in physical units); 20 sampled
      train steps on each tier (finite, rising ELBO, each kernel once a
-     step); train, eval and embed img/s on each tier and the cuDNN lift's
-     share of the conv tier's step; then train_particles (2 epochs of
+     step); train, eval and embed img/s on each tier and the lift's (K13
+     and its cuDNN weight gradient) share of the conv tier's step; then train_particles (2 epochs of
      tools/make_synthetic_particles_torch.py's stand-in, 1,050 / 250 by
      --train-portion, --mask-radius 45 --normalize, CTF) and
      clustering_particles on its inference.sav: finite TSV lines, the _ctf
@@ -181,10 +185,11 @@ from a seed):
      tier), mnist-b-p8 and particles-ctf under FlopCounterMode, whose
      count of cuDNN's and cuBLAS's products plus the kernels' own
      (flops.kernel_products over the step's launches, the recomputed
-     products left out) equals step_flops within TOL_FLOPS.
+     products left out, and K13's, flops.lift_conv_products) equals
+     step_flops within TOL_FLOPS.
 
 Phases 2-8 cover both mode-C encoder tiers: the default "conv" tier (the
-cuDNN lift conv, K1/K2) and the fused patch encoder (K11/K12) that
+lift on K13, its weight gradient on cuDNN, K1/K2) and the fused patch encoder (K11/K12) that
 TARGETVAE_ENCODER_TIER=patch selects (phases 3, 4 and 7 drive each tier's
 embed, eval and train path; phases 2 and 6 also check K11 and K12 at the
 galaxy encoder's C = 3 shape). Each of phases 3, 4, 6 (the z_dim routes),
@@ -402,6 +407,18 @@ def check(ok: bool, msg: str) -> None:
     print(("PASS " if ok else "FAIL ") + msg, flush=True)
     if not ok:
         raise CheckFailed(msg)
+
+
+def with_lift(expect):
+    """A launch-count expectation with K13 beside the conv tier's encoder
+    forward: the lift (kernels/lift_conv.py) runs once before each launch
+    of K1, or of K1 at R = 1 in mode B. A dict of counts gains K13's; a
+    tuple or set of the kernels that launch gains K13 where K1 is in it."""
+    if isinstance(expect, dict):
+        return {**expect, "lift_conv_fwd": expect.get("mix_heads_fwd", 0)
+                + expect.get("mix_heads_r1_fwd", 0)}
+    k1 = {"mix_heads_fwd", "mix_heads_r1_fwd"} & set(expect)
+    return tuple(expect) + (("lift_conv_fwd",) if k1 else ())
 
 
 def flagship_config():
@@ -1126,6 +1143,82 @@ def check_k9_features(torch, k9):
           f"<= one bf16 step of 1")
 
 
+def cudnn_lift_rows(w, y, padding: int):
+    """The conv tier's lift as the port ran it before K13, K13's yardstick
+    (library_ms): one bf16 F.conv2d (cuDNN) with channels_last operands,
+    its output as (B H' W', N) rows."""
+    import torch
+    import torch.nn.functional as F
+    x = y.permute(0, 3, 1, 2).to(torch.bfloat16)
+    pre1 = F.conv2d(x.contiguous(memory_format=torch.channels_last),
+                    w.to(torch.bfloat16).contiguous(
+                        memory_format=torch.channels_last), padding=padding)
+    b, n, hp, wp = pre1.shape
+    return pre1.permute(0, 2, 3, 1).reshape(b * hp * wp, n).contiguous()
+
+
+def lift_conv_rows(torch, dev) -> dict:
+    """Phase 5's K13 rows: the conv tier's lift forward at the flagship (B
+    = 100, k = 28, padding 8) and at mnist-b-p8's image-sized lift (k =
+    50, padding 25, R_lift K = 1,024) on synthetic images, held against
+    the float32 sums of its plain version's conv (TF32 off): each row
+    within one bf16 rounding of its sum (2^-8 of it) and the float32 error
+    of the other sum order (1e-4 of the largest); then timed (device_ms,
+    plain, kernel, kernel, plain) beside its bound and cuDNN's bf16 conv
+    (library_ms, the call the port made before K13)."""
+    import torch.nn.functional as F
+    from targetvae_tpu_torch import TargetVAE
+    from targetvae_tpu_torch.kernels.lift_conv import (lift_conv_fwd,
+                                                       lift_conv_plain)
+    from targetvae_tpu_torch.models.encoders import mode_b_matrices
+    from targetvae_tpu_torch.ops.groupconv import lifted_weight
+    from targetvae_tpu_torch.utils.flops import lift_conv_bound
+    rows = {}
+    for label, cfg in (("flagship", flagship_config()),
+                       ("mnist-b-p8", mode_config("mnist-b-p8"))):
+        e = cfg.encoder
+        params = TargetVAE(cfg, dev).init(torch.Generator().manual_seed(40))
+        pe = params["encoder"]
+        if e.mode == "C":
+            w, pad = lifted_weight(pe["conv1"]["w"], e.groupconv), e.padding
+        else:
+            w, pad = mode_b_matrices(pe, e)[0], e.image_dim // 2
+        w = w.detach().to(torch.bfloat16)
+        y = torch.from_numpy(synthetic_images(B, e.image_dim, 41)).to(dev)
+        got = lift_conv_fwd(y, w, pad)
+        x = y.to(torch.bfloat16).float().permute(0, 3, 1, 2)
+        sums = F.conv2d(x, w.float(), padding=pad)
+        sums = sums.permute(0, 2, 3, 1).reshape(-1, sums.shape[1])
+        err = (got.float() - sums).abs()
+        tol = 2.0 ** -8 * sums.abs() + 1e-4 * float(sums.abs().max())
+        over = int((err > tol).sum())
+        torch.cuda.synchronize()
+        check(over == 0 and bool(torch.isfinite(got.float()).all()),
+              f"phase 5: K13 lift_conv_fwd {label} y {tuple(y.shape)}, w "
+              f"{tuple(w.shape)}, padding {pad} -> {tuple(got.shape)}: "
+              f"max_abs_err {float(err.max()):.3e} against the float32 sums, "
+              f"{over} elements past one bf16 rounding + 1e-4 of the "
+              f"largest ({float(sums.abs().max()):.3f})")
+        del x, sums, err, tol
+        key = f"lift_conv_fwd[{label}]"
+        rows[key] = {"max_abs_err": float((got.float() - lift_conv_plain(
+            y, w, pad).float()).abs().max())}
+        kfn = lambda a, b: lift_conv_fwd(a, b, pad)
+        pfn = lambda a, b: lift_conv_plain(a, b, pad)
+        time_kernel(rows, key, "5", kfn, (y, w), pfn, (y, w))
+        lib = min(device_ms(cudnn_lift_rows, (w, y, pad)),
+                  device_ms(cudnn_lift_rows, (w, y, pad)))
+        bound, by = lift_conv_bound(cfg, B)
+        rows[key].update(library_ms=lib, bound_ms=bound, bound_by=by)
+        print(f"phase 5: {key}: cuDNN's bf16 conv (library_ms) {lib:.4f} "
+              f"ms; bound {bound:.4f} ms ({by}): K13 at "
+              f"{100 * bound / rows[key]['ms']:.1f} % of it ({card()})",
+              flush=True)
+        del params, got, y, w
+        torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(here, "targetvae_tpu_torch")):
@@ -1161,19 +1254,22 @@ SOURCES = {
     "posterior_shard_fwd": ("posterior.cu", "posterior.py:466"),
     "posterior_shard_bwd": ("posterior.cu", "posterior.py:477"),
     "mix_heads_r1_fwd": ("mix_heads_r1.cu", "mix_heads.py:232"),
-    "mix_heads_r1_bwd": ("mix_heads_r1.cu", "mix_heads.py:269")}
+    "mix_heads_r1_bwd": ("mix_heads_r1.cu", "mix_heads.py:269"),
+    "lift_conv_fwd": ("lift_conv.cu", None)}
 
 
 def kernel_entry(key: str, row: dict) -> dict:
     """A row of the kernels' JSON line: the kernel's name (key, with its
-    config in brackets for the rows of phases 13 and 15), route, source,
-    the TPU kernel it replaces, its numbers, and library_ms (no single
-    PyTorch call computes any of these kernels)."""
+    config in brackets for the rows of phases 5, 13 and 15), route,
+    source, the TPU kernel it replaces (K13 none: the JAX package leaves
+    the lift to XLA), its numbers, and library_ms (no single PyTorch call
+    computes any of these kernels but K13: cuDNN's bf16 conv, which its
+    row times)."""
     src, replaced = SOURCES[key.split("[")[0]]
     return {"name": key, "route": "cuda",
             "source": "targetvae_tpu_torch/csrc/" + src,
-            "replaces": "targetvae_tpu/kernels/" + replaced,
-            **row, "library_ms": None}
+            "replaces": replaced and "targetvae_tpu/kernels/" + replaced,
+            "library_ms": None, **row}
 
 
 def run(torch, dev) -> int:
@@ -1193,6 +1289,7 @@ def run(torch, dev) -> int:
     from targetvae_tpu_torch.kernels.lifted_encoder import (
         build_patches, lifted_encoder_fwd, lifted_encoder_plain)
     from targetvae_tpu_torch.models.encoders import attn_dim_for, lift_rows
+    from targetvae_tpu_torch.ops.groupconv import lifted_weight
     from targetvae_tpu_torch.utils.flops import kernel_bounds
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1324,7 +1421,8 @@ def run(torch, dev) -> int:
                 params, x_coord, yb, gen, compute_dtype=bf16)])
         counts = kernels.launch_counts()
         eval_counts = dict(counts)
-        fwd_names = ("mix_heads_fwd", "posterior_fwd", "pose_decoder_fwd")
+        fwd_names = with_lift(("mix_heads_fwd", "posterior_fwd",
+                               "pose_decoder_fwd"))
         check(bool(np.isfinite(elbos).all())
               and all(counts[k] > 0 for k in fwd_names)
               and not any(counts[k] for k in counts if k not in fwd_names),
@@ -1369,22 +1467,29 @@ def run(torch, dev) -> int:
               f"{results['posterior_fwd']['det_ms']:.4f} ms (device time)",
               flush=True)
         # the lift's yardsticks: the patch build, one cuBLAS bf16 GEMM P Wc
-        # (what K11 computes in its body, without the epilogue), and the
-        # conv tier's cuDNN lift conv with its copy into K1's rows
+        # (what K11 computes in its body, without the epilogue), the conv
+        # tier's lift (K13) and the cuDNN bf16 conv it replaced, with its
+        # copy into K1's rows
         ecfg = cfg.encoder
         hp = attn_dim_for(ecfg)
         wc16 = k11[1].to(bf16)
         lift = {"patch_build_ms": cuda_ms(lambda: build_patches(
                     xp, ecfg.kernels_size, hp, hp)),
                 "lift_gemm_cublas_ms": cuda_ms(lambda: k11[0] @ wc16),
-                "lift_conv_cudnn_ms": cuda_ms(lambda: lift_rows(
-                    params["encoder"], ecfg, y1))}
+                "lift_conv_k13_ms": cuda_ms(lambda: lift_rows(
+                    params["encoder"], ecfg, y1)),
+                "lift_conv_cudnn_ms": cuda_ms(lambda: cudnn_lift_rows(
+                    lifted_weight(params["encoder"]["conv1"]["w"],
+                                  ecfg.groupconv), y1, ecfg.padding))}
         results["lifted_encoder_fwd"].update(lift)
         print(f"phase 5: lift yardsticks: patch build "
               f"{lift['patch_build_ms']:.4f} ms, cuBLAS P @ Wc "
               f"{tuple(k11[0].shape)} x {tuple(wc16.shape)} bf16 "
-              f"{lift['lift_gemm_cublas_ms']:.4f} ms, cuDNN lift conv + rows "
-              f"copy {lift['lift_conv_cudnn_ms']:.4f} ms", flush=True)
+              f"{lift['lift_gemm_cublas_ms']:.4f} ms, the lift (K13) "
+              f"{lift['lift_conv_k13_ms']:.4f} ms, cuDNN's lift conv + rows "
+              f"copy {lift['lift_conv_cudnn_ms']:.4f} ms (host included)",
+              flush=True)
+        lift_rows_k13 = lift_conv_rows(torch, dev)
 
         yb = torch.from_numpy(images[:B]).to(dev)
         for tier in ("conv", "patch"):
@@ -1487,11 +1592,16 @@ def run(torch, dev) -> int:
                                  for path, counts in by_path.items()},
             **results[name], "bound_ms": bounds[name][0],
             "bound_by": bounds[name][1]})
-        for name in SOURCES if not name.startswith("mix_heads_r1")]
+        for name in SOURCES if not name.startswith(("mix_heads_r1",
+                                                     "lift_conv"))]
+    for row in lift_rows_k13.values():
+        row.update(launches=by_path["train"]["lift_conv_fwd"],
+                   launches_by_path={path: counts["lift_conv_fwd"]
+                                     for path, counts in by_path.items()})
     # the R = 1 forms (phase 13) on their config's train steps, and the
     # particles path's kernels at the EMPIAR shape (phase 15)
     entries += [kernel_entry(key, row)
-                for key, row in (mode_rows | vertical_rows
+                for key, row in (lift_rows_k13 | mode_rows | vertical_rows
                                  | mesh_rows).items()]
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -1694,11 +1804,11 @@ def train_path(torch, kernels, cfg, dev):
     with encoder_tier("conv"):
         state, counts = train_steps(torch, kernels, trainer, state, data,
                                     TRAIN_STEPS, "conv")
-    used = ("mix_heads_fwd", "mix_heads_bwd", "posterior_fwd",
-            "posterior_bwd", "pose_decoder_fwd", "pose_decoder_bwd")
+    used = with_lift(("mix_heads_fwd", "mix_heads_bwd", "posterior_fwd",
+                      "posterior_bwd", "pose_decoder_fwd", "pose_decoder_bwd"))
     check(all(counts[k] > 0 for k in used)
           and not any(counts[k] for k in counts if k not in used),
-          f"phase 7: conv tier launches {counts} (K1-K4, K7, K8 only)")
+          f"phase 7: conv tier launches {counts} (K13, K1-K4, K7, K8 only)")
     return trainer, state, data, counts, g32
 
 
@@ -2073,7 +2183,8 @@ def wide_latent_routes(torch, kernels, cfg, dev, data) -> None:
     16 heads (the XLA bf16 recipe) and, at 10, past K3/K4's z <= 8 (the
     posterior's model code): the deterministic ELBO of B images within
     TOL_ELBO of the float32 tier's, finite gradients, and the launches of
-    the route (K7/K8 always; K3/K4 at z_dim 8 only; never K1/K2)."""
+    the route (K13 and K7/K8 always; K3/K4 at z_dim 8 only; never K1/K2)
+    with the fallbacks it counts (the encoder's; at 10 the posterior's)."""
     import dataclasses
     from targetvae_tpu_torch import TargetVAE
     from targetvae_tpu_torch.losses.elbo import compute_elbo
@@ -2095,8 +2206,10 @@ def wide_latent_routes(torch, kernels, cfg, dev, data) -> None:
         rel = abs(float(e16) - float(e32)) / abs(float(e32))
         finite = all(bool(torch.isfinite(p.grad).all())
                      for p in model.parameters())
-        used = {"pose_decoder_fwd", "pose_decoder_bwd"} | (
-            {"posterior_fwd", "posterior_bwd"} if zd <= 8 else set())
+        used = {"lift_conv_fwd", "pose_decoder_fwd", "pose_decoder_bwd",
+                "fallback.encoder"} | (
+            {"posterior_fwd", "posterior_bwd"} if zd <= 8
+            else {"fallback.posterior"})
         check(rel <= TOL_ELBO and finite
               and all(counts[k] > 0 for k in used)
               and not any(counts[k] for k in counts if k not in used),
@@ -2510,8 +2623,9 @@ def sp_train_path(torch, cfg, dev, data) -> dict:
         m = res["metrics"]
         first, last = float(m[:5, 0].mean()), float(m[-5:, 0].mean())
         c = res["counts"]
-        used = ("posterior_shard_fwd", "posterior_shard_bwd", "mix_heads_fwd",
-                "mix_heads_bwd", "pose_decoder_fwd", "pose_decoder_bwd")
+        used = with_lift(("posterior_shard_fwd", "posterior_shard_bwd",
+                          "mix_heads_fwd", "mix_heads_bwd", "pose_decoder_fwd",
+                          "pose_decoder_bwd"))
         check(bool(np.isfinite(m).all()) and bool(np.isfinite(res["det"]).all())
               and last > first
               and c["posterior_shard_fwd"] == SP_STEPS
@@ -2707,8 +2821,8 @@ def cli_training_path(torch, kernels, cfg, dev, step_rates,
             rows = tsv_rows(run)
             fwd = used[tier][:1] + ("posterior_fwd", "pose_decoder_fwd")
             bwd = used[tier][1:] + ("posterior_bwd", "pose_decoder_bwd")
-            expect = {k: (steps + evals if k in fwd else steps if k in bwd
-                          else 0) for k in counts[tier]}
+            expect = with_lift({k: (steps + evals if k in fwd else steps
+                                    if k in bwd else 0) for k in counts[tier]})
             files = ["inference.sav", "generator.sav", "training_state.sav",
                      "inference_epoch2.sav", "generator_epoch2.sav"]
             check(sorted(rows) == sorted((e, s) for e in range(1, 4)
@@ -2962,9 +3076,9 @@ def mode_paths(torch, kernels, dev) -> dict:
             check(z_c.shape == (N_EMBED, 4) and rot.shape == (N_EMBED, 1)
                   and tr.shape == (N_EMBED, 2)
                   and all(np.isfinite(a).all() for a in (z_c, rot, tr))
-                  and emb == {k: (N_EMBED // B if mode_b
-                                  and k == "mix_heads_r1_fwd" else 0)
-                              for k in emb},
+                  and emb == with_lift({k: (N_EMBED // B if mode_b
+                                            and k == "mix_heads_r1_fwd" else 0)
+                                        for k in emb}),
                   f"phase 13: {name}: embed_dataset bf16 over {N_EMBED} "
                   f"images: shapes {z_c.shape} {rot.shape} {tr.shape}, "
                   f"finite, launches {emb} (mode B: K1 at R = 1 once a "
@@ -2979,7 +3093,8 @@ def mode_paths(torch, kernels, dev) -> dict:
             fwd = (("mix_heads_r1_fwd", "posterior_fwd") if mode_b
                    else ()) + ("pose_decoder_fwd",)
             check(bool(np.isfinite(elbos).all())
-                  and ev == {k: EVAL_BATCHES if k in fwd else 0 for k in ev},
+                  and ev == with_lift({k: EVAL_BATCHES if k in fwd else 0
+                                       for k in ev}),
                   f"phase 13: {name}: held-out ELBO bf16 over {EVAL_BATCHES} "
                   f"batches {np.round(elbos, 3).tolist()}, launches {ev}")
             e16 = float(model.elbo(params, x_coord, y, None, bf16)[0])
@@ -3018,8 +3133,8 @@ def mode_paths(torch, kernels, dev) -> dict:
             "pose_decoder_fwd", "pose_decoder_bwd")
         first, last = float(m[:5, 0].mean()), float(m[-5:, 0].mean())
         check(bool(np.isfinite(m).all()) and last > first
-              and counts == {k: MODE_STEPS if k in used else 0
-                             for k in counts},
+              and counts == with_lift({k: MODE_STEPS if k in used else 0
+                                       for k in counts}),
               f"phase 13: {name}: {MODE_STEPS} sampled bf16 train steps at "
               f"B={B}: ELBO finite, mean of the first 5 {first:.3f} -> last 5 "
               f"{last:.3f}; launches {counts} (each of the mode's kernels "
@@ -3058,7 +3173,7 @@ def mode_paths(torch, kernels, dev) -> dict:
                 lift_ms = cuda_ms(lambda: conv_rows(w0, yb,
                                                     e.image_dim // 2))
             lift_train_ms = cuda_ms(lift_train)
-            line += (f"; the cuDNN lift conv {lift_ms:.3f} ms forward, "
+            line += (f"; the lift (K13) {lift_ms:.3f} ms forward, "
                      f"{lift_train_ms:.3f} ms with its weight gradient "
                      f"({100 * lift_train_ms / step_ms:.1f} % of the step)")
             del rows_g, w
@@ -3258,7 +3373,7 @@ def empiar_kernel_checks(torch, cfg, params, dev) -> dict:
         torch.cuda.empty_cache()     # the checks' tensors, before the graphs
         time_kernel(rows, key(name, label), "15", kfn, kargs, pfn, pargs)
 
-    # K1 and K2: the conv tier's mixing on the cuDNN lift's rows
+    # K1 and K2: the conv tier's mixing on the lift's rows
     o_k = fused_lift_act_mix_heads(*k1, R=R, K=K)
     o_p = lift_act_mix_heads_plain(*k1, R=R, K=K)
     torch.cuda.synchronize()
@@ -3432,8 +3547,9 @@ def empiar_path(torch, kernels, dev) -> tuple:
                                    "pose_decoder_fwd", "pose_decoder_bwd")
             first, last = float(m[:5, 0].mean()), float(m[-5:, 0].mean())
             check(bool(np.isfinite(m).all()) and last > first
-                  and counts[tier] == {k: EMPIAR_STEPS if k in expect else 0
-                                       for k in counts[tier]},
+                  and counts[tier] == with_lift(
+                      {k: EMPIAR_STEPS if k in expect else 0
+                       for k in counts[tier]}),
                   f"phase 15: {tier} tier: {EMPIAR_STEPS} sampled bf16 train "
                   f"steps at B={B} with CTF kernels and the mask: ELBO "
                   f"finite, mean of the first 5 {first:.3f} -> last 5 "
@@ -3472,7 +3588,7 @@ def empiar_path(torch, kernels, dev) -> tuple:
                 lift_rows(pe, e, yb)[0].backward(rows_g)
             lift_train_ms = cuda_ms(lift_train, reps=EMPIAR_REPS)
             model.zero_grad(set_to_none=True)
-            line += (f"; the cuDNN lift conv (64 x 64 kernels, 1,024 "
+            line += (f"; the lift (K13; 64 x 64 kernels, 1,024 "
                      f"outputs) {lift_ms:.3f} ms forward, {lift_train_ms:.3f} "
                      f"ms with its weight gradient "
                      f"({100 * lift_train_ms / step_ms[tier]:.1f} % of the "
@@ -3554,8 +3670,8 @@ def particles_cli(torch, kernels, dev, rows: dict) -> dict:
             run = os.path.join(logs, os.listdir(logs)[0])
             runs[label] = (run, counts)
             tsv = tsv_rows(run)
-            expect = {k: (steps + evals if k in fwd else steps if k in bwd
-                          else 0) for k in counts}
+            expect = with_lift({k: (steps + evals if k in fwd else steps
+                                    if k in bwd else 0) for k in counts})
             rates = [int(r[1]) for r in re.finditer(
                 r"# epoch \d+: [\d.]+s, (\d+) images/sec",
                 "".join(tee.parts))]
@@ -3673,8 +3789,8 @@ def vertical_clis(torch, kernels, dev) -> dict:
                 counts = kernels.launch_counts()
             run = os.path.join(logs, os.listdir(logs)[0])
             tsv = tsv_rows(run)
-            expect = {k: (steps + evals if k in fwd else steps if k in bwd
-                          else 0) for k in counts}
+            expect = with_lift({k: (steps + evals if k in fwd else steps
+                                    if k in bwd else 0) for k in counts})
             _, cfg, _ = load_checkpoint(os.path.join(run, "inference.sav"))
             g = cfg.generator
             check(sorted(tsv) == sorted((ep, sp) for ep in range(
@@ -4012,7 +4128,8 @@ def host_feed_path(torch, kernels, dev, stand: dict) -> dict:
         cc = kernels.launch_counts()
         used_c = ("mix_heads_fwd", "mix_heads_bwd", "posterior_fwd",
                   "posterior_bwd", "pose_decoder_fwd", "pose_decoder_bwd")
-        check(cc == {k: STREAM_CONV_BATCHES if k in used_c else 0 for k in cc}
+        check(cc == with_lift({k: STREAM_CONV_BATCHES if k in used_c else 0
+                               for k in cc})
               and bool(np.isfinite(mc).all()),
               f"phase 17: conv tier: a {STREAM_CONV_BATCHES}-batch streamed "
               f"epoch, means {np.round(mc, 4).tolist()}; launches {cc} (K1, "
@@ -4855,7 +4972,8 @@ def mesh_paths(torch, kernels, dev) -> tuple:
                            f"deterministic step at the flagship", phase="19")
             kern = used[tier] + ("posterior_fwd", "posterior_bwd",
                                  "pose_decoder_fwd", "pose_decoder_bwd")
-            expect = {k: TP_STEPS if k in kern else 0 for k in res["counts"]}
+            expect = with_lift({k: TP_STEPS if k in kern else 0
+                                for k in res["counts"]})
             check(res["counts"] == expect,
                   f"phase 19: {tier} tier: rank {i}: {TP_STEPS} sampled "
                   f"steps launch {res['counts']} (each kernel of the tier "
@@ -4946,7 +5064,8 @@ def mesh_paths(torch, kernels, dev) -> tuple:
                              ("mnist-b-p8", MODE_B_SP_STEPS, sp_kern)):
         run = [r[key] for r in pair]
         m = run[0]["metrics"][:, 0]
-        expect = {k: steps if k in kern else 0 for k in run[0]["counts"]}
+        expect = with_lift({k: steps if k in kern else 0
+                            for k in run[0]["counts"]})
         check(all(x["counts"] == expect for x in run)
               and len({x["digest"] for x in run}) == 1
               and bool(np.isfinite(m).all()) and m[-3:].mean() > m[:3].mean(),
@@ -5073,7 +5192,8 @@ def sav_round_trips(torch, kernels, dev, root: str) -> dict:
                 out = embed_dataset(imported, iparams, images, B, "bfloat16")
                 torch.cuda.synchronize()
                 counts = kernels.launch_counts()
-            expect = {n: (batches if n == kernel else 0) for n in counts}
+            expect = with_lift({n: (batches if n == kernel else 0)
+                                for n in counts})
             check(all(np.array_equal(a, r) for a, r in zip(out, ref)),
                   f"phase 20: {label}, {tier} tier: bf16 embed_dataset of "
                   f"{EMBED_STACK_N} images through the imported .sav bitwise "
@@ -5171,7 +5291,8 @@ def embed_stack_rates(torch, kernels, dev, root: str, flagship_sav: str,
                 torch.cuda.synchronize()
                 ref_s = time.perf_counter() - t
             files = [np.load(f"{out}_{p}.npy") for p in ("z", "rot", "trans")]
-            expect = {k: (batches if k == kernel[tier] else 0) for k in counts}
+            expect = with_lift({k: (batches if k == kernel[tier] else 0)
+                                for k in counts})
             label = (f"phase 20: embed_stack {shape} ({n} x "
                      f"{ref_images.shape[1]} x {ref_images.shape[2]}), "
                      f"{tier} tier, bf16")
@@ -5352,7 +5473,7 @@ def step_kernels(cfg, tier: str) -> set:
     enc = ("mix_heads_r1" if e.mode == "B"
            else "lifted_encoder" if tier == "patch" else "mix_heads")
     return out | {"posterior_fwd", "posterior_bwd", enc + "_fwd",
-                  enc + "_bwd"}
+                  enc + "_bwd"} | set(with_lift((enc + "_fwd",)))
 
 
 def counted_flops(torch, kernels, tool, name: str, tier: str, dev) -> dict:
@@ -5373,6 +5494,8 @@ def counted_flops(torch, kernels, tool, name: str, tier: str, dev) -> dict:
         torch.cuda.synchronize()
         counts = {k: v for k, v in kernels.launch_counts().items() if v}
     products = flops.kernel_products(cfg, batch)
+    if cfg.encoder.mode != "A":
+        products["lift_conv_fwd"] = (flops.lift_conv_products(cfg, batch), 0)
     return {"counter": fc.get_total_flops(),
             "kernels": sum(v * (products[k][0] - products[k][1])
                            for k, v in counts.items() if k in products),

@@ -19,7 +19,8 @@ reset_launch_counts read and clear. Beside them the kernel tier counts each
 dispatch at which a kernel did not take the config (a `*_supported` check
 said no) and the plain path ran: the keys "fallback.<site>" of
 launch_counts, one site each for the encoder, the posterior, the pose
-decoder and the decoder.
+decoder and the decoder, and "lift" where the conv tier's lift ran cuDNN's
+bf16 convolution in place of K13.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ import torch
 
 from .decoder_mlp import decoder_mlp_bwd, decoder_mlp_fwd
 from .decoder_pose import fused_pose_decoder_tables, pose_decoder_bwd
+from .lift_conv import lift_conv_fwd
 from .lifted_encoder import lifted_encoder_bwd, lifted_encoder_fwd
 from .mix_heads import (mix_heads_bwd, mix_heads_fwd, mix_heads_r1_bwd,
                         mix_heads_r1_fwd)
@@ -49,11 +51,12 @@ WRAPPERS = {"mix_heads_fwd": mix_heads_fwd,
             "decoder_mlp_fwd": decoder_mlp_fwd,
             "decoder_mlp_bwd": decoder_mlp_bwd,
             "lifted_encoder_fwd": lifted_encoder_fwd,
-            "lifted_encoder_bwd": lifted_encoder_bwd}
+            "lifted_encoder_bwd": lifted_encoder_bwd,
+            "lift_conv_fwd": lift_conv_fwd}
 
 
 FALLBACKS = dict.fromkeys(("encoder", "posterior", "pose_decoder",
-                           "decoder"), 0)
+                           "decoder", "lift"), 0)
 
 
 def count_fallback(site: str) -> None:

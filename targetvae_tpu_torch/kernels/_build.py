@@ -67,6 +67,9 @@ SIGNATURES = {
     # p, h1, w2, b2, wh, g, dpre1, part, out, gpart, dwc,
     # N, CK, R, K, D, G, chunk, SP, S, C, act, stream
     "tvae_lifted_encoder_bwd": [_P] * 11 + [_I] * 11 + [_P],
+    # y, wk, out, B, H, W, C, k, pad, N, rows, rs, stages, nbuf, G, chunk,
+    # stream
+    "tvae_lift_conv_fwd": [_P] * 3 + [_I] * 13 + [_P],
     # x, wf, bf, wmax, hz, w1, b1, wh, bh, w3, b3, y, hs_out (or null),
     # B, npx, F, H, L, n_out, act, stream
     "tvae_decoder_mlp_fwd": [_P] * 13 + [_I] * 7 + [_P],

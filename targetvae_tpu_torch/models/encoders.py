@@ -15,14 +15,15 @@ the same layout with R = 1.
 Two tiers, chosen by kernels.kernel_tier(compute_dtype):
   - bf16, with two mode-C encoders chosen by kernels.encoder_tier() where
     the JAX package chooses (encoders.py::_use_encoder_kernel):
-      "conv" (default): the lift conv runs as one bf16 F.conv2d (cuDNN on
-      the card) and the lift activation, mixing and heads run in the fused
+      "conv" (default): the lift conv runs as K13 (kernels/lift_conv.py,
+      an implicit GEMM on the card; its weight gradient cuDNN's bf16
+      wgrad) and the lift activation, mixing and heads run in the fused
       mix_heads kernel, whose backward kernel returns the conv's bf16
       cotangent;
       "patch" (TARGETVAE_ENCODER_TIER=patch): the fused patch encoder, the
       lift one im2col GEMM inside the kernel (kernels/lifted_encoder.py);
     mode B runs the counterpart of the JAX package's _mode_b_fast: the
-    image-sized lift as one bf16 F.conv2d, fc_r folded into conv2 as one
+    image-sized lift as K13, fc_r folded into conv2 as one
     rectangular (R_lift K, K) mixing, then the mix_heads kernel at R = 1
     (it has no patch route, in either package, and widths K1/K2 at R = 1
     do not take raise); mode A's MLP runs in float32 on both tiers, as in
@@ -48,6 +49,7 @@ import torch.nn.functional as F
 from ..kernels import (count_fallback, encoder_tier, kernel_tier,
                        needs_grad)
 from ..kernels.decoder_pose import _act
+from ..kernels.lift_conv import lift_conv, lift_conv_supported, out_side
 from ..kernels.lifted_encoder import build_patches, fused_lifted_encoder
 from ..kernels.mix_heads import (fused_lift_act_mix_heads,
                                  fused_mix_heads_r1,
@@ -165,15 +167,25 @@ def conv_rows(w: torch.Tensor, y: torch.Tensor, padding: int):
     """The raw bf16 conv of y (B, H, W, C) with the OIHW weight w (out, C, k,
     k) as (B*H'*W', out) rows; returns (rows, H').
 
-    The conv runs with channels_last operands, so its (B, R*K, H', W') output
-    is stored as (B, H', W', R*K) and the rows are a view of it (the final
-    contiguous() copies only if the conv returned another layout).
-
+    K13 (kernels/lift_conv.py) computes it wherever lift_conv_supported
+    takes the shape: the images are read as they lie, rounded to bf16 and
+    zero-padded on load, and the rows written as K1 reads them.
     Differentiable in the conv weight only: autograd runs the conv's weight
     gradient (cuDNN's bf16 wgrad, f32 accumulation, bf16 out, as the JAX
     tier's _lift_wgrad), then the cast and the rotation gather back to the
-    f32 parameter. The images are data (detached), so no dgrad is run."""
+    f32 parameter. The images are data (detached), so no dgrad is run.
+
+    Where the image rows a tile reads outgrow a block's shared memory (mode
+    B's image-sized lift at EMPIAR-10025's 110 x 110 or on the galaxy's
+    64 x 64 x 3) the kernel tier counts fallback.lift, and the conv runs as
+    one bf16 F.conv2d with channels_last operands (cuDNN on the card), so
+    that its (B, R*K, H', W') output is stored as (B, H', W', R*K) and the
+    rows are a view of it."""
     w = w.to(torch.bfloat16)
+    if lift_conv_supported(tuple(y.shape), tuple(w.shape), padding):
+        return lift_conv(w, y, padding), out_side(y.shape[1], w.shape[2],
+                                                  padding)
+    count_fallback("lift")
     x = y.detach().permute(0, 3, 1, 2).to(torch.bfloat16)
     pre1 = F.conv2d(x.contiguous(memory_format=torch.channels_last),
                     w.contiguous(memory_format=torch.channels_last),

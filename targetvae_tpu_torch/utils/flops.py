@@ -179,8 +179,10 @@ def kernel_products(cfg: ModelConfig, batch: int) -> dict:
     kernels at the image's pixels (K9 and K10 decode at any coordinates:
     here as many as the image has); the posterior kernels run no product.
     Over a bf16 train step's launches, the sum of products - recomputed
-    and what runs outside the kernels (the cuDNN lift, latent_linear) is
-    step_flops's matrix-product total."""
+    and what runs outside the kernels (the lift's cuDNN weight gradient,
+    latent_linear) is step_flops's matrix-product total, with K13, the
+    conv tier's lift forward, counted apart: lift_conv_products (the
+    benchmark's frozen copy of this function has no K13)."""
     e, g = cfg.encoder, cfg.generator
     dec = decoder_products(batch * e.image_dim ** 2, _decoder_in(cfg),
                            g.hidden_dim, g.num_layers, g.n_out)
@@ -212,6 +214,32 @@ def bound(nbytes: float, ops: float, peak: float):
     t_mem, t_ops = nbytes / HBM_BPS, ops / peak
     return (max(t_mem, t_ops) * 1e3,
             "bytes" if t_mem >= t_ops else "operations")
+
+
+def lift_conv_shape(cfg: ModelConfig) -> tuple:
+    """The conv tier's lift of modes B and C as K13 runs it: (image side,
+    channels, filter side, output side, output channels)."""
+    e = cfg.encoder
+    k = e.kernels_size if e.mode == "C" else e.image_dim
+    return (e.image_dim, e.in_channels, k, attn_dim_for(e),
+            max(e.groupconv, 1) * e.kernels_num)
+
+
+def lift_conv_products(cfg: ModelConfig, batch: int) -> int:
+    """K13's matrix-product operations for `batch` images of cfg (modes B
+    and C): the lift's forward."""
+    n, C, k, hp, N = lift_conv_shape(cfg)
+    return lift_products(batch * hp * hp, C * k * k, N)
+
+
+def lift_conv_bound(cfg: ModelConfig, batch: int):
+    """K13's least time: `batch` float32 images (n, n, C) read, the bf16
+    weight (N, C k^2) read, the bf16 rows (batch H'^2, N) written; the
+    lift's products at the bf16 peak."""
+    n, C, k, hp, N = lift_conv_shape(cfg)
+    return bound(batch * n * n * C * 4 + C * k * k * N * 2
+                 + batch * hp * hp * N * 2, lift_conv_products(cfg, batch),
+                 PEAK_BF16)
 
 
 def shard_bounds(batch: int, z_dim: int, shard_cells: int) -> dict:

@@ -26,14 +26,24 @@ costs under a microsecond. Every name starts with "tvae.":
       tvae.embed.out          the outputs' cat and copy to the host
 
 The backward of native ops runs on autograd's device thread, outside
-these ranges; its launches carry their autograd nodes.
+these ranges; its launches carry their autograd nodes. A span opened
+before a profiler starts is not in its trace.
 """
 
 from __future__ import annotations
 
+from contextlib import nullcontext
+
+from torch._C._autograd import _profiler_enabled
 from torch._C._profiler import _RecordFunctionFast
 
+_IDLE = nullcontext()
 
-def span(name: str) -> _RecordFunctionFast:
-    """A context manager: the range `name` while a profiler runs."""
-    return _RecordFunctionFast(name)
+
+def span(name: str):
+    """A context manager: the range `name` while a profiler runs. Opened
+    with no profiler running it is a no-op to its end, so that a profiler
+    started inside it (a window opened mid-epoch) finds no range to close:
+    a _RecordFunctionFast entered before the profiler starts and exited
+    under it fails its guard's assertion and crashes the process."""
+    return _RecordFunctionFast(name) if _profiler_enabled() else _IDLE

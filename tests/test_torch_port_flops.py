@@ -280,6 +280,7 @@ def _kernel_cases():
     64, hidden 32, 3 layers, n_out 2), mode B at groupconv 4."""
     from targetvae_tpu_torch.kernels import decoder_mlp as dm
     from targetvae_tpu_torch.kernels import decoder_pose as dp
+    from targetvae_tpu_torch.kernels import lift_conv as lc
     from targetvae_tpu_torch.kernels import lifted_encoder as le
     from targetvae_tpu_torch.kernels import mix_heads as mh
     b, n, R, K, D, F, H, L, n_out = 2, 14, 4, 16, 7, 64, 32, 3, 2
@@ -310,7 +311,13 @@ def _kernel_cases():
     x = rn(b, n * n, 2)
     wf, bf = rn(2, F), rn(F)
     gy = rn(b, n * n, n_out)
+    y = rn(b, n, n, 1)
+    lc_c = (rn(R * K, 1, 8, 8).bfloat16(), 3)            # w, padding
+    lc_b = (rn(R * K, 1, n, n).bfloat16(), n // 2)
     return [
+        ("lift_conv_fwd", lambda: lc.lift_conv_plain(y, *lc_c), cfg_c, b),
+        ("lift_conv_fwd[mode B]", lambda: lc.lift_conv_plain(y, *lc_b),
+         cfg_b, b),
         ("mix_heads_fwd", lambda: mh.lift_act_mix_heads_plain(*k1, R=R, K=K),
          cfg_c, b),
         ("mix_heads_bwd",
@@ -343,12 +350,14 @@ def test_kernel_products_equal_flop_counter_of_plain_version(kernel):
     """Each matrix-product kernel's roofline operations (kernel_products,
     which kernel_bounds and r1_bounds divide by the bf16 peak) are exactly
     what FlopCounterMode counts in its plain version, which repeats the
-    kernel's arithmetic: K1, K2, K7, K8, K9, K10, K11, K12, and K1 / K2 at
-    R = 1."""
+    kernel's arithmetic: K1, K2, K7, K8, K9, K10, K11, K12, K13 (modes C
+    and B), and K1 / K2 at R = 1."""
     _, fn, cfg, b = KERNEL_CASES[kernel]
     with FlopCounterMode(display=False) as fc:
         fn()
-    assert fc.get_total_flops() == flops.kernel_products(cfg, b)[kernel][0]
+    want = (flops.lift_conv_products(cfg, b) if kernel.startswith("lift_conv")
+            else flops.kernel_products(cfg, b)[kernel][0])
+    assert fc.get_total_flops() == want
 
 
 # ---- the roofline, as PERF.md section 6 prints it ----
@@ -393,6 +402,11 @@ def test_kernel_bounds_reproduce_perf_md():
     got = flops.kernel_bounds(emp2, 100)
     assert _printed(got["pose_decoder_fwd"][0], "1.927") == "1.927"
     assert _printed(got["pose_decoder_bwd"][0], "3.854") == "3.854"
+    # K13, counted apart from kernel_bounds: the flagship's lift
+    assert (_printed(flops.lift_conv_bound(TOOL.build("mnist")[0], 100)[0],
+                     "0.247"), flops.lift_conv_bound(
+                         TOOL.build("mnist")[0], 100)[1]) == (
+        "0.247", "operations")
 
 
 def test_r1_and_shard_bounds_reproduce_perf_md():

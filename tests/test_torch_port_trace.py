@@ -131,6 +131,31 @@ def test_a_span_without_a_profiler_enters_no_user_scope_range(monkeypatch):
     assert float(x.sum()) == 6.0
 
 
+def test_a_profiler_may_start_and_stop_inside_open_spans():
+    """A profiler window opened inside a span and closed after it (as a
+    window over the later steps of an epoch is), then one closed inside a
+    span: nothing fails, and the trace holds the spans opened and closed
+    inside the window, not the one opened before it (whether it holds one
+    still open as it stops is torch's choice, version by version)."""
+    cpu = [torch.profiler.ProfilerActivity.CPU]
+    prof = torch.profiler.profile(activities=cpu)
+    with span("tvae.epoch"):
+        prof.__enter__()
+        with span("tvae.step"):
+            x = torch.ones(3) + 1
+    prof.__exit__(None, None, None)
+    names = {e.name() for e in prof.profiler.kineto_results.events()}
+    assert "tvae.step" in names and "tvae.epoch" not in names
+    prof = torch.profiler.profile(activities=cpu)
+    prof.__enter__()
+    with span("tvae.embed"):
+        with span("tvae.embed.batch"):
+            x = x + 1
+        prof.__exit__(None, None, None)
+    names = {e.name() for e in prof.profiler.kineto_results.events()}
+    assert "tvae.embed.batch" in names and float(x.sum()) == 9.0
+
+
 FALLBACK_CASES = [
     ({}, {}),
     ({"kernels_num": 24}, {"encoder": 1}),

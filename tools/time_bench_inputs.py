@@ -6,7 +6,8 @@ strokes as that function returns them (numpy gives their channel axis
 stride 0), and the same strokes copied (channel stride 1, as the uniform
 array and the epoch loop's index_select batches have). The step's
 arithmetic depends on neither the values nor the strides; which cuDNN
-kernels run the lift conv can depend on the strides.
+kernels run the lift's weight gradient (and the lift itself, where K13
+does not take the shape) can depend on the strides.
 
     python3 tools/time_bench_inputs.py [CONFIG ...] [--rounds 2]
         [--steps 10]

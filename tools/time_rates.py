@@ -4,7 +4,7 @@ chip_smoke.py's phases 5 and 8 take them, for the port under --root (a
 checkout of the repository; this one by default), so that two checkouts
 can be timed one after the other in one call.
 
-On each encoder tier (conv: the cuDNN lift and K1/K2; patch: K11/K12) of
+On each encoder tier (conv: the lift and K1/K2; patch: K11/K12) of
 the flagship model (random weights from a seed): embed img/s
 (embed_dataset over 1,000 synthetic images, bf16, host to host, after a
 warm-up; --reps readings), eval img/s (the sampled bf16 ELBO of a batch of
